@@ -1,0 +1,47 @@
+"""Carry operator state across from host arrays.
+
+The system has no weights: what carries over between the JAX package and
+the port is the operator data of each level.  :func:`hierarchy_from_arrays`
+builds the port's :class:`GridHierarchy` from per-level numpy fields (for
+example those of a JAX ``GridHierarchy``), so that both sides run on the
+identical operator.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.core.problem import GridHierarchy, Level
+
+
+def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
+                          device=None) -> GridHierarchy:
+    """Build a hierarchy from finest-to-coarsest level mappings.
+
+    Each mapping holds ``n``, ``h``, ``a0``, ``a1`` (floats or None) and the
+    arrays ``table``, ``pid`` (None if homogeneous), ``geo``, ``diag`` and
+    the (n, n) element ``phase`` (None if homogeneous).  Float fields keep
+    their dtype; ``pid`` and ``phase`` become int8.  ``coarse_inv``, the
+    dense inverse of the coarsest interior operator, is carried along for
+    the direct coarse solve when given.  ``device=None`` means CUDA."""
+    device = resolve_device(device)
+
+    def dev(x, dtype=None):
+        if x is None:
+            return None
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    out = []
+    for lv in levels:
+        out.append(Level(
+            n=int(lv["n"]), h=float(lv["h"]),
+            a0=None if lv["a0"] is None else float(lv["a0"]),
+            a1=None if lv["a1"] is None else float(lv["a1"]),
+            table=dev(lv["table"]), pid=dev(lv["pid"], torch.int8),
+            geo=dev(lv["geo"]), diag=dev(lv["diag"]),
+            phase=dev(lv["phase"], torch.int8)))
+    return GridHierarchy(levels=tuple(out), coarse_inv=dev(coarse_inv))

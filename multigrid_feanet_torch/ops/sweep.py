@@ -1,0 +1,505 @@
+"""Fused V-cycle legs of the bi-material Q1 operator on compact fields.
+
+Port of ``multigrid_feanet_tpu/ops/pallas_sweep.py``.  Fields are plain
+row-major tensors: (n+1, n+1) float32 node fields and an (n, n) int8 element
+phase map (element (r, c) spans nodes r..r+1 x c..c+1, Q = a0 + da*phase);
+the TPU's ghost-block stride-lane layout has no counterpart here.
+
+Four kernels, hand-written in CUDA C++ (``csrc/sweep.cu``):
+
+====  ==================  ==========================================  =====================
+name  C entry point       replaces                                    level methods
+====  ==================  ==========================================  =====================
+A1    ``mg_sweep``        ``pallas_sweep.py:284 _sweep_kernel``       sweep, residual, psweep
+A2    ``mg_swrr``         ``pallas_sweep.py:374 _swrr_kernel``        sweep_restrict
+A3    ``mg_zrr``          ``pallas_sweep.py:629 _zrr_kernel``         zsweep_restrict
+A4    ``mg_zpsweep``      ``pallas_sweep.py:686 _zpsweep_kernel``     zpsweep
+====  ==================  ==========================================  =====================
+
+Each kernel has a wrapper ``<leg>_cuda`` (checks, allocation, launch, launch
+count) and a plain PyTorch version ``<leg>_plain`` with the same signature,
+built from the plain twins of the shared in-kernel math below.  Tensors on
+the CPU take the plain version; tensors on a CUDA device launch the kernel
+or raise.  The kernels and their plain versions agree to ``TOL`` relative to
+``max(1, max|plain|)`` on fields and ``TOL`` relative on the residual norm:
+f32 reassociation and FMA contraction change each term by about one ulp.
+
+Semantics shared by all legs (as in the TPU kernels): only globally interior
+nodes are updated, boundary nodes keep their value, residuals and the
+prolonged correction are zero on the boundary, the coarse output is zero on
+the coarse boundary ring, and ``rsq`` is the interior squared residual norm
+of the INCOMING iterate (after the prolongation-add for ``psweep``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from multigrid_feanet_torch import _build
+from multigrid_feanet_torch.core.device import resolve_device
+
+TOL = 2e-5
+
+# ---------------------------------------------------------------------------
+# Plain twins of the shared in-kernel math (pallas_sweep.py:93-265), on whole
+# fields.  Each follows its Pallas counterpart's order of operations.
+# ---------------------------------------------------------------------------
+
+
+def _shifts(u):
+    """``U(di, dj)``: u at (i + di, j + dj) for every node, zero off-grid."""
+    H, W = u.shape
+    up = F.pad(u, (1, 1, 1, 1))
+    return lambda di, dj: up[1 + di : 1 + di + H, 1 + dj : 1 + dj + W]
+
+
+def element_q(ph: torch.Tensor, a0: float, da: float) -> torch.Tensor:
+    """(n+2, n+2) element coefficients Q = a0 + da * phase, with a ring of
+    phase-0 elements around the (n, n) map; entry (r+1, c+1) is element
+    (r, c), so the NE element of node (i, j) is entry (i+1, j+1)."""
+    return F.pad(ph.to(torch.float32), (1, 1, 1, 1)) * da + a0
+
+
+def _quadrants(x):
+    """(NE, NW, SE, SW) element values of every node from an (n+2, n+2)
+    padded element field."""
+    return x[1:, 1:], x[1:, :-1], x[:-1, 1:], x[:-1, :-1]
+
+
+def _c4(Qp):
+    """Per-node sum of the 4 surrounding Q (``_c4_from_q``)."""
+    ne, nw, se, sw = _quadrants(Qp)
+    return (se + sw) + (ne + nw)
+
+
+def _apply_hom(u, a0):
+    """Homogeneous A u = a0 (3 u - (1/3) 3x3-window sum)."""
+    U = _shifts(u)
+    t3 = {x: (U(x, 0) + U(x, 1)) + U(x, -1) for x in (-1, 0, 1)}
+    s9 = (t3[-1] + t3[0]) + t3[1]
+    return (3.0 * a0) * U(0, 0) - (a0 / 3.0) * s9, None
+
+
+def _apply_bim(u, Qp):
+    """Bi-material element-factored A u; ``Qp`` from :func:`element_q`.
+    Returns (A u, C4)."""
+    U = _shifts(u)
+    up = F.pad(u, (1, 1, 1, 1))
+    t = up[:, :-1] + up[:, 1:]
+    S = t[:-1] + t[1:]  # per-element 4-corner sums on the padded element grid
+    P = Qp * S
+    Pne, Pnw, Pse, Psw = _quadrants(P)
+    sigP = (Pse + Psw) + (Pne + Pnw)
+    C4 = _c4(Qp)
+    ne, nw, se, sw = _quadrants(Qp)
+    sigD = (sw * U(-1, -1) + se * U(-1, 1)) + (nw * U(1, -1) + ne * U(1, 1))
+    return (5.0 / 6.0) * (U(0, 0) * C4) - (1.0 / 6.0) * (sigD + sigP), C4
+
+
+def _differences(u):
+    """The eight neighbour differences u_nb - u_p of the difference form."""
+    U = _shifts(u)
+    u0 = U(0, 0)
+    d_E = U(0, 1) - u0
+    d_W = -(u0 - U(0, -1))
+    d_N = U(1, 0) - u0
+    d_S = -(u0 - U(-1, 0))
+    d_NE = (U(1, 1) - U(0, 1)) + (U(0, 1) - u0)
+    d_NW = (U(1, -1) - U(0, -1)) - (u0 - U(0, -1))
+    d_SE = (U(0, 1) - u0) - (U(0, 1) - U(-1, 1))
+    d_SW = -(U(0, -1) - U(-1, -1)) - (u0 - U(0, -1))
+    return d_E, d_W, d_N, d_S, d_NE, d_NW, d_SE, d_SW
+
+
+def _apply_hom_d(u, a0):
+    """DIFFERENCE-FORM homogeneous A u = -(a0/3) sum_nb (u_nb - u_p): the
+    same operator, with f32 rounding that scales with the local variation
+    of u instead of its magnitude."""
+    d_E, d_W, d_N, d_S, d_NE, d_NW, d_SE, d_SW = _differences(u)
+    acc = (d_E + d_W) + (d_N + d_S) + ((d_NE + d_NW) + (d_SE + d_SW))
+    return (-a0 / 3.0) * acc, None
+
+
+def _apply_bim_d(u, Qp):
+    """DIFFERENCE-FORM bi-material A u (see :func:`_apply_hom_d`).
+    Returns (A u, C4)."""
+    d_E, d_W, d_N, d_S, d_NE, d_NW, d_SE, d_SW = _differences(u)
+    ne, nw, se, sw = _quadrants(Qp)
+    acc = ((ne + se) * d_E + (nw + sw) * d_W
+           + (ne + nw) * d_N + (se + sw) * d_S
+           + 2.0 * (ne * d_NE + nw * d_NW + se * d_SE + sw * d_SW))
+    C4 = (ne + nw) + (se + sw)
+    return (-1.0 / 6.0) * acc, C4
+
+
+def _apply_op(u, Qp, a0, bim, dform):
+    """Dispatch to the plain or difference-form apply."""
+    if bim:
+        return _apply_bim_d(u, Qp) if dform else _apply_bim(u, Qp)
+    return _apply_hom_d(u, a0) if dform else _apply_hom(u, a0)
+
+
+def _diag_bim(C4):
+    """Jacobi diagonal of the bi-material operator."""
+    return (2.0 / 3.0) * C4
+
+
+def _diag_hom(a0, device="cpu"):
+    """Jacobi diagonal of the homogeneous operator, as an f32 scalar tensor
+    (so that omega / d is taken in f32)."""
+    return torch.tensor((8.0 / 3.0) * a0, dtype=torch.float32, device=device)
+
+
+def _interior(x):
+    """Boolean mask of the interior nodes of an (H, W) field."""
+    m = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    m[1:-1, 1:-1] = True
+    return m
+
+
+def _prolong(uc):
+    """Bilinear (align-corners) prolongation (nc+1)^2 -> (2nc+1)^2: rows
+    first, then columns, as the kernels (``_sweep_kernel`` with_corr)."""
+    mid = 0.5 * (uc[:-1] + uc[1:])
+    rows = torch.cat([torch.stack([uc[:-1], mid], 1).flatten(0, 1), uc[-1:]], 0)
+    mid = 0.5 * (rows[:, :-1] + rows[:, 1:])
+    return torch.cat([torch.stack([rows[:, :-1], mid], 2).flatten(1, 2),
+                      rows[:, -1:]], 1)
+
+
+def _restrict4(r1):
+    """x4 full weighting of a masked residual onto the coarse interior,
+    zero coarse boundary: rows (1, 2, 1) first, then columns, times 4/16."""
+    rows = (r1[1:-2:2] + 2.0 * r1[2:-1:2]) + r1[3::2]
+    fc = ((2.0 * rows[:, 2:-1:2] + rows[:, 1:-2:2]) + rows[:, 3::2]) * 0.25
+    return F.pad(fc, (1, 1, 1, 1))
+
+
+def _diag(ph, Qp, a0, like):
+    return _diag_bim(_c4(Qp)) if ph is not None else _diag_hom(a0, device=like.device)
+
+
+def _emit(x, out):
+    if out is None:
+        return x
+    out.copy_(x)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the four kernels.
+# ---------------------------------------------------------------------------
+
+
+def sweep_plain(u, f, ph=None, uc=None, *, a0, da, omega, dform,
+                mode="sweep", out=None, rsq=None):
+    """A1: one weighted-Jacobi sweep (``mode="sweep"``) or the masked
+    residual (``mode="residual"``) -> (out, rsq).  With a coarse field
+    ``uc`` it first adds its masked bilinear prolongation and sweeps."""
+    _check_mode(mode, uc)
+    mask = _interior(u)
+    if uc is not None:
+        u = u + torch.where(mask, _prolong(uc), 0.0)
+    bim = ph is not None
+    Qp = element_q(ph, a0, da) if bim else None
+    au, C4 = _apply_op(u, Qp, a0, bim, dform)
+    r = torch.where(mask, f - au, 0.0)
+    if mode == "residual":
+        res = r
+    else:
+        d = _diag_bim(C4) if bim else _diag_hom(a0, device=u.device)
+        res = u + (omega / d) * r
+    return _emit(res, out), _emit(torch.sum(r * r), rsq)
+
+
+def swrr_plain(u, f, ph=None, *, a0, da, omega, dform, out=None, fc_out=None,
+               rsq=None):
+    """A2: u1 = sweep(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u)."""
+    cfg = dict(a0=a0, da=da, omega=omega, dform=dform)
+    u1, rsq0 = sweep_plain(u, f, ph, **cfg)
+    r1, _ = sweep_plain(u1, f, ph, mode="residual", **cfg)
+    return _emit(u1, out), _emit(_restrict4(r1), fc_out), _emit(rsq0, rsq)
+
+
+def zrr_plain(f, ph=None, *, a0, da, omega, out=None):
+    """A3: f_c = 4 FW(f - A u1) with u1 = (omega/d) f at interior nodes,
+    plain-form apply."""
+    mask = _interior(f)
+    Qp = element_q(ph, a0, da) if ph is not None else None
+    u1 = torch.where(mask, (omega / _diag(ph, Qp, a0, f)) * f, 0.0)
+    au, _ = _apply_op(u1, Qp, a0, ph is not None, False)
+    return _emit(_restrict4(torch.where(mask, f - au, 0.0)), out)
+
+
+def zpsweep_plain(f, ph, uc, *, a0, da, omega, out=None):
+    """A4: one sweep of u2 = (omega/d) f + P(uc) (interior), plain form."""
+    mask = _interior(f)
+    Qp = element_q(ph, a0, da) if ph is not None else None
+    d = _diag(ph, Qp, a0, f)
+    u2 = (torch.where(mask, (omega / d) * f, 0.0)
+          + torch.where(mask, _prolong(uc), 0.0))
+    au, _ = _apply_op(u2, Qp, a0, ph is not None, False)
+    r = torch.where(mask, f - au, 0.0)
+    return _emit(u2 + (omega / d) * r, out)
+
+
+def _check_mode(mode, uc):
+    if mode not in ("sweep", "residual"):
+        raise ValueError(f"mode must be 'sweep' or 'residual', not {mode!r}")
+    if uc is not None and mode != "sweep":
+        raise ValueError("the prolongation-add (uc) runs in sweep mode only")
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: ctypes bindings, launch counts, wrappers.
+# ---------------------------------------------------------------------------
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
+class CudaKernel:
+    """One C entry point of ``csrc/sweep.cu`` with its launch count.
+
+    ``launches`` rises by one for every launch of the kernel, and nowhere
+    else; callers may reset it to 0."""
+
+    def __init__(self, name: str, symbol: str, argtypes, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.replaces = replaces
+        self.source = "multigrid_feanet_torch/csrc/sweep.cu"
+        self.launches = 0
+        self._argtypes = argtypes
+        self._fn = None
+
+    def __call__(self, *args):
+        if self._fn is None:
+            fn = getattr(_build.load(), self.symbol)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({_error_string(err)})")
+        self.launches += 1
+
+
+KERNELS = {
+    "A1": CudaKernel("A1_sweep", "mg_sweep",
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:284"),
+    "A2": CudaKernel("A2_swrr", "mg_swrr",
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:374"),
+    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P, _P, _P, _I, _D, _D, _D, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:629"),
+    "A4": CudaKernel("A4_zpsweep", "mg_zpsweep",
+                     [_P, _P, _P, _P, _I, _D, _D, _D, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:686"),
+}
+
+
+def _error_string(err: int) -> str:
+    fn = _build.load().mg_error_string
+    fn.argtypes, fn.restype = [_I], ctypes.c_char_p
+    return fn(err).decode()
+
+
+def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
+    """Scratch for the per-block partial sums of kernel ``which`` (0: A1,
+    1: A2), kept in ``workspace`` when one is given."""
+    key = ("partials", which, n)
+    buf = None if workspace is None else workspace.get(key)
+    if buf is None:
+        fn = _build.load().mg_partials
+        fn.argtypes, fn.restype = [_I, _I], _I
+        buf = torch.empty(fn(which, n), dtype=torch.float32, device=device)
+        if workspace is not None:
+            workspace[key] = buf
+    return buf
+
+
+def _check(t, name, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _operands(n, device, fields=(), phase=None, coarse=()):
+    """Check the f32 node fields, the int8 phase and the f32 coarse fields
+    of one launch on an (n+1)^2 level."""
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {device} ones")
+    if n < 2 or n % 2:
+        raise ValueError(f"levels must have an even n >= 2, got n={n}")
+    for name, t in fields:
+        _check(t, name, (n + 1, n + 1), torch.float32, device)
+    if phase is not None:
+        _check(phase, "phase", (n, n), torch.int8, device)
+    for name, t in coarse:
+        _check(t, name, (n // 2 + 1, n // 2 + 1), torch.float32, device)
+
+
+def _output(t, name, shape, device, inputs):
+    if t is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    _check(t, name, shape, torch.float32, device)
+    if any(x is not None and x.data_ptr() == t.data_ptr() for x in inputs):
+        raise ValueError(f"{name} must not alias an input")
+    return t
+
+
+def _scalar_out(rsq, device):
+    if rsq is None:
+        return torch.empty((), dtype=torch.float32, device=device)
+    _check(rsq, "rsq", tuple(rsq.shape), torch.float32, device)
+    if rsq.numel() != 1:
+        raise ValueError("rsq must hold one element")
+    return rsq
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def sweep_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, mode="sweep",
+               out=None, rsq=None, workspace=None):
+    """A1 on the card; same contract as :func:`sweep_plain`."""
+    _check_mode(mode, uc)
+    n, dev = u.shape[0] - 1, u.device
+    _operands(n, dev, [("u", u), ("f", f)], ph,
+              [] if uc is None else [("uc", uc)])
+    out = _output(out, "out", (n + 1, n + 1), dev, (u, f, uc))
+    rsq = _scalar_out(rsq, dev)
+    mode_id = 2 if uc is not None else (0 if mode == "sweep" else 1)
+    KERNELS["A1"](u.data_ptr(), f.data_ptr(), _ptr(ph), _ptr(uc), out.data_ptr(),
+                  _partials(0, n, dev, workspace).data_ptr(), rsq.data_ptr(),
+                  n, a0, da, omega, int(ph is not None), int(dform), mode_id,
+                  _stream(dev))
+    return out, rsq
+
+
+def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, out=None, fc_out=None,
+              rsq=None, workspace=None):
+    """A2 on the card; same contract as :func:`swrr_plain`."""
+    n, dev = u.shape[0] - 1, u.device
+    _operands(n, dev, [("u", u), ("f", f)], ph)
+    out = _output(out, "out", (n + 1, n + 1), dev, (u, f))
+    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f, out))
+    rsq = _scalar_out(rsq, dev)
+    KERNELS["A2"](u.data_ptr(), f.data_ptr(), _ptr(ph), out.data_ptr(),
+                  fc_out.data_ptr(), _partials(1, n, dev, workspace).data_ptr(),
+                  rsq.data_ptr(), n, a0, da, omega, int(ph is not None),
+                  int(dform), _stream(dev))
+    return out, fc_out, rsq
+
+
+def zrr_cuda(f, ph=None, *, a0, da, omega, out=None):
+    """A3 on the card; same contract as :func:`zrr_plain`."""
+    n, dev = f.shape[0] - 1, f.device
+    _operands(n, dev, [("f", f)], ph)
+    out = _output(out, "out", (n // 2 + 1, n // 2 + 1), dev, (f,))
+    KERNELS["A3"](f.data_ptr(), _ptr(ph), out.data_ptr(), n, a0, da, omega,
+                  int(ph is not None), _stream(dev))
+    return out
+
+
+def zpsweep_cuda(f, ph, uc, *, a0, da, omega, out=None):
+    """A4 on the card; same contract as :func:`zpsweep_plain`."""
+    n, dev = f.shape[0] - 1, f.device
+    _operands(n, dev, [("f", f)], ph, [("uc", uc)])
+    out = _output(out, "out", (n + 1, n + 1), dev, (f, uc))
+    KERNELS["A4"](f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(), n, a0,
+                  da, omega, int(ph is not None), _stream(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Level object.
+# ---------------------------------------------------------------------------
+
+
+class SweepLevel:
+    """The four kernels bound to one level's operator; counterpart of
+    ``PallasLevel`` on compact fields.
+
+    ``phase`` is the (n, n) element phase map (None = homogeneous).
+    ``dform`` selects the difference-form apply for A1/A2 (default on, as
+    for every pure-stiffness ``PallasLevel``); A3/A4 always use the plain
+    form, as their TPU kernels do.  Every method takes optional ``out``
+    buffers (and ``rsq`` for the legs that emit one) so a solve loop can
+    run without allocating; ``device=None`` means CUDA."""
+
+    def __init__(self, n: int, phase=None, coefficients=(1.0, 20.0),
+                 omega: float = 2.0 / 3.0, dform=None, mass=None, device=None):
+        if mass is not None:
+            if dform:
+                raise ValueError(
+                    "dform=True cannot carry a mass triple: the difference "
+                    "form needs zero row sums (the reference silently drops "
+                    "mass in this pairing)")
+            raise NotImplementedError(
+                "the mass triple (heat theta-systems) is not ported yet")
+        self.device = resolve_device(device)
+        self.n = int(n)
+        self.a0 = float(coefficients[0])
+        self.da = (float(coefficients[1]) - float(coefficients[0])
+                   if phase is not None else 0.0)
+        self.omega = float(omega)
+        self.dform = True if dform is None else bool(dform)
+        self.ph = (None if phase is None else torch.as_tensor(
+            phase, dtype=torch.int8, device=self.device).contiguous())
+        self._workspace = {}
+
+    def _call(self, cuda_fn, plain_fn, x, *args, **kw):
+        """``plain_fn`` on CPU tensors, ``cuda_fn`` on CUDA ones; the legs
+        that emit ``rsq`` (A1, A2) keep their partial-sum scratch in the
+        level's workspace."""
+        kw.update(a0=self.a0, da=self.da, omega=self.omega)
+        if not x.is_cuda:
+            return plain_fn(x, *args, **kw)
+        if "rsq" in kw:
+            kw["workspace"] = self._workspace
+        return cuda_fn(x, *args, **kw)
+
+    def sweep(self, u, f, out=None, rsq=None):
+        """One weighted-Jacobi sweep -> (u_new, rsq of u)."""
+        return self._call(sweep_cuda, sweep_plain, u, f, self.ph, None,
+                          dform=self.dform, out=out, rsq=rsq)
+
+    def residual(self, u, f, out=None, rsq=None):
+        """Interior-masked residual f - A u -> (r, ||r||^2)."""
+        return self._call(sweep_cuda, sweep_plain, u, f, self.ph, None,
+                          dform=self.dform, mode="residual", out=out, rsq=rsq)
+
+    def psweep(self, u, f, uc, out=None, rsq=None):
+        """u += masked bilinear prolongation of ``uc``; one sweep ->
+        (u_new, rsq of the corrected u)."""
+        return self._call(sweep_cuda, sweep_plain, u, f, self.ph, uc,
+                          dform=self.dform, out=out, rsq=rsq)
+
+    def sweep_restrict(self, u, f, out=None, fc_out=None, rsq=None):
+        """Pre-smoothing sweep + residual + x4 full weighting ->
+        (u1, f_c, rsq of u)."""
+        return self._call(swrr_cuda, swrr_plain, u, f, self.ph,
+                          dform=self.dform, out=out, fc_out=fc_out, rsq=rsq)
+
+    def zsweep_restrict(self, f, out=None):
+        """Zero-initial-guess descent leg -> f_c."""
+        return self._call(zrr_cuda, zrr_plain, f, self.ph, out=out)
+
+    def zpsweep(self, f, uc, out=None):
+        """Zero-initial-guess ascent leg -> u3."""
+        return self._call(zpsweep_cuda, zpsweep_plain, f, self.ph, uc, out=out)
