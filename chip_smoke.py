@@ -6,27 +6,41 @@
 Phases, in order; any failure exits non-zero:
 
 1. Print the card's name and power limit; build the CUDA kernels from
-   ``multigrid_feanet_torch/csrc`` and print the build time.
-2. Hold each kernel (A1 in its sweep, residual and psweep modes, A2, A3, A4)
-   against its plain PyTorch version on the card, at ``ops.sweep.TOL``: at
-   the shapes of both solves below (4097^2 and 2049^2, bi-material and
-   homogeneous), on a 4097^2 bi-material level in plain form, and on
-   n = 512 levels.  Time both with CUDA events around a run of launches
-   (the kernel's captured in a CUDA graph), on inputs rotated to exceed
-   the L2 cache.
-3. The main path: the 4097^2 bi-material interface solve (circle r = 0.5,
-   coefficients (1, 20), 9 levels, kernel threshold 32, direct coarse
-   solve, f = 0, u0 = 150000 * uniform(rng 0) * geo, eps 1e-6, at most 120
-   cycles, chunk 2), then the homogeneous 4097^2 Poisson solve from the same
-   u0.  Each solve must converge, leave a true residual below 2 eps and
-   launch each of A1-A4; the launch counts are zeroed just before each
-   solve and read just after.  A 129^2 interface solve on the card is held
-   against the same solve on the CPU's plain path.
-4. Print the kernel summary line (one row per kernel and solve, with the
-   solve's launch counts), then the device line as the last line.
+   ``multigrid_feanet_torch/csrc`` (one nvcc per source, all at once) and
+   print the build time.
+2. Hold each kernel of ``ops/sweep.py`` (A1 in its sweep, residual and
+   psweep modes, A2, A3, A4) against its plain PyTorch version on the card,
+   at ``ops.sweep.TOL``: at the shapes of both solves below (4097^2 and
+   2049^2, bi-material and homogeneous), on a 4097^2 bi-material level in
+   plain form, and on n = 512 levels.  Time both with CUDA events around a
+   run of launches (the kernel's captured in a CUDA graph), on inputs
+   rotated to exceed the L2 cache.
+3. The main path of ``solvers/mg2.py``: the 4097^2 bi-material interface
+   solve (circle r = 0.5, coefficients (1, 20), 9 levels, kernel threshold
+   32, direct coarse solve, f = 0, u0 = 150000 * uniform(rng 0) * geo, eps
+   1e-6, at most 120 cycles, chunk 2), then the homogeneous 4097^2 Poisson
+   solve from the same u0.  Each solve must converge, leave a true residual
+   below 2 eps and launch each of A1-A4; the launch counts are zeroed just
+   before each solve and read just after.  A 129^2 interface solve on the
+   card is held against the same solve on the CPU's plain path.
+4. BoxMG setup on the card: the 4097^2 interface hierarchy (9 levels) and
+   ``ops.boxmg.boxmg_setup`` in f32, with its seconds and peak memory.
+5. Hold each kernel of ``ops/general.py`` against its plain version, at
+   ``ops.general.TOL``, on the real operator from phase 4, in bf16 and f32
+   planes: D2 and D3 on the bi-material level 0 at 4097^2; D4, D5 and D1
+   (sweep and residual) on level 1 at 2049^2; D2 and D3 on the planes of
+   the n = 512 level.  Timed as in phase 2.
+6. The BoxMG path of ``solvers/boxmg.py``, ``boxmg_4097``: the same problem
+   and u0 as ``interface_4097``, the phase-4 setup, bf16 coefficient
+   planes, at most 60 cycles; it must converge, leave a true residual below
+   2 eps, repeat its history, and launch each of D2-D5.  Then a 129^2 BoxMG
+   V(2,1) solve (bc 0.7) on the card against the CPU's plain path, with the
+   card's and the CPU's setup compared; it must launch D1.
+7. Print the kernel summary line (one row per kernel and path, with the
+   path's launch counts), then the device line as the last line.
 
-Each solve also reports its device time per kernel from torch.profiler and
-the busy share of its wall time.
+Each 4097^2 solve also reports its device time per kernel from
+torch.profiler and the busy share of its wall time.
 """
 
 from __future__ import annotations
@@ -49,8 +63,14 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # The homogeneous forms do fewer, so these counts bound theirs from above;
 # the byte time exceeds the operation time either way.
 FLOPS_PER_NODE = {"A1": 48, "A2": 100, "A3": 45, "A4": 50}
+# D1-D5, counted from csrc/general.cu: the 9-plane apply is 17 operations,
+# the bi-material difference-form apply ~35, a W4 prolongation 7 and a W4
+# restriction 17 per coarse node; D2/D3 counted for the bi-material
+# operator, which bounds their general mode from above.
+FLOPS_PER_NODE.update({"D1": 24, "D2": 85, "D3": 47, "D4": 25, "D5": 31})
 DEVICE = "cuda"
 N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
+CIRCLE = ("circle", (0.0, 0.0), 0.5)
 
 
 def fail(msg: str) -> None:
@@ -133,21 +153,77 @@ def bytes_moved(name: str, n: int, bim: bool) -> int:
     }[name]
 
 
+def general_bytes(leg: str, n: int, bim: bool, coef_bytes: int) -> int:
+    """Bytes a kernel of ``ops/general.py`` must move: each input read once,
+    each output written once (f32 fields, int8 phase or 9 coefficient
+    planes, 4 weight planes of ``coef_bytes`` each, f32 coarse fields)."""
+    H2, Hc2 = (n + 1) ** 2, (n // 2 + 1) ** 2
+    op = n * n if bim else 9 * coef_bytes * H2
+    w4 = 4 * coef_bytes * H2
+    return {
+        "D1_sweep": 4 * H2 * 3 + op,
+        "D1_residual": 4 * H2 * 3 + op,
+        "D2": 4 * H2 * 3 + op + w4 + 4 * Hc2,
+        "D3": 4 * H2 * 3 + op + w4 + 4 * Hc2,
+        "D4": 4 * H2 + op + w4 + 4 * Hc2,
+        "D5": 4 * H2 * 2 + op + w4 + 4 * Hc2,
+    }[leg]
+
+
 # output keywords of each leg's wrapper, in the order it returns them
 OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "A1_psweep": ("out", "rsq"), "A2": ("out", "fc_out", "rsq"),
-             "A3": ("out",), "A4": ("out",)}
+             "A3": ("out",), "A4": ("out",),
+             "D1_sweep": ("out", "rsq"), "D1_residual": ("out", "rsq"),
+             "D2": ("out", "fc_out", "rsq"), "D3": ("out",), "D4": ("out",), "D5": ("out",)}
+RSQ_LEGS = ("A1", "A2", "D1", "D2")  # the legs that keep partial sums in a workspace
 
 
-def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1):
-    """Run each leg's kernel and plain version on the same inputs; return
-    one record per leg (errors, times) and fail beyond the tolerance.
+def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
+    """Run one leg's kernel and plain version on the same inputs; return a
+    record (errors, times) and fail beyond ``tol``.
 
     ``ms`` is the kernel's device time on cold inputs: the inputs are cloned
     into enough sets to fill twice the 50 MB L2 cache and the timed launches
     rotate over them, as the solve finds a level's fields after the other
     levels' traffic.  ``warm_ms`` repeats one input set."""
     import torch
+
+    kcfg = dict(cfg, workspace={}) if leg[:2] in RSQ_LEGS else cfg
+    got = call(cuda_fn, inputs, kcfg)
+    want = call(plain_fn, inputs, cfg)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rel, abs_err, rsq_rel = 0.0, 0.0, 0.0
+    for g, w in zip(got, want):
+        if g.dim() == 0:
+            rsq_rel = max(rsq_rel, abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
+            continue
+        if not torch.isfinite(g).all():
+            fail(f"{leg} {tags}: non-finite output")
+        err = float((g - w).abs().max())
+        abs_err = max(abs_err, err)
+        rel = max(rel, err / max(1.0, float(w.abs().max())))
+
+    sets = min(32, -(-2 * L2_BYTES // nbytes))
+    xs = [inputs] + [tuple(None if t is None else t.clone() for t in inputs)
+                     for _ in range(sets - 1)]
+    outs = [dict(kcfg, **dict(zip(OUT_NAMES[leg], [t.clone() for t in got]))) for _ in xs]
+    kruns = [lambda x=x, o=o: call(cuda_fn, x, o) for x, o in zip(xs, outs)]
+    pruns = [lambda x=x: call(plain_fn, x, cfg) for x in xs]
+    rec = dict(name=leg, **tags, max_rel_err=rel, max_abs_err=abs_err, rsq_rel_err=rsq_rel,
+               ms=kernel_ms(kruns), warm_ms=kernel_ms(kruns[:1]), plain_ms=plain_ms(pruns),
+               input_sets=sets, bytes=nbytes)
+    del xs, outs, kruns, pruns
+    if rel > tol or rsq_rel > tol:
+        fail(f"kernel disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1):
+    """Hold each leg of ``ops/sweep.py`` against its plain version on one
+    level's seeded inputs; one record per leg."""
     from multigrid_feanet_torch.ops import sweep as sw
 
     inputs = level_inputs(n, bim, seed)
@@ -166,63 +242,76 @@ def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1):
            "A2": (sw.swrr_cuda, sw.swrr_plain),
            "A3": (sw.zrr_cuda, sw.zrr_plain),
            "A4": (sw.zpsweep_cuda, sw.zpsweep_plain)}
-    records = []
-    for leg in legs:
-        cuda_fn, plain_fn = fns[leg]
-        call, nbytes = calls[leg], bytes_moved(leg, n, bim)
-        kcfg = dict(cfg, workspace={}) if leg[:2] in ("A1", "A2") else cfg
-        got = call(cuda_fn, inputs, kcfg)
-        want = call(plain_fn, inputs, cfg)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        rel, abs_err, rsq_rel = 0.0, 0.0, 0.0
-        for g, w in zip(got, want):
-            if g.dim() == 0:
-                rsq_rel = max(rsq_rel, abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
-                continue
-            if not torch.isfinite(g).all():
-                fail(f"{leg} n={n} bim={bim} dform={dform}: non-finite output")
-            err = float((g - w).abs().max())
-            abs_err = max(abs_err, err)
-            rel = max(rel, err / max(1.0, float(w.abs().max())))
+    return [hold(leg, calls[leg], *fns[leg], inputs, cfg, bytes_moved(leg, n, bim), sw.TOL,
+                 dict(n=n, bim=bim, dform=dform if leg[:2] in ("A1", "A2") else False))
+            for leg in legs]
 
-        sets = min(32, -(-2 * L2_BYTES // nbytes))
-        xs = [inputs] + [tuple(None if t is None else t.clone() for t in inputs)
-                         for _ in range(sets - 1)]
-        outs = [dict(kcfg, **dict(zip(OUT_NAMES[leg], [t.clone() for t in got])))
-                for _ in xs]
-        kruns = [lambda x=x, o=o: call(cuda_fn, x, o) for x, o in zip(xs, outs)]
-        pruns = [lambda x=x: call(plain_fn, x, cfg) for x in xs]
-        rec = dict(name=leg, n=n, bim=bim, dform=dform if leg[:2] in ("A1", "A2") else False,
-                   max_rel_err=rel, max_abs_err=abs_err, rsq_rel_err=rsq_rel,
-                   ms=kernel_ms(kruns), warm_ms=kernel_ms(kruns[:1]),
-                   plain_ms=plain_ms(pruns), input_sets=sets, bytes=nbytes)
-        del xs, outs, kruns, pruns
-        if rel > sw.TOL or rsq_rel > sw.TOL:
-            fail(f"kernel disagrees with its plain version: {rec}")
-        records.append(rec)
-    return records
+
+def check_general(level: int, bim: bool, legs, setup, coef_dtype, seed: int = 3):
+    """Hold each leg of ``ops/general.py`` against its plain version on
+    level ``level`` of the 4097^2 BoxMG setup: the circle's phase map at
+    level 0 when ``bim``, else the level's Galerkin planes; the level's W4
+    planes.  One record per leg."""
+    import torch
+    from multigrid_feanet_torch.ops import general as gen
+    from multigrid_feanet_torch.ops.general import GeneralSweepLevel
+
+    n = N_MAIN >> level
+    u, f, uc, ph = level_inputs(n, bim, seed)
+    if bim:
+        lv = GeneralSweepLevel(n, phase=ph, w4=setup[level][0], coef_dtype=coef_dtype,
+                               device=DEVICE)
+    else:
+        lv = GeneralSweepLevel(n, s9=setup[level - 1][1], w4=setup[level][0],
+                               coef_dtype=coef_dtype, device=DEVICE)
+    inputs = (u, f, uc, lv.op, lv.w4)
+    a0da = dict(a0=lv.a0, da=lv.da)
+    calls = {
+        "D1_sweep": lambda fn, x, kw: fn(x[0], x[1], x[3], mode="sweep", **kw),
+        "D1_residual": lambda fn, x, kw: fn(x[0], x[1], x[3], mode="residual", **kw),
+        "D2": lambda fn, x, kw: fn(x[0], x[1], x[3], x[4], **a0da, **kw),
+        "D3": lambda fn, x, kw: fn(x[0], x[1], x[3], x[4], x[2], **a0da, **kw),
+        "D4": lambda fn, x, kw: fn(x[1], x[3], x[4], **kw),
+        "D5": lambda fn, x, kw: fn(x[1], x[3], x[4], x[2], **kw),
+    }
+    fns = {"D1_sweep": (gen.gsweep_cuda, gen.gsweep_plain),
+           "D1_residual": (gen.gsweep_cuda, gen.gsweep_plain),
+           "D2": (gen.gswrr_cuda, gen.gswrr_plain),
+           "D3": (gen.gpsweep_cuda, gen.gpsweep_plain),
+           "D4": (gen.zgwrr_cuda, gen.zgwrr_plain),
+           "D5": (gen.zgpsweep_cuda, gen.zgpsweep_plain)}
+    coef_bytes = torch.tensor([], dtype=coef_dtype).element_size()
+    dname = str(coef_dtype).removeprefix("torch.")
+    return [hold(leg, calls[leg], *fns[leg], inputs, dict(omega=lv.omega),
+                 general_bytes(leg, n, bim, coef_bytes), gen.TOL,
+                 dict(n=n, bim=bim, coef_dtype=dname))
+            for leg in legs]
 
 
 def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=None):
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
 
-    prob = Problem(n=n, inclusion=("circle", (0.0, 0.0), 0.5) if bim else None)
+    prob = Problem(n=n, inclusion=CIRCLE if bim else None)
     return HierarchyV2(prob, num_levels=num_levels, kernel_threshold=threshold,
                        direct_coarse=True, device=device)
 
 
-def run_solve(label: str, bim: bool):
-    """Drive one 4097^2 solve: count its launches, check it, time it."""
+def all_kernels() -> dict:
+    from multigrid_feanet_torch.ops import general, sweep
+
+    return {**sweep.KERNELS, **general.KERNELS}
+
+
+def run_solve(label: str, build, expect, max_cycles: int):
+    """Drive one 4097^2 solve from the f = 0 decay protocol: count its
+    launches (every kernel in ``expect`` must launch), check it, time it."""
     import torch
-    from multigrid_feanet_torch.ops.sweep import KERNELS
     from multigrid_feanet_torch.solvers.jacobi import interior_norm
 
-    n, eps, max_cycles, chunk = N_MAIN, 1e-6, 120, 2
+    n, eps, chunk = N_MAIN, 1e-6, 2
     t0 = time.time()
-    hv = build_hierarchy(n, bim, num_levels=9, threshold=32, device=DEVICE)
+    hv = build()
     setup_s = time.time() - t0
     lv0 = hv.hier.finest
     rng = np.random.default_rng(0)
@@ -230,12 +319,13 @@ def run_solve(label: str, bim: bool):
     u0 = torch.as_tensor(u0, device=lv0.device) * lv0.geo
     f0 = torch.zeros_like(u0)
 
-    for k in KERNELS.values():
+    kernels = all_kernels()
+    for k in kernels.values():
         k.launches = 0
     u, hist = hv.solve(f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
     torch.cuda.synchronize()
-    launches = {key: k.launches for key, k in KERNELS.items()}
-    if not all(launches.values()):
+    launches = {key: k.launches for key, k in kernels.items()}
+    if not all(launches[key] for key in expect):
         fail(f"{label}: a kernel of the path never launched: {launches}")
     if tuple(u.shape) != (n + 1, n + 1) or not torch.isfinite(u).all():
         fail(f"{label}: solution is not finite of shape {(n + 1, n + 1)}")
@@ -257,6 +347,8 @@ def run_solve(label: str, bim: bool):
     wall = min(walls)
     out = dict(solve=label, n=n, cycles=len(hist), cycles_run=cycles_run,
                tail_q=float(np.exp(np.mean(np.diff(np.log(hist[-6:]))))),
+               # bench.py's q: the mean of the last six log ratios
+               q_last6=float(np.exp(np.mean(np.diff(np.log(hist))[-6:]))),
                final_res=float(hist[-1]), true_res=true_res, wall_s=wall,
                walls_s=walls, ms_per_cycle=1e3 * wall / cycles_run,
                setup_s=setup_s, launches=launches,
@@ -265,6 +357,14 @@ def run_solve(label: str, bim: bool):
                    cycles_run, wall))
     print(json.dumps(out), flush=True)
     return out
+
+
+# profiler kernel names -> summary labels; no name is a substring of another
+# label's name except sweep_kernel, which is tested after zpsweep_kernel
+KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "A3"),
+               ("sweep_kernel", "A1"), ("d1_gen_relax", "D1"), ("d2_gen_descent", "D2"),
+               ("d3_gen_ascent", "D3"), ("d4_gen_zdescent", "D4"), ("d5_gen_zascent", "D5"),
+               ("reduce_kernel", "rsq_reduce"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -286,9 +386,7 @@ def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         us = getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
         name = evt.key
-        for tag, label in (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
-                           ("zrr_kernel", "A3"), ("sweep_kernel", "A1"),
-                           ("reduce_kernel", "rsq_reduce")):
+        for tag, label in KERNEL_TAGS:
             if tag in name:
                 name = label
                 break
@@ -305,6 +403,22 @@ def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
                 profiled_wall_s=prof_wall, by_kernel=by_kernel)
 
 
+def same_solve(label: str, runs: dict) -> None:
+    """Fail unless the card's solve and the CPU's plain one agree: cycles
+    +-1, first residual to 1e-4, history ratios in [0.8, 1.25], u to 1e-3."""
+    (ug, hg), (uc, hc) = runs[DEVICE], runs["cpu"]
+    m = min(len(hg), len(hc))
+    ratio = hg[:m] / hc[:m]
+    du = float(np.max(np.abs(ug - uc)) / np.max(np.abs(uc)))
+    ok = (abs(len(hg) - len(hc)) <= 1 and abs(hg[0] - hc[0]) / hc[0] < 1e-4
+          and np.all((ratio > 0.8) & (ratio < 1.25)) and du < 1e-3)
+    print(json.dumps({label: dict(cycles=[len(hg), len(hc)],
+                                  max_hist_ratio_dev=float(np.max(np.abs(ratio - 1))),
+                                  u_rel_err=du)}), flush=True)
+    if not ok:
+        fail(f"{label}: the solve on the card disagrees with the CPU plain path")
+
+
 def check_small_against_cpu():
     """A 129^2 interface solve on the card against the CPU's plain path."""
     rng = np.random.default_rng(2)
@@ -314,17 +428,95 @@ def check_small_against_cpu():
         hv = build_hierarchy(N_SMALL, True, num_levels=4, threshold=16, device=dev)
         u, h = hv.solve(f, eps=1e-3, max_cycles=60)
         runs[dev] = (u.cpu().numpy(), h)
-    (ug, hg), (uc, hc) = runs[DEVICE], runs["cpu"]
-    m = min(len(hg), len(hc))
-    ratio = hg[:m] / hc[:m]
-    du = float(np.max(np.abs(ug - uc)) / np.max(np.abs(uc)))
-    ok = (abs(len(hg) - len(hc)) <= 1 and abs(hg[0] - hc[0]) / hc[0] < 1e-4
-          and np.all((ratio > 0.8) & (ratio < 1.25)) and du < 1e-3)
-    print(json.dumps(dict(small_solve_cycles=[len(hg), len(hc)],
-                          max_hist_ratio_dev=float(np.max(np.abs(ratio - 1))),
-                          u_rel_err=du)), flush=True)
-    if not ok:
-        fail("the 129^2 solve on the card disagrees with the CPU plain path")
+    same_solve("small_solve", runs)
+
+
+def boxmg_setup_on_card():
+    """The 4097^2 interface hierarchy (9 levels) and its f32 BoxMG setup on
+    the card, timed (first and second run) with its peak memory."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.ops.boxmg import boxmg_setup
+
+    prob = Problem(n=N_MAIN, inclusion=CIRCLE)
+    t0 = time.time()
+    hier = GridHierarchy.create(prob, 9, device=DEVICE)
+    hier_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    setup = boxmg_setup(hier, 9, dtype=torch.float32)
+    torch.cuda.synchronize()
+    secs = [time.time() - t0]
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    t0 = time.time()
+    again = boxmg_setup(hier, 9, dtype=torch.float32)
+    torch.cuda.synchronize()
+    secs.append(time.time() - t0)
+    del again
+    for W4, Sc in setup:
+        if not (torch.isfinite(W4).all() and torch.isfinite(Sc).all()):
+            fail("boxmg setup: non-finite weights or coarse stencils")
+    print(json.dumps(dict(boxmg_setup=dict(
+        n=N_MAIN, levels=9, hierarchy_s=hier_s, setup_s=secs[0], setup_s_second=secs[1],
+        peak_gb=peak / 1e9, held_gb=held / 1e9,
+        coarse_n=[int(Sc.shape[0]) - 1 for _, Sc in setup]))), flush=True)
+    return prob, hier, setup
+
+
+def check_boxmg_small_against_cpu():
+    """A 129^2 BoxMG V(2,1) solve (bc 0.7) on the card against the CPU's
+    plain path, each on its own setup (compared too).  This path runs D1 on
+    the Galerkin levels and D2/D3 in general mode; returns its launches."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.ops.boxmg import boxmg_setup
+    from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
+
+    rng = np.random.default_rng(3)
+    f = rng.standard_normal((N_SMALL + 1, N_SMALL + 1)).astype(np.float32)
+    prob = Problem(n=N_SMALL, inclusion=CIRCLE)
+    runs, setups, launches = {}, {}, None
+    kernels = all_kernels()
+    for dev in (DEVICE, "cpu"):
+        hier = GridHierarchy.create(prob, 4, device=dev)
+        setups[dev] = boxmg_setup(hier, 4, dtype=torch.float32)
+        bm = BoxMGHierarchy(prob, num_levels=4, kernel_threshold=16, hier=hier,
+                            setup=setups[dev], device=dev)
+        for k in kernels.values():
+            k.launches = 0
+        u, h = bm.solve(f, bc_value=0.7, nu1=2, nu2=1, eps=1e-3, max_cycles=60)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            launches = {key: k.launches for key, k in kernels.items()}
+        runs[dev] = (u.cpu().numpy(), h)
+    setup_err = max(float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for pg, pc in zip(setups[DEVICE], setups["cpu"]) for a, b in zip(pg, pc))
+    print(json.dumps(dict(boxmg_small_setup_rel_err=setup_err, launches=launches)), flush=True)
+    if setup_err > 1e-5:
+        fail(f"boxmg setup on the card differs from the CPU's: {setup_err}")
+    if not all(launches[key] for key in ("A1", "D1", "D2", "D3")):
+        fail(f"boxmg V(2,1): a kernel of the path never launched: {launches}")
+    same_solve("boxmg_small_v21", runs)
+    return launches
+
+
+def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
+    """One row of the kernel line from a check record and a path's count."""
+    n = rec["n"]
+    t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
+    t_ops = 1e3 * FLOPS_PER_NODE[key] * (n + 1) ** 2 / FP32_FLOP_PER_S
+    k = all_kernels()[key]
+    return dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+                launches=launches, max_abs_err=rec["max_abs_err"],
+                max_rel_err=rec["max_rel_err"], rsq_rel_err=rec["rsq_rel_err"],
+                ms=rec["ms"], warm_ms=rec["warm_ms"], plain_ms=rec["plain_ms"],
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, path=path, n=n,
+                **{t: rec[t] for t in ("bim", "coef_dtype") if t in rec})
 
 
 def main() -> int:
@@ -338,7 +530,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from multigrid_feanet_torch import _build
-    from multigrid_feanet_torch.ops.sweep import KERNELS
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -370,11 +561,32 @@ def main() -> int:
     print(json.dumps({"kernel_checks": checks}), flush=True)
 
     check_small_against_cpu()
-    solves = [run_solve("interface_4097", True), run_solve("poisson_4097", False)]
+    a_keys = ("A1", "A2", "A3", "A4")
+    solves = [run_solve(label, lambda bim=bim: build_hierarchy(N_MAIN, bim, 9, 32, DEVICE),
+                        a_keys, 120)
+              for label, bim in (("interface_4097", True), ("poisson_4097", False))]
+
+    prob, hier, setup = boxmg_setup_on_card()
+    gchecks = []
+    for dt in (torch.bfloat16, torch.float32):
+        gchecks += check_general(0, True, ["D2", "D3"], setup, dt)
+        gchecks += check_general(1, False, ["D4", "D5", "D1_sweep", "D1_residual"], setup, dt)
+        gchecks += check_general(3, False, ["D2", "D3"], setup, dt)
+    print(json.dumps({"general_kernel_checks": gchecks}), flush=True)
+
+    from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
+
+    boxmg = run_solve("boxmg_4097", lambda: BoxMGHierarchy(
+        prob, num_levels=9, kernel_threshold=32, direct_coarse=True, hier=hier, setup=setup,
+        coef_dtype=torch.bfloat16, device=DEVICE), ("D2", "D3", "D4", "D5"), 60)
+    del hier, setup
+    small_launches = check_boxmg_small_against_cpu()
 
     # one row per kernel and path, at the path's shapes: A1 (psweep) and A2
     # at level 0, A3 and A4 at level 1, the largest level they run on; the
-    # Poisson path runs the homogeneous builds ("_hom")
+    # Poisson path runs the homogeneous builds ("_hom").  D2/D3 at level 0
+    # and D4/D5 at level 1 of boxmg_4097 (bf16 planes); D1 in the 129^2
+    # V(2,1) solve (f32 planes), timed on level 1 of the 4097^2 setup.
     main_shape = {"A1": ("A1_psweep", N_MAIN), "A2": ("A2", N_MAIN),
                   "A3": ("A3", N_MAIN // 2), "A4": ("A4", N_MAIN // 2)}
     summary = []
@@ -382,17 +594,17 @@ def main() -> int:
         for key, (leg, n) in main_shape.items():
             rec = next(c for c in checks if c["name"] == leg and c["n"] == n
                        and c["bim"] == bim and (c["dform"] or key in ("A3", "A4")))
-            t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
-            t_ops = 1e3 * FLOPS_PER_NODE[key] * (n + 1) ** 2 / FP32_FLOP_PER_S
-            k = KERNELS[key]
-            summary.append(dict(
-                name=k.name + ("" if bim else "_hom"), route="cuda", source=k.source,
-                replaces=k.replaces, launches=solve["launches"][key],
-                max_abs_err=rec["max_abs_err"], max_rel_err=rec["max_rel_err"],
-                rsq_rel_err=rec["rsq_rel_err"], ms=rec["ms"], warm_ms=rec["warm_ms"],
-                plain_ms=rec["plain_ms"], bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None, path=solve["solve"], n=n))
+            row = summary_row(key, rec, solve["launches"][key], solve["solve"])
+            summary.append(dict(row, name=row["name"] + ("" if bim else "_hom")))
+    d_shape = {"D1": ("D1_sweep", N_MAIN // 2, "float32", small_launches, "boxmg_129_v21"),
+               "D2": ("D2", N_MAIN, "bfloat16", boxmg["launches"], "boxmg_4097"),
+               "D3": ("D3", N_MAIN, "bfloat16", boxmg["launches"], "boxmg_4097"),
+               "D4": ("D4", N_MAIN // 2, "bfloat16", boxmg["launches"], "boxmg_4097"),
+               "D5": ("D5", N_MAIN // 2, "bfloat16", boxmg["launches"], "boxmg_4097")}
+    for key, (leg, n, dt, launches, path) in d_shape.items():
+        rec = next(c for c in gchecks if c["name"] == leg and c["n"] == n
+                   and c["coef_dtype"] == dt)
+        summary.append(summary_row(key, rec, launches[key], path))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

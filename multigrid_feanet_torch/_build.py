@@ -1,11 +1,12 @@
-"""Build the port's CUDA source into a shared library at first use.
+"""Build the port's CUDA sources into one shared library at first use.
 
-``csrc/sweep.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library lands
-in ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  The compiler's log (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside it.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for ``sm_90a``
+(all started together), and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library lands in
+``build/kernels/`` at the root of the checkout, named by a hash of every
+source and header under ``csrc/`` and of the flags, so an edit to any of
+them rebuilds and an unchanged tree is reused.  The compilers' logs
+(``-Xptxas -v``: registers, shared memory, spills) are kept beside it.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sweep.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -38,28 +39,50 @@ def nvcc() -> str:
     return str(path)
 
 
+def sources() -> list[Path]:
+    """The compiled sources, one object each."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libsweep-{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libkernels-{digest.hexdigest()[:16]}.so"
+
+
+def _compile(lib: Path) -> str:
+    """Compile every source in parallel and link them into ``lib``; returns
+    the compilers' log, raises with it when a step fails."""
+    srcs, compiler = sources(), nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {src.name}\n{out}" for src, out in zip(srcs, outs))
+        failed = [src.name for src, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        so = Path(tmp) / "lib.so"
+        done = subprocess.run([compiler, *ARCH_FLAGS, "-shared", "-o", str(so), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link the kernel library:\n{done.stdout}")
+        os.replace(so, lib)
+    return log
 
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library, compiled first if it is not built yet;
-    raises with the compiler's log when the compile fails."""
+    raises with the compilers' log when the build fails."""
     global _lib
     if _lib is None:
         lib = library_path()
         if not lib.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            done = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True)
-            if done.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{done.stdout}")
-            os.replace(tmp, lib)
-            lib.with_suffix(".log").write_text(done.stdout)
+            log = _compile(lib)
+            lib.with_suffix(".log").write_text(log)
         _lib = ctypes.CDLL(str(lib))
     return _lib

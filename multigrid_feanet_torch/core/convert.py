@@ -3,8 +3,9 @@
 The system has no weights: what carries over between the JAX package and
 the port is the operator data of each level.  :func:`hierarchy_from_arrays`
 builds the port's :class:`GridHierarchy` from per-level numpy fields (for
-example those of a JAX ``GridHierarchy``), so that both sides run on the
-identical operator.
+example those of a JAX ``GridHierarchy``), and
+:func:`boxmg_setup_from_arrays` the BoxMG transfers and Galerkin operators,
+so that both sides run on the identical operator.
 """
 
 from __future__ import annotations
@@ -45,3 +46,13 @@ def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
             geo=dev(lv["geo"]), diag=dev(lv["diag"]),
             phase=dev(lv["phase"], torch.int8)))
     return GridHierarchy(levels=tuple(out), coarse_inv=dev(coarse_inv))
+
+
+def boxmg_setup_from_arrays(setup: Sequence, device=None, dtype=None) -> list:
+    """The BoxMG setup ``[(W4_0, Sc_1), (W4_1, Sc_2), ...]`` (for example
+    the JAX ``boxmg_setup`` output as numpy arrays) as the port's tensors on
+    ``device``, in ``dtype`` (default: each array's own), so that both
+    solvers run on the identical operator.  ``device=None`` means CUDA."""
+    device = resolve_device(device)
+    return [tuple(torch.tensor(np.asarray(x), dtype=dtype, device=device) for x in pair)
+            for pair in setup]

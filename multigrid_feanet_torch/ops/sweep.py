@@ -258,19 +258,21 @@ def _check_mode(mode, uc):
 # ---------------------------------------------------------------------------
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SOURCE = "multigrid_feanet_torch/csrc/sweep.cu"
 
 
 class CudaKernel:
-    """One C entry point of ``csrc/sweep.cu`` with its launch count.
+    """One C entry point of the kernel library with its launch count;
+    ``source`` is the repository path of the file that defines it.
 
     ``launches`` rises by one for every launch of the kernel, and nowhere
     else; callers may reset it to 0."""
 
-    def __init__(self, name: str, symbol: str, argtypes, replaces: str):
+    def __init__(self, name: str, symbol: str, argtypes, replaces: str, source: str):
         self.name = name
         self.symbol = symbol
         self.replaces = replaces
-        self.source = "multigrid_feanet_torch/csrc/sweep.cu"
+        self.source = source
         self.launches = 0
         self._argtypes = argtypes
         self._fn = None
@@ -290,15 +292,15 @@ class CudaKernel:
 KERNELS = {
     "A1": CudaKernel("A1_sweep", "mg_sweep",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _I, _P],
-                     "multigrid_feanet_tpu/ops/pallas_sweep.py:284"),
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:284", _SOURCE),
     "A2": CudaKernel("A2_swrr", "mg_swrr",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
-                     "multigrid_feanet_tpu/ops/pallas_sweep.py:374"),
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:374", _SOURCE),
     "A3": CudaKernel("A3_zrr", "mg_zrr", [_P, _P, _P, _I, _D, _D, _D, _I, _P],
-                     "multigrid_feanet_tpu/ops/pallas_sweep.py:629"),
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:629", _SOURCE),
     "A4": CudaKernel("A4_zpsweep", "mg_zpsweep",
                      [_P, _P, _P, _P, _I, _D, _D, _D, _I, _P],
-                     "multigrid_feanet_tpu/ops/pallas_sweep.py:686"),
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
 }
 
 
@@ -309,8 +311,9 @@ def _error_string(err: int) -> str:
 
 
 def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
-    """Scratch for the per-block partial sums of kernel ``which`` (0: A1,
-    1: A2), kept in ``workspace`` when one is given."""
+    """Scratch for the per-block partial sums of the kernels of grid
+    ``which`` (0: A1 and D1, 1: A2 and D2), kept in ``workspace`` when one
+    is given."""
     key = ("partials", which, n)
     buf = None if workspace is None else workspace.get(key)
     if buf is None:

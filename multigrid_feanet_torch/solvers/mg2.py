@@ -24,17 +24,15 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from multigrid_feanet_torch.core.device import resolve_device
-from multigrid_feanet_torch.core.geometry import reset_boundary
 from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
 from multigrid_feanet_torch.ops.sweep import SweepLevel
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 from multigrid_feanet_torch.solvers import jacobi as jac
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse, coarse_solve
-from multigrid_feanet_torch.solvers.common import trim_history
+from multigrid_feanet_torch.solvers.common import solve_cycles
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -190,30 +188,9 @@ class HierarchyV2:
             raise NotImplementedError(
                 "use_pswrr (the cross-cycle fused leg, TPU kernel A6) comes "
                 "with a later slice of the port")
-        lv0 = self.hier.finest
-        H = lv0.n_nodes
-        f = torch.as_tensor(f, dtype=torch.float32, device=self.device).contiguous()
-        if u0 is None:
-            u0 = torch.zeros((H, H), dtype=torch.float32, device=self.device)
-        u0 = torch.as_tensor(u0, dtype=torch.float32, device=self.device)
-        u = reset_boundary(u0, lv0.geo, 0.0 if bc_value is None else bc_value)
-        u = u.contiguous()
-        sp = torch.empty_like(u)
-        rsq = torch.empty((), dtype=torch.float32, device=self.device)
-        # -1 sentinel marks never-written entries (norms are >= 0)
-        hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32,
-                          device=self.device)
-        eps32 = float(np.float32(eps))  # the f32 comparison of the JAX loop
-        k, res = 0, float("inf")
-        while res > eps32 and k < max_cycles:
-            for _ in range(chunk):
-                u, sp = self._cycle0(u, sp, f, nu1, nu2, rsq)
-                # rsq is the residual of the state ENTERING this cycle,
-                # i.e. after k completed cycles
-                torch.sqrt(rsq, out=hist[k])
-                k += 1
-            res = float(hist[k - 1])
-        return u, trim_history(hist.cpu().numpy(), eps)
+        return solve_cycles(
+            lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
+            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk)
 
     def solve_pcg(self, *args, **kwargs):
         raise NotImplementedError(

@@ -8,6 +8,7 @@ without it) and its independence from JAX.
 """
 
 import ast
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,7 @@ from multigrid_feanet_tpu.solvers import coarse as jco
 from multigrid_feanet_tpu.solvers import common as jcommon
 from multigrid_feanet_tpu.solvers import jacobi as jjac
 
+from multigrid_feanet_torch import _build
 from multigrid_feanet_torch.core import geometry as tgeo
 from multigrid_feanet_torch.core.convert import hierarchy_from_arrays
 from multigrid_feanet_torch.core.problem import GridHierarchy, Problem, build_level
@@ -209,7 +211,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def _port_sources():
     files = sorted((ROOT / "multigrid_feanet_torch").rglob("*.py"))
-    assert len(files) >= 10
+    names = {p.relative_to(ROOT / "multigrid_feanet_torch").as_posix() for p in files}
+    assert {"ops/sweep.py", "ops/general.py", "ops/boxmg.py", "ops/adaptive_transfer.py",
+            "solvers/mg2.py", "solvers/boxmg.py", "core/convert.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -234,3 +238,20 @@ def test_port_imports_no_jax():
             "('jax', 'jaxlib', 'flax', 'multigrid_feanet_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_library_hash_covers_every_source(tmp_path, monkeypatch):
+    """The built library is named by a hash of every source and header, so
+    an edit to any of them (not only the first) rebuilds it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    cu = sorted(csrc.glob("*.cu"))
+    assert [p.name for p in cu] == ["general.cu", "sweep.cu"]
+    assert [p.name for p in _build.sources()] == ["general.cu", "sweep.cu"]
+    seen = {_build.library_path()}
+    for path in (cu[1], cu[0], csrc / "common.cuh"):
+        path.write_bytes(path.read_bytes() + b"\n")
+        seen.add(_build.library_path())
+    assert len(seen) == 4
+    assert _build.library_path() == _build.library_path()
