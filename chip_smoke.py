@@ -36,7 +36,23 @@ Phases, in order; any failure exits non-zero:
    2 eps, repeat its history, and launch each of D2-D5.  Then a 129^2 BoxMG
    V(2,1) solve (bc 0.7) on the card against the CPU's plain path, with the
    card's and the CPU's setup compared; it must launch D1.
-7. Print the kernel summary line (one row per kernel and path, with the
+7. Hold each kernel of ``ops/hrelax.py`` (E2-E5) against its plain version,
+   at ``ops.hrelax.TOL``, with the repository's H-Net checkpoints: E2 and E3
+   at 4097^2, E4 and E5 at 2049^2 (homogeneous in plain form and
+   bi-material in difference form, the L = 1 net), and all four at n = 512
+   (bi-material and homogeneous, the L = 3 net).  Timed as in phase 2.
+8. The H-MG path of ``solvers/hmg.py``: ``hmg_4097``, the homogeneous
+   4097^2 decay solve (same u0, 9 levels, threshold 32, direct coarse,
+   plain form) with the L = 1 net of
+   ``results/learn_iterator/hnet_decay_L1_hlNone.npz``, at most 40 cycles;
+   then ``hmg_interface_4097``, the interface problem with the same net in
+   difference form, at most 60 cycles.  Each must converge, leave a true
+   residual below 2 eps, repeat its history and launch each of E2-E5.  Then
+   three 129^2 bi-material H-MG solves on the card against the CPU's plain
+   path: the L = 3 net with ``h_levels=1`` (launching A3/A4 below level 0),
+   the L = 3 net with ``coarse_zero_legs=False`` (E2/E3 on every kernel
+   level), and the L = 1 net with a boundary value of 0.7.
+9. Print the kernel summary line (one row per kernel and path, with the
    path's launch counts), then the device line as the last line.
 
 Each 4097^2 solve also reports its device time per kernel from
@@ -68,6 +84,15 @@ FLOPS_PER_NODE = {"A1": 48, "A2": 100, "A3": 45, "A4": 50}
 # restriction 17 per coarse node; D2/D3 counted for the bi-material
 # operator, which bounds their general mode from above.
 FLOPS_PER_NODE.update({"D1": 24, "D2": 85, "D3": 47, "D4": 25, "D5": 31})
+# E2-E5, counted from csrc/hrelax.cu per fine node: HRELAX_FLOPS[leg] is
+# (operator applies, other operations, conv chains); an apply costs
+# APPLY_FLOPS[(bim, dform)], the others are the Jacobi update, increments,
+# prolongation and restriction, and each conv layer of a chain costs 18.
+APPLY_FLOPS = {(True, True): 44, (True, False): 33, (False, True): 27, (False, False): 12}
+HRELAX_FLOPS = {"E2": (2, 12, 1), "E3": (1, 10, 1), "E4": (1, 10, 1), "E5": (1, 16, 2)}
+HNET_L1 = "results/learn_iterator/hnet_decay_L1_hlNone.npz"
+HNET_L3 = "results/learn_iterator/hnet_decay.npz"
+HNET_L3_HL1 = "results/learn_iterator/hnet_decay_L3_hl1.npz"
 DEVICE = "cuda"
 N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
 CIRCLE = ("circle", (0.0, 0.0), 0.5)
@@ -170,13 +195,28 @@ def general_bytes(leg: str, n: int, bim: bool, coef_bytes: int) -> int:
     }[leg]
 
 
+def hrelax_bytes(leg: str, n: int, bim: bool, L: int) -> int:
+    """Bytes a kernel of ``ops/hrelax.py`` must move: each input read once,
+    each output written once (f32 fields, int8 phase, f32 coarse fields,
+    the (L, 3, 3) f32 kernels)."""
+    H2, Hc2, ph = (n + 1) ** 2, (n // 2 + 1) ** 2, n * n if bim else 0
+    fields = {"E2": 3, "E3": 3, "E4": 1, "E5": 2}[leg]
+    return 4 * H2 * fields + ph + 4 * Hc2 + 36 * L
+
+
+def hrelax_flops(leg: str, bim: bool, dform: bool, L: int) -> int:
+    applies, extra, chains = HRELAX_FLOPS[leg]
+    return applies * APPLY_FLOPS[(bim, dform)] + extra + 18 * L * chains
+
+
 # output keywords of each leg's wrapper, in the order it returns them
 OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "A1_psweep": ("out", "rsq"), "A2": ("out", "fc_out", "rsq"),
              "A3": ("out",), "A4": ("out",),
              "D1_sweep": ("out", "rsq"), "D1_residual": ("out", "rsq"),
-             "D2": ("out", "fc_out", "rsq"), "D3": ("out",), "D4": ("out",), "D5": ("out",)}
-RSQ_LEGS = ("A1", "A2", "D1", "D2")  # the legs that keep partial sums in a workspace
+             "D2": ("out", "fc_out", "rsq"), "D3": ("out",), "D4": ("out",), "D5": ("out",),
+             "E2": ("out", "fc_out", "rsq"), "E3": ("out",), "E4": ("out",), "E5": ("out",)}
+RSQ_LEGS = ("A1", "A2", "D1", "D2", "E2")  # the legs that keep partial sums in a workspace
 
 
 def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
@@ -288,6 +328,38 @@ def check_general(level: int, bim: bool, legs, setup, coef_dtype, seed: int = 3)
             for leg in legs]
 
 
+def load_params(path: str, device=DEVICE):
+    """The (L, 3, 3) H-Net kernels of a repository checkpoint on ``device``."""
+    from multigrid_feanet_torch.core.convert import hnet_params_from_arrays
+    from multigrid_feanet_torch.utils import checkpoint
+
+    return hnet_params_from_arrays(checkpoint.load(ROOT / path)[0], device=device)
+
+
+def check_hrelax(n: int, bim: bool, dform: bool, ckpt: str, legs, seed: int = 5):
+    """Hold each leg of ``ops/hrelax.py`` against its plain version on one
+    level's seeded inputs with the kernels of checkpoint ``ckpt``; one
+    record per leg."""
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    params = load_params(ckpt)
+    L = int(params.shape[0])
+    inputs = level_inputs(n, bim, seed) + (params,)
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0, dform=dform)
+    calls = {
+        "E2": lambda fn, x, kw: fn(x[0], x[1], x[3], x[4], **kw),
+        "E3": lambda fn, x, kw: fn(x[0], x[1], x[3], x[2], x[4], **kw),
+        "E4": lambda fn, x, kw: fn(x[1], x[3], x[4], **kw),
+        "E5": lambda fn, x, kw: fn(x[1], x[3], x[2], x[4], **kw),
+    }
+    fns = {"E2": (hx.hswrr_cuda, hx.hswrr_plain), "E3": (hx.phrelax_cuda, hx.phrelax_plain),
+           "E4": (hx.zhswrr_cuda, hx.zhswrr_plain), "E5": (hx.zphrelax_cuda, hx.zphrelax_plain)}
+    return [dict(hold(leg, calls[leg], *fns[leg], inputs, cfg, hrelax_bytes(leg, n, bim, L),
+                      hx.TOL, dict(n=n, bim=bim, dform=dform, L=L)),
+                 flops_per_node=hrelax_flops(leg, bim, dform, L))
+            for leg in legs]
+
+
 def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=None):
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
@@ -298,14 +370,15 @@ def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=N
 
 
 def all_kernels() -> dict:
-    from multigrid_feanet_torch.ops import general, sweep
+    from multigrid_feanet_torch.ops import general, hrelax, sweep
 
-    return {**sweep.KERNELS, **general.KERNELS}
+    return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS}
 
 
-def run_solve(label: str, build, expect, max_cycles: int):
+def run_solve(label: str, build, expect, max_cycles: int, solve=None):
     """Drive one 4097^2 solve from the f = 0 decay protocol: count its
-    launches (every kernel in ``expect`` must launch), check it, time it."""
+    launches (every kernel in ``expect`` must launch), check it, time it.
+    ``solve(hv, f, **kw)`` runs the built solver (default ``hv.solve``)."""
     import torch
     from multigrid_feanet_torch.solvers.jacobi import interior_norm
 
@@ -319,10 +392,11 @@ def run_solve(label: str, build, expect, max_cycles: int):
     u0 = torch.as_tensor(u0, device=lv0.device) * lv0.geo
     f0 = torch.zeros_like(u0)
 
+    solve = solve if solve is not None else (lambda hv, f, **kw: hv.solve(f, **kw))
     kernels = all_kernels()
     for k in kernels.values():
         k.launches = 0
-    u, hist = hv.solve(f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
+    u, hist = solve(hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
     torch.cuda.synchronize()
     launches = {key: k.launches for key, k in kernels.items()}
     if not all(launches[key] for key in expect):
@@ -338,7 +412,7 @@ def run_solve(label: str, build, expect, max_cycles: int):
     walls = []
     for _ in range(3):
         t0 = time.time()
-        _, h = hv.solve(f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
+        _, h = solve(hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
         if not np.array_equal(h, hist):
@@ -349,11 +423,13 @@ def run_solve(label: str, build, expect, max_cycles: int):
                tail_q=float(np.exp(np.mean(np.diff(np.log(hist[-6:]))))),
                # bench.py's q: the mean of the last six log ratios
                q_last6=float(np.exp(np.mean(np.diff(np.log(hist))[-6:]))),
+               # the H-MG row's q: the mean contraction over the whole solve
+               q_bench=float((hist[-1] / hist[0]) ** (1.0 / max(1, len(hist) - 1))),
                final_res=float(hist[-1]), true_res=true_res, wall_s=wall,
                walls_s=walls, ms_per_cycle=1e3 * wall / cycles_run,
                setup_s=setup_s, launches=launches,
-               profile=profile_solve(lambda: hv.solve(
-                   f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk),
+               profile=profile_solve(lambda: solve(
+                   hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk),
                    cycles_run, wall))
     print(json.dumps(out), flush=True)
     return out
@@ -364,7 +440,8 @@ def run_solve(label: str, build, expect, max_cycles: int):
 KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "A3"),
                ("sweep_kernel", "A1"), ("d1_gen_relax", "D1"), ("d2_gen_descent", "D2"),
                ("d3_gen_ascent", "D3"), ("d4_gen_zdescent", "D4"), ("d5_gen_zascent", "D5"),
-               ("reduce_kernel", "rsq_reduce"))
+               ("e2_h_descent", "E2"), ("e3_h_ascent", "E3"), ("e4_h_zdescent", "E4"),
+               ("e5_h_zascent", "E5"), ("reduce_kernel", "rsq_reduce"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -503,11 +580,54 @@ def check_boxmg_small_against_cpu():
     return launches
 
 
+def check_hmg_small_against_cpu() -> dict:
+    """Three 129^2 bi-material H-MG solves on the card against the CPU's
+    plain path; returns each variant's launches on the card."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
+
+    rng = np.random.default_rng(4)
+    f = rng.standard_normal((N_SMALL + 1, N_SMALL + 1)).astype(np.float32)
+    prob = Problem(n=N_SMALL, inclusion=CIRCLE)
+    # eps 1e-2 keeps clear of the f32 residual floor that this random RHS
+    # reaches at 129^2; the homogeneous-trained h_levels=1 net contracts
+    # slowly on the interface, so that variant runs a fixed 20 cycles
+    variants = {  # label: (checkpoint, hierarchy options, solve options, kernels to launch)
+        "hmg_small_L3_hl1": (HNET_L3_HL1, dict(h_levels=1), dict(eps=0.0, max_cycles=20),
+                             ("E2", "E3", "A3", "A4")),
+        "hmg_small_nonzero_legs": (HNET_L3, dict(coarse_zero_legs=False),
+                                   dict(eps=1e-2, max_cycles=60), ("E2", "E3")),
+        "hmg_small_bc": (HNET_L1, dict(dform=True), dict(eps=1e-2, max_cycles=60, bc_value=0.7),
+                         ("E2", "E3", "E4", "E5")),
+    }
+    kernels, out = all_kernels(), {}
+    for label, (ckpt, hkw, skw, expect) in variants.items():
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            hv = HMGHierarchy(prob, num_levels=4, kernel_threshold=16, direct_coarse=True,
+                              device=dev, **hkw)
+            for k in kernels.values():
+                k.launches = 0
+            u, h = hv.solve(load_params(ckpt, dev), f, **skw)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                out[label] = {key: k.launches for key, k in kernels.items() if k.launches}
+                if not all(out[label].get(key) for key in expect):
+                    fail(f"{label}: a kernel of the path never launched: {out[label]}")
+            runs[dev] = (u.cpu().numpy(), h)
+        if "bc_value" in skw and not np.allclose(runs[DEVICE][0][0], skw["bc_value"]):
+            fail(f"{label}: the boundary value was not kept")
+        same_solve(label, runs)
+    print(json.dumps({"hmg_small_launches": out}), flush=True)
+    return out
+
+
 def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
     """One row of the kernel line from a check record and a path's count."""
     n = rec["n"]
     t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
-    t_ops = 1e3 * FLOPS_PER_NODE[key] * (n + 1) ** 2 / FP32_FLOP_PER_S
+    t_ops = 1e3 * rec.get("flops_per_node", FLOPS_PER_NODE.get(key)) * (n + 1) ** 2 / FP32_FLOP_PER_S
     k = all_kernels()[key]
     return dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
                 launches=launches, max_abs_err=rec["max_abs_err"],
@@ -516,7 +636,7 @@ def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None, path=path, n=n,
-                **{t: rec[t] for t in ("bim", "coef_dtype") if t in rec})
+                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L") if t in rec})
 
 
 def main() -> int:
@@ -582,6 +702,24 @@ def main() -> int:
     del hier, setup
     small_launches = check_boxmg_small_against_cpu()
 
+    hchecks = []
+    for bim, dform in ((False, False), (True, True)):
+        hchecks += check_hrelax(N_MAIN, bim, dform, HNET_L1, ["E2", "E3"])
+        hchecks += check_hrelax(N_MAIN // 2, bim, dform, HNET_L1, ["E4", "E5"])
+        hchecks += check_hrelax(N_COARSE, bim, dform, HNET_L3, ["E2", "E3", "E4", "E5"])
+    print(json.dumps({"hrelax_kernel_checks": hchecks}), flush=True)
+
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
+
+    params = load_params(HNET_L1)
+    hmg_solves = [run_solve(label, lambda bim=bim: HMGHierarchy(
+        Problem(n=N_MAIN, inclusion=CIRCLE if bim else None), num_levels=9,
+        kernel_threshold=32, direct_coarse=True, dform=bim, device=DEVICE),
+        ("E2", "E3", "E4", "E5"), cap, solve=lambda hv, f, **kw: hv.solve(params, f, **kw))
+        for label, bim, cap in (("hmg_4097", False, 40), ("hmg_interface_4097", True, 60))]
+    check_hmg_small_against_cpu()
+
     # one row per kernel and path, at the path's shapes: A1 (psweep) and A2
     # at level 0, A3 and A4 at level 1, the largest level they run on; the
     # Poisson path runs the homogeneous builds ("_hom").  D2/D3 at level 0
@@ -605,6 +743,15 @@ def main() -> int:
         rec = next(c for c in gchecks if c["name"] == leg and c["n"] == n
                    and c["coef_dtype"] == dt)
         summary.append(summary_row(key, rec, launches[key], path))
+    # E2/E3 at level 0 and E4/E5 at level 1 of each H-MG solve (the L = 1
+    # net); the interface path runs the bi-material difference form ("_bim")
+    e_shape = {"E2": N_MAIN, "E3": N_MAIN, "E4": N_MAIN // 2, "E5": N_MAIN // 2}
+    for solve, bim in zip(hmg_solves, (False, True)):
+        for key, n in e_shape.items():
+            rec = next(c for c in hchecks if c["name"] == key and c["n"] == n
+                       and c["bim"] == bim and c["L"] == 1)
+            row = summary_row(key, rec, solve["launches"][key], solve["solve"])
+            summary.append(dict(row, name=row["name"] + ("_bim" if bim else "")))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

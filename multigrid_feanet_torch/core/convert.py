@@ -1,11 +1,14 @@
-"""Carry operator state across from host arrays.
+"""Carry operator state and weights across from host arrays.
 
-The system has no weights: what carries over between the JAX package and
-the port is the operator data of each level.  :func:`hierarchy_from_arrays`
-builds the port's :class:`GridHierarchy` from per-level numpy fields (for
-example those of a JAX ``GridHierarchy``), and
+What carries over between the JAX package and the port is the operator data
+of each level and the learned H-Net's kernels.
+:func:`hierarchy_from_arrays` builds the port's :class:`GridHierarchy` from
+per-level numpy fields (for example those of a JAX ``GridHierarchy``),
 :func:`boxmg_setup_from_arrays` the BoxMG transfers and Galerkin operators,
-so that both sides run on the identical operator.
+so that both sides run on the identical operator, and
+:func:`hnet_params_from_arrays` the H-Net's (L, 3, 3) kernels (for example
+a JAX parameter array, or a leaf of a ``.npz`` checkpoint read by
+``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -56,3 +59,14 @@ def boxmg_setup_from_arrays(setup: Sequence, device=None, dtype=None) -> list:
     device = resolve_device(device)
     return [tuple(torch.tensor(np.asarray(x), dtype=dtype, device=device) for x in pair)
             for pair in setup]
+
+
+def hnet_params_from_arrays(params, device=None) -> torch.Tensor:
+    """The H-Net's (L, 3, 3) kernels (numpy or any array) as the contiguous
+    float32 tensor on ``device`` that the fused legs take.  ``device=None``
+    means CUDA."""
+    device = resolve_device(device)
+    out = torch.tensor(np.asarray(params), dtype=torch.float32, device=device)
+    if out.dim() != 3 or tuple(out.shape[1:]) != (3, 3) or out.shape[0] < 1:
+        raise ValueError(f"H-Net params must be (L, 3, 3), not {tuple(out.shape)}")
+    return out.contiguous()

@@ -213,7 +213,8 @@ def _port_sources():
     files = sorted((ROOT / "multigrid_feanet_torch").rglob("*.py"))
     names = {p.relative_to(ROOT / "multigrid_feanet_torch").as_posix() for p in files}
     assert {"ops/sweep.py", "ops/general.py", "ops/boxmg.py", "ops/adaptive_transfer.py",
-            "solvers/mg2.py", "solvers/boxmg.py", "core/convert.py"} <= names
+            "solvers/mg2.py", "solvers/boxmg.py", "core/convert.py", "ops/hrelax.py",
+            "models/hnet.py", "utils/checkpoint.py", "solvers/hmg.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -247,11 +248,11 @@ def test_library_hash_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     cu = sorted(csrc.glob("*.cu"))
-    assert [p.name for p in cu] == ["general.cu", "sweep.cu"]
-    assert [p.name for p in _build.sources()] == ["general.cu", "sweep.cu"]
+    assert [p.name for p in cu] == ["general.cu", "hrelax.cu", "sweep.cu"]
+    assert [p.name for p in _build.sources()] == ["general.cu", "hrelax.cu", "sweep.cu"]
     seen = {_build.library_path()}
-    for path in (cu[1], cu[0], csrc / "common.cuh"):
+    for path in (*cu[::-1], csrc / "common.cuh"):
         path.write_bytes(path.read_bytes() + b"\n")
         seen.add(_build.library_path())
-    assert len(seen) == 4
+    assert len(seen) == 5
     assert _build.library_path() == _build.library_path()
