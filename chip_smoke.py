@@ -52,11 +52,28 @@ Phases, in order; any failure exits non-zero:
    path: the L = 3 net with ``h_levels=1`` (launching A3/A4 below level 0),
    the L = 3 net with ``coarse_zero_legs=False`` (E2/E3 on every kernel
    level), and the L = 1 net with a boundary value of 0.7.
-9. Print the kernel summary line (one row per kernel and path, with the
+9. Hold each kernel of ``ops/elastic.py`` (G1 in its sweep and residual
+   modes, G2-G5) against its plain version, at ``ops.elastic.TOL``, on the
+   plane-stress operator of ``Plane_Stress_modify.m`` (E = 212e3, nu =
+   0.288, coefficients (1, 20)): at 2049^2 bi-material (circle) and
+   homogeneous, at 1025^2 (level 1) and at n = 128.  Timed as in phase 2.
+10. The elastic path of ``solvers/elastic.py`` at 2049^2 (circle r = 0.5,
+   9 levels, kernel threshold 16, direct coarse solve at n = 8, f = 0,
+   u0 standard normal from rng 1, eps 0): ``elastic_2049``, V(2,2) for 4,
+   12 and 60 cycles (ms/cycle = (t12 - t4) / 8, tail q of the last 4
+   ratios, asymptotic q of the last 8); ``elastic_pcg_2049``, the
+   MG-preconditioned flexible CG for 16 iterations (contraction, drop,
+   history against the true residual); ``elastic_v11_2049``, V(1,1) for 12
+   cycles.  Each must launch its kernels the expected number of times,
+   stay finite and repeat its history over 3 runs.  Then ``elastic_2049``
+   once more with the bench's kernel threshold of 512.
+11. Three 129^2 bi-material elastic solves on the card against the CPU's
+   plain path: V(2,2), V(1,1) and the PCG, to eps 1e-2.
+12. Print the kernel summary line (one row per kernel and path, with the
    path's launch counts), then the device line as the last line.
 
-Each 4097^2 solve also reports its device time per kernel from
-torch.profiler and the busy share of its wall time.
+Each 4097^2 solve and each elastic cell also reports its device time per
+kernel from torch.profiler and the busy share of its wall time.
 """
 
 from __future__ import annotations
@@ -90,12 +107,19 @@ FLOPS_PER_NODE.update({"D1": 24, "D2": 85, "D3": 47, "D4": 25, "D5": 31})
 # prolongation and restriction, and each conv layer of a chain costs 18.
 APPLY_FLOPS = {(True, True): 44, (True, False): 33, (False, True): 27, (False, False): 12}
 HRELAX_FLOPS = {"E2": (2, 12, 1), "E3": (1, 10, 1), "E4": (1, 10, 1), "E5": (1, 16, 2)}
+# G1-G5, counted from csrc/elastic.cu per fine node: an operator apply of
+# both components is 98 operations, the block-Jacobi update 14, the residual
+# and its square 6, the zero-guess iterate 20, the prolongation of both
+# components 6 and their restriction 7 (26 per coarse node).
+FLOPS_PER_NODE.update({"G1": 118, "G2": 225, "G3": 124, "G4": 127, "G5": 144})
 HNET_L1 = "results/learn_iterator/hnet_decay_L1_hlNone.npz"
 HNET_L3 = "results/learn_iterator/hnet_decay.npz"
 HNET_L3_HL1 = "results/learn_iterator/hnet_decay_L3_hl1.npz"
 DEVICE = "cuda"
 N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
 CIRCLE = ("circle", (0.0, 0.0), 0.5)
+N_EL = 2048  # the elastic cells: 2049^2 nodes (bench.py:296)
+E_EL, NU_EL = 212e3, 0.288  # Plane_Stress_modify.m:11-12
 
 
 def fail(msg: str) -> None:
@@ -209,14 +233,27 @@ def hrelax_flops(leg: str, bim: bool, dform: bool, L: int) -> int:
     return applies * APPLY_FLOPS[(bim, dform)] + extra + 18 * L * chains
 
 
+def elastic_bytes(leg: str, n: int, bim: bool) -> int:
+    """Bytes a kernel of ``ops/elastic.py`` must move: each input read once,
+    each output written once ((2, n+1, n+1) f32 fields, int8 phase,
+    (2, n/2+1, n/2+1) f32 coarse fields)."""
+    H2, Hc2, ph = (n + 1) ** 2, (n // 2 + 1) ** 2, n * n if bim else 0
+    fields, coarse = {"G1_sweep": (3, 0), "G1_residual": (3, 0), "G2": (3, 1), "G3": (3, 1),
+                      "G4": (1, 1), "G5": (2, 1)}[leg]
+    return 8 * H2 * fields + 8 * Hc2 * coarse + ph
+
+
 # output keywords of each leg's wrapper, in the order it returns them
 OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "A1_psweep": ("out", "rsq"), "A2": ("out", "fc_out", "rsq"),
              "A3": ("out",), "A4": ("out",),
              "D1_sweep": ("out", "rsq"), "D1_residual": ("out", "rsq"),
              "D2": ("out", "fc_out", "rsq"), "D3": ("out",), "D4": ("out",), "D5": ("out",),
-             "E2": ("out", "fc_out", "rsq"), "E3": ("out",), "E4": ("out",), "E5": ("out",)}
-RSQ_LEGS = ("A1", "A2", "D1", "D2", "E2")  # the legs that keep partial sums in a workspace
+             "E2": ("out", "fc_out", "rsq"), "E3": ("out",), "E4": ("out",), "E5": ("out",),
+             "G1_sweep": ("out", "rsq"), "G1_residual": ("out", "rsq"),
+             "G2": ("out", "fc_out", "rsq"), "G3": ("out",), "G4": ("out",), "G5": ("out",)}
+# the legs that keep partial sums in a workspace
+RSQ_LEGS = ("A1", "A2", "D1", "D2", "E2", "G1", "G2")
 
 
 def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
@@ -360,6 +397,45 @@ def check_hrelax(n: int, bim: bool, dform: bool, ckpt: str, legs, seed: int = 5)
             for leg in legs]
 
 
+def check_elastic(n: int, bim: bool, legs, seed: int = 7):
+    """Hold each leg of ``ops/elastic.py`` against its plain version on one
+    level's seeded inputs: u, f and the coarse correction standard normal
+    with two different components, the circle's phase map when ``bim``.
+    One record per leg."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops.elasticity import elastic_factor_constants
+
+    rng = np.random.default_rng(seed)
+    H, Hc = n + 1, n // 2 + 1
+    geo = np.zeros((H, H), np.float32)
+    geo[1:-1, 1:-1] = 1.0
+    u = rng.standard_normal((2, H, H)).astype(np.float32) * geo
+    f = rng.standard_normal((2, H, H)).astype(np.float32)
+    uc = rng.standard_normal((2, Hc, Hc)).astype(np.float32)
+    ph = circle_phase(2.0, n) if bim else None
+    inputs = tuple(None if x is None else torch.as_tensor(x, device=DEVICE)
+                   for x in (u, f, uc, ph))
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0,
+               consts=elastic_factor_constants(E_EL, NU_EL))
+    calls = {
+        "G1_sweep": lambda fn, x, kw: fn(x[0], x[1], x[3], mode="sweep", **kw),
+        "G1_residual": lambda fn, x, kw: fn(x[0], x[1], x[3], mode="residual", **kw),
+        "G2": lambda fn, x, kw: fn(x[0], x[1], x[3], **kw),
+        "G3": lambda fn, x, kw: fn(x[0], x[1], x[3], x[2], **kw),
+        "G4": lambda fn, x, kw: fn(x[1], x[3], **kw),
+        "G5": lambda fn, x, kw: fn(x[1], x[3], x[2], **kw),
+    }
+    fns = {"G1_sweep": (eg.el_sweep_cuda, eg.el_sweep_plain),
+           "G1_residual": (eg.el_sweep_cuda, eg.el_sweep_plain),
+           "G2": (eg.el_swrr_cuda, eg.el_swrr_plain), "G3": (eg.el_psweep_cuda, eg.el_psweep_plain),
+           "G4": (eg.el_zrr_cuda, eg.el_zrr_plain), "G5": (eg.el_zpsweep_cuda, eg.el_zpsweep_plain)}
+    return [hold(leg, calls[leg], *fns[leg], inputs, cfg, elastic_bytes(leg, n, bim), eg.TOL,
+                 dict(n=n, bim=bim))
+            for leg in legs]
+
+
 def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=None):
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
@@ -370,9 +446,38 @@ def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=N
 
 
 def all_kernels() -> dict:
-    from multigrid_feanet_torch.ops import general, hrelax, sweep
+    from multigrid_feanet_torch.ops import elastic, general, hrelax, sweep
 
-    return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS}
+    return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS, **elastic.KERNELS}
+
+
+def counted(run):
+    """``run()`` with every launch count zeroed just before it; returns its
+    result and the counts of the kernels it launched."""
+    import torch
+
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {key: k.launches for key, k in kernels.items() if k.launches}
+
+
+def timed_runs(label: str, run, hist, runs: int = 3):
+    """Walls of ``runs`` calls of ``run() -> (u, history)``, each ending in a
+    synchronize; fails unless every history equals ``hist``."""
+    import torch
+
+    walls = []
+    for _ in range(runs):
+        t0 = time.time()
+        _, h = run()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        if not np.array_equal(h, hist):
+            fail(f"{label}: residual history changed between runs")
+    return walls
 
 
 def run_solve(label: str, build, expect, max_cycles: int, solve=None):
@@ -393,13 +498,12 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None):
     f0 = torch.zeros_like(u0)
 
     solve = solve if solve is not None else (lambda hv, f, **kw: hv.solve(f, **kw))
-    kernels = all_kernels()
-    for k in kernels.values():
-        k.launches = 0
-    u, hist = solve(hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
-    torch.cuda.synchronize()
-    launches = {key: k.launches for key, k in kernels.items()}
-    if not all(launches[key] for key in expect):
+
+    def run():
+        return solve(hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
+
+    (u, hist), launches = counted(run)
+    if not all(launches.get(key) for key in expect):
         fail(f"{label}: a kernel of the path never launched: {launches}")
     if tuple(u.shape) != (n + 1, n + 1) or not torch.isfinite(u).all():
         fail(f"{label}: solution is not finite of shape {(n + 1, n + 1)}")
@@ -409,14 +513,7 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None):
     if not true_res <= 2 * eps:
         fail(f"{label}: true residual of the returned u is {true_res}")
 
-    walls = []
-    for _ in range(3):
-        t0 = time.time()
-        _, h = solve(hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        if not np.array_equal(h, hist):
-            fail(f"{label}: residual history changed between runs")
+    walls = timed_runs(label, run, hist)
     cycles_run = chunk * -(-(len(hist) + 1) // chunk)
     wall = min(walls)
     out = dict(solve=label, n=n, cycles=len(hist), cycles_run=cycles_run,
@@ -427,10 +524,7 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None):
                q_bench=float((hist[-1] / hist[0]) ** (1.0 / max(1, len(hist) - 1))),
                final_res=float(hist[-1]), true_res=true_res, wall_s=wall,
                walls_s=walls, ms_per_cycle=1e3 * wall / cycles_run,
-               setup_s=setup_s, launches=launches,
-               profile=profile_solve(lambda: solve(
-                   hv, f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk),
-                   cycles_run, wall))
+               setup_s=setup_s, launches=launches, profile=profile_solve(run, cycles_run, wall))
     print(json.dumps(out), flush=True)
     return out
 
@@ -441,7 +535,9 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "
                ("sweep_kernel", "A1"), ("d1_gen_relax", "D1"), ("d2_gen_descent", "D2"),
                ("d3_gen_ascent", "D3"), ("d4_gen_zdescent", "D4"), ("d5_gen_zascent", "D5"),
                ("e2_h_descent", "E2"), ("e3_h_ascent", "E3"), ("e4_h_zdescent", "E4"),
-               ("e5_h_zascent", "E5"), ("reduce_kernel", "rsq_reduce"))
+               ("e5_h_zascent", "E5"), ("g1_el_relax", "G1"), ("g2_el_descent", "G2"),
+               ("g3_el_ascent", "G3"), ("g4_el_zdescent", "G4"), ("g5_el_zascent", "G5"),
+               ("reduce_kernel", "rsq_reduce"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -556,25 +652,22 @@ def check_boxmg_small_against_cpu():
     f = rng.standard_normal((N_SMALL + 1, N_SMALL + 1)).astype(np.float32)
     prob = Problem(n=N_SMALL, inclusion=CIRCLE)
     runs, setups, launches = {}, {}, None
-    kernels = all_kernels()
     for dev in (DEVICE, "cpu"):
         hier = GridHierarchy.create(prob, 4, device=dev)
         setups[dev] = boxmg_setup(hier, 4, dtype=torch.float32)
         bm = BoxMGHierarchy(prob, num_levels=4, kernel_threshold=16, hier=hier,
                             setup=setups[dev], device=dev)
-        for k in kernels.values():
-            k.launches = 0
-        u, h = bm.solve(f, bc_value=0.7, nu1=2, nu2=1, eps=1e-3, max_cycles=60)
+        (u, h), counts = counted(
+            lambda: bm.solve(f, bc_value=0.7, nu1=2, nu2=1, eps=1e-3, max_cycles=60))
         if dev == DEVICE:
-            torch.cuda.synchronize()
-            launches = {key: k.launches for key, k in kernels.items()}
+            launches = counts
         runs[dev] = (u.cpu().numpy(), h)
     setup_err = max(float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
                     for pg, pc in zip(setups[DEVICE], setups["cpu"]) for a, b in zip(pg, pc))
     print(json.dumps(dict(boxmg_small_setup_rel_err=setup_err, launches=launches)), flush=True)
     if setup_err > 1e-5:
         fail(f"boxmg setup on the card differs from the CPU's: {setup_err}")
-    if not all(launches[key] for key in ("A1", "D1", "D2", "D3")):
+    if not all(launches.get(key) for key in ("A1", "D1", "D2", "D3")):
         fail(f"boxmg V(2,1): a kernel of the path never launched: {launches}")
     same_solve("boxmg_small_v21", runs)
     return launches
@@ -583,7 +676,6 @@ def check_boxmg_small_against_cpu():
 def check_hmg_small_against_cpu() -> dict:
     """Three 129^2 bi-material H-MG solves on the card against the CPU's
     plain path; returns each variant's launches on the card."""
-    import torch
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
 
@@ -601,18 +693,16 @@ def check_hmg_small_against_cpu() -> dict:
         "hmg_small_bc": (HNET_L1, dict(dform=True), dict(eps=1e-2, max_cycles=60, bc_value=0.7),
                          ("E2", "E3", "E4", "E5")),
     }
-    kernels, out = all_kernels(), {}
+    out = {}
     for label, (ckpt, hkw, skw, expect) in variants.items():
         runs = {}
         for dev in (DEVICE, "cpu"):
             hv = HMGHierarchy(prob, num_levels=4, kernel_threshold=16, direct_coarse=True,
                               device=dev, **hkw)
-            for k in kernels.values():
-                k.launches = 0
-            u, h = hv.solve(load_params(ckpt, dev), f, **skw)
+            params = load_params(ckpt, dev)
+            (u, h), launches = counted(lambda: hv.solve(params, f, **skw))
             if dev == DEVICE:
-                torch.cuda.synchronize()
-                out[label] = {key: k.launches for key, k in kernels.items() if k.launches}
+                out[label] = launches
                 if not all(out[label].get(key) for key in expect):
                     fail(f"{label}: a kernel of the path never launched: {out[label]}")
             runs[dev] = (u.cpu().numpy(), h)
@@ -620,6 +710,163 @@ def check_hmg_small_against_cpu() -> dict:
             fail(f"{label}: the boundary value was not kept")
         same_solve(label, runs)
     print(json.dumps({"hmg_small_launches": out}), flush=True)
+    return out
+
+
+def build_elastic(threshold: int, n: int = N_EL, num_levels: int = 9, device=DEVICE):
+    """The elastic cells' hierarchy: plane stress, circle r = 0.5,
+    coefficients (1, 20), the direct coarse solve."""
+    from multigrid_feanet_torch.solvers.elastic import ElasticHierarchy
+
+    return ElasticHierarchy(n, E_EL, NU_EL, inclusion=CIRCLE, coefficients=(1.0, 20.0),
+                            num_levels=num_levels, kernel_threshold=threshold,
+                            direct_coarse=True, device=device)
+
+
+def elastic_cell_checks(label: str, u, hist, launches: dict, expect: dict) -> None:
+    """Fail unless the cell launched exactly ``expect`` and left a finite
+    (2, n+1, n+1) solution and history."""
+    import torch
+
+    got = {key: launches.get(key, 0) for key in expect}
+    if got != expect:
+        fail(f"{label}: launches {launches}, expected {expect}")
+    if tuple(u.shape) != (2, N_EL + 1, N_EL + 1) or not torch.isfinite(u).all():
+        fail(f"{label}: solution is not finite of shape {(2, N_EL + 1, N_EL + 1)}")
+    if not np.all(np.isfinite(hist)):
+        fail(f"{label}: non-finite residual history {hist}")
+
+
+def run_elastic_cells() -> dict:
+    """The three 2049^2 elastic cells and the bench's kernel threshold of
+    512 (``bench.py:336-375``): the f = 0 decay protocol from a standard
+    normal u0 (rng 1), eps 0.  Returns each cell's record."""
+    import torch
+    from multigrid_feanet_torch.ops.elasticity import elastic_interior_norm
+
+    n = N_EL
+    t0 = time.time()
+    hv = build_elastic(16)
+    setup_s = time.time() - t0
+    lv0 = hv.levels[0]
+    u0 = torch.as_tensor(np.random.default_rng(1).standard_normal((2, n + 1, n + 1)).astype(
+        np.float32), device=DEVICE)
+    f0 = torch.zeros_like(u0)
+    out = {}
+
+    def vcycles(h, cycles, nu=2):
+        return lambda: h.solve(f0, u0=u0, nu1=nu, nu2=nu, eps=0.0, max_cycles=cycles)
+
+    def tail_q(hist, k):
+        return float(np.exp(np.mean(np.diff(np.log(hist))[-k:])))
+
+    # elastic_2049: V(2,2), per cycle 2 G1, G2 and G3 on each of the K = 8
+    # fused levels
+    K = hv.K
+    (u, h12), launches = counted(vcycles(hv, 12))
+    elastic_cell_checks("elastic_2049", u, h12, launches,
+                        {"G1": 2 * K * 12, "G2": K * 12, "G3": K * 12})
+    if not h12[-1] < h12[0]:
+        fail(f"elastic_2049: the residual history does not fall: {h12}")
+    (_, h4) = vcycles(hv, 4)()
+    w4 = timed_runs("elastic_2049", vcycles(hv, 4), h4)
+    w12 = timed_runs("elastic_2049", vcycles(hv, 12), h12)
+    _, h60 = vcycles(hv, 60)()
+    t4, t12 = min(w4), min(w12)
+    out["elastic_2049"] = dict(
+        solve="elastic_2049", n=n, K=hv.K, setup_s=setup_s, cycles=12, history_len=len(h12),
+        ms_per_cycle=1e3 * (t12 - t4) / 8, t4_s=t4, t12_s=t12, walls4_s=w4, walls12_s=w12,
+        tail_q12=tail_q(h12, 4), q_asym60=tail_q(h60, 8), hist12=h12.tolist(),
+        hist60_last=h60[-9:].tolist(), launches=launches,
+        profile=profile_solve(vcycles(hv, 12), 12, t12))
+    print(json.dumps(out["elastic_2049"]), flush=True)
+
+    # the bench's threshold: levels 256..16 as plain torch ops
+    hb = build_elastic(512)
+    (_, hb12), lb = counted(vcycles(hb, 12))
+    ratio = hb12 / h12
+    tb4 = min(timed_runs("elastic_2049_t512", vcycles(hb, 4), vcycles(hb, 4)()[1], 2))
+    tb12 = min(timed_runs("elastic_2049_t512", vcycles(hb, 12), hb12, 2))
+    out["elastic_2049_t512"] = dict(
+        solve="elastic_2049_t512", K=hb.K, ms_per_cycle=1e3 * (tb12 - tb4) / 8, t4_s=tb4,
+        t12_s=tb12, max_hist_ratio_dev=float(np.max(np.abs(ratio - 1))), launches=lb)
+    print(json.dumps(out["elastic_2049_t512"]), flush=True)
+    del hb
+    if not np.all((ratio >= 0.99) & (ratio <= 1.01)):
+        fail(f"elastic_2049_t512: history departs from threshold 16's: {ratio}")
+
+    # elastic_pcg_2049: 16 iterations; per iteration one V(2,2) from zero
+    # (2K G1, K G2, K G3) and two G1 residual passes, plus the start's
+    # residual and preconditioner
+    def pcg():
+        return hv.solve_pcg(f0, u0=u0, nu1=2, nu2=2, eps=0.0, max_iters=16)
+
+    (u, hp), launches = counted(pcg)
+    it = len(hp)
+    elastic_cell_checks("elastic_pcg_2049", u, hp, launches,
+                        {"G1": 1 + 2 * K + (2 + 2 * K) * it, "G2": K * (it + 1),
+                         "G3": K * (it + 1)})
+    drop = float(hp[-1] / hp[0])
+    if not drop <= 1e-5:
+        fail(f"elastic_pcg_2049: the residual dropped only {drop}: {hp}")
+    true32 = float(elastic_interior_norm(f0 - lv0.apply(u)))
+    true64 = float(elastic_interior_norm(f0.double() - lv0.apply(u.double())))
+    if not abs(true32 - hp[-1]) <= 1e-3 * hp[-1]:
+        fail(f"elastic_pcg_2049: history ends at {hp[-1]}, the true residual is {true32}")
+    wp = timed_runs("elastic_pcg_2049", pcg, hp)
+    out["elastic_pcg_2049"] = dict(
+        solve="elastic_pcg_2049", n=n, iterations=it, wall_s=min(wp), walls_s=wp,
+        ms_per_iteration=1e3 * min(wp) / it,
+        contraction=float(np.exp(np.mean(np.diff(np.log(hp + 1e-30))[-6:]))), drop=drop,
+        true_res_f32=true32, true_res_f64=true64, hist=hp.tolist(), launches=launches,
+        profile=profile_solve(pcg, it, min(wp)))
+    print(json.dumps(out["elastic_pcg_2049"]), flush=True)
+
+    # elastic_v11_2049: V(1,1), per cycle G2 and G3 at level 0, G4 and G5 on
+    # levels 1..K-1
+    (u, h11), launches = counted(vcycles(hv, 12, nu=1))
+    elastic_cell_checks("elastic_v11_2049", u, h11, launches,
+                        {"G2": 12, "G3": 12, "G4": (K - 1) * 12, "G5": (K - 1) * 12})
+    (_, h11_4) = vcycles(hv, 4, nu=1)()
+    v4 = min(timed_runs("elastic_v11_2049", vcycles(hv, 4, nu=1), h11_4))
+    w11 = timed_runs("elastic_v11_2049", vcycles(hv, 12, nu=1), h11)
+    out["elastic_v11_2049"] = dict(
+        solve="elastic_v11_2049", n=n, cycles=12, ms_per_cycle=1e3 * (min(w11) - v4) / 8,
+        t4_s=v4, t12_s=min(w11), walls12_s=w11, tail_q12=tail_q(h11, 4),
+        hist12=h11.tolist(), launches=launches,
+        profile=profile_solve(vcycles(hv, 12, nu=1), 12, min(w11)))
+    print(json.dumps(out["elastic_v11_2049"]), flush=True)
+    return out
+
+
+def check_elastic_small_against_cpu() -> dict:
+    """Three 129^2 bi-material elastic solves (V(2,2), V(1,1), PCG; 4
+    levels, the direct solve at n = 16) on the card against the CPU's
+    plain path; returns each variant's launches on the card."""
+    rng = np.random.default_rng(8)
+    geo = np.zeros((N_SMALL + 1, N_SMALL + 1), np.float32)
+    geo[1:-1, 1:-1] = 1.0
+    f = (rng.standard_normal((2, N_SMALL + 1, N_SMALL + 1)) * geo).astype(np.float32)
+    variants = {  # label: (run, kernels to launch)
+        "elastic_small_v22": (lambda hv: hv.solve(f, eps=1e-2, max_cycles=100), ("G1", "G2", "G3")),
+        "elastic_small_v11": (lambda hv: hv.solve(f, nu1=1, nu2=1, eps=1e-2, max_cycles=100),
+                              ("G2", "G3", "G4", "G5")),
+        "elastic_small_pcg": (lambda hv: hv.solve_pcg(f, eps=1e-2, max_iters=60),
+                              ("G1", "G2", "G3")),
+    }
+    out = {}
+    for label, (run, expect) in variants.items():
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            hv = build_elastic(16, n=N_SMALL, num_levels=4, device=dev)
+            (u, h), launches = counted(lambda: run(hv))
+            if dev == DEVICE:
+                out[label] = launches
+                if not all(launches.get(key) for key in expect):
+                    fail(f"{label}: a kernel of the path never launched: {launches}")
+            runs[dev] = (u.cpu().numpy(), h)
+        same_solve(label, runs)
+    print(json.dumps({"elastic_small_launches": out}), flush=True)
     return out
 
 
@@ -720,6 +967,15 @@ def main() -> int:
         for label, bim, cap in (("hmg_4097", False, 40), ("hmg_interface_4097", True, 60))]
     check_hmg_small_against_cpu()
 
+    echecks = []
+    g_all = ["G1_sweep", "G1_residual", "G2", "G3", "G4", "G5"]
+    for n, bim in ((N_EL, True), (N_EL, False), (N_EL // 2, True), (N_SMALL, True),
+                   (N_SMALL, False)):
+        echecks += check_elastic(n, bim, g_all)
+    print(json.dumps({"elastic_kernel_checks": echecks}), flush=True)
+    cells = run_elastic_cells()
+    check_elastic_small_against_cpu()
+
     # one row per kernel and path, at the path's shapes: A1 (psweep) and A2
     # at level 0, A3 and A4 at level 1, the largest level they run on; the
     # Poisson path runs the homogeneous builds ("_hom").  D2/D3 at level 0
@@ -752,6 +1008,19 @@ def main() -> int:
                        and c["bim"] == bim and c["L"] == 1)
             row = summary_row(key, rec, solve["launches"][key], solve["solve"])
             summary.append(dict(row, name=row["name"] + ("_bim" if bim else "")))
+    # G1-G3 at level 0 of elastic_2049 and elastic_pcg_2049; G2/G3 at level
+    # 0 and G4/G5 at level 1 of elastic_v11_2049 (bi-material)
+    g_shape = {"elastic_2049": ("", {"G1": ("G1_sweep", N_EL), "G2": ("G2", N_EL),
+                                     "G3": ("G3", N_EL)}),
+               "elastic_pcg_2049": ("_pcg", {"G1": ("G1_sweep", N_EL), "G2": ("G2", N_EL),
+                                             "G3": ("G3", N_EL)}),
+               "elastic_v11_2049": ("_v11", {"G2": ("G2", N_EL), "G3": ("G3", N_EL),
+                                             "G4": ("G4", N_EL // 2), "G5": ("G5", N_EL // 2)})}
+    for path, (suffix, shapes) in g_shape.items():
+        for key, (leg, n) in shapes.items():
+            rec = next(c for c in echecks if c["name"] == leg and c["n"] == n and c["bim"])
+            row = summary_row(key, rec, cells[path]["launches"][key], path)
+            summary.append(dict(row, name=row["name"] + suffix))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,8 @@ What carries over between the JAX package and the port is the operator data
 of each level and the learned H-Net's kernels.
 :func:`hierarchy_from_arrays` builds the port's :class:`GridHierarchy` from
 per-level numpy fields (for example those of a JAX ``GridHierarchy``),
+:func:`elastic_hierarchy_from_arrays` the elastic levels (those of a JAX
+``build_elastic_hierarchy``) in the same container,
 :func:`boxmg_setup_from_arrays` the BoxMG transfers and Galerkin operators,
 so that both sides run on the identical operator, and
 :func:`hnet_params_from_arrays` the H-Net's (L, 3, 3) kernels (for example
@@ -20,6 +22,12 @@ import torch
 
 from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.core.problem import GridHierarchy, Level
+from multigrid_feanet_torch.solvers.elastic import ElasticLevel
+
+
+def _tensor(x, device, dtype=None):
+    """A copy of array ``x`` on ``device`` (None stays None)."""
+    return None if x is None else torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
 def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
@@ -35,9 +43,7 @@ def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
     device = resolve_device(device)
 
     def dev(x, dtype=None):
-        if x is None:
-            return None
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+        return _tensor(x, device, dtype)
 
     out = []
     for lv in levels:
@@ -48,6 +54,36 @@ def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
             table=dev(lv["table"]), pid=dev(lv["pid"], torch.int8),
             geo=dev(lv["geo"]), diag=dev(lv["diag"]),
             phase=dev(lv["phase"], torch.int8)))
+    return GridHierarchy(levels=tuple(out), coarse_inv=dev(coarse_inv))
+
+
+def elastic_hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
+                                  device=None) -> GridHierarchy:
+    """Build a hierarchy of ``ElasticLevel``s from finest-to-coarsest level
+    mappings.
+
+    Each mapping holds ``n``, ``h``, ``E``, ``nu``, ``plane``, ``a0`` and
+    ``a1`` (floats or None) and the arrays ``table`` (16, 3, 3, 2, 2),
+    ``pid`` (None if homogeneous), ``geo``, ``dinv`` (n+1, n+1, 2, 2) and the
+    (n, n) element ``phase`` (None if homogeneous).  Float fields keep their
+    dtype; ``pid`` and ``phase`` become int8.  ``coarse_inv``, the dense
+    inverse of the coarsest interior operator (node-major interleaved), is
+    carried along for the direct coarse solve when given.  ``device=None``
+    means CUDA."""
+    device = resolve_device(device)
+
+    def dev(x, dtype=None):
+        return _tensor(x, device, dtype)
+
+    out = []
+    for lv in levels:
+        out.append(ElasticLevel(
+            n=int(lv["n"]), h=float(lv["h"]), E=float(lv["E"]), nu=float(lv["nu"]),
+            plane=str(lv["plane"]),
+            a0=None if lv["a0"] is None else float(lv["a0"]),
+            a1=None if lv["a1"] is None else float(lv["a1"]),
+            table=dev(lv["table"]), pid=dev(lv["pid"], torch.int8), geo=dev(lv["geo"]),
+            dinv=dev(lv["dinv"]), phase=dev(lv["phase"], torch.int8)))
     return GridHierarchy(levels=tuple(out), coarse_inv=dev(coarse_inv))
 
 

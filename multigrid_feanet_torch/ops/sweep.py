@@ -336,19 +336,20 @@ def _check(t, name, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _operands(n, device, fields=(), phase=None, coarse=()):
+def _operands(n, device, fields=(), phase=None, coarse=(), lead=()):
     """Check the f32 node fields, the int8 phase and the f32 coarse fields
-    of one launch on an (n+1)^2 level."""
+    of one launch on an (n+1)^2 level; fields and coarse fields carry the
+    leading dimensions ``lead`` (``(2,)`` for displacement fields)."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {device} ones")
     if n < 2 or n % 2:
         raise ValueError(f"levels must have an even n >= 2, got n={n}")
     for name, t in fields:
-        _check(t, name, (n + 1, n + 1), torch.float32, device)
+        _check(t, name, (*lead, n + 1, n + 1), torch.float32, device)
     if phase is not None:
         _check(phase, "phase", (n, n), torch.int8, device)
     for name, t in coarse:
-        _check(t, name, (n // 2 + 1, n // 2 + 1), torch.float32, device)
+        _check(t, name, (*lead, n // 2 + 1, n // 2 + 1), torch.float32, device)
 
 
 def _output(t, name, shape, device, inputs):

@@ -43,16 +43,17 @@ def solve_cycles(cycle, finest, f, u0=None, bc_value=None, eps: float = 1e-6,
     level until the residual norm reaches ``eps``.
 
     ``cycle`` writes into ``rsq`` the squared interior residual norm of the
-    iterate ENTERING it.  ``f`` is the (n+1, n+1) RHS (tensor or array) and
-    ``u0`` the initial iterate (zero if None), whose boundary is set to
-    ``bc_value``.  The history stays on the device, with -1 sentinels, and
-    is read back once per ``chunk`` cycles: one host sync per chunk.
+    iterate ENTERING it.  ``f`` is the (..., n+1, n+1) RHS (tensor or
+    array; a scalar field, or the (2, n+1, n+1) displacement RHS of the
+    elastic solver) and ``u0`` the initial iterate of the same shape (zero
+    if None), whose boundary is set to ``bc_value``.  The history stays on
+    the device, with -1 sentinels, and is read back once per ``chunk``
+    cycles: one host sync per chunk.
     Returns ``(u, history)`` in the convention of :func:`trim_history`."""
     dev = finest.device
-    H = finest.n_nodes
     f = torch.as_tensor(f, dtype=torch.float32, device=dev).contiguous()
     if u0 is None:
-        u0 = torch.zeros((H, H), dtype=torch.float32, device=dev)
+        u0 = torch.zeros_like(f)
     u0 = torch.as_tensor(u0, dtype=torch.float32, device=dev)
     u = reset_boundary(u0, finest.geo, 0.0 if bc_value is None else bc_value).contiguous()
     sp = torch.empty_like(u)

@@ -248,11 +248,12 @@ def test_library_hash_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     cu = sorted(csrc.glob("*.cu"))
-    assert [p.name for p in cu] == ["general.cu", "hrelax.cu", "sweep.cu"]
-    assert [p.name for p in _build.sources()] == ["general.cu", "hrelax.cu", "sweep.cu"]
+    names = ["elastic.cu", "general.cu", "hrelax.cu", "sweep.cu"]
+    assert [p.name for p in cu] == names
+    assert [p.name for p in _build.sources()] == names
     seen = {_build.library_path()}
     for path in (*cu[::-1], csrc / "common.cuh"):
         path.write_bytes(path.read_bytes() + b"\n")
         seen.add(_build.library_path())
-    assert len(seen) == 5
+    assert len(seen) == 6
     assert _build.library_path() == _build.library_path()

@@ -1,0 +1,189 @@
+"""The port's elastic multigrid solvers (multigrid_feanet_torch/solvers/
+elastic.py) against the JAX package on the CPU: the plain ``solve`` in f64,
+and ``ElasticHierarchy.solve`` at V(2,2) against ``PallasElasticMG`` in
+interpret mode, without and with the direct coarse solve (the latter with a
+boundary value).  V(1,1) and the preconditioned CG are in
+test_torch_elastic_pcg.py, so the two files run on separate workers.
+
+The fused comparisons run on the identical operator: the port's levels are
+carried over with elastic_hierarchy_from_arrays from the JAX levels, with
+the JAX coarse inverse.  The bands are those of tests/test_torch_mg2.py:
+the element-factored plain versions and the Pallas kernels sum in
+different f32 orders, which amplifies once the residual is small, so the
+contract is the same cycle count (+-1 near eps), the first residual to 1e-4
+relative, every history ratio within [0.8, 1.25], and the solution to 1e-3
+of its scale.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from multigrid_feanet_tpu.core import geometry
+from multigrid_feanet_tpu.solvers import elastic as jes
+
+from multigrid_feanet_torch.core.convert import elastic_hierarchy_from_arrays
+from multigrid_feanet_torch.ops.elastic import ElasticSweepLevel
+from multigrid_feanet_torch.solvers import elastic as tes
+from multigrid_feanet_torch.solvers.elastic import ElasticHierarchy
+
+E, NU = 212e3, 0.288  # Plane_Stress_modify.m:11-12
+COEF = (1.0, 20.0)
+CIRCLE = ("circle", (0.0, 0.0), 0.5)
+N = 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def pair(direct: bool, n: int = N):
+    """The JAX solver (interpret mode, threshold 16) and the port's on the
+    same levels and coarse inverse, the port on the CPU."""
+    jm = jes.PallasElasticMG(n, E, NU, inclusion=CIRCLE, coefficients=COEF,
+                             pallas_threshold=16, rows=32, interpret=True,
+                             direct_coarse=direct)
+    arrays = [dict(n=lv.n, h=lv.h, E=lv.E, nu=lv.nu, plane=lv.plane, a0=lv.a0, a1=lv.a1,
+                   table=np.asarray(lv.table), pid=np.asarray(lv.pid), geo=np.asarray(lv.geo),
+                   dinv=np.asarray(lv.dinv), phase=geometry.circle_phase(2.0, lv.n))
+              for lv in jm.levels]
+    inv = None if jm.coarse_inv is None else np.asarray(jm.coarse_inv)
+    th = ElasticHierarchy(n, E, NU, inclusion=CIRCLE, coefficients=COEF, kernel_threshold=16,
+                          direct_coarse=direct,
+                          hier=elastic_hierarchy_from_arrays(arrays, inv, device="cpu"),
+                          device="cpu")
+    assert th.K == jm.K == 3
+    return jm, th
+
+
+def rhs(n: int = N, seed: int = 0):
+    geo = np.zeros((n + 1, n + 1), np.float32)
+    geo[1:-1, 1:-1] = 1.0
+    return (np.random.default_rng(seed).standard_normal((2, n + 1, n + 1)) * geo).astype(np.float32)
+
+
+def assert_same_solve(jres, tres, max_cycles):
+    (uj, hj), (ut, ht) = jres, tres
+    hj, ht = np.asarray(hj), np.asarray(ht)
+    assert ut.device == torch.device("cpu") and ut.dtype == torch.float32
+    assert ut.shape == (2, N + 1, N + 1)
+    assert abs(len(hj) - len(ht)) <= 1
+    assert len(hj) < max_cycles and len(ht) < max_cycles  # converged, not capped
+    assert abs(ht[0] - hj[0]) / hj[0] < 1e-4
+    m = min(len(hj), len(ht))
+    ratio = ht[:m] / hj[:m]
+    assert np.all(ratio > 0.8) and np.all(ratio < 1.25), ratio
+    uj = np.asarray(uj)
+    assert float(np.max(np.abs(ut.numpy() - uj))) / float(np.max(np.abs(uj))) < 1e-3
+
+
+@pytest.fixture(scope="module")
+def no_direct():
+    return pair(direct=False)
+
+
+@pytest.fixture(scope="module")
+def direct():
+    return pair(direct=True)
+
+
+def test_plain_solve_matches_jax_f64():
+    """The plain V(2,2) solve in f64: the same cycles and history."""
+    n = 32
+    jl = jes.build_elastic_hierarchy(n, E, NU, inclusion=CIRCLE, coefficients=COEF,
+                                     dtype=jnp.float64)
+    tl = tes.build_elastic_hierarchy(n, E, NU, inclusion=CIRCLE, coefficients=COEF,
+                                     dtype=torch.float64, device="cpu")
+    f = rhs(n, seed=1).astype(np.float64)
+    uj, hj = jes.solve(jl, jnp.asarray(f), nu1=2, nu2=2, eps=0.0, max_cycles=12, chunk=4)
+    ut, ht = tes.solve(tl, f, nu1=2, nu2=2, eps=0.0, max_cycles=12, chunk=4)
+    assert ut.dtype == torch.float64 and len(ht) == len(hj) == 12
+    assert ht[-1] < 0.2 * ht[0]
+    np.testing.assert_allclose(ht, np.asarray(hj), rtol=1e-9)
+    # stopping at eps inside a chunk: the history ends at the first norm <= eps
+    _, he = tes.solve(tl, f, nu1=2, nu2=2, eps=float(ht[5]), max_cycles=12, chunk=4)
+    np.testing.assert_array_equal(he, ht[:6])
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=0, atol=1e-9 * np.abs(uj).max())
+
+
+def test_v22_matches_pallas(no_direct):
+    """V(2,2) with the plain subtree down to n = 2 (no direct solve)."""
+    jm, th = no_direct
+    f = rhs()
+    assert_same_solve(jm.solve(jnp.asarray(f), nu1=2, nu2=2, eps=1e-2, max_cycles=60),
+                      th.solve(f, nu1=2, nu2=2, eps=1e-2, max_cycles=60), 60)
+
+
+def test_v22_direct_bc_matches_pallas(direct):
+    """V(2,2) with the direct coarse solve and a boundary value of 0.7.  The
+    boundary value puts the f32 residual floor near 10 (|A| ~ 4e6 next to
+    the boundary), so the solve stops at 100, three decades below its
+    start."""
+    jm, th = direct
+    f = rhs(seed=2)
+    jres = jm.solve(jnp.asarray(f), bc_value=0.7, nu1=2, nu2=2, eps=100.0, max_cycles=60)
+    tres = th.solve(f, bc_value=0.7, nu1=2, nu2=2, eps=100.0, max_cycles=60)
+    assert_same_solve(jres, tres, 60)
+    u = tres[0].numpy()
+    np.testing.assert_allclose(u[:, 0, :], 0.7, atol=1e-6)
+    np.testing.assert_allclose(u[:, :, -1], 0.7, atol=1e-6)
+
+
+def test_built_hierarchy_equals_carried(no_direct):
+    """A hierarchy the port builds itself runs exactly the carried one."""
+    _, th = no_direct
+    own = ElasticHierarchy(N, E, NU, inclusion=CIRCLE, coefficients=COEF, kernel_threshold=16,
+                           device="cpu")
+    f = rhs(seed=3)
+    (u1, h1), (u2, h2) = (h.solve(f, eps=0.0, max_cycles=4) for h in (th, own))
+    np.testing.assert_array_equal(h1, h2)
+    np.testing.assert_array_equal(u1.numpy(), u2.numpy())
+
+
+def test_history_convention_and_chunk():
+    """history[j] is the residual after cycle j+1, read back once per chunk:
+    chunk only changes how many extra cycles the returned u carries."""
+    n = 32
+    th = ElasticHierarchy(n, E, NU, inclusion=CIRCLE, coefficients=COEF, num_levels=3,
+                          kernel_threshold=16, direct_coarse=True, device="cpu")
+    f = rhs(n, seed=4)
+    _, h1 = th.solve(f, eps=1e-2, max_cycles=40, chunk=1)
+    _, h3 = th.solve(f, eps=1e-2, max_cycles=40, chunk=3)
+    np.testing.assert_array_equal(h1, h3)
+    assert h1[-1] <= 1e-2 < h1[-2]
+    # capped: max_cycles cycles applied, max_cycles - 1 recorded
+    _, hc = th.solve(f, eps=0.0, max_cycles=5)
+    assert len(hc) == 4
+
+
+def test_guards():
+    th = ElasticHierarchy(32, E, NU, inclusion=CIRCLE, coefficients=COEF, num_levels=3,
+                          kernel_threshold=16, device="cpu")
+    f = rhs(32)
+    with pytest.raises(ValueError, match="nu1, nu2"):
+        th.solve(f, nu1=0)
+    with pytest.raises(ValueError, match="nu1, nu2"):
+        th.solve_pcg(f, nu2=0)
+    with pytest.raises(ValueError, match="displacement RHS"):
+        th.solve(f[0])
+    with pytest.raises(ValueError, match="kernel_threshold"):
+        ElasticHierarchy(32, E, NU, num_levels=3, kernel_threshold=64, device="cpu")
+
+
+def test_entry_points_need_cuda_by_default():
+    """device=None means CUDA, and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticHierarchy(32, E, NU, num_levels=3, kernel_threshold=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticSweepLevel(32, E, NU)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tes.build_elastic_hierarchy(32, E, NU)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic_hierarchy_from_arrays([])
