@@ -96,6 +96,10 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # The homogeneous forms do fewer, so these counts bound theirs from above;
 # the byte time exceeds the operation time either way.
 FLOPS_PER_NODE = {"A1": 48, "A2": 100, "A3": 45, "A4": 50}
+# A5 and A6, counted the same way: one apply, the masked residual, its
+# square and a quarter of the restriction (A5); three applies, two Jacobi
+# updates, the prolongation, the residual norm and the restriction (A6).
+FLOPS_PER_NODE.update({"A5": 50, "A6": 150})
 # D1-D5, counted from csrc/general.cu: the 9-plane apply is 17 operations,
 # the bi-material difference-form apply ~35, a W4 prolongation 7 and a W4
 # restriction 17 per coarse node; D2/D3 counted for the bi-material
@@ -199,7 +203,27 @@ def bytes_moved(name: str, n: int, bim: bool) -> int:
         "A2": 4 * H2 * 3 + ph + 4 * Hc2,
         "A3": 4 * H2 + ph + 4 * Hc2,
         "A4": 4 * H2 * 2 + ph + 4 * Hc2,
+        "A5": 4 * H2 * 2 + ph + 4 * Hc2,
+        "A6": 4 * H2 * 3 + ph + 4 * Hc2 * 2,
     }[name]
+
+
+def stencil_bytes(n: int, bim: bool) -> int:
+    """Bytes one pass of C1 or C2 must move: u and f read, the output
+    written (f32), the (n+1)^2 int8 pattern ids read when two-phase."""
+    H2 = (n + 1) ** 2
+    return 4 * H2 * 3 + (H2 if bim else 0)
+
+
+def stencil_flops(sweeps: int, pid) -> float:
+    """f32 operations per node of ``sweeps`` sweeps of C1/C2 on this data,
+    counted from csrc/stencil.cu: the S9 taps (17), the masked residual and
+    its square (3), the update (3) and, when two-phase, the diagonal (4) and
+    9 per set bit of the node's pattern id (its element's S4 taps)."""
+    if pid is None:
+        return sweeps * 23.0
+    bits = sum(float(((pid.int() >> e) & 1).sum()) for e in range(4))
+    return sweeps * (27.0 + 9.0 * bits / pid.numel())
 
 
 def general_bytes(leg: str, n: int, bim: bool, coef_bytes: int) -> int:
@@ -251,9 +275,12 @@ OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "D2": ("out", "fc_out", "rsq"), "D3": ("out",), "D4": ("out",), "D5": ("out",),
              "E2": ("out", "fc_out", "rsq"), "E3": ("out",), "E4": ("out",), "E5": ("out",),
              "G1_sweep": ("out", "rsq"), "G1_residual": ("out", "rsq"),
-             "G2": ("out", "fc_out", "rsq"), "G3": ("out",), "G4": ("out",), "G5": ("out",)}
+             "G2": ("out", "fc_out", "rsq"), "G3": ("out",), "G4": ("out",), "G5": ("out",),
+             "A5": ("fc_out", "rsq"), "A6": ("out", "fc_out", "rsq"),
+             "C1_sweep": ("out", "rsq"), "C1_residual": ("out", "rsq"),
+             **{f"C2_k{k}": ("out", "rsq") for k in range(1, 9)}}
 # the legs that keep partial sums in a workspace
-RSQ_LEGS = ("A1", "A2", "D1", "D2", "E2", "G1", "G2")
+RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E2", "G1", "G2")
 
 
 def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
@@ -312,16 +339,68 @@ def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1):
         "A2": lambda fn, x, kw: fn(x[0], x[1], x[3], dform=dform, **kw),
         "A3": lambda fn, x, kw: fn(x[1], x[3], **kw),
         "A4": lambda fn, x, kw: fn(x[1], x[3], x[2], **kw),
+        "A5": lambda fn, x, kw: fn(x[0], x[1], x[3], dform=dform, **kw),
+        "A6": lambda fn, x, kw: fn(x[0], x[1], x[3], x[2], dform=dform, **kw),
     }
     fns = {"A1_sweep": (sw.sweep_cuda, sw.sweep_plain),
            "A1_residual": (sw.sweep_cuda, sw.sweep_plain),
            "A1_psweep": (sw.sweep_cuda, sw.sweep_plain),
            "A2": (sw.swrr_cuda, sw.swrr_plain),
            "A3": (sw.zrr_cuda, sw.zrr_plain),
-           "A4": (sw.zpsweep_cuda, sw.zpsweep_plain)}
-    return [hold(leg, calls[leg], *fns[leg], inputs, cfg, bytes_moved(leg, n, bim), sw.TOL,
-                 dict(n=n, bim=bim, dform=dform if leg[:2] in ("A1", "A2") else False))
+           "A4": (sw.zpsweep_cuda, sw.zpsweep_plain),
+           "A5": (sw.rr_cuda, sw.rr_plain),
+           "A6": (sw.pswrr_cuda, sw.pswrr_plain)}
+    a5cfg = dict(a0=cfg["a0"], da=cfg["da"])
+    return [hold(leg, calls[leg], *fns[leg], inputs, a5cfg if leg == "A5" else cfg,
+                 bytes_moved(leg, n, bim), sw.TOL,
+                 dict(n=n, bim=bim, dform=dform if leg not in ("A3", "A4") else False))
             for leg in legs]
+
+
+def check_stencil(n: int, bim: bool, legs, seed: int = 9):
+    """Hold each leg of ``ops/stencil_sweep.py`` (C1 in its sweep and
+    residual modes, C2 as ``C2_k<k>``) against its plain version on one
+    level's seeded inputs, the circle's pattern ids when ``bim``; C2 also
+    against k chained C1 launches.  One record per leg."""
+    import torch
+    from multigrid_feanet_torch.ops import stencil as tst
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import stencil_sweep as ss
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    u, f, _, _ = level_inputs(n, False, seed)
+    pid = (torch.as_tensor(tst.pattern_ids_np(circle_phase(2.0, n)), device=DEVICE)
+           if bim else None)
+    inputs = (u, f, pid)
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0)
+    out = []
+    for leg in legs:
+        if leg.startswith("C1"):
+            mode = leg.split("_")[1]
+            call = lambda fn, x, kw, mode=mode: fn(x[0], x[1], x[2], mode=mode, **kw)
+            fns, sweeps = (ss.relax_cuda, ss.relax_plain), 1
+        else:
+            sweeps = int(leg.split("_k")[1])
+            call = lambda fn, x, kw, k=sweeps: fn(x[0], x[1], x[2], k=k, **kw)
+            fns = (ss.multi_cuda, ss.multi_plain)
+        rec = hold(leg, call, *fns, inputs, cfg, stencil_bytes(n, bim), TOL,
+                   dict(n=n, bim=bim, sweeps=sweeps))
+        rec["flops_per_node"] = stencil_flops(sweeps, pid)
+        if leg.startswith("C2"):
+            # k chained C1 launches on the same inputs, at TOL: FMA
+            # contraction may differ between the two kernels
+            got, rsq_g = ss.multi_cuda(u, f, pid, k=sweeps, **cfg)
+            chain = u
+            for _ in range(sweeps):
+                chain, rsq_c = ss.relax_cuda(chain, f, pid, **cfg)
+            torch.cuda.synchronize()
+            err = float((got - chain).abs().max()) / max(1.0, float(chain.abs().max()))
+            rerr = abs(float(rsq_g) - float(rsq_c)) / max(abs(float(rsq_c)), 1e-30)
+            rec.update(chained_c1_rel_err=err, chained_c1_rsq_rel_err=rerr)
+            if err > TOL or rerr > TOL:
+                fail(f"{leg} n={n} bim={bim}: C2 disagrees with {sweeps} chained C1: {err}, {rerr}")
+        out.append(rec)
+    return out
 
 
 def check_general(level: int, bim: bool, legs, setup, coef_dtype, seed: int = 3):
@@ -446,9 +525,10 @@ def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=N
 
 
 def all_kernels() -> dict:
-    from multigrid_feanet_torch.ops import elastic, general, hrelax, sweep
+    from multigrid_feanet_torch.ops import elastic, general, hrelax, stencil_sweep, sweep
 
-    return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS, **elastic.KERNELS}
+    return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS, **elastic.KERNELS,
+            **stencil_sweep.KERNELS}
 
 
 def counted(run):
@@ -480,10 +560,23 @@ def timed_runs(label: str, run, hist, runs: int = 3):
     return walls
 
 
-def run_solve(label: str, build, expect, max_cycles: int, solve=None):
+def decay_start(lv0):
+    """The f = 0 decay protocol's start: u0 = 150000 * uniform(rng 0) on the
+    interior, f = 0."""
+    import torch
+
+    n = lv0.n
+    u0 = (150000.0 * np.random.default_rng(0).uniform(size=(n + 1, n + 1))).astype(np.float32)
+    u0 = torch.as_tensor(u0, device=lv0.device) * lv0.geo
+    return u0, torch.zeros_like(u0)
+
+
+def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bool = True):
     """Drive one 4097^2 solve from the f = 0 decay protocol: count its
     launches (every kernel in ``expect`` must launch), check it, time it.
-    ``solve(hv, f, **kw)`` runs the built solver (default ``hv.solve``)."""
+    ``solve(hv, f, **kw)`` runs the built solver (default ``hv.solve``).
+    ``lagged``: the solver's history lags one cycle and it runs whole
+    chunks (the V2 convention); else it ran ``len(history)`` cycles."""
     import torch
     from multigrid_feanet_torch.solvers.jacobi import interior_norm
 
@@ -492,10 +585,7 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None):
     hv = build()
     setup_s = time.time() - t0
     lv0 = hv.hier.finest
-    rng = np.random.default_rng(0)
-    u0 = (150000.0 * rng.uniform(size=(n + 1, n + 1))).astype(np.float32)
-    u0 = torch.as_tensor(u0, device=lv0.device) * lv0.geo
-    f0 = torch.zeros_like(u0)
+    u0, f0 = decay_start(lv0)
 
     solve = solve if solve is not None else (lambda hv, f, **kw: hv.solve(f, **kw))
 
@@ -514,7 +604,7 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None):
         fail(f"{label}: true residual of the returned u is {true_res}")
 
     walls = timed_runs(label, run, hist)
-    cycles_run = chunk * -(-(len(hist) + 1) // chunk)
+    cycles_run = chunk * -(-(len(hist) + 1) // chunk) if lagged else len(hist)
     wall = min(walls)
     out = dict(solve=label, n=n, cycles=len(hist), cycles_run=cycles_run,
                tail_q=float(np.exp(np.mean(np.diff(np.log(hist[-6:]))))),
@@ -537,6 +627,8 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "
                ("e2_h_descent", "E2"), ("e3_h_ascent", "E3"), ("e4_h_zdescent", "E4"),
                ("e5_h_zascent", "E5"), ("g1_el_relax", "G1"), ("g2_el_descent", "G2"),
                ("g3_el_ascent", "G3"), ("g4_el_zdescent", "G4"), ("g5_el_zascent", "G5"),
+               ("c1_stencil_relax", "C1"), ("c2_stencil_multi", "C2"),
+               ("a5_resid_restrict", "A5"), ("a6_cross_cycle", "A6"),
                ("reduce_kernel", "rsq_reduce"))
 
 
@@ -870,20 +962,222 @@ def check_elastic_small_against_cpu() -> dict:
     return out
 
 
+def build_r1(n: int, bim: bool, num_levels: int, threshold: int, device=DEVICE):
+    """The round-1 ``Hierarchy`` (C1/C2 on the kernel levels) with the
+    direct coarse solve."""
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.solvers.mg import Hierarchy
+
+    hier = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE if bim else None), num_levels,
+                                device=device)
+    return Hierarchy(hier, kernel_threshold=threshold, direct_coarse=True, device=device)
+
+
+def run_r1_cells() -> dict:
+    """``poisson_4097_r1`` (V(1,1): C1) and ``poisson_4097_r1_v22`` (V(2,2):
+    C2, C1 for the residuals): the homogeneous 4097^2 decay solve on the
+    round-1 Hierarchy, 9 levels, threshold 32, at most 60 cycles.  Per cycle
+    each of the K = 8 kernel levels runs nu1 + nu2 sweeps and one residual,
+    and level 0 one more residual after the cycle."""
+    out = {}
+    K = 8
+    for label, nu in (("poisson_4097_r1", 1), ("poisson_4097_r1_v22", 2)):
+        rec = run_solve(label, lambda: build_r1(N_MAIN, False, 9, 32), ("C1",) if nu == 1
+                        else ("C1", "C2"), 60, lagged=False,
+                        solve=lambda hv, f, chunk, nu=nu, **kw: hv.solve(f, nu1=nu, nu2=nu, **kw))
+        c = rec["cycles"]
+        expect = {"C1": (3 * K + 1) * c} if nu == 1 else {"C1": (K + 1) * c, "C2": 2 * K * c}
+        if rec["launches"] != expect:
+            fail(f"{label}: launches {rec['launches']}, expected {expect}")
+        out[label] = rec
+    return out
+
+
+def run_pswrr_cell(split: dict) -> dict:
+    """``pswrr_interface_4097``: ``interface_4097`` with ``use_pswrr``.  It
+    must launch A6, take the split path's cycles +-1 and land within 1% of
+    its tail q."""
+    rec = run_solve("pswrr_interface_4097", lambda: build_hierarchy(N_MAIN, True, 9, 32, DEVICE),
+                    ("A6", "A3", "A4"), 120,
+                    solve=lambda hv, f, **kw: hv.solve(f, use_pswrr=True, **kw))
+    dq = abs(rec["tail_q"] / split["tail_q"] - 1.0)
+    print(json.dumps(dict(pswrr_vs_split=dict(cycles=[rec["cycles"], split["cycles"]],
+                                              tail_q=[rec["tail_q"], split["tail_q"]],
+                                              tail_q_rel_dev=dq))), flush=True)
+    if abs(rec["cycles"] - split["cycles"]) > 1 or dq > 0.01:
+        fail(f"pswrr_interface_4097 departs from the split path: {rec['cycles']} cycles, "
+             f"tail q {rec['tail_q']} against {split['cycles']}, {split['tail_q']}")
+    return rec
+
+
+def run_pcg_cell() -> dict:
+    """``pcg_interface_4097``: ``HierarchyV2.solve_pcg`` on the interface
+    problem from run_solve's u0, eps 1e-6, at most 60 iterations.  Per
+    iteration one zero-guess V(1,1) (A3, A4 on the K fused levels) and two
+    A1 residual passes (A p and the true residual), plus the start's."""
+    from multigrid_feanet_torch.solvers.jacobi import interior_norm
+
+    eps, cap = 1e-6, 60
+    hv = build_hierarchy(N_MAIN, True, 9, 32, DEVICE)
+    lv0 = hv.hier.finest
+    u0, f0 = decay_start(lv0)
+
+    def run():
+        return hv.solve_pcg(f0, u0=u0, eps=eps, max_iters=cap)
+
+    (u, hist), launches = counted(run)
+    it, K = len(hist), hv.K
+    expect = {"A1": 1 + 2 * it, "A3": K * (it + 1), "A4": K * (it + 1)}
+    if launches != expect:
+        fail(f"pcg_interface_4097: launches {launches}, expected {expect}")
+    if it >= cap or not hist[-1] <= eps or not np.all(np.isfinite(hist)):
+        fail(f"pcg_interface_4097: no convergence to {eps} in {cap} iterations: {hist[-3:]}")
+    true64 = float(interior_norm(f0.double() - lv0.apply(u.double())))
+    if not abs(true64 - hist[-1]) <= 1e-3 * hist[-1]:
+        fail(f"pcg_interface_4097: history ends at {hist[-1]}, the true residual is {true64}")
+    walls = timed_runs("pcg_interface_4097", run, hist)
+    wall = min(walls)
+    rec = dict(solve="pcg_interface_4097", n=N_MAIN, iterations=it, final_res=float(hist[-1]),
+               true_res_f64=true64, wall_s=wall, walls_s=walls, ms_per_iteration=1e3 * wall / it,
+               contraction=float(np.exp(np.mean(np.diff(np.log(hist))[-6:]))),
+               hist=hist.tolist(), launches=launches,
+               launches_per_iteration={k: v / it for k, v in launches.items()},
+               profile=profile_solve(run, it, wall))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_ir_cell() -> dict:
+    """``ir_4097``: ``solve_ir`` on the homogeneous 4097^2 HierarchyV2
+    (threshold 32, 9 levels, direct coarse) with f = apply_mass(1, h), V(1,1),
+    eps 1e-6, 6 cycles per correction, at most 12 outer steps (bench.py's
+    hard row).  The f64 true residual of the returned u, from a level
+    assembled anew in f64, must be <= 1e-6.  Beside it, the f32 floor: 20
+    plain V(1,1) cycles on the same f."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+    from multigrid_feanet_torch.solvers.jacobi import interior_norm
+    from multigrid_feanet_torch.solvers.mg import solve_ir
+
+    eps = 1e-6
+    t0 = time.time()
+    hv = build_hierarchy(N_MAIN, False, 9, 32, DEVICE)
+    lv0 = hv.hier.finest
+    f = apply_mass(torch.ones((N_MAIN + 1, N_MAIN + 1), device=DEVICE), lv0.h)
+    setup_s = time.time() - t0
+
+    def run():
+        return solve_ir(hv, f, nu1=1, nu2=1, eps=eps, cycles_per_correction=6, max_outer=12)
+
+    (u, hist), launches = counted(run)
+    lv64 = build_level(Problem(n=N_MAIN, dtype=torch.float64), N_MAIN, device=DEVICE)
+    true64 = float(interior_norm(f.double() - lv64.apply(u)))
+    if u.dtype != torch.float64 or not torch.isfinite(u).all() or not true64 <= eps:
+        fail(f"ir_4097: the f64 true residual is {true64} after {len(hist)} steps: {hist}")
+    if not all(launches.get(key) for key in ("A1", "A2", "A3", "A4")):
+        fail(f"ir_4097: a kernel of the path never launched: {launches}")
+    walls = timed_runs("ir_4097", run, hist)
+    cycles = 6 * (len(hist) - 1)
+    u20, h20 = hv.solve(f, eps=0.0, max_cycles=20)
+    floor64 = float(interior_norm(f.double() - lv64.apply(u20.double())))
+    rec = dict(solve="ir_4097", n=N_MAIN, outer_steps=len(hist), corrections=len(hist) - 1,
+               hist=hist.tolist(), true_res_f64=true64, wall_s=min(walls), walls_s=walls,
+               setup_s=setup_s, launches=launches, f32_20_cycles_hist_last=float(h20[-1]),
+               f32_20_cycles_true_res_f64=floor64,
+               profile=profile_solve(run, max(1, cycles), min(walls)))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def check_r5_small_against_cpu() -> dict:
+    """129^2 checks of this slice's paths on the card against the CPU's
+    plain path: the bi-material round-1 Hierarchy at V(1,1) and V(2,2),
+    solve_jacobi with fuse 1 and 4 (400 sweeps), the V2 and BoxMG solve_pcg
+    (eps 1e-2, clear of the f32 floor of a random RHS at 129^2) and
+    solve_ir on both hierarchies (homogeneous, f = apply_mass(1, h), eps
+    1e-9).  Returns each check's launches on the card."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+    from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
+    from multigrid_feanet_torch.solvers.mg import solve_ir
+
+    n = N_SMALL
+    f = np.random.default_rng(10).standard_normal((n + 1, n + 1)).astype(np.float32)
+    fm = apply_mass(torch.ones((n + 1, n + 1)), 2.0 / n).numpy()
+    out = {}
+
+    def both(label, build, run, expect):
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            hv = build(dev)
+            r, launches = counted(lambda: run(hv))
+            if dev == DEVICE:
+                out[label] = launches
+                if not all(launches.get(key) for key in expect):
+                    fail(f"{label}: a kernel of the path never launched: {launches}")
+            res[dev] = r
+        return res
+
+    for label, nu, expect in (("r1_small_v11", 1, ("C1",)), ("r1_small_v22", 2, ("C1", "C2"))):
+        res = both(label, lambda dev: build_r1(n, True, 4, 16, dev),
+                   lambda hv, nu=nu: hv.solve(f, nu1=nu, nu2=nu, eps=1e-2, max_cycles=60), expect)
+        same_solve(label, {d: (u.cpu().numpy(), h) for d, (u, h) in res.items()})
+    for fuse, key in ((1, "C1"), (4, "C2")):
+        label = f"r1_small_jacobi_fuse{fuse}"
+        res = both(label, lambda dev: build_r1(n, True, 4, 16, dev),
+                   lambda hv, fuse=fuse: hv.solve_jacobi(f, eps=0.0, max_iters=400, fuse=fuse),
+                   (key,))
+        (ug, kg, rg), (uc, kc, rc) = res[DEVICE], res["cpu"]
+        du = float((ug.cpu() - uc).abs().max() / uc.abs().max())
+        print(json.dumps({label: dict(iters=[kg, kc], res=[rg, rc], u_rel_err=du)}), flush=True)
+        if kg != kc or abs(rg / rc - 1.0) > 1e-3 or du > 1e-3:
+            fail(f"{label}: the Jacobi solve on the card disagrees with the CPU plain path")
+    pcgs = (("v2_small_pcg", lambda dev: build_hierarchy(n, True, 4, 16, dev), ("A1", "A3", "A4")),
+            ("boxmg_small_pcg", lambda dev: BoxMGHierarchy(
+                Problem(n=n, inclusion=CIRCLE), num_levels=4, kernel_threshold=16, device=dev),
+             ("A1", "D2", "D3")))
+    for label, build, expect in pcgs:
+        res = both(label, build, lambda hv: hv.solve_pcg(f, eps=1e-2, max_iters=60), expect)
+        same_solve(label, {d: (u.cpu().numpy(), h) for d, (u, h) in res.items()})
+    irs = (("ir_small_r1", lambda dev: build_r1(n, False, 4, 16, dev), ("C1",)),
+           ("ir_small_v2", lambda dev: build_hierarchy(n, False, 4, 16, dev), ("A2", "A3", "A4")))
+    for label, build, expect in irs:
+        res = both(label, build, lambda hv: solve_ir(hv, fm, eps=1e-9, cycles_per_correction=4,
+                                                     max_outer=15), expect)
+        (ug, hg), (uc, hc) = res[DEVICE], res["cpu"]
+        du = float((ug.cpu() - uc).abs().max() / uc.abs().max())
+        print(json.dumps({label: dict(outer=[len(hg), len(hc)], last=[hg[-1], hc[-1]],
+                                      u_rel_err=du)}), flush=True)
+        if (abs(len(hg) - len(hc)) > 1 or abs(hg[0] / hc[0] - 1.0) > 1e-6
+                or not max(hg[-1], hc[-1]) <= 1e-9 or du > 1e-6):
+            fail(f"{label}: solve_ir on the card disagrees with the CPU plain path")
+    print(json.dumps({"r5_small_launches": out}), flush=True)
+    return out
+
+
+def bound(key: str, rec: dict):
+    """(bound ms, "bytes" or "operations") of a check record: the larger of
+    its bytes over the HBM rate and its f32 operations over the f32 rate."""
+    t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
+    flops = rec.get("flops_per_node", FLOPS_PER_NODE.get(key)) * (rec["n"] + 1) ** 2
+    t_ops = 1e3 * flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
     """One row of the kernel line from a check record and a path's count."""
     n = rec["n"]
-    t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
-    t_ops = 1e3 * rec.get("flops_per_node", FLOPS_PER_NODE.get(key)) * (n + 1) ** 2 / FP32_FLOP_PER_S
+    bound_ms, bound_by = bound(key, rec)
     k = all_kernels()[key]
     return dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
                 launches=launches, max_abs_err=rec["max_abs_err"],
                 max_rel_err=rec["max_rel_err"], rsq_rel_err=rec["rsq_rel_err"],
                 ms=rec["ms"], warm_ms=rec["warm_ms"], plain_ms=rec["plain_ms"],
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, path=path, n=n,
-                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L") if t in rec})
+                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L", "sweeps") if t in rec})
 
 
 def main() -> int:
@@ -976,6 +1270,27 @@ def main() -> int:
     cells = run_elastic_cells()
     check_elastic_small_against_cpu()
 
+    schecks = []
+    for n, bim in ((N_MAIN, True), (N_MAIN, False), (N_COARSE, True), (N_COARSE, False)):
+        schecks += check_stencil(n, bim, ["C1_sweep", "C1_residual", "C2_k2", "C2_k4", "C2_k8"])
+        schecks += check_kernels(n, bim, True, ["A5", "A6"])
+    for rec in schecks:
+        rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
+    print(json.dumps({"r5_kernel_checks": schecks}), flush=True)
+    r1 = run_r1_cells()
+    pswrr = run_pswrr_cell(solves[0])
+    pcg = run_pcg_cell()
+    ir = run_ir_cell()
+    small_r5 = check_r5_small_against_cpu()
+    # A5 is a level method that no solver calls: its count is the sum over
+    # every counted run of the scalar V2 and round-1 paths, which must be 0
+    a5_runs = {rec["solve"]: rec["launches"] for rec in (*solves, pswrr, pcg, ir,
+                                                         *r1.values())}
+    a5_runs.update(small_r5)
+    a5_launches = sum(launches.get("A5", 0) for launches in a5_runs.values())
+    if a5_launches:
+        fail(f"A5 launched on a solver path, its row says none does: {a5_runs}")
+
     # one row per kernel and path, at the path's shapes: A1 (psweep) and A2
     # at level 0, A3 and A4 at level 1, the largest level they run on; the
     # Poisson path runs the homogeneous builds ("_hom").  D2/D3 at level 0
@@ -1021,6 +1336,24 @@ def main() -> int:
             rec = next(c for c in echecks if c["name"] == leg and c["n"] == n and c["bim"])
             row = summary_row(key, rec, cells[path]["launches"][key], path)
             summary.append(dict(row, name=row["name"] + suffix))
+    # C1 and C2 at level 0 of the round-1 Poisson cells (homogeneous: C2 with
+    # k = 2 at V(2,2)); A6 at level 0 of pswrr_interface_4097 (bi-material
+    # difference form); A5 on the same level, which no solver path runs
+    def srec(name, bim):
+        return next(c for c in schecks if c["name"] == name and c["n"] == N_MAIN
+                    and c["bim"] == bim)
+
+    summary.append(summary_row("C1", srec("C1_sweep", False),
+                               r1["poisson_4097_r1"]["launches"]["C1"], "poisson_4097_r1"))
+    row = summary_row("C1", srec("C1_residual", False),
+                      r1["poisson_4097_r1_v22"]["launches"]["C1"], "poisson_4097_r1_v22")
+    summary.append(dict(row, name=row["name"] + "_v22"))
+    summary.append(summary_row("C2", srec("C2_k2", False),
+                               r1["poisson_4097_r1_v22"]["launches"]["C2"], "poisson_4097_r1_v22"))
+    summary.append(summary_row("A5", srec("A5", True), a5_launches,
+                               "no solver path (level method)"))
+    summary.append(summary_row("A6", srec("A6", True), pswrr["launches"]["A6"],
+                               "pswrr_interface_4097"))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

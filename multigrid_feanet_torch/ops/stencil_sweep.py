@@ -1,0 +1,193 @@
+"""Weighted-Jacobi sweeps of the two-phase Q1 operator in bitplane form.
+
+Port of ``multigrid_feanet_tpu/ops/pallas_stencil.py``, the round-1 kernels
+behind ``solvers/mg.py``.  Fields are compact row-major tensors: (n+1, n+1)
+float32 node fields and the (n+1, n+1) int8 node pattern ids ``pid`` of
+``core.problem.Level`` (bit e = phase of the node's element e, in the order
+SW, SE, NW, NE); the TPU's ghost-block padding has no counterpart here.
+
+The operator is the bitplane form
+
+    A u = a0 S9(u) + da sum_e bit_e(pid) S4_e(u)
+
+with the unit taps of ``ops/stencil.py`` (``UNIT_S9``, ``UNIT_S4``) and the
+Jacobi diagonal (2/3) (4 a0 + da popcount(pid)); it has no difference form.
+
+Two kernels, hand-written in CUDA C++ (``csrc/stencil.cu``):
+
+====  ==================  ============================================  ==============
+name  C entry point       replaces                                      level methods
+====  ==================  ============================================  ==============
+C1    ``st_relax``        ``pallas_stencil.py:122 _sweep_kernel``       sweep, residual
+C2    ``st_multi``        ``pallas_stencil.py:364 _fused_sweeps_kernel``  sweep_k
+====  ==================  ============================================  ==============
+
+As in ``ops/sweep.py``, each has a wrapper ``<leg>_cuda`` and a plain
+PyTorch version ``<leg>_plain`` with the same signature; tensors on the CPU
+take the plain version, tensors on a CUDA device launch the kernel or raise.
+Sweeps update interior nodes only (boundary nodes keep their value), the
+residual is zero on the boundary, and ``rsq`` is the interior squared
+residual norm of the incoming iterate (for ``sweep_k``: of the last sweep's
+input, so it lags k - 1 sweeps behind the returned iterate).  The kernels
+agree with their plain versions to ``ops.sweep.TOL``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.ops.stencil import UNIT_S4, UNIT_S9
+from multigrid_feanet_torch.ops.sweep import (
+    CudaKernel, _I, _D, _P, _check, _emit, _interior, _operands, _output, _partials,
+    _ptr, _scalar_out, _shifts, _stream)
+
+_SOURCE = "multigrid_feanet_torch/csrc/stencil.cu"
+MAX_FUSED = 8  # sweeps per pass of C2, as the TPU kernel
+
+
+def _apply(u, pid, a0, da):
+    """A u in bitplane form, in the Pallas kernel's order of operations:
+    the S9 taps, then each element's S4 taps times da * bit_e."""
+    U = _shifts(u)
+    acc = None
+    for (dr, dc), w in UNIT_S9.items():
+        term = (a0 * w) * U(dr, dc)
+        acc = term if acc is None else acc + term
+    if pid is not None:
+        p = pid.to(torch.int32)
+        for e, taps in enumerate(UNIT_S4):
+            bit = ((p >> e) & 1).to(torch.float32)
+            t4 = None
+            for (dr, dc), w in taps.items():
+                term = w * U(dr, dc)
+                t4 = term if t4 is None else t4 + term
+            acc = acc + (da * bit) * t4
+    return acc
+
+
+def _diag(pid, a0, da, device):
+    """Jacobi diagonal: per node when two-phase, an f32 scalar otherwise."""
+    if pid is None:
+        return torch.tensor(4.0 * (2.0 / 3.0) * a0, dtype=torch.float32, device=device)
+    p = pid.to(torch.int32)
+    nbits = ((p & 1) + ((p >> 1) & 1) + ((p >> 2) & 1) + ((p >> 3) & 1)).to(torch.float32)
+    return (2.0 / 3.0) * (4.0 * a0 + da * nbits)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the two kernels.
+# ---------------------------------------------------------------------------
+
+
+def relax_plain(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None, rsq=None):
+    """C1: one weighted-Jacobi sweep (``mode="sweep"``) or the masked
+    residual (``mode="residual"``) -> (out, rsq of u)."""
+    _check_mode(mode)
+    r = torch.where(_interior(u), f - _apply(u, pid, a0, da), 0.0)
+    res = r if mode == "residual" else u + (omega / _diag(pid, a0, da, u.device)) * r
+    return _emit(res, out), _emit(torch.sum(r * r), rsq)
+
+
+def multi_plain(u, f, pid=None, *, k, a0, da, omega, out=None, rsq=None):
+    """C2: ``k`` chained C1 sweeps -> (u_k, rsq of the last sweep's input)."""
+    _check_k(k)
+    for _ in range(k):
+        u, rsq0 = relax_plain(u, f, pid, a0=a0, da=da, omega=omega)
+    return _emit(u, out), _emit(rsq0, rsq)
+
+
+def _check_mode(mode):
+    if mode not in ("sweep", "residual"):
+        raise ValueError(f"mode must be 'sweep' or 'residual', not {mode!r}")
+
+
+def _check_k(k):
+    if not 1 <= k <= MAX_FUSED:
+        raise ValueError(f"sweep_k fuses 1 to {MAX_FUSED} sweeps, not {k}")
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: ctypes bindings, launch counts, wrappers.
+# ---------------------------------------------------------------------------
+
+KERNELS = {
+    "C1": CudaKernel("C1_stencil_relax", "st_relax",
+                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_stencil.py:122", _SOURCE),
+    "C2": CudaKernel("C2_stencil_multi", "st_multi",
+                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_stencil.py:364", _SOURCE),
+}
+
+
+def _launch(key, which, mode_or_k, u, f, pid, a0, da, omega, out, rsq, workspace):
+    n, dev = u.shape[0] - 1, u.device
+    _operands(n, dev, [("u", u), ("f", f)])
+    if pid is not None:
+        _check(pid, "pid", (n + 1, n + 1), torch.int8, dev)
+    out = _output(out, "out", (n + 1, n + 1), dev, (u, f))
+    rsq = _scalar_out(rsq, dev)
+    KERNELS[key](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(),
+                 _partials(which, n, dev, workspace).data_ptr(), rsq.data_ptr(), n,
+                 a0, da, omega, int(pid is not None), mode_or_k, _stream(dev))
+    return out, rsq
+
+
+def relax_cuda(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None, rsq=None,
+               workspace=None):
+    """C1 on the card; same contract as :func:`relax_plain`."""
+    _check_mode(mode)
+    return _launch("C1", 0, 0 if mode == "sweep" else 1, u, f, pid, a0, da, omega,
+                   out, rsq, workspace)
+
+
+def multi_cuda(u, f, pid=None, *, k, a0, da, omega, out=None, rsq=None, workspace=None):
+    """C2 on the card; same contract as :func:`multi_plain`."""
+    _check_k(k)
+    return _launch("C2", 2, int(k), u, f, pid, a0, da, omega, out, rsq, workspace)
+
+
+# ---------------------------------------------------------------------------
+# Level object.
+# ---------------------------------------------------------------------------
+
+
+class StencilLevel:
+    """The two kernels bound to one level's operator; counterpart of
+    ``PallasStencil`` on compact fields (no ``pad``/``unpad``).
+
+    ``pid`` is the level's (n+1, n+1) int8 pattern-id field (None =
+    homogeneous, coefficient ``coefficients[0]``).  Methods take optional
+    ``out`` and ``rsq`` buffers; ``device=None`` means CUDA."""
+
+    def __init__(self, n: int, pid=None, coefficients=(1.0, 20.0),
+                 omega: float = 2.0 / 3.0, device=None):
+        self.device = resolve_device(device)
+        self.n = int(n)
+        self.a0 = float(coefficients[0])
+        self.da = (float(coefficients[1]) - float(coefficients[0])
+                   if pid is not None else 0.0)
+        self.omega = float(omega)
+        self.pid = (None if pid is None else torch.as_tensor(
+            pid, dtype=torch.int8, device=self.device).contiguous())
+        self._workspace = {}
+
+    def _call(self, cuda_fn, plain_fn, u, f, **kw):
+        kw.update(a0=self.a0, da=self.da, omega=self.omega)
+        if not u.is_cuda:
+            return plain_fn(u, f, self.pid, **kw)
+        return cuda_fn(u, f, self.pid, workspace=self._workspace, **kw)
+
+    def sweep(self, u, f, out=None, rsq=None):
+        """One weighted-Jacobi sweep -> (u_new, rsq of u)."""
+        return self._call(relax_cuda, relax_plain, u, f, out=out, rsq=rsq)
+
+    def residual(self, u, f, out=None, rsq=None):
+        """Interior-masked residual f - A u -> (r, ||r||^2)."""
+        return self._call(relax_cuda, relax_plain, u, f, mode="residual", out=out, rsq=rsq)
+
+    def sweep_k(self, u, f, k: int, out=None, rsq=None):
+        """``k`` <= 8 sweeps in one pass -> (u_k, rsq of the last sweep's
+        input, lagging k - 1 sweeps)."""
+        return self._call(multi_cuda, multi_plain, u, f, k=k, out=out, rsq=rsq)

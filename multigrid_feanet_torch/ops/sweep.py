@@ -5,7 +5,7 @@ row-major tensors: (n+1, n+1) float32 node fields and an (n, n) int8 element
 phase map (element (r, c) spans nodes r..r+1 x c..c+1, Q = a0 + da*phase);
 the TPU's ghost-block stride-lane layout has no counterpart here.
 
-Four kernels, hand-written in CUDA C++ (``csrc/sweep.cu``):
+Six kernels, hand-written in CUDA C++ (``csrc/sweep.cu``):
 
 ====  ==================  ==========================================  =====================
 name  C entry point       replaces                                    level methods
@@ -14,6 +14,8 @@ A1    ``mg_sweep``        ``pallas_sweep.py:284 _sweep_kernel``       sweep, res
 A2    ``mg_swrr``         ``pallas_sweep.py:374 _swrr_kernel``        sweep_restrict
 A3    ``mg_zrr``          ``pallas_sweep.py:629 _zrr_kernel``         zsweep_restrict
 A4    ``mg_zpsweep``      ``pallas_sweep.py:686 _zpsweep_kernel``     zpsweep
+A5    ``mg_rr``           ``pallas_sweep.py:758 _rr_kernel``          restrict_residual
+A6    ``mg_pswrr``        ``pallas_sweep.py:493 _pswrr_kernel``       pswrr
 ====  ==================  ==========================================  =====================
 
 Each kernel has a wrapper ``<leg>_cuda`` (checks, allocation, launch, launch
@@ -28,7 +30,9 @@ Semantics shared by all legs (as in the TPU kernels): only globally interior
 nodes are updated, boundary nodes keep their value, residuals and the
 prolonged correction are zero on the boundary, the coarse output is zero on
 the coarse boundary ring, and ``rsq`` is the interior squared residual norm
-of the INCOMING iterate (after the prolongation-add for ``psweep``).
+of the INCOMING iterate (after the prolongation-add for ``psweep``), except
+for ``pswrr``, whose ``rsq`` is that of its middle iterate: the residual of
+the V(1,1) cycle it completes.
 """
 
 from __future__ import annotations
@@ -246,6 +250,22 @@ def zpsweep_plain(f, ph, uc, *, a0, da, omega, out=None):
     return _emit(u2 + (omega / d) * r, out)
 
 
+def rr_plain(u, f, ph=None, *, a0, da, dform, fc_out=None, rsq=None):
+    """A5: f_c = 4 FW(f - A u) -> (f_c, rsq of u)."""
+    r, rsq0 = sweep_plain(u, f, ph, a0=a0, da=da, omega=0.0, dform=dform, mode="residual")
+    return _emit(_restrict4(r), fc_out), _emit(rsq0, rsq)
+
+
+def pswrr_plain(u1, f, ph, uc, *, a0, da, omega, dform, out=None, fc_out=None, rsq=None):
+    """A6: u3 = sweep(u1 + P(uc)), u4 = sweep(u3), f_c = 4 FW(f - A u4)
+    -> (u4, f_c, rsq of u3)."""
+    cfg = dict(a0=a0, da=da, omega=omega, dform=dform)
+    u3, _ = sweep_plain(u1, f, ph, uc, **cfg)
+    u4, rsq3 = sweep_plain(u3, f, ph, **cfg)
+    r4, _ = sweep_plain(u4, f, ph, mode="residual", **cfg)
+    return _emit(u4, out), _emit(_restrict4(r4), fc_out), _emit(rsq3, rsq)
+
+
 def _check_mode(mode, uc):
     if mode not in ("sweep", "residual"):
         raise ValueError(f"mode must be 'sweep' or 'residual', not {mode!r}")
@@ -301,6 +321,12 @@ KERNELS = {
     "A4": CudaKernel("A4_zpsweep", "mg_zpsweep",
                      [_P, _P, _P, _P, _I, _D, _D, _D, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
+    "A5": CudaKernel("A5_resid_restrict", "mg_rr",
+                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:758", _SOURCE),
+    "A6": CudaKernel("A6_cross_cycle", "mg_pswrr",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     "multigrid_feanet_tpu/ops/pallas_sweep.py:493", _SOURCE),
 }
 
 
@@ -312,8 +338,8 @@ def _error_string(err: int) -> str:
 
 def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
     """Scratch for the per-block partial sums of the kernels of grid
-    ``which`` (0: A1 and D1, 1: A2 and D2), kept in ``workspace`` when one
-    is given."""
+    ``which`` (0: A1, C1 and D1, 1: A2, A5, A6 and D2, 2: C2), kept in
+    ``workspace`` when one is given."""
     key = ("partials", which, n)
     buf = None if workspace is None else workspace.get(key)
     if buf is None:
@@ -410,6 +436,33 @@ def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, out=None, fc_out=None,
     return out, fc_out, rsq
 
 
+def rr_cuda(u, f, ph=None, *, a0, da, dform, fc_out=None, rsq=None, workspace=None):
+    """A5 on the card; same contract as :func:`rr_plain`."""
+    n, dev = u.shape[0] - 1, u.device
+    _operands(n, dev, [("u", u), ("f", f)], ph)
+    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f))
+    rsq = _scalar_out(rsq, dev)
+    KERNELS["A5"](u.data_ptr(), f.data_ptr(), _ptr(ph), fc_out.data_ptr(),
+                  _partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(), n, a0, da,
+                  int(ph is not None), int(dform), _stream(dev))
+    return fc_out, rsq
+
+
+def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, out=None, fc_out=None, rsq=None,
+               workspace=None):
+    """A6 on the card; same contract as :func:`pswrr_plain`."""
+    n, dev = u1.shape[0] - 1, u1.device
+    _operands(n, dev, [("u1", u1), ("f", f)], ph, [("uc", uc)])
+    out = _output(out, "out", (n + 1, n + 1), dev, (u1, f, uc))
+    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u1, f, uc, out))
+    rsq = _scalar_out(rsq, dev)
+    KERNELS["A6"](u1.data_ptr(), f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(),
+                  fc_out.data_ptr(), _partials(1, n, dev, workspace).data_ptr(),
+                  rsq.data_ptr(), n, a0, da, omega, int(ph is not None), int(dform),
+                  _stream(dev))
+    return out, fc_out, rsq
+
+
 def zrr_cuda(f, ph=None, *, a0, da, omega, out=None):
     """A3 on the card; same contract as :func:`zrr_plain`."""
     n, dev = f.shape[0] - 1, f.device
@@ -436,11 +489,11 @@ def zpsweep_cuda(f, ph, uc, *, a0, da, omega, out=None):
 
 
 class SweepLevel:
-    """The four kernels bound to one level's operator; counterpart of
-    ``PallasLevel`` on compact fields.
+    """The six kernels bound to one level's operator; counterpart of
+    ``PallasLevel`` on compact fields, with its whole interface.
 
     ``phase`` is the (n, n) element phase map (None = homogeneous).
-    ``dform`` selects the difference-form apply for A1/A2 (default on, as
+    ``dform`` selects the difference-form apply for A1/A2/A5/A6 (default on, as
     for every pure-stiffness ``PallasLevel``); A3/A4 always use the plain
     form, as their TPU kernels do.  Every method takes optional ``out``
     buffers (and ``rsq`` for the legs that emit one) so a solve loop can
@@ -469,7 +522,7 @@ class SweepLevel:
 
     def _call(self, cuda_fn, plain_fn, x, *args, **kw):
         """``plain_fn`` on CPU tensors, ``cuda_fn`` on CUDA ones; the legs
-        that emit ``rsq`` (A1, A2) keep their partial-sum scratch in the
+        that emit ``rsq`` (A1, A2, A6) keep their partial-sum scratch in the
         level's workspace."""
         kw.update(a0=self.a0, da=self.da, omega=self.omega)
         if not x.is_cuda:
@@ -498,6 +551,21 @@ class SweepLevel:
         """Pre-smoothing sweep + residual + x4 full weighting ->
         (u1, f_c, rsq of u)."""
         return self._call(swrr_cuda, swrr_plain, u, f, self.ph,
+                          dform=self.dform, out=out, fc_out=fc_out, rsq=rsq)
+
+    def restrict_residual(self, u, f, fc_out=None, rsq=None):
+        """Residual + x4 full weighting -> (f_c, rsq of u); no solver path
+        calls it (``sweep_restrict`` fuses it with the sweep)."""
+        kw = dict(a0=self.a0, da=self.da, dform=self.dform, fc_out=fc_out, rsq=rsq)
+        if not u.is_cuda:
+            return rr_plain(u, f, self.ph, **kw)
+        return rr_cuda(u, f, self.ph, workspace=self._workspace, **kw)
+
+    def pswrr(self, u1, f, uc, out=None, fc_out=None, rsq=None):
+        """Prolongation-add and post-smoothing sweep of one V(1,1) cycle
+        fused with the next cycle's pre-smoothing sweep and restriction ->
+        (u4, f_c, rsq of the completed cycle's iterate u3)."""
+        return self._call(pswrr_cuda, pswrr_plain, u1, f, self.ph, uc,
                           dform=self.dform, out=out, fc_out=fc_out, rsq=rsq)
 
     def zsweep_restrict(self, f, out=None):

@@ -36,7 +36,8 @@ from multigrid_feanet_torch.ops.adaptive_transfer import GeneralLevel, general_c
 from multigrid_feanet_torch.ops.boxmg import apply_s9, boxmg_setup, prolong_w4, restrict_w4
 from multigrid_feanet_torch.ops.general import GeneralSweepLevel
 from multigrid_feanet_torch.solvers.coarse import coarse_solve
-from multigrid_feanet_torch.solvers.common import solve_cycles
+from multigrid_feanet_torch.solvers.common import (
+    pcg_buffers, solve_cycles, solve_pcg, start_fields)
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -103,6 +104,7 @@ class BoxMGHierarchy:
         self._fc = {l: self._field(l) for l in range(1, K + 1)}
         self._u = {l: (self._field(l), self._field(l)) for l in range(1, K)}
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
+        self._cg = None  # level 0's iterate pair and the CG vectors, at the first solve_pcg
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.hier.levels[l].n_nodes
@@ -193,8 +195,18 @@ class BoxMGHierarchy:
             lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
             self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk)
 
-    def solve_pcg(self, *args, **kwargs):
-        raise NotImplementedError(
-            "solve_pcg (the BoxMG-preconditioned flexible CG) comes with a later "
-            "slice of the port, together with HierarchyV2.solve_pcg (ROADMAP "
-            "queue 1, items 6 and 9)")
+    def solve_pcg(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
+                  eps: float = 1e-6, max_iters: int = 60):
+        """Flexible CG with one BoxMG V(nu1, nu2) cycle from zero as the
+        preconditioner (at level 0, bi-material: D2 and D3), ``A p`` through
+        A1's residual mode with f = 0 and the true residual recomputed
+        every iteration: ``solvers/common.py::solve_pcg``, shared with
+        ``HierarchyV2.solve_pcg``.  Returns ``(u, history)`` with the
+        post-iteration history (the returned u's residual is
+        ``history[-1]``)."""
+        if self._cg is None:
+            self._u.setdefault(0, (self._field(0), self._field(0)))
+            self._cg = pcg_buffers(self._field(0))
+        f, u = start_fields(self.hier.finest, f, u0, bc_value)
+        return solve_pcg(self.kernel_levels[0], lambda r: self._coarse_correction(0, r, nu1, nu2),
+                         f, u, self._cg, eps, max_iters)

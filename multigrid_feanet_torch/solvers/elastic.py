@@ -46,7 +46,7 @@ from multigrid_feanet_torch.ops.elastic import ElasticSweepLevel
 from multigrid_feanet_torch.ops.stencil import pattern_ids_np
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse_elastic, coarse_solve_elastic
-from multigrid_feanet_torch.solvers.common import solve_cycles
+from multigrid_feanet_torch.solvers.common import pcg_buffers, solve_cycles, solve_pcg
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -349,18 +349,15 @@ class ElasticHierarchy:
 
     def _cg_buffers(self):
         self._u.setdefault(0, (self._field(0), self._field(0)))
-        self._cg = dict(r=(self._field(0), self._field(0)), p=self._field(0),
-                        ap=self._field(0), tmp=self._field(0),
-                        zero=self._field(0).zero_(),
-                        rsq=torch.empty((), dtype=torch.float32, device=self.device))
+        self._cg = pcg_buffers(self._field(0))
 
     def solve_pcg(self, f, u0=None, nu1: int = 2, nu2: int = 2, eps: float = 1e-8,
                   max_iters: int = 60):
         """Flexible CG with one fused V(nu1, nu2) cycle from zero as the
-        preconditioner: Polak-Ribiere beta clipped at 0, the true residual
-        recomputed by G1 every iteration (the f32 recurrence drifts at
-        |A| ~ 2e5), and the breakdown guards ``rz > 0`` and ``res < 4 *
-        best``.
+        preconditioner (``solvers/common.py::solve_pcg``: Polak-Ribiere beta
+        clipped at 0, the true residual recomputed by G1 every iteration --
+        the f32 recurrence drifts at |A| ~ 2e5 -- and the breakdown guards).
+        ``u0`` is masked to the interior.
 
         Returns ``(u, history)``: ``history[j]`` is the interior residual
         norm after iteration j+1 (post-iteration, no lag: the returned u's
@@ -369,42 +366,9 @@ class ElasticHierarchy:
         self._check_schedule(nu1, nu2)
         if self._cg is None:
             self._cg_buffers()
-        cg, p0 = self._cg, self.sweep_levels[0]
         f = self._rhs(f)
         u = torch.zeros_like(f) if u0 is None else torch.as_tensor(
             u0, dtype=torch.float32, device=self.device)
         u = (u * self.levels[0].geo).contiguous()
-        r_cur, r_old = cg["r"]
-        pb, ap, tmp, rsq = cg["p"], cg["ap"], cg["tmp"], cg["rsq"]
-
-        def dot(a, b):
-            return torch.dot(a.view(-1), b.view(-1))
-
-        def read(res, rz):
-            return torch.stack([res, rz]).cpu().numpy()
-
-        p0.residual(u, f, out=r_cur, rsq=rsq)
-        z = self._coarse_correction(0, r_cur, nu1, nu2)
-        pb.copy_(z)
-        rz = dot(z, r_cur)
-        res_h, rz_h = read(torch.sqrt(rsq), rz)
-        eps32, best = np.float32(eps), np.float32(np.inf)
-        hist = []
-        while (res_h > eps32 and len(hist) < max_iters and rz_h > 0.0
-               and res_h < np.float32(4.0) * best):
-            self.apply_fused(pb, out=ap)
-            alpha = rz / dot(pb, ap)
-            torch.mul(pb, alpha, out=tmp)
-            u.add_(tmp)
-            r_cur, r_old = r_old, r_cur
-            p0.residual(u, f, out=r_cur, rsq=rsq)
-            z = self._coarse_correction(0, r_cur, nu1, nu2)
-            rz_new = dot(z, r_cur)
-            beta = torch.clamp_min((rz_new - dot(z, r_old)) / rz, 0.0)
-            torch.mul(pb, beta, out=tmp)
-            torch.add(z, tmp, out=pb)
-            rz = rz_new
-            res_h, rz_h = read(torch.sqrt(rsq), rz)
-            best = min(best, res_h)
-            hist.append(res_h)
-        return u, np.asarray(hist, dtype=np.float32)
+        return solve_pcg(self.sweep_levels[0], lambda r: self._coarse_correction(0, r, nu1, nu2),
+                         f, u, self._cg, eps, max_iters)

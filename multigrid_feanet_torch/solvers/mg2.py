@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from multigrid_feanet_torch.core.device import resolve_device
@@ -32,7 +33,8 @@ from multigrid_feanet_torch.ops.sweep import SweepLevel
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 from multigrid_feanet_torch.solvers import jacobi as jac
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse, coarse_solve
-from multigrid_feanet_torch.solvers.common import solve_cycles
+from multigrid_feanet_torch.solvers.common import (
+    pcg_buffers, solve_cycles, solve_pcg, start_fields, trim_history)
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -92,6 +94,7 @@ class HierarchyV2:
         self._fc = {l: self._field(l) for l in range(1, K + 1)}
         self._u = {l: (self._field(l), self._field(l)) for l in range(1, K)}
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
+        self._cg = None  # level 0's iterate pair and the CG vectors, at the first solve_pcg
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.hier.levels[l].n_nodes
@@ -183,16 +186,60 @@ class HierarchyV2:
         to reach ``eps``.  As in the JAX solver, ``u`` includes one cycle
         beyond ``history`` (the one whose free pre-sweep residual detected
         convergence), plus up to ``chunk - 1`` more: the loop tests ``eps``
-        once per ``chunk`` cycles, which is its one host sync per chunk."""
-        if use_pswrr:
-            raise NotImplementedError(
-                "use_pswrr (the cross-cycle fused leg, TPU kernel A6) comes "
-                "with a later slice of the port")
+        once per ``chunk`` cycles, which is its one host sync per chunk.
+
+        ``use_pswrr`` (V(1,1) only; other schedules ignore it, as in the JAX
+        solver) runs level 0 on the cross-cycle fused leg A6, which ends one
+        cycle and starts the next in one pass, after a peeled first descent
+        (A2) and before a closing ascent (A1); ``chunk`` is rounded up to
+        even.  The history and the extra-cycle convention are the same."""
+        if use_pswrr and nu1 == 1 and nu2 == 1:
+            return self._solve_pswrr(f, u0, bc_value, eps, max_cycles, chunk + (chunk & 1))
         return solve_cycles(
             lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
             self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk)
 
-    def solve_pcg(self, *args, **kwargs):
-        raise NotImplementedError(
-            "solve_pcg (the MG-preconditioned flexible CG) comes with a later "
-            "slice of the port (ROADMAP queue 1, item 6)")
+    def _solve_pswrr(self, f, u0, bc_value, eps, max_cycles, chunk):
+        """The V(1,1) solve on A6; port of ``pallas_mg2.py:270-312``."""
+        p = self.sweep_levels[0]
+        fb, u = start_fields(self.hier.finest, f, u0, bc_value)
+        rsq, fc1 = torch.empty_like(self._rsq_scratch), self._fc[1]
+        hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=self.device)
+        # the peeled first descent: hist[0] is the residual of u0
+        u1, free = torch.empty_like(u), u
+        p.sweep_restrict(u, fb, out=u1, fc_out=fc1, rsq=rsq)
+        torch.sqrt(rsq, out=hist[0])
+        uc = self._coarse_correction(1, fc1, 1, 1)
+        eps32 = float(np.float32(eps))
+        k, res = 1, float("inf")
+        while res > eps32 and k < max_cycles - 1:
+            for _ in range(chunk):
+                # ends cycle k (rsq: its residual) and starts cycle k + 1
+                p.pswrr(u1, fb, uc, out=free, fc_out=fc1, rsq=rsq)
+                u1, free = free, u1
+                uc = self._coarse_correction(1, fc1, 1, 1)
+                torch.sqrt(rsq, out=hist[k])
+                k += 1
+            res = float(hist[k - 1])  # the one host sync per chunk
+        p.psweep(u1, fb, uc, out=free, rsq=self._rsq_scratch)
+        return free, trim_history(hist.cpu().numpy(), eps)
+
+    # ---- Krylov acceleration ----
+
+    def solve_pcg(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
+                  eps: float = 1e-6, max_iters: int = 60):
+        """Flexible CG with one fused V(nu1, nu2) cycle from zero as the
+        preconditioner (at level 0 with nu1 = 1: A3 and A4), ``A p`` through
+        A1's residual mode with f = 0, the true residual recomputed every
+        iteration: ``solvers/common.py::solve_pcg``, the loop the elastic
+        and BoxMG solvers share.
+
+        Returns ``(u, history)``: ``history[j]`` is the interior residual
+        norm after iteration j+1 (post-iteration, no lag: the returned u's
+        residual is ``history[-1]``)."""
+        if self._cg is None:
+            self._u.setdefault(0, (self._field(0), self._field(0)))
+            self._cg = pcg_buffers(self._field(0))
+        f, u = start_fields(self.hier.finest, f, u0, bc_value)
+        return solve_pcg(self.sweep_levels[0], lambda r: self._coarse_correction(0, r, nu1, nu2),
+                         f, u, self._cg, eps, max_iters)

@@ -236,8 +236,11 @@ def test_boxmg_beats_the_plain_vcycle():
 def test_later_slices_and_bad_arguments_raise():
     prob = Problem(n=32, inclusion=CIRCLE)
     bm = BoxMGHierarchy(prob, num_levels=3, kernel_threshold=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="solve_pcg"):
-        bm.solve_pcg(np.zeros((33, 33), np.float32))
+    # solve_pcg, once refused here, now runs (held to the JAX solver in
+    # tests/test_torch_pcg.py)
+    f = np.random.default_rng(7).standard_normal((33, 33)).astype(np.float32)
+    u, hist = bm.solve_pcg(f, eps=1e-3, max_iters=40)
+    assert hist[-1] <= 1e-3 and bool(torch.isfinite(u).all())
     with pytest.raises(ValueError, match="kernel_threshold"):
         BoxMGHierarchy(prob, num_levels=3, kernel_threshold=64, device="cpu")
     with pytest.raises(ValueError, match="exceeds"):

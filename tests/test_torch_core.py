@@ -214,7 +214,8 @@ def _port_sources():
     names = {p.relative_to(ROOT / "multigrid_feanet_torch").as_posix() for p in files}
     assert {"ops/sweep.py", "ops/general.py", "ops/boxmg.py", "ops/adaptive_transfer.py",
             "solvers/mg2.py", "solvers/boxmg.py", "core/convert.py", "ops/hrelax.py",
-            "models/hnet.py", "utils/checkpoint.py", "solvers/hmg.py"} <= names
+            "models/hnet.py", "utils/checkpoint.py", "solvers/hmg.py", "ops/stencil_sweep.py",
+            "solvers/mg.py", "solvers/multigrid.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -248,12 +249,12 @@ def test_library_hash_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     cu = sorted(csrc.glob("*.cu"))
-    names = ["elastic.cu", "general.cu", "hrelax.cu", "sweep.cu"]
+    names = ["elastic.cu", "general.cu", "hrelax.cu", "stencil.cu", "sweep.cu"]
     assert [p.name for p in cu] == names
     assert [p.name for p in _build.sources()] == names
     seen = {_build.library_path()}
     for path in (*cu[::-1], csrc / "common.cuh"):
         path.write_bytes(path.read_bytes() + b"\n")
         seen.add(_build.library_path())
-    assert len(seen) == 6
+    assert len(seen) == 7
     assert _build.library_path() == _build.library_path()
