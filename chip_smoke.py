@@ -69,7 +69,18 @@ Phases, in order; any failure exits non-zero:
    once more with the bench's kernel threshold of 512.
 11. Three 129^2 bi-material elastic solves on the card against the CPU's
    plain path: V(2,2), V(1,1) and the PCG, to eps 1e-2.
-12. Print the kernel summary line (one row per kernel and path, with the
+12. Hold H1 (4096^2, n = 32 and 96, both norms) and A1-A6 in mass form
+   (the heat level's operands: theta dt (1, 20), mass h^2 (1/18, 1/18,
+   -1/36); 4097^2 bi-material and homogeneous, A3/A4 also at 2049^2)
+   against their plain versions.  Then the periodic cells on H1:
+   ``pbc_jacobi_32`` (the reference's analytic problem, exactly 46 sweeps
+   with its history head), ``torus_jacobi_4096`` (512 sweeps, eps None)
+   and ``pbc_mg_4096`` (``solve_pbc_mg``, 12 levels, H1 on n >= 32, within
+   one cycle of the JAX solver); the heat cell ``heat_march_4097``
+   (``HeatSolver(backend="fused").march``, 10 steps of 2 V(1,1) cycles,
+   exact A1-A4 counts, and one ``step``); and three 129^2 checks against
+   the CPU (the fused heat step and march, ``solve_pbc_mg`` at 128^2).
+13. Print the kernel summary line (one row per kernel and path, with the
    path's launch counts), then the device line as the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
@@ -116,6 +127,9 @@ HRELAX_FLOPS = {"E2": (2, 12, 1), "E3": (1, 10, 1), "E4": (1, 10, 1), "E5": (1, 
 # and its square 6, the zero-guess iterate 20, the prolongation of both
 # components 6 and their restriction 7 (26 per coarse node).
 FLOPS_PER_NODE.update({"G1": 118, "G2": 225, "G3": 124, "G4": 127, "G5": 144})
+# H1, counted from csrc/torus.cu per node: the homogeneous apply 11, the
+# residual 1, the update 3, the square and the wrapped-norm weights 5.
+FLOPS_PER_NODE["H1"] = 20
 HNET_L1 = "results/learn_iterator/hnet_decay_L1_hlNone.npz"
 HNET_L3 = "results/learn_iterator/hnet_decay.npz"
 HNET_L3_HL1 = "results/learn_iterator/hnet_decay_L3_hl1.npz"
@@ -124,6 +138,12 @@ N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
 CIRCLE = ("circle", (0.0, 0.0), 0.5)
 N_EL = 2048  # the elastic cells: 2049^2 nodes (bench.py:296)
 E_EL, NU_EL = 212e3, 0.288  # Plane_Stress_modify.m:11-12
+HEAT_DT, HEAT_THETA = 1e-3, 0.5  # the heat cell (bench.py:274-289)
+# pbc_mg_4096: the JAX solve_pbc_mg on the same problem (f32, on a CPU, 30
+# cycles at eps 0) falls from 2.44e-3 to 4.3e-4, 8.1e-5, 1.7e-5, 6.4e-6 and
+# stalls at its f32 floor, 4.96e-6: 1e-5 is the lowest decade it reaches,
+# after 4 cycles.  The card must take 4 +- 1.
+PBC_EPS, PBC_JAX_CYCLES = 1e-5, 4
 
 
 def fail(msg: str) -> None:
@@ -278,9 +298,10 @@ OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "G2": ("out", "fc_out", "rsq"), "G3": ("out",), "G4": ("out",), "G5": ("out",),
              "A5": ("fc_out", "rsq"), "A6": ("out", "fc_out", "rsq"),
              "C1_sweep": ("out", "rsq"), "C1_residual": ("out", "rsq"),
+             "H1": ("out", "rsq", "rsq_wrap"),
              **{f"C2_k{k}": ("out", "rsq") for k in range(1, 9)}}
 # the legs that keep partial sums in a workspace
-RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E2", "G1", "G2")
+RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E2", "G1", "G2", "H1")
 
 
 def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
@@ -325,13 +346,22 @@ def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float
     return rec
 
 
-def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1):
+def heat_mass(n: int) -> tuple:
+    """The heat system's per-element mass triple h^2 (1/18, 1/18, -1/36)
+    on a level of n elements (h = 2 / n)."""
+    hh = (2.0 / n) ** 2
+    return (hh / 18.0, hh / 18.0, -hh / 36.0)
+
+
+def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0, 20.0),
+                  mass=None):
     """Hold each leg of ``ops/sweep.py`` against its plain version on one
-    level's seeded inputs; one record per leg."""
+    level's seeded inputs, with the operator ``coef`` (+ ``mass``); one
+    record per leg."""
     from multigrid_feanet_torch.ops import sweep as sw
 
     inputs = level_inputs(n, bim, seed)
-    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0)
+    cfg = dict(a0=coef[0], da=coef[1] - coef[0] if bim else 0.0, omega=2.0 / 3.0, mass=mass)
     calls = {
         "A1_sweep": lambda fn, x, kw: fn(x[0], x[1], x[3], None, dform=dform, mode="sweep", **kw),
         "A1_residual": lambda fn, x, kw: fn(x[0], x[1], x[3], None, dform=dform, mode="residual", **kw),
@@ -350,11 +380,27 @@ def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1):
            "A4": (sw.zpsweep_cuda, sw.zpsweep_plain),
            "A5": (sw.rr_cuda, sw.rr_plain),
            "A6": (sw.pswrr_cuda, sw.pswrr_plain)}
-    a5cfg = dict(a0=cfg["a0"], da=cfg["da"])
+    a5cfg = dict(a0=cfg["a0"], da=cfg["da"], mass=mass)
     return [hold(leg, calls[leg], *fns[leg], inputs, a5cfg if leg == "A5" else cfg,
                  bytes_moved(leg, n, bim), sw.TOL,
-                 dict(n=n, bim=bim, dform=dform if leg not in ("A3", "A4") else False))
+                 dict(n=n, bim=bim, dform=dform if leg not in ("A3", "A4") else False,
+                      mass=mass is not None))
             for leg in legs]
+
+
+def check_torus(n: int, seed: int = 11):
+    """Hold H1 against its plain version (both norms) on standard normal
+    n x n torus fields; one record."""
+    import torch
+    from multigrid_feanet_torch.ops import torus as tt
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    rng = np.random.default_rng(seed)
+    inputs = tuple(torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32), device=DEVICE)
+                   for _ in range(2))
+    return hold("H1", lambda fn, x, kw: fn(x[0], x[1], **kw), tt.torus_sweep_cuda,
+                tt.torus_sweep_plain, inputs, dict(a0=1.0, omega=2.0 / 3.0), 12 * n * n, TOL,
+                dict(n=n))
 
 
 def check_stencil(n: int, bim: bool, legs, seed: int = 9):
@@ -525,10 +571,10 @@ def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=N
 
 
 def all_kernels() -> dict:
-    from multigrid_feanet_torch.ops import elastic, general, hrelax, stencil_sweep, sweep
+    from multigrid_feanet_torch.ops import elastic, general, hrelax, stencil_sweep, sweep, torus
 
     return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS, **elastic.KERNELS,
-            **stencil_sweep.KERNELS}
+            **stencil_sweep.KERNELS, **torus.KERNELS}
 
 
 def counted(run):
@@ -629,7 +675,8 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "
                ("g3_el_ascent", "G3"), ("g4_el_zdescent", "G4"), ("g5_el_zascent", "G5"),
                ("c1_stencil_relax", "C1"), ("c2_stencil_multi", "C2"),
                ("a5_resid_restrict", "A5"), ("a6_cross_cycle", "A6"),
-               ("reduce_kernel", "rsq_reduce"))
+               ("h1_torus_relax", "H1"), ("reduce_kernel", "rsq_reduce"),
+               ("h1_reduce_pair", "rsq_reduce"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -1157,6 +1204,218 @@ def check_r5_small_against_cpu() -> dict:
     return out
 
 
+def analytic_pbc(n: int, device):
+    """The reference's periodic problem (tests/test_pbc.py: rhs = 5 sin(-4 pi
+    (x + 1/2)) cos(3 pi y)) on n x n torus nodes: (table, f) on ``device``."""
+    import torch
+    from multigrid_feanet_torch.ops import pbc
+    from multigrid_feanet_torch.ops.stencil import make_homogeneous_stencil
+
+    x = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
+    xx, yy = np.meshgrid(x, x, indexing="ij")
+    rhs = (5.0 * np.sin(-4.0 * np.pi * (xx + 0.5)) * np.cos(3.0 * np.pi * yy)).astype(np.float32)
+    f = pbc.apply_mass_periodic(pbc.from_wrapped(torch.as_tensor(rhs, device=device)), 2.0 / n)
+    return make_homogeneous_stencil(device=device), f
+
+
+def bench_f(n: int) -> np.ndarray:
+    """bench.py:50-52's f: the second standard-normal (n+1)^2 draw of
+    default_rng(0), float32."""
+    rng = np.random.default_rng(0)
+    rng.standard_normal((n + 1, n + 1))
+    return rng.standard_normal((n + 1, n + 1)).astype(np.float32)
+
+
+def run_pbc_cells() -> dict:
+    """The periodic cells on H1: ``pbc_jacobi_32`` (the reference's 46-sweep
+    anchor), ``torus_jacobi_4096`` (512 sweeps, eps None, two chunks, on
+    bench.py:423-455's compatibility-shifted f) and ``pbc_mg_4096``
+    (solve_pbc_mg on the analytic problem, 12 levels, H1 on n >= 32)."""
+    import torch
+    from multigrid_feanet_torch.ops import pbc
+    from multigrid_feanet_torch.ops.torus import TorusLevel
+    from multigrid_feanet_torch.solvers.pbc_mg import solve_pbc_mg
+
+    out = {}
+    table, f = analytic_pbc(32, DEVICE)
+    level = TorusLevel(32, device=DEVICE)
+    r0 = float(pbc.pbc_interior_norm(f))
+    (u, hist), launches = counted(
+        lambda: pbc.solve_jacobi_pbc(table, f, eps=5e-6, max_iters=2000, level=level))
+    head = [0.21556054, 0.16937497, 0.13308503, 0.10457049, 0.08216543]
+    out["pbc_jacobi_32"] = dict(solve="pbc_jacobi_32", iterations=len(hist), r0=r0,
+                                head=hist[:5].tolist(), final=float(hist[-1]), launches=launches)
+    print(json.dumps(out["pbc_jacobi_32"]), flush=True)
+    if (len(hist) != 46 or not np.allclose(hist[:5], head, rtol=1e-4)
+            or not np.isclose(r0, 0.27434009, rtol=1e-4) or launches != {"H1": 257}):
+        fail(f"pbc_jacobi_32 departs from the reference's 46-sweep history: {out['pbc_jacobi_32']}")
+
+    n, sweeps = N_MAIN, 512
+    h = 2.0 / n
+    F = torch.as_tensor(bench_f(n)[:n, :n], device=DEVICE)
+    fb = pbc.compatibility_shift(pbc.apply_mass_periodic(F, h), h)
+    level = TorusLevel(n, device=DEVICE)
+
+    def run():
+        return pbc.solve_jacobi_pbc(table, fb, eps=None, max_iters=sweeps, level=level)
+
+    (u, hist), launches = counted(run)
+    if launches != {"H1": sweeps + 2} or len(hist) != sweeps or not np.all(np.isfinite(hist)):
+        fail(f"torus_jacobi_4096: {len(hist)} norms, launches {launches}")
+    if not hist[-1] < hist[0] or tuple(u.shape) != (n, n) or not torch.isfinite(u).all():
+        fail(f"torus_jacobi_4096: the residual does not fall or u is not finite: {hist[[0, -1]]}")
+    walls = timed_runs("torus_jacobi_4096", run, hist)
+    wall = min(walls)
+    out["torus_jacobi_4096"] = dict(
+        solve="torus_jacobi_4096", n=n, sweeps=sweeps, chunks=2, wall_s=wall, walls_s=walls,
+        ms_per_sweep=1e3 * wall / sweeps, first=float(hist[0]), last=float(hist[-1]),
+        launches=launches, profile=profile_solve(run, sweeps, wall))
+    print(json.dumps(out["torus_jacobi_4096"]), flush=True)
+
+    table, f = analytic_pbc(n, DEVICE)
+
+    def run_mg():
+        return solve_pbc_mg(table, f, eps=PBC_EPS, max_cycles=100, kernel_threshold=32)
+
+    (u, hist), launches = counted(run_mg)
+    cycles = len(hist)
+    kernel_levels = sum(1 for l in range(int(np.log2(n))) if n >> l >= 32)  # 4096..32: 8
+    if launches != {"H1": 2 * kernel_levels * cycles}:  # a pre- and a post-relax each
+        fail(f"pbc_mg_4096: launches {launches} in {cycles} cycles")
+    if not hist[-1] <= PBC_EPS or abs(cycles - PBC_JAX_CYCLES) > 1 or not torch.isfinite(u).all():
+        fail(f"pbc_mg_4096: {cycles} cycles to {hist[-1]}, JAX takes {PBC_JAX_CYCLES} "
+             f"to {PBC_EPS}: {hist}")
+    walls = timed_runs("pbc_mg_4096", run_mg, hist)
+    wall = min(walls)
+    out["pbc_mg_4096"] = dict(
+        solve="pbc_mg_4096", n=n, levels=12, cycles=cycles, jax_cycles=PBC_JAX_CYCLES,
+        eps=PBC_EPS, hist=hist.tolist(), wall_s=wall, walls_s=walls,
+        ms_per_cycle=1e3 * wall / cycles, launches=launches,
+        profile=profile_solve(run_mg, cycles, wall))
+    print(json.dumps(out["pbc_mg_4096"]), flush=True)
+    return out
+
+
+def heat_solver(n: int, num_levels: int, threshold: int, device=None):
+    """The heat cell's solver: the circle r = 0.5 bi-material problem,
+    HEAT_DT, HEAT_THETA, the fused backend (on the card by default)."""
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.ops.heat import HeatSolver
+
+    return HeatSolver(Problem(n=n, inclusion=CIRCLE), dt=HEAT_DT, theta=HEAT_THETA,
+                      backend="fused", kernel_kw=dict(num_levels=num_levels,
+                                                      kernel_threshold=threshold),
+                      device=device or DEVICE)
+
+
+def run_heat_cell() -> dict:
+    """``heat_march_4097`` (bench.py:274-289): ``HeatSolver.march``, 10
+    steps of 2 V(1,1) cycles from u0 = 0 with bench.py's f, 9 levels,
+    threshold 32: exactly 20 A1, 20 A2, 140 A3, 140 A4 launches.  Beside it
+    one ``step`` to the smallest decade at least twice the step's f32 floor
+    (the least residual of 12 cycles at eps 0)."""
+    import torch
+
+    n, steps, cps = N_MAIN, 10, 2
+    t0 = time.time()
+    hs = heat_solver(n, 9, 32)
+    setup_s = time.time() - t0
+    f = torch.as_tensor(bench_f(n), device=DEVICE)
+    u0 = torch.zeros_like(f)
+
+    def run():
+        return hs.march(u0, f, steps, cycles_per_step=cps), None
+
+    (u, _), launches = counted(run)
+    c, below = steps * cps, (hs.ph.K - 1) * steps * cps  # K = 8 fused levels at 4097^2
+    expect = {"A1": c, "A2": c, "A3": below, "A4": below}
+    if launches != expect:
+        fail(f"heat_march_4097: launches {launches}, expected {expect}")
+    if tuple(u.shape) != (n + 1, n + 1) or not torch.isfinite(u).all() or not u.abs().max() > 0:
+        fail("heat_march_4097: the solution is not finite and nonzero")
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+    _, probe = hs.step(u0, f, f, eps=0.0, max_cycles=12)
+    floor = float(np.min(probe))
+    eps = float(10.0 ** np.ceil(np.log10(2.0 * floor)))
+
+    def step():
+        return hs.step(u0, f, f, eps=eps, max_cycles=40)
+
+    (_, hist), step_launches = counted(step)
+    step_walls = timed_runs("heat_step_4097", step, hist)
+    if not hist[-1] <= eps:
+        fail(f"heat_step_4097: no convergence to {eps}: {hist}")
+    rec = dict(solve="heat_march_4097", n=n, steps=steps, cycles_per_step=cps, setup_s=setup_s,
+               wall_s=wall, walls_s=walls, ms_per_step=1e3 * wall / steps,
+               ms_per_cycle=1e3 * wall / (steps * cps), u_max=float(u.abs().max()),
+               launches=launches, profile=profile_solve(run, steps * cps, wall),
+               step=dict(eps=eps, floor_12_cycles=floor, probe=probe.tolist(),
+                         cycles=len(hist), hist=hist.tolist(), wall_s=min(step_walls),
+                         walls_s=step_walls, launches=step_launches))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def check_r6_small_against_cpu() -> dict:
+    """129^2 checks of the heat and periodic paths on the card against the
+    CPU's plain path: the fused HeatSolver.step (eps 1e-9, clear of its
+    ~5e-12 floor) and march (10 steps of 2 cycles), and solve_pbc_mg on the
+    analytic problem at 128^2 (eps 3e-5, 100 times its ~2.2e-7 f32 floor:
+    at 5 times it the two paths' norms differ by 3e-3), H1 on levels
+    128..32.  Cycles equal, histories within 1e-3, u within 1e-4 of
+    its scale.  Returns each check's launches on the card."""
+    import torch
+    from multigrid_feanet_torch.solvers.pbc_mg import solve_pbc_mg
+
+    n = N_SMALL
+    f = np.random.default_rng(12).standard_normal((n + 1, n + 1)).astype(np.float32)
+    z = np.zeros_like(f)
+    runs = {
+        "heat_small_step": (lambda dev: heat_solver(n, 4, 16, dev),
+                            lambda hs: hs.step(z, f, f, eps=1e-9, max_cycles=40),
+                            ("A1", "A2", "A3", "A4")),
+        "heat_small_march": (lambda dev: heat_solver(n, 4, 16, dev),
+                             lambda hs: (hs.march(z, f, 10, cycles_per_step=2), None),
+                             ("A1", "A2", "A3", "A4")),
+        "pbc_mg_small": (lambda dev: analytic_pbc(n, dev),
+                         lambda tf: solve_pbc_mg(*tf, eps=3e-5, max_cycles=40,
+                                                 kernel_threshold=32), ("H1",)),
+    }
+    out = {}
+    for label, (build, run, expect) in runs.items():
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            obj = build(dev)
+            (u, h), launches = counted(lambda: run(obj))
+            if dev == DEVICE:
+                out[label] = launches
+                if not all(launches.get(key) for key in expect):
+                    fail(f"{label}: a kernel of the path never launched: {launches}")
+            res[dev] = (u.cpu().numpy(), h)
+        (ug, hg), (uc, hc) = res[DEVICE], res["cpu"]
+        d = ug - uc
+        if label.startswith("pbc"):
+            d = d - d.mean()  # the constant nullspace
+        du = float(np.max(np.abs(d)) / np.max(np.abs(uc)))
+        rec = dict(u_rel_err=du)
+        ok = du < 1e-4
+        if hg is not None:
+            rec.update(cycles=[len(hg), len(hc)],
+                       max_hist_rel_dev=float(np.max(np.abs(hg[:len(hc)] / hc[:len(hg)] - 1))))
+            ok = ok and len(hg) == len(hc) and rec["max_hist_rel_dev"] < 1e-3
+        print(json.dumps({label: rec}), flush=True)
+        if not ok:
+            fail(f"{label}: the card disagrees with the CPU plain path: {rec}")
+    print(json.dumps({"r6_small_launches": out}), flush=True)
+    return out
+
+
 def bound(key: str, rec: dict):
     """(bound ms, "bytes" or "operations") of a check record: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
@@ -1177,7 +1436,8 @@ def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
                 ms=rec["ms"], warm_ms=rec["warm_ms"], plain_ms=rec["plain_ms"],
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None, path=path, n=n,
-                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L", "sweeps") if t in rec})
+                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L", "sweeps", "mass")
+                   if t in rec})
 
 
 def main() -> int:
@@ -1282,11 +1542,32 @@ def main() -> int:
     pcg = run_pcg_cell()
     ir = run_ir_cell()
     small_r5 = check_r5_small_against_cpu()
+
+    # slice 6: H1 and the mass form of A1-A6 against their plain versions
+    # (the heat level's operands: theta dt (1, 20), mass h^2 (1/18, 1/18,
+    # -1/36)), then the periodic and heat cells
+    r6checks = []
+    heat_coef = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
+    for bim in (True, False):
+        r6checks += check_kernels(N_MAIN, bim, False, a13 + ["A3", "A4", "A5", "A6"],
+                                  coef=heat_coef, mass=heat_mass(N_MAIN))
+        r6checks += check_kernels(N_MAIN // 2, bim, False, ["A3", "A4"], coef=heat_coef,
+                                  mass=heat_mass(N_MAIN // 2))
+    r6checks += [check_torus(n) for n in (N_MAIN, 32, 96)]
+    for rec in r6checks:
+        rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
+    print(json.dumps({"r6_kernel_checks": r6checks}), flush=True)
+    pbc_cells = run_pbc_cells()
+    heat = run_heat_cell()
+    small_r6 = check_r6_small_against_cpu()
+
     # A5 is a level method that no solver calls: its count is the sum over
-    # every counted run of the scalar V2 and round-1 paths, which must be 0
-    a5_runs = {rec["solve"]: rec["launches"] for rec in (*solves, pswrr, pcg, ir,
+    # every counted run of the scalar V2, round-1 and heat paths, which must
+    # be 0
+    a5_runs = {rec["solve"]: rec["launches"] for rec in (*solves, pswrr, pcg, ir, heat,
                                                          *r1.values())}
     a5_runs.update(small_r5)
+    a5_runs.update(small_r6)
     a5_launches = sum(launches.get("A5", 0) for launches in a5_runs.values())
     if a5_launches:
         fail(f"A5 launched on a solver path, its row says none does: {a5_runs}")
@@ -1354,6 +1635,17 @@ def main() -> int:
                                "no solver path (level method)"))
     summary.append(summary_row("A6", srec("A6", True), pswrr["launches"]["A6"],
                                "pswrr_interface_4097"))
+    # A1 (psweep) and A2 at level 0, A3 and A4 at level 1 of heat_march_4097
+    # (bi-material plain form with the mass triple, "_mass"); H1 at 4096^2
+    # on both periodic paths
+    for key, (leg, n) in main_shape.items():
+        rec = next(c for c in r6checks if c["name"] == leg and c["n"] == n and c["bim"])
+        row = summary_row(key, rec, heat["launches"][key], "heat_march_4097")
+        summary.append(dict(row, name=row["name"] + "_mass"))
+    h1 = next(c for c in r6checks if c["name"] == "H1" and c["n"] == N_MAIN)
+    for path, suffix in (("torus_jacobi_4096", ""), ("pbc_mg_4096", "_mg")):
+        row = summary_row("H1", h1, pbc_cells[path]["launches"]["H1"], path)
+        summary.append(dict(row, name=row["name"] + suffix))
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,8 +36,10 @@ def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
 
     Each mapping holds ``n``, ``h``, ``a0``, ``a1`` (floats or None) and the
     arrays ``table``, ``pid`` (None if homogeneous), ``geo``, ``diag`` and
-    the (n, n) element ``phase`` (None if homogeneous).  Float fields keep
-    their dtype; ``pid`` and ``phase`` become int8.  ``coarse_inv``, the
+    the (n, n) element ``phase`` (None if homogeneous), and optionally the
+    phase-affine operator's (3, 3) ``base`` and float ``bit_scale`` (a heat
+    system level, ``ops/heat.py``).  Float fields keep their dtype; ``pid``
+    and ``phase`` become int8.  ``coarse_inv``, the
     dense inverse of the coarsest interior operator, is carried along for
     the direct coarse solve when given.  ``device=None`` means CUDA."""
     device = resolve_device(device)
@@ -53,7 +55,8 @@ def hierarchy_from_arrays(levels: Sequence[Mapping], coarse_inv=None,
             a1=None if lv["a1"] is None else float(lv["a1"]),
             table=dev(lv["table"]), pid=dev(lv["pid"], torch.int8),
             geo=dev(lv["geo"]), diag=dev(lv["diag"]),
-            phase=dev(lv["phase"], torch.int8)))
+            phase=dev(lv["phase"], torch.int8), base=dev(lv.get("base")),
+            bit_scale=None if lv.get("bit_scale") is None else float(lv["bit_scale"])))
     return GridHierarchy(levels=tuple(out), coarse_inv=dev(coarse_inv))
 
 

@@ -34,6 +34,11 @@ class Level:
     geo: torch.Tensor  # (n+1, n+1) interior mask
     diag: torch.Tensor  # (n+1, n+1) diag(A)
     phase: Optional[torch.Tensor] = None  # (n, n) int8 element phases
+    # phase-affine operator A = base (3, 3 stencil) + bit_scale * phase
+    # bitplanes, for systems that are not pure stiffness (the theta-scheme
+    # heat system M + theta dt K, ops/heat.py); a0 = a1 = None there
+    base: Optional[torch.Tensor] = None
+    bit_scale: Optional[float] = None
 
     @property
     def n_nodes(self) -> int:
@@ -48,7 +53,10 @@ class Level:
         return self.geo.device
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
-        """A @ u on this level (bitplane form when two-phase)."""
+        """A @ u on this level (bitplane form when two-phase or
+        phase-affine, the table gather otherwise)."""
+        if self.pid is not None and self.base is not None:
+            return stencil.apply_stencil_bitplane_affine(self.pid, u, self.base, self.bit_scale)
         if self.pid is not None and self.a0 is not None:
             return stencil.apply_stencil_bitplane(self.pid, u, self.a0, self.a1)
         return stencil.apply_stencil(self.table, self.pid, u)

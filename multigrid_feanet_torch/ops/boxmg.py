@@ -47,12 +47,9 @@ def node_stencil_planes(level, dtype=None) -> torch.Tensor:
     """Per-node (H, W, 3, 3) stencil field of a hierarchy Level, computed
     with bitplane FMAs (no gather).
 
-    Handles the homogeneous (3, 3) table and the two-phase (a0, a1) forms of
-    ``core.problem.Level``; the phase-affine form of the JAX package
-    (``level.base``) has no counterpart in the port yet."""
-    if getattr(level, "base", None) is not None:
-        raise NotImplementedError(
-            "phase-affine levels (base + bit_scale * bitplanes) are not ported")
+    Handles the three operator forms of ``core.problem.Level``: the
+    homogeneous (3, 3) table, two-phase (a0, a1) and phase-affine
+    (base + bit_scale * bitplanes, the heat system of ``ops/heat.py``)."""
     H = level.n + 1
     dtype = dtype or level.geo.dtype
     dev = level.geo.device
@@ -60,8 +57,12 @@ def node_stencil_planes(level, dtype=None) -> torch.Tensor:
         table = level.table if level.table.ndim == 2 else level.table[0]
         return table.to(dtype).expand(H, H, 3, 3)
     p = level.pid.to(torch.int32)
-    base = float(level.a0) * _taps_grid(stencil_mod.UNIT_S9, dtype, dev)
-    scale = float(level.a1) - float(level.a0)
+    if level.base is not None:
+        base = level.base.to(dtype)
+        scale = float(level.bit_scale)
+    else:
+        base = float(level.a0) * _taps_grid(stencil_mod.UNIT_S9, dtype, dev)
+        scale = float(level.a1) - float(level.a0)
     S = base.expand(H, H, 3, 3)
     for e, taps in enumerate(stencil_mod.UNIT_S4):
         bit = ((p >> e) & 1).to(dtype)  # (H, W)

@@ -1,9 +1,10 @@
 """Stencil assembly and application for structured-quad Q1 FEM operators.
 
 Port of the parts of ``multigrid_feanet_tpu/ops/stencil.py`` that the fused
-V-cycle needs: the (16, 3, 3) stencil table, the per-node pattern ids, and
-the plain applies that the plain subtree of ``solvers/mg2.py`` and the tests
-use.  See the JAX module for the derivation; the encoding is identical:
+V-cycle needs: the (16, 3, 3) stencil table, the homogeneous stencil, the
+per-node pattern ids, and the plain applies (bitplane and phase-affine) that
+the plain subtree of ``solvers/mg2.py`` and the tests use.  See the JAX
+module for the derivation; the encoding is identical:
 
   element ``(r, c)`` spans nodes ``r..r+1`` x ``c..c+1``; the four elements
   around node ``(i, j)`` are, in bit order, SW ``(i-1, j-1)``, SE
@@ -16,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from multigrid_feanet_torch.core.device import resolve_device
 
 # Q1 Laplace element stiffness on a square element, local nodes CCW.
 KE = -(1.0 / 6.0) * np.array(
@@ -71,6 +74,14 @@ def make_stencil_table_np(coefficients=(1.0, 20.0)) -> np.ndarray:
     return table
 
 
+def make_homogeneous_stencil(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The (3, 3) stencil of the homogeneous (a = 1) Laplace operator, the
+    FEM 9-point stencil (1/3) [[-1, -1, -1], [-1, 8, -1], [-1, -1, -1]].
+    ``device=None`` means CUDA."""
+    return torch.as_tensor(make_stencil_table_np((1.0, 1.0))[0], dtype=dtype,
+                           device=resolve_device(device))
+
+
 def pattern_ids_np(phase: np.ndarray) -> np.ndarray:
     """(n, n) element phases -> (n+1, n+1) int8 per-node pattern ids;
     elements outside the domain count as phase 0."""
@@ -118,6 +129,20 @@ def apply_stencil_bitplane(pid: torch.Tensor, u: torch.Tensor, a0: float,
     for e, taps in enumerate(UNIT_S4):
         bit = ((p >> e) & 1).to(u.dtype)
         acc = acc + (da * bit) * _taps(u, taps)
+    return acc
+
+
+def apply_stencil_bitplane_affine(pid: torch.Tensor, u: torch.Tensor,
+                                  base: torch.Tensor, bit_scale: float) -> torch.Tensor:
+    """A @ u for an operator affine in the 4 element-phase bits:
+    ``base`` (a fixed 3x3 stencil) plus ``bit_scale * sum_e bit_e S4_e(u)``.
+    The theta-scheme heat system M + theta dt K takes this form with
+    base = h^2 MASS + theta dt a0 S9 and bit_scale = theta dt (a1 - a0)."""
+    acc = apply_stencil(base.to(u.dtype), None, u)
+    p = pid.to(torch.int32)
+    for e, taps in enumerate(UNIT_S4):
+        bit = ((p >> e) & 1).to(u.dtype)
+        acc = acc + (bit_scale * bit) * _taps(u, taps)
     return acc
 
 

@@ -26,6 +26,13 @@ or raise.  The kernels and their plain versions agree to ``TOL`` relative to
 ``max(1, max|plain|)`` on fields and ``TOL`` relative on the residual norm:
 f32 reassociation and FMA contraction change each term by about one ulp.
 
+Every leg takes an optional ``mass`` triple (mp, ms, mo): the plain-form
+operator then gains the pattern-independent per-element term
+sum_e [mp u_p + ms s_e + mo u_opp] and the diagonal 4 (mp + ms).  With the
+coefficients scaled by theta dt and mass = h^2 (1/18, 1/18, -1/36) that is
+the heat theta-system M + theta dt K (``ops/heat.py``).  The difference form
+needs zero row sums and refuses a mass triple.
+
 Semantics shared by all legs (as in the TPU kernels): only globally interior
 nodes are updated, boundary nodes keep their value, residuals and the
 prolonged correction are zero on the boundary, the coarse output is zero on
@@ -79,17 +86,26 @@ def _c4(Qp):
     return (se + sw) + (ne + nw)
 
 
-def _apply_hom(u, a0):
-    """Homogeneous A u = a0 (3 u - (1/3) 3x3-window sum)."""
+def _apply_hom(u, a0, mass=None):
+    """Homogeneous A u = a0 (3 u - (1/3) 3x3-window sum), plus the mass
+    triple's terms regrouped through the row sums as ``pallas_sweep.py``'s
+    ``_apply_hom`` does."""
     U = _shifts(u)
     t3 = {x: (U(x, 0) + U(x, 1)) + U(x, -1) for x in (-1, 0, 1)}
     s9 = (t3[-1] + t3[0]) + t3[1]
-    return (3.0 * a0) * U(0, 0) - (a0 / 3.0) * s9, None
+    au = (3.0 * a0) * U(0, 0) - (a0 / 3.0) * s9
+    if mass is not None:
+        mp, ms, mo = mass
+        alpha, beta, gamma = 4.0 * (mp + ms), 2.0 * ms, ms + mo
+        updn = U(-1, 0) + U(1, 0)
+        au = ((((au + (alpha - beta) * U(0, 0)) + beta * t3[0]) + gamma * (t3[-1] + t3[1]))
+              + (beta - gamma) * updn)
+    return au, None
 
 
-def _apply_bim(u, Qp):
-    """Bi-material element-factored A u; ``Qp`` from :func:`element_q`.
-    Returns (A u, C4)."""
+def _apply_bim(u, Qp, mass=None):
+    """Bi-material element-factored A u; ``Qp`` from :func:`element_q`,
+    plus the mass triple's terms.  Returns (A u, C4)."""
     U = _shifts(u)
     up = F.pad(u, (1, 1, 1, 1))
     t = up[:, :-1] + up[:, 1:]
@@ -100,7 +116,14 @@ def _apply_bim(u, Qp):
     C4 = _c4(Qp)
     ne, nw, se, sw = _quadrants(Qp)
     sigD = (sw * U(-1, -1) + se * U(-1, 1)) + (nw * U(1, -1) + ne * U(1, 1))
-    return (5.0 / 6.0) * (U(0, 0) * C4) - (1.0 / 6.0) * (sigD + sigP), C4
+    au = (5.0 / 6.0) * (U(0, 0) * C4) - (1.0 / 6.0) * (sigD + sigP)
+    if mass is not None:
+        mp, ms, mo = mass
+        Sne, Snw, Sse, Ssw = _quadrants(S)
+        ssum = (Sse + Ssw) + (Sne + Snw)
+        cor = (U(-1, -1) + U(-1, 1)) + (U(1, -1) + U(1, 1))
+        au = ((au + (4.0 * mp) * U(0, 0)) + ms * ssum) + mo * cor
+    return au, C4
 
 
 def _differences(u):
@@ -139,22 +162,25 @@ def _apply_bim_d(u, Qp):
     return (-1.0 / 6.0) * acc, C4
 
 
-def _apply_op(u, Qp, a0, bim, dform):
-    """Dispatch to the plain or difference-form apply."""
+def _apply_op(u, Qp, a0, bim, dform, mass=None):
+    """Dispatch to the plain (optionally with mass) or difference-form
+    apply."""
     if bim:
-        return _apply_bim_d(u, Qp) if dform else _apply_bim(u, Qp)
-    return _apply_hom_d(u, a0) if dform else _apply_hom(u, a0)
+        return _apply_bim_d(u, Qp) if dform else _apply_bim(u, Qp, mass)
+    return _apply_hom_d(u, a0) if dform else _apply_hom(u, a0, mass)
 
 
-def _diag_bim(C4):
-    """Jacobi diagonal of the bi-material operator."""
-    return (2.0 / 3.0) * C4
+def _diag_bim(C4, mass=None):
+    """Jacobi diagonal of the bi-material (+ mass) operator."""
+    d = (2.0 / 3.0) * C4
+    return d if mass is None else d + 4.0 * (mass[0] + mass[1])
 
 
-def _diag_hom(a0, device="cpu"):
-    """Jacobi diagonal of the homogeneous operator, as an f32 scalar tensor
-    (so that omega / d is taken in f32)."""
-    return torch.tensor((8.0 / 3.0) * a0, dtype=torch.float32, device=device)
+def _diag_hom(a0, device="cpu", mass=None):
+    """Jacobi diagonal of the homogeneous (+ mass) operator, as an f32
+    scalar tensor (so that omega / d is taken in f32)."""
+    d = (8.0 / 3.0) * a0 + (0.0 if mass is None else 4.0 * (mass[0] + mass[1]))
+    return torch.tensor(d, dtype=torch.float32, device=device)
 
 
 def _interior(x):
@@ -182,8 +208,9 @@ def _restrict4(r1):
     return F.pad(fc, (1, 1, 1, 1))
 
 
-def _diag(ph, Qp, a0, like):
-    return _diag_bim(_c4(Qp)) if ph is not None else _diag_hom(a0, device=like.device)
+def _diag(ph, Qp, a0, like, mass=None):
+    return (_diag_bim(_c4(Qp), mass) if ph is not None
+            else _diag_hom(a0, device=like.device, mass=mass))
 
 
 def _emit(x, out):
@@ -199,67 +226,70 @@ def _emit(x, out):
 
 
 def sweep_plain(u, f, ph=None, uc=None, *, a0, da, omega, dform,
-                mode="sweep", out=None, rsq=None):
+                mode="sweep", mass=None, out=None, rsq=None):
     """A1: one weighted-Jacobi sweep (``mode="sweep"``) or the masked
     residual (``mode="residual"``) -> (out, rsq).  With a coarse field
     ``uc`` it first adds its masked bilinear prolongation and sweeps."""
     _check_mode(mode, uc)
+    _check_form(dform, mass)
     mask = _interior(u)
     if uc is not None:
         u = u + torch.where(mask, _prolong(uc), 0.0)
     bim = ph is not None
     Qp = element_q(ph, a0, da) if bim else None
-    au, C4 = _apply_op(u, Qp, a0, bim, dform)
+    au, C4 = _apply_op(u, Qp, a0, bim, dform, mass)
     r = torch.where(mask, f - au, 0.0)
     if mode == "residual":
         res = r
     else:
-        d = _diag_bim(C4) if bim else _diag_hom(a0, device=u.device)
+        d = _diag_bim(C4, mass) if bim else _diag_hom(a0, device=u.device, mass=mass)
         res = u + (omega / d) * r
     return _emit(res, out), _emit(torch.sum(r * r), rsq)
 
 
-def swrr_plain(u, f, ph=None, *, a0, da, omega, dform, out=None, fc_out=None,
+def swrr_plain(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
                rsq=None):
     """A2: u1 = sweep(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u)."""
-    cfg = dict(a0=a0, da=da, omega=omega, dform=dform)
+    cfg = dict(a0=a0, da=da, omega=omega, dform=dform, mass=mass)
     u1, rsq0 = sweep_plain(u, f, ph, **cfg)
     r1, _ = sweep_plain(u1, f, ph, mode="residual", **cfg)
     return _emit(u1, out), _emit(_restrict4(r1), fc_out), _emit(rsq0, rsq)
 
 
-def zrr_plain(f, ph=None, *, a0, da, omega, out=None):
+def zrr_plain(f, ph=None, *, a0, da, omega, mass=None, out=None):
     """A3: f_c = 4 FW(f - A u1) with u1 = (omega/d) f at interior nodes,
     plain-form apply."""
     mask = _interior(f)
     Qp = element_q(ph, a0, da) if ph is not None else None
-    u1 = torch.where(mask, (omega / _diag(ph, Qp, a0, f)) * f, 0.0)
-    au, _ = _apply_op(u1, Qp, a0, ph is not None, False)
+    u1 = torch.where(mask, (omega / _diag(ph, Qp, a0, f, mass)) * f, 0.0)
+    au, _ = _apply_op(u1, Qp, a0, ph is not None, False, mass)
     return _emit(_restrict4(torch.where(mask, f - au, 0.0)), out)
 
 
-def zpsweep_plain(f, ph, uc, *, a0, da, omega, out=None):
+def zpsweep_plain(f, ph, uc, *, a0, da, omega, mass=None, out=None):
     """A4: one sweep of u2 = (omega/d) f + P(uc) (interior), plain form."""
     mask = _interior(f)
     Qp = element_q(ph, a0, da) if ph is not None else None
-    d = _diag(ph, Qp, a0, f)
+    d = _diag(ph, Qp, a0, f, mass)
     u2 = (torch.where(mask, (omega / d) * f, 0.0)
           + torch.where(mask, _prolong(uc), 0.0))
-    au, _ = _apply_op(u2, Qp, a0, ph is not None, False)
+    au, _ = _apply_op(u2, Qp, a0, ph is not None, False, mass)
     r = torch.where(mask, f - au, 0.0)
     return _emit(u2 + (omega / d) * r, out)
 
 
-def rr_plain(u, f, ph=None, *, a0, da, dform, fc_out=None, rsq=None):
+def rr_plain(u, f, ph=None, *, a0, da, dform, mass=None, fc_out=None, rsq=None):
     """A5: f_c = 4 FW(f - A u) -> (f_c, rsq of u)."""
-    r, rsq0 = sweep_plain(u, f, ph, a0=a0, da=da, omega=0.0, dform=dform, mode="residual")
+    r, rsq0 = sweep_plain(u, f, ph, a0=a0, da=da, omega=0.0, dform=dform, mass=mass,
+                          mode="residual")
     return _emit(_restrict4(r), fc_out), _emit(rsq0, rsq)
 
 
-def pswrr_plain(u1, f, ph, uc, *, a0, da, omega, dform, out=None, fc_out=None, rsq=None):
+def pswrr_plain(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
+                rsq=None):
     """A6: u3 = sweep(u1 + P(uc)), u4 = sweep(u3), f_c = 4 FW(f - A u4)
     -> (u4, f_c, rsq of u3)."""
-    cfg = dict(a0=a0, da=da, omega=omega, dform=dform)
+    cfg = dict(a0=a0, da=da, omega=omega, dform=dform, mass=mass)
     u3, _ = sweep_plain(u1, f, ph, uc, **cfg)
     u4, rsq3 = sweep_plain(u3, f, ph, **cfg)
     r4, _ = sweep_plain(u4, f, ph, mode="residual", **cfg)
@@ -271,6 +301,20 @@ def _check_mode(mode, uc):
         raise ValueError(f"mode must be 'sweep' or 'residual', not {mode!r}")
     if uc is not None and mode != "sweep":
         raise ValueError("the prolongation-add (uc) runs in sweep mode only")
+
+
+def _check_form(dform, mass):
+    if dform and mass is not None:
+        raise ValueError(
+            "dform=True cannot carry a mass triple: the difference form needs "
+            "zero row sums (the reference silently drops mass in this pairing)")
+
+
+def _form(dform, mass):
+    """The kernels' operator form: 0 plain, 1 difference, 2 plain with mass,
+    and the mass triple as three doubles (zero when absent)."""
+    _check_form(dform, mass)
+    return (2 if mass is not None else int(bool(dform))), tuple(mass or (0.0, 0.0, 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -311,21 +355,21 @@ class CudaKernel:
 
 KERNELS = {
     "A1": CudaKernel("A1_sweep", "mg_sweep",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _I, _P],
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:284", _SOURCE),
     "A2": CudaKernel("A2_swrr", "mg_swrr",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:374", _SOURCE),
-    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P, _P, _P, _I, _D, _D, _D, _I, _P],
+    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:629", _SOURCE),
     "A4": CudaKernel("A4_zpsweep", "mg_zpsweep",
-                     [_P, _P, _P, _P, _I, _D, _D, _D, _I, _P],
+                     [_P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
     "A5": CudaKernel("A5_resid_restrict", "mg_rr",
-                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P],
+                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:758", _SOURCE),
     "A6": CudaKernel("A6_cross_cycle", "mg_pswrr",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:493", _SOURCE),
 }
 
@@ -405,9 +449,10 @@ def _stream(device):
 
 
 def sweep_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, mode="sweep",
-               out=None, rsq=None, workspace=None):
+               mass=None, out=None, rsq=None, workspace=None):
     """A1 on the card; same contract as :func:`sweep_plain`."""
     _check_mode(mode, uc)
+    form, m = _form(dform, mass)
     n, dev = u.shape[0] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)], ph,
               [] if uc is None else [("uc", uc)])
@@ -416,14 +461,14 @@ def sweep_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, mode="sweep",
     mode_id = 2 if uc is not None else (0 if mode == "sweep" else 1)
     KERNELS["A1"](u.data_ptr(), f.data_ptr(), _ptr(ph), _ptr(uc), out.data_ptr(),
                   _partials(0, n, dev, workspace).data_ptr(), rsq.data_ptr(),
-                  n, a0, da, omega, int(ph is not None), int(dform), mode_id,
-                  _stream(dev))
+                  n, a0, da, omega, *m, int(ph is not None), form, mode_id, _stream(dev))
     return out, rsq
 
 
-def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, out=None, fc_out=None,
+def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
               rsq=None, workspace=None):
     """A2 on the card; same contract as :func:`swrr_plain`."""
+    form, m = _form(dform, mass)
     n, dev = u.shape[0] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)], ph)
     out = _output(out, "out", (n + 1, n + 1), dev, (u, f))
@@ -431,26 +476,29 @@ def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, out=None, fc_out=None,
     rsq = _scalar_out(rsq, dev)
     KERNELS["A2"](u.data_ptr(), f.data_ptr(), _ptr(ph), out.data_ptr(),
                   fc_out.data_ptr(), _partials(1, n, dev, workspace).data_ptr(),
-                  rsq.data_ptr(), n, a0, da, omega, int(ph is not None),
-                  int(dform), _stream(dev))
+                  rsq.data_ptr(), n, a0, da, omega, *m, int(ph is not None), form,
+                  _stream(dev))
     return out, fc_out, rsq
 
 
-def rr_cuda(u, f, ph=None, *, a0, da, dform, fc_out=None, rsq=None, workspace=None):
+def rr_cuda(u, f, ph=None, *, a0, da, dform, mass=None, fc_out=None, rsq=None,
+            workspace=None):
     """A5 on the card; same contract as :func:`rr_plain`."""
+    form, m = _form(dform, mass)
     n, dev = u.shape[0] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)], ph)
     fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f))
     rsq = _scalar_out(rsq, dev)
     KERNELS["A5"](u.data_ptr(), f.data_ptr(), _ptr(ph), fc_out.data_ptr(),
                   _partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(), n, a0, da,
-                  int(ph is not None), int(dform), _stream(dev))
+                  *m, int(ph is not None), form, _stream(dev))
     return fc_out, rsq
 
 
-def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, out=None, fc_out=None, rsq=None,
-               workspace=None):
+def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
+               rsq=None, workspace=None):
     """A6 on the card; same contract as :func:`pswrr_plain`."""
+    form, m = _form(dform, mass)
     n, dev = u1.shape[0] - 1, u1.device
     _operands(n, dev, [("u1", u1), ("f", f)], ph, [("uc", uc)])
     out = _output(out, "out", (n + 1, n + 1), dev, (u1, f, uc))
@@ -458,28 +506,30 @@ def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, out=None, fc_out=None, rs
     rsq = _scalar_out(rsq, dev)
     KERNELS["A6"](u1.data_ptr(), f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(),
                   fc_out.data_ptr(), _partials(1, n, dev, workspace).data_ptr(),
-                  rsq.data_ptr(), n, a0, da, omega, int(ph is not None), int(dform),
+                  rsq.data_ptr(), n, a0, da, omega, *m, int(ph is not None), form,
                   _stream(dev))
     return out, fc_out, rsq
 
 
-def zrr_cuda(f, ph=None, *, a0, da, omega, out=None):
+def zrr_cuda(f, ph=None, *, a0, da, omega, mass=None, out=None):
     """A3 on the card; same contract as :func:`zrr_plain`."""
+    _, m = _form(False, mass)
     n, dev = f.shape[0] - 1, f.device
     _operands(n, dev, [("f", f)], ph)
     out = _output(out, "out", (n // 2 + 1, n // 2 + 1), dev, (f,))
-    KERNELS["A3"](f.data_ptr(), _ptr(ph), out.data_ptr(), n, a0, da, omega,
-                  int(ph is not None), _stream(dev))
+    KERNELS["A3"](f.data_ptr(), _ptr(ph), out.data_ptr(), n, a0, da, omega, *m,
+                  int(ph is not None), int(mass is not None), _stream(dev))
     return out
 
 
-def zpsweep_cuda(f, ph, uc, *, a0, da, omega, out=None):
+def zpsweep_cuda(f, ph, uc, *, a0, da, omega, mass=None, out=None):
     """A4 on the card; same contract as :func:`zpsweep_plain`."""
+    _, m = _form(False, mass)
     n, dev = f.shape[0] - 1, f.device
     _operands(n, dev, [("f", f)], ph, [("uc", uc)])
     out = _output(out, "out", (n + 1, n + 1), dev, (f, uc))
     KERNELS["A4"](f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(), n, a0,
-                  da, omega, int(ph is not None), _stream(dev))
+                  da, omega, *m, int(ph is not None), int(mass is not None), _stream(dev))
     return out
 
 
@@ -493,29 +543,26 @@ class SweepLevel:
     ``PallasLevel`` on compact fields, with its whole interface.
 
     ``phase`` is the (n, n) element phase map (None = homogeneous).
-    ``dform`` selects the difference-form apply for A1/A2/A5/A6 (default on, as
-    for every pure-stiffness ``PallasLevel``); A3/A4 always use the plain
+    ``mass`` = (mp, ms, mo) adds the pattern-independent per-element
+    operator (the heat theta-system, ``ops/heat.py``).  ``dform`` selects
+    the difference-form apply for A1/A2/A5/A6; it defaults to on for a
+    pure-stiffness operator and off with ``mass``, as ``PallasLevel``'s
+    default, and is refused with ``mass``.  A3/A4 always use the plain
     form, as their TPU kernels do.  Every method takes optional ``out``
     buffers (and ``rsq`` for the legs that emit one) so a solve loop can
     run without allocating; ``device=None`` means CUDA."""
 
     def __init__(self, n: int, phase=None, coefficients=(1.0, 20.0),
                  omega: float = 2.0 / 3.0, dform=None, mass=None, device=None):
-        if mass is not None:
-            if dform:
-                raise ValueError(
-                    "dform=True cannot carry a mass triple: the difference "
-                    "form needs zero row sums (the reference silently drops "
-                    "mass in this pairing)")
-            raise NotImplementedError(
-                "the mass triple (heat theta-systems) is not ported yet")
+        self.mass = None if mass is None else tuple(float(m) for m in mass)
+        self.dform = (self.mass is None) if dform is None else bool(dform)
+        _check_form(self.dform, self.mass)
         self.device = resolve_device(device)
         self.n = int(n)
         self.a0 = float(coefficients[0])
         self.da = (float(coefficients[1]) - float(coefficients[0])
                    if phase is not None else 0.0)
         self.omega = float(omega)
-        self.dform = True if dform is None else bool(dform)
         self.ph = (None if phase is None else torch.as_tensor(
             phase, dtype=torch.int8, device=self.device).contiguous())
         self._workspace = {}
@@ -534,29 +581,31 @@ class SweepLevel:
     def sweep(self, u, f, out=None, rsq=None):
         """One weighted-Jacobi sweep -> (u_new, rsq of u)."""
         return self._call(sweep_cuda, sweep_plain, u, f, self.ph, None,
-                          dform=self.dform, out=out, rsq=rsq)
+                          dform=self.dform, mass=self.mass, out=out, rsq=rsq)
 
     def residual(self, u, f, out=None, rsq=None):
         """Interior-masked residual f - A u -> (r, ||r||^2)."""
         return self._call(sweep_cuda, sweep_plain, u, f, self.ph, None,
-                          dform=self.dform, mode="residual", out=out, rsq=rsq)
+                          dform=self.dform, mode="residual", mass=self.mass, out=out,
+                          rsq=rsq)
 
     def psweep(self, u, f, uc, out=None, rsq=None):
         """u += masked bilinear prolongation of ``uc``; one sweep ->
         (u_new, rsq of the corrected u)."""
         return self._call(sweep_cuda, sweep_plain, u, f, self.ph, uc,
-                          dform=self.dform, out=out, rsq=rsq)
+                          dform=self.dform, mass=self.mass, out=out, rsq=rsq)
 
     def sweep_restrict(self, u, f, out=None, fc_out=None, rsq=None):
         """Pre-smoothing sweep + residual + x4 full weighting ->
         (u1, f_c, rsq of u)."""
-        return self._call(swrr_cuda, swrr_plain, u, f, self.ph,
-                          dform=self.dform, out=out, fc_out=fc_out, rsq=rsq)
+        return self._call(swrr_cuda, swrr_plain, u, f, self.ph, dform=self.dform,
+                          mass=self.mass, out=out, fc_out=fc_out, rsq=rsq)
 
     def restrict_residual(self, u, f, fc_out=None, rsq=None):
         """Residual + x4 full weighting -> (f_c, rsq of u); no solver path
         calls it (``sweep_restrict`` fuses it with the sweep)."""
-        kw = dict(a0=self.a0, da=self.da, dform=self.dform, fc_out=fc_out, rsq=rsq)
+        kw = dict(a0=self.a0, da=self.da, dform=self.dform, mass=self.mass, fc_out=fc_out,
+                  rsq=rsq)
         if not u.is_cuda:
             return rr_plain(u, f, self.ph, **kw)
         return rr_cuda(u, f, self.ph, workspace=self._workspace, **kw)
@@ -565,13 +614,13 @@ class SweepLevel:
         """Prolongation-add and post-smoothing sweep of one V(1,1) cycle
         fused with the next cycle's pre-smoothing sweep and restriction ->
         (u4, f_c, rsq of the completed cycle's iterate u3)."""
-        return self._call(pswrr_cuda, pswrr_plain, u1, f, self.ph, uc,
-                          dform=self.dform, out=out, fc_out=fc_out, rsq=rsq)
+        return self._call(pswrr_cuda, pswrr_plain, u1, f, self.ph, uc, dform=self.dform,
+                          mass=self.mass, out=out, fc_out=fc_out, rsq=rsq)
 
     def zsweep_restrict(self, f, out=None):
         """Zero-initial-guess descent leg -> f_c."""
-        return self._call(zrr_cuda, zrr_plain, f, self.ph, out=out)
+        return self._call(zrr_cuda, zrr_plain, f, self.ph, mass=self.mass, out=out)
 
     def zpsweep(self, f, uc, out=None):
         """Zero-initial-guess ascent leg -> u3."""
-        return self._call(zpsweep_cuda, zpsweep_plain, f, self.ph, uc, out=out)
+        return self._call(zpsweep_cuda, zpsweep_plain, f, self.ph, uc, mass=self.mass, out=out)

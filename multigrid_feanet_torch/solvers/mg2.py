@@ -45,14 +45,21 @@ class HierarchyV2:
 
     ``hier`` supplies a prebuilt hierarchy (for example from
     ``core.convert.hierarchy_from_arrays``) on ``device``; ``dform``
-    overrides the difference-form default of the level-0 legs.
+    overrides the fused legs' difference-form default.  ``coefficients`` and
+    ``mass_fn`` generalize the solver to any operator c K + M (stiffness
+    scaled by a constant plus a pattern-independent per-element operator):
+    the fused legs take the scaled pair ``(c a0, c a1)`` and the triple
+    ``mass_fn(level) -> (mp, ms, mo) | None`` of each level (h differs per
+    level), while ``hier`` (the system hierarchy, whose levels apply the
+    same operator) drives the plain subtree and the direct coarse solve;
+    ``ops/heat.py::heat_hierarchy`` builds the heat theta-system so.
     ``device=None`` means CUDA and raises when there is none."""
 
     def __init__(self, problem: Problem, num_levels: Optional[int] = None,
                  omega: float = DEFAULT_OMEGA, kernel_threshold: int = 256,
                  direct_coarse: bool = True,
-                 hier: Optional[GridHierarchy] = None,
-                 dtype=torch.float32, dform: Optional[bool] = None,
+                 hier: Optional[GridHierarchy] = None, coefficients=None,
+                 mass_fn=None, dtype=torch.float32, dform: Optional[bool] = None,
                  device=None):
         if dtype != torch.float32:
             raise NotImplementedError(
@@ -79,10 +86,11 @@ class HierarchyV2:
             raise ValueError(
                 "the finest level is below kernel_threshold: nothing to fuse")
         self.K = K
+        coeffs = tuple(coefficients) if coefficients is not None else problem.coefficients
         self.sweep_levels = [
-            SweepLevel(levels[l].n, phase=levels[l].phase,
-                       coefficients=problem.coefficients, omega=omega,
-                       dform=dform, device=device)
+            SweepLevel(levels[l].n, phase=levels[l].phase, coefficients=coeffs, omega=omega,
+                       dform=dform, mass=None if mass_fn is None else mass_fn(levels[l]),
+                       device=device)
             for l in range(K)]
         self.coarse_inv = None
         if direct_coarse and L > 1:

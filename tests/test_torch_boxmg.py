@@ -249,8 +249,13 @@ def test_later_slices_and_bad_arguments_raise():
         BoxMGHierarchy(prob, num_levels=3, setup=bm.setup[:1], kernel_threshold=16,
                        device="cpu")
 
-    class Affine:  # the JAX package's phase-affine level form
-        base = np.zeros((3, 3))
+    # the phase-affine level form, once refused here, now gives each node's
+    # row of the system table (held to the JAX function in
+    # tests/test_torch_heat.py)
+    from multigrid_feanet_torch.ops.heat import heat_system_hierarchy
 
-    with pytest.raises(NotImplementedError, match="phase-affine"):
-        tboxmg.node_stencil_planes(Affine())
+    lv = heat_system_hierarchy(Problem(n=16, inclusion=CIRCLE, dtype=torch.float64), 0.01,
+                               device="cpu").finest
+    assert lv.base is not None and lv.a0 is None
+    S = tboxmg.node_stencil_planes(lv)
+    torch.testing.assert_close(S, lv.table[lv.pid.long()], rtol=1e-12, atol=1e-15)

@@ -249,12 +249,12 @@ def test_library_hash_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     cu = sorted(csrc.glob("*.cu"))
-    names = ["elastic.cu", "general.cu", "hrelax.cu", "stencil.cu", "sweep.cu"]
+    names = ["elastic.cu", "general.cu", "hrelax.cu", "stencil.cu", "sweep.cu", "torus.cu"]
     assert [p.name for p in cu] == names
     assert [p.name for p in _build.sources()] == names
     seen = {_build.library_path()}
     for path in (*cu[::-1], csrc / "common.cuh"):
         path.write_bytes(path.read_bytes() + b"\n")
         seen.add(_build.library_path())
-    assert len(seen) == 7
+    assert len(seen) == len(names) + 2
     assert _build.library_path() == _build.library_path()

@@ -160,12 +160,19 @@ def test_twins_match_assembled_stencil(bim, dform):
 
 def test_dform_with_mass_is_refused():
     """The reference's _apply_op silently drops ``mass`` when dform=True
-    (pallas_sweep.py:225); the port refuses the pair."""
+    (pallas_sweep.py:225); the port refuses the pair, at the level and at
+    each leg, and a mass triple defaults to the plain form."""
     mass = (1e-4, 1e-4, -5e-5)
     with pytest.raises(ValueError, match="mass"):
         SweepLevel(16, mass=mass, dform=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="mass"):
-        SweepLevel(16, mass=mass, device="cpu")
+    assert SweepLevel(16, mass=mass, device="cpu").dform is False
+    assert SweepLevel(16, device="cpu").dform is True
+    u = torch.zeros(17, 17)
+    cfg = dict(a0=1.0, da=0.0, omega=2 / 3, dform=True, mass=mass)
+    with pytest.raises(ValueError, match="mass"):
+        sw.sweep_plain(u, u, None, **cfg)
+    with pytest.raises(ValueError, match="mass"):
+        sw.swrr_cuda(u, u, None, **cfg)
 
 
 def test_plain_versions_fill_out_buffers():
