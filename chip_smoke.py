@@ -346,11 +346,13 @@ def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float
     return rec
 
 
-def heat_mass(n: int) -> tuple:
-    """The heat system's per-element mass triple h^2 (1/18, 1/18, -1/36)
-    on a level of n elements (h = 2 / n)."""
-    hh = (2.0 / n) ** 2
-    return (hh / 18.0, hh / 18.0, -hh / 36.0)
+def level_mass(n: int) -> tuple:
+    """The heat system's mass triple on a level of n elements, as
+    ``ops/heat.py::heat_mass`` gives it to the fused legs."""
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.ops.heat import heat_mass
+
+    return heat_mass(build_level(Problem(n=n), n))
 
 
 def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0, 20.0),
@@ -1233,15 +1235,13 @@ def run_pbc_cells() -> dict:
     (solve_pbc_mg on the analytic problem, 12 levels, H1 on n >= 32)."""
     import torch
     from multigrid_feanet_torch.ops import pbc
-    from multigrid_feanet_torch.ops.torus import TorusLevel
     from multigrid_feanet_torch.solvers.pbc_mg import solve_pbc_mg
 
     out = {}
     table, f = analytic_pbc(32, DEVICE)
-    level = TorusLevel(32, device=DEVICE)
     r0 = float(pbc.pbc_interior_norm(f))
     (u, hist), launches = counted(
-        lambda: pbc.solve_jacobi_pbc(table, f, eps=5e-6, max_iters=2000, level=level))
+        lambda: pbc.solve_jacobi_pbc(table, f, eps=5e-6, max_iters=2000, device=DEVICE))
     head = [0.21556054, 0.16937497, 0.13308503, 0.10457049, 0.08216543]
     out["pbc_jacobi_32"] = dict(solve="pbc_jacobi_32", iterations=len(hist), r0=r0,
                                 head=hist[:5].tolist(), final=float(hist[-1]), launches=launches)
@@ -1254,10 +1254,9 @@ def run_pbc_cells() -> dict:
     h = 2.0 / n
     F = torch.as_tensor(bench_f(n)[:n, :n], device=DEVICE)
     fb = pbc.compatibility_shift(pbc.apply_mass_periodic(F, h), h)
-    level = TorusLevel(n, device=DEVICE)
 
     def run():
-        return pbc.solve_jacobi_pbc(table, fb, eps=None, max_iters=sweeps, level=level)
+        return pbc.solve_jacobi_pbc(table, fb, eps=None, max_iters=sweeps, device=DEVICE)
 
     (u, hist), launches = counted(run)
     if launches != {"H1": sweeps + 2} or len(hist) != sweeps or not np.all(np.isfinite(hist)):
@@ -1275,7 +1274,8 @@ def run_pbc_cells() -> dict:
     table, f = analytic_pbc(n, DEVICE)
 
     def run_mg():
-        return solve_pbc_mg(table, f, eps=PBC_EPS, max_cycles=100, kernel_threshold=32)
+        return solve_pbc_mg(table, f, eps=PBC_EPS, max_cycles=100, kernel_threshold=32,
+                            device=DEVICE)
 
     (u, hist), launches = counted(run_mg)
     cycles = len(hist)
@@ -1366,16 +1366,29 @@ def check_r6_small_against_cpu() -> dict:
     """129^2 checks of the heat and periodic paths on the card against the
     CPU's plain path: the fused HeatSolver.step (eps 1e-9, clear of its
     ~5e-12 floor) and march (10 steps of 2 cycles), and solve_pbc_mg on the
-    analytic problem at 128^2 (eps 3e-5, 100 times its ~2.2e-7 f32 floor:
-    at 5 times it the two paths' norms differ by 3e-3), H1 on levels
-    128..32.  Cycles equal, histories within 1e-3, u within 1e-4 of
-    its scale.  Returns each check's launches on the card."""
+    analytic problem at 128^2, H1 on levels 128..32, to the smallest decade
+    at least 100 times its f32 floor (the least norm of 12 cycles at eps 0,
+    the larger of the card's and the CPU's: at eps 2e-6 the two paths'
+    last norms differed by 2.7e-3).  Cycles equal, histories within 1e-3, u
+    within 1e-4 of its scale.  Returns each check's launches on the card."""
     import torch
     from multigrid_feanet_torch.solvers.pbc_mg import solve_pbc_mg
 
     n = N_SMALL
     f = np.random.default_rng(12).standard_normal((n + 1, n + 1)).astype(np.float32)
     z = np.zeros_like(f)
+
+    def pbc_mg_small(dev, eps, max_cycles):
+        table, fp = analytic_pbc(n, dev)
+        return solve_pbc_mg(table, fp, eps=eps, max_cycles=max_cycles, kernel_threshold=32,
+                            device=dev)
+
+    probes = {str(dev): pbc_mg_small(dev, 0.0, 12)[1] for dev in (DEVICE, "cpu")}
+    floor = max(float(np.min(h)) for h in probes.values())
+    pbc_eps = float(10.0 ** np.ceil(np.log10(100.0 * floor)))
+    print(json.dumps({"pbc_small_floor": dict(floor_12_cycles=floor, eps=pbc_eps,
+                                              probes={d: h.tolist() for d, h in probes.items()})}),
+          flush=True)
     runs = {
         "heat_small_step": (lambda dev: heat_solver(n, 4, 16, dev),
                             lambda hs: hs.step(z, f, f, eps=1e-9, max_cycles=40),
@@ -1383,9 +1396,7 @@ def check_r6_small_against_cpu() -> dict:
         "heat_small_march": (lambda dev: heat_solver(n, 4, 16, dev),
                              lambda hs: (hs.march(z, f, 10, cycles_per_step=2), None),
                              ("A1", "A2", "A3", "A4")),
-        "pbc_mg_small": (lambda dev: analytic_pbc(n, dev),
-                         lambda tf: solve_pbc_mg(*tf, eps=3e-5, max_cycles=40,
-                                                 kernel_threshold=32), ("H1",)),
+        "pbc_mg_small": (lambda dev: dev, lambda dev: pbc_mg_small(dev, pbc_eps, 40), ("H1",)),
     }
     out = {}
     for label, (build, run, expect) in runs.items():
@@ -1550,9 +1561,9 @@ def main() -> int:
     heat_coef = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
     for bim in (True, False):
         r6checks += check_kernels(N_MAIN, bim, False, a13 + ["A3", "A4", "A5", "A6"],
-                                  coef=heat_coef, mass=heat_mass(N_MAIN))
+                                  coef=heat_coef, mass=level_mass(N_MAIN))
         r6checks += check_kernels(N_MAIN // 2, bim, False, ["A3", "A4"], coef=heat_coef,
-                                  mass=heat_mass(N_MAIN // 2))
+                                  mass=level_mass(N_MAIN // 2))
     r6checks += [check_torus(n) for n in (N_MAIN, 32, 96)]
     for rec in r6checks:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)

@@ -10,7 +10,7 @@ first, exists only at the interface with the reference
 The periodic problem is singular (its nullspace is the constants): shift the
 right-hand side into the operator's range with :func:`compatibility_shift`
 before solving.  :func:`solve_jacobi_pbc` runs its sweeps on kernel H1
-(``ops/torus.py``) when given a :class:`~multigrid_feanet_torch.ops.torus.TorusLevel`.
+(``ops/torus.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.ops import stencil
 from multigrid_feanet_torch.solvers.common import run_chunks
 
@@ -101,15 +102,8 @@ def homogeneous_a0(table) -> float:
     return a0
 
 
-def _check_level(level, table, omega, n):
-    if level.n != n:
-        raise ValueError(f"the torus level has n={level.n}, the field n={n}")
-    if not np.isclose(level.a0, homogeneous_a0(table), rtol=1e-6) or level.omega != float(omega):
-        raise ValueError("the torus level's a0 and omega must be those of the solve")
-
-
 def solve_jacobi_pbc(table, f_conv, u0=None, eps=5e-6, max_iters: int = 10_000,
-                     chunk: int = 256, omega: float = 2.0 / 3.0, level=None):
+                     chunk: int = 256, omega: float = 2.0 / 3.0, device=None):
     """Weighted-Jacobi solve on the torus to the wrapped residual norm
     ``eps`` (None = never) or ``max_iters`` sweeps, in chunks of ``chunk``
     sweeps with one host sync each.
@@ -120,38 +114,28 @@ def solve_jacobi_pbc(table, f_conv, u0=None, eps=5e-6, max_iters: int = 10_000,
     cut at the first norm ``<= eps`` while ``u`` is the end of that whole
     chunk (up to ``chunk - 1`` sweeps past it), as in the JAX solver.
 
-    With ``level``, a :class:`~multigrid_feanet_torch.ops.torus.TorusLevel`
-    of the same n, a0 and omega, each sweep is one launch of kernel H1,
-    whose two free pre-update norms make up the history, and the explicit
-    norm is one more launch into a scratch field; otherwise the sweeps are
-    plain torch ops where ``table`` lives."""
-    dev = level.device if level is not None else torch.as_tensor(table).device
-    table = torch.as_tensor(table, device=dev)
-    f = torch.as_tensor(f_conv, device=dev)
-    u = torch.zeros_like(f) if u0 is None else torch.as_tensor(u0, dtype=f.dtype, device=dev)
-    if level is None:
-        def run(u, k):
-            pre = []
-            for _ in range(k):
-                r = f - apply_stencil_periodic(table, u)
-                u = u + (omega / table[1, 1]) * r
-                pre.append(pbc_interior_norm(r))
-            final = pbc_interior_norm(f - apply_stencil_periodic(table, u))
-            return u, torch.stack(pre[1:] + [final])
-        return run_chunks(run, u, max_iters, chunk, eps)
+    Each sweep is one launch of kernel H1 (a
+    :class:`~multigrid_feanet_torch.ops.torus.TorusLevel` for ``table``'s a0
+    and ``omega``), whose two free pre-update norms make up the history; the
+    explicit norm is one more launch into a scratch field.  ``device=None``
+    means CUDA; on the CPU the sweeps are H1's plain version, in the dtype
+    of ``f_conv``."""
+    from multigrid_feanet_torch.ops.torus import TorusLevel  # ops/torus.py imports this module
 
-    _check_level(level, table, omega, f.shape[-1])
-    f = f.to(torch.float32).contiguous()
-    bufs = [u.to(torch.float32).clone().contiguous(), torch.empty_like(f)]
+    device = resolve_device(device)
+    f = torch.as_tensor(f_conv, device=device).contiguous()
+    level = TorusLevel(f.shape[-1], homogeneous_a0(table), omega, device)
+    u = torch.zeros_like(f) if u0 is None else torch.as_tensor(u0, dtype=f.dtype, device=device)
+    bufs = [u.clone().contiguous(), torch.empty_like(f)]
     scratch = torch.empty_like(f)
 
-    def run_kernel(u, k):
+    def run(u, k):
         cur, spare = (bufs if u is bufs[0] else bufs[::-1])
-        sq = torch.empty((k + 1, 2), dtype=torch.float32, device=dev)
+        sq = torch.empty((k + 1, 2), dtype=f.dtype, device=device)
         for j in range(k):
             level.sweep(cur, f, out=spare, rsq=sq[j, 0], rsq_wrap=sq[j, 1])
             cur, spare = spare, cur
         level.sweep(cur, f, out=scratch, rsq=sq[k, 0], rsq_wrap=sq[k, 1])
         return cur, torch.sqrt(sq[1:, 0] + sq[1:, 1])
 
-    return run_chunks(run_kernel, bufs[0], max_iters, chunk, eps)
+    return run_chunks(run, bufs[0], max_iters, chunk, eps)

@@ -85,11 +85,15 @@ def v_cycle_pbc(table, u, f, num_levels: int, r_kernel=None, p_kernel=None,
                 n_relax: int = 1, omega: float = 2.0 / 3.0, level: int = 0, torus=None):
     """Recursive periodic V-cycle on unique torus grids (homogeneous
     operator), with the reference's unconditional post-relax (the coarsest
-    level is relaxed twice).  ``torus`` (from :func:`torus_levels`) runs
-    the relaxations of its non-None levels on H1."""
+    level is relaxed twice).  ``torus`` (from :func:`torus_levels`, for the
+    table's a0) runs the relaxations of its non-None levels on H1; their n
+    and omega must be the cycle's."""
     rk = BILINEAR_4 if r_kernel is None else r_kernel
     pk = BILINEAR_4 if p_kernel is None else p_kernel
     tl = None if torus is None else torus[level]
+    if tl is not None and (tl.n != f.shape[-1] or tl.omega != float(omega)):
+        raise ValueError(f"torus level {level} has n={tl.n}, omega={tl.omega}; the cycle "
+                         f"has n={f.shape[-1]}, omega={float(omega)}")
 
     def relax(u):
         for _ in range(n_relax):
@@ -108,20 +112,22 @@ def v_cycle_pbc(table, u, f, num_levels: int, r_kernel=None, p_kernel=None,
 
 
 def solve_pbc_mg(table, f_conv, num_levels=None, r_kernel=None, p_kernel=None,
-                 eps: float = 1e-5, max_cycles: int = 100, kernel_threshold=32):
+                 eps: float = 1e-5, max_cycles: int = 100, kernel_threshold=32, device=None):
     """Periodic V-cycles from u = 0 to the wrapped residual norm ``eps`` ->
     ``(u, history)``, ``history[j]`` the norm after cycle j+1 (one host
-    sync per cycle, as the JAX loop).  Runs where ``f_conv`` lives; the
-    levels with ``n >= kernel_threshold`` (None: none) relax on H1."""
-    f = torch.as_tensor(f_conv)
-    table = torch.as_tensor(table, device=f.device)
+    sync per cycle, as the JAX loop).  The levels with
+    ``n >= kernel_threshold`` (None: none) relax on H1.  ``device=None``
+    means CUDA; on the CPU the relaxations are H1's plain version."""
+    device = resolve_device(device)
+    f = torch.as_tensor(f_conv, device=device)
+    table = torch.as_tensor(table, device=device)
     n = f.shape[-1]
     if num_levels is None:
         num_levels = int(np.log2(n))
     torus = None
     if kernel_threshold is not None:
         torus = torus_levels(n, num_levels, pbc.homogeneous_a0(table),
-                             kernel_threshold=kernel_threshold, device=f.device)
+                             kernel_threshold=kernel_threshold, device=device)
     u = torch.zeros_like(f)
     hist = []
     for _ in range(max_cycles):

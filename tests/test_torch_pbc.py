@@ -4,8 +4,9 @@ on the CPU.
 
 - Every function of ops/pbc.py agrees with its JAX twin in f64 to 1e-12.
 - The reference's analytic problem (tests/test_pbc.py) takes exactly 46
-  sweeps with its history head to 1e-4, on the plain path and on a
-  ``TorusLevel``; in f64 the history agrees with JAX's to 1e-5 relative.  In
+  sweeps with its history head to 1e-4, with plain ``jacobi_step_pbc``
+  steps and through ``solve_jacobi_pbc`` (whose sweeps are a ``TorusLevel``'s);
+  in f64 the history agrees with JAX's to 1e-5 relative.  In
   f32 the last norms (5e-6 of an initial 0.27) come out of a 5e4-fold
   cancellation, so the two frameworks' f32 histories agree to 1e-2 there.
 - H1's plain version against ``PallasTorusLevel`` in interpret mode (the
@@ -27,6 +28,7 @@ from multigrid_feanet_torch.ops import pbc as tpbc
 from multigrid_feanet_torch.ops import stencil as tst
 from multigrid_feanet_torch.ops import torus as ttorus
 from multigrid_feanet_torch.ops.torus import TorusLevel
+from multigrid_feanet_torch.solvers.pbc_mg import solve_pbc_mg
 
 REF_HEAD = [0.21556054, 0.16937497, 0.13308503, 0.10457049, 0.08216543]
 
@@ -89,13 +91,27 @@ def test_constant_in_nullspace():
     np.testing.assert_allclose(out.numpy(), 0.0, atol=1e-5)
 
 
+def _step_history(table, f, eps, max_iters):
+    """The history convention spelt out with plain ``jacobi_step_pbc``
+    steps: the wrapped norm after each sweep, up to the first ``<= eps``."""
+    u, hist = torch.zeros_like(f), []
+    while len(hist) < max_iters and not (hist and hist[-1] <= eps):
+        u = tpbc.jacobi_step_pbc(table, u, f)
+        hist.append(float(tpbc.pbc_interior_norm(f - tpbc.apply_stencil_periodic(table, u))))
+    return u, np.asarray(hist)
+
+
 @pytest.mark.parametrize("on_level", [False, True], ids=["plain", "torus_level"])
 def test_analytic_jacobi_history_f32(on_level):
-    """46 sweeps to 5e-6 with the reference's history head and r0."""
+    """46 sweeps to 5e-6 with the reference's history head and r0: with
+    plain ``jacobi_step_pbc`` steps, and through ``solve_jacobi_pbc``, whose
+    sweeps and norms are those of a ``TorusLevel`` (H1's plain version)."""
     (jt, jf), (tt, tf) = _analytic()
     _, hj = jpbc.solve_jacobi_pbc(jt, jf, eps=5e-6, max_iters=2000)
-    level = TorusLevel(32, device="cpu") if on_level else None
-    u, ht = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000, level=level)
+    if on_level:
+        u, ht = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000, device="cpu")
+    else:
+        u, ht = _step_history(tt, tf, 5e-6, 2000)
     assert len(ht) == len(hj) == 46
     np.testing.assert_allclose(ht[:5], REF_HEAD, rtol=1e-4)
     np.testing.assert_allclose(float(tpbc.pbc_interior_norm(tf)), 0.27434009, rtol=1e-4)
@@ -108,31 +124,37 @@ def test_analytic_jacobi_history_f64():
     sweep, and the returned u (the end of the 256-sweep chunk) too."""
     (jt, jf), (tt, tf) = _analytic(f64=True)
     uj, hj = jpbc.solve_jacobi_pbc(jt, jf, eps=5e-6, max_iters=2000)
-    ut, ht = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000)
-    assert len(ht) == len(hj)
+    ut, ht = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000, device="cpu")
+    assert ut.dtype == torch.float64 and len(ht) == len(hj)
     np.testing.assert_allclose(ht, np.asarray(hj), rtol=1e-5)
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=1e-5, atol=1e-9)
 
 
 def test_jacobi_chunks_and_caps():
     """The history does not depend on the chunk; ``u`` is the end of the
-    chunk that met eps; eps=None runs max_iters sweeps; the level path's
-    u equals the plain path's."""
+    chunk that met eps; eps=None runs max_iters sweeps; ``u`` after 3 and
+    50 sweeps (in chunks of 20) is that of as many ``jacobi_step_pbc``
+    steps."""
     (_, _), (tt, tf) = _analytic()
-    u256, h256 = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000)
-    u10, h10 = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000, chunk=10)
+
+    def solve(**kw):
+        return tpbc.solve_jacobi_pbc(tt, tf, device="cpu", **kw)
+
+    u256, h256 = solve(eps=5e-6, max_iters=2000)
+    u10, h10 = solve(eps=5e-6, max_iters=2000, chunk=10)
     np.testing.assert_allclose(h10, h256, rtol=1e-6)
-    _, h50 = tpbc.solve_jacobi_pbc(tt, tf, eps=5e-6, max_iters=2000, chunk=50)
-    u50, _ = tpbc.solve_jacobi_pbc(tt, tf, eps=None, max_iters=50)
-    ul, hl = tpbc.solve_jacobi_pbc(tt, tf, eps=None, max_iters=50, chunk=20,
-                                   level=TorusLevel(32, device="cpu"))
+    _, h50 = solve(eps=5e-6, max_iters=2000, chunk=50)
+    u50, _ = solve(eps=None, max_iters=50)
+    ul, hl = solve(eps=None, max_iters=50, chunk=20)
     assert len(hl) == 50
     np.testing.assert_allclose(ul.numpy(), u50.numpy(), atol=1e-6)
-    u3, _ = tpbc.solve_jacobi_pbc(tt, tf, eps=None, max_iters=3)
     want = tf * 0
-    for _ in range(3):
+    for j in range(50):
         want = tpbc.jacobi_step_pbc(tt, want, tf)
-    np.testing.assert_allclose(u3.numpy(), want.numpy(), atol=1e-7)
+        if j == 2:
+            u3, _ = solve(eps=None, max_iters=3)
+            np.testing.assert_allclose(u3.numpy(), want.numpy(), atol=1e-7)
+    np.testing.assert_allclose(ul.numpy(), want.numpy(), atol=1e-6)
     assert len(h50) == 46
 
 
@@ -200,7 +222,10 @@ def test_kernel_paths_refuse_what_they_cannot_run():
     with pytest.raises(ValueError, match="homogeneous"):
         tpbc.homogeneous_a0(torch.ones(3, 3))
     assert tpbc.homogeneous_a0(2.0 * tt) == pytest.approx(2.0, rel=1e-6)
-    with pytest.raises(ValueError, match="n=8"):
-        tpbc.solve_jacobi_pbc(tt, u, level=TorusLevel(8, device="cpu"))
-    with pytest.raises(ValueError, match="a0 and omega"):
-        tpbc.solve_jacobi_pbc(tt, u, level=TorusLevel(16, a0=2.0, device="cpu"))
+    with pytest.raises(ValueError, match="homogeneous"):
+        tpbc.solve_jacobi_pbc(torch.ones(3, 3), u, device="cpu")
+    if not torch.cuda.is_available():  # device=None means CUDA
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpbc.solve_jacobi_pbc(tt, u)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solve_pbc_mg(tt, u)

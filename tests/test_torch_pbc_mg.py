@@ -99,13 +99,16 @@ def test_v_cycle_matches_jax():
     assert [t is None for t in torus] == [False, False, False, True, True]
     got = tmg.v_cycle_pbc(tt, torch.from_numpy(u32), tf, 5, torus=torus)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="omega"):  # H1 would relax with the level's omega
+        tmg.v_cycle_pbc(tt, torch.from_numpy(u32), tf, 5, omega=0.8, torus=torus)
 
 
 @pytest.mark.parametrize("f64", [False, True], ids=["f32_torus_levels", "f64_plain"])
 def test_solve_pbc_mg_matches_jax(f64):
     (jt, jf), (tt, tf) = _analytic(f64=f64)
     uj, hj = jmg.solve_pbc_mg(jt, jf, eps=5e-6)
-    ut, ht = tmg.solve_pbc_mg(tt, tf, eps=5e-6, kernel_threshold=None if f64 else 16)
+    ut, ht = tmg.solve_pbc_mg(tt, tf, eps=5e-6, kernel_threshold=None if f64 else 16,
+                              device="cpu")
     assert len(ht) == len(hj) <= 10
     np.testing.assert_allclose(ht, np.asarray(hj), rtol=1e-4 if f64 else 1e-2)
     d = ut.numpy() - np.asarray(uj)
