@@ -80,8 +80,23 @@ Phases, in order; any failure exits non-zero:
    (``HeatSolver(backend="fused").march``, 10 steps of 2 V(1,1) cycles,
    exact A1-A4 counts, and one ``step``); and three 129^2 checks against
    the CPU (the fused heat step and march, ``solve_pbc_mg`` at 128^2).
-13. Print the kernel summary line (one row per kernel and path, with the
-   path's launch counts), then the device line as the last line.
+13. Hold B1 and B2 (4097^2, bitwise; torch.add timed beside them), F1
+   (4097^2 circle (1, 20) in bf16 and f32 Q, n = 512; also against A1's
+   plain-form sweep) and E1 (4097^2 homogeneous with the L = 3 and L = 1
+   nets and the ring reset of h_relax; bi-material with the L = 1 net in
+   both forms; n = 2, 32 and 512 with a boundary field) against their plain
+   versions.  Then ``membench_4097`` (copy and triad GB/s, the sweep's
+   share of the triad rate), ``qsweep_4097`` (512 F1 sweeps, equal to 512
+   A1 sweeps), ``hjac_4097`` (256 h_relax sweeps on E1), ``hjac_iter_32``
+   (Jacobi against H-Jacobi on the learned-iterator sample, >= 5x, card and
+   CPU counts within 2%), ``measure_q_1024`` / ``_4096`` (H-MG q on E1
+   against the JAX values), ``decay_train`` (20 error-decay steps, no kernel
+   launches, the loss falls by >= 0.2) and ``hnet_train_129`` (8 epochs on
+   the oracle's 129^2 dataset, the loss falls 10%, resume equals the
+   straight run).
+14. Print the kernel summary line (one row per kernel and path, with the
+   path's launch counts; each row's byte bound also at the measured copy
+   and triad rates), then the device line as the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -121,7 +136,8 @@ FLOPS_PER_NODE.update({"D1": 24, "D2": 85, "D3": 47, "D4": 25, "D5": 31})
 # APPLY_FLOPS[(bim, dform)], the others are the Jacobi update, increments,
 # prolongation and restriction, and each conv layer of a chain costs 18.
 APPLY_FLOPS = {(True, True): 44, (True, False): 33, (False, True): 27, (False, False): 12}
-HRELAX_FLOPS = {"E2": (2, 12, 1), "E3": (1, 10, 1), "E4": (1, 10, 1), "E5": (1, 16, 2)}
+HRELAX_FLOPS = {"E1": (1, 8, 1), "E2": (2, 12, 1), "E3": (1, 10, 1), "E4": (1, 10, 1),
+                "E5": (1, 16, 2)}
 # G1-G5, counted from csrc/elastic.cu per fine node: an operator apply of
 # both components is 98 operations, the block-Jacobi update 14, the residual
 # and its square 6, the zero-guess iterate 20, the prolongation of both
@@ -130,9 +146,18 @@ FLOPS_PER_NODE.update({"G1": 118, "G2": 225, "G3": 124, "G4": 127, "G5": 144})
 # H1, counted from csrc/torus.cu per node: the homogeneous apply 11, the
 # residual 1, the update 3, the square and the wrapped-norm weights 5.
 FLOPS_PER_NODE["H1"] = 20
+# F1, counted from csrc/qsweep.cu per node: the bi-material plain-form apply
+# 33, the residual, the diagonal and the update 7; B1 and B2 one and two
+# per element.
+FLOPS_PER_NODE.update({"F1": 40, "B1": 1, "B2": 2})
 HNET_L1 = "results/learn_iterator/hnet_decay_L1_hlNone.npz"
 HNET_L3 = "results/learn_iterator/hnet_decay.npz"
 HNET_L3_HL1 = "results/learn_iterator/hnet_decay_L3_hl1.npz"
+HNET_ITER = "results/learn_iterator/hnet.npz"  # the learned iterator, L = 3
+# measure_q at n = 1024 with the L = 1 net (results/learn_iterator/
+# decay_L1_hlNone_summary.json, the JAX run): algorithmic, so the port must
+# land within 10% (H-Jacobi) and 5% (plain V(1,1)) of them
+Q_JAX_1024 = {"hjac": 0.05573512241244316, "jac": 0.23737014830112457}
 DEVICE = "cuda"
 N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
 CIRCLE = ("circle", (0.0, 0.0), 0.5)
@@ -268,8 +293,8 @@ def hrelax_bytes(leg: str, n: int, bim: bool, L: int) -> int:
     each output written once (f32 fields, int8 phase, f32 coarse fields,
     the (L, 3, 3) f32 kernels)."""
     H2, Hc2, ph = (n + 1) ** 2, (n // 2 + 1) ** 2, n * n if bim else 0
-    fields = {"E2": 3, "E3": 3, "E4": 1, "E5": 2}[leg]
-    return 4 * H2 * fields + ph + 4 * Hc2 + 36 * L
+    fields = {"E1": 3, "E2": 3, "E3": 3, "E4": 1, "E5": 2}[leg]
+    return 4 * H2 * fields + ph + (0 if leg == "E1" else 4 * Hc2) + 36 * L
 
 
 def hrelax_flops(leg: str, bim: bool, dform: bool, L: int) -> int:
@@ -298,10 +323,11 @@ OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "G2": ("out", "fc_out", "rsq"), "G3": ("out",), "G4": ("out",), "G5": ("out",),
              "A5": ("fc_out", "rsq"), "A6": ("out", "fc_out", "rsq"),
              "C1_sweep": ("out", "rsq"), "C1_residual": ("out", "rsq"),
-             "H1": ("out", "rsq", "rsq_wrap"),
+             "H1": ("out", "rsq", "rsq_wrap"), "E1": ("out", "rsq"), "F1": ("out",),
+             "B1": ("out",), "B2": ("out",),
              **{f"C2_k{k}": ("out", "rsq") for k in range(1, 9)}}
 # the legs that keep partial sums in a workspace
-RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E2", "G1", "G2", "H1")
+RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E1", "E2", "G1", "G2", "H1")
 
 
 def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
@@ -352,7 +378,7 @@ def level_mass(n: int) -> tuple:
     from multigrid_feanet_torch.core.problem import Problem, build_level
     from multigrid_feanet_torch.ops.heat import heat_mass
 
-    return heat_mass(build_level(Problem(n=n), n))
+    return heat_mass(build_level(Problem(n=n), n, device="cpu"))
 
 
 def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0, 20.0),
@@ -573,10 +599,11 @@ def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=N
 
 
 def all_kernels() -> dict:
-    from multigrid_feanet_torch.ops import elastic, general, hrelax, stencil_sweep, sweep, torus
+    from multigrid_feanet_torch.ops import (elastic, general, hrelax, membench, qsweep,
+                                            stencil_sweep, sweep, torus)
 
     return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS, **elastic.KERNELS,
-            **stencil_sweep.KERNELS, **torus.KERNELS}
+            **stencil_sweep.KERNELS, **torus.KERNELS, **qsweep.KERNELS, **membench.KERNELS}
 
 
 def counted(run):
@@ -678,7 +705,8 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "
                ("c1_stencil_relax", "C1"), ("c2_stencil_multi", "C2"),
                ("a5_resid_restrict", "A5"), ("a6_cross_cycle", "A6"),
                ("h1_torus_relax", "H1"), ("reduce_kernel", "rsq_reduce"),
-               ("h1_reduce_pair", "rsq_reduce"))
+               ("h1_reduce_pair", "rsq_reduce"), ("e1_h_relax", "E1"), ("f1_qsweep", "F1"),
+               ("b1_copy", "B1"), ("b2_triad", "B2"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -1427,6 +1455,320 @@ def check_r6_small_against_cpu() -> dict:
     return out
 
 
+def check_e1(n: int, bim: bool, dform: bool, ckpt: str, bc=None, seed: int = 13):
+    """Hold E1 against its plain version on one level's seeded inputs with
+    the kernels of ``ckpt``; ``bc`` None (the ring kept), a number or
+    "field" (a standard normal boundary field).  One record."""
+    import torch
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    params = load_params(ckpt)
+    L = int(params.shape[0])
+    inputs = level_inputs(n, bim, seed) + (params,)
+    bcv = bc
+    if bc == "field":
+        bcv = torch.as_tensor(np.random.default_rng(seed).standard_normal((n + 1, n + 1)).astype(
+            np.float32), device=DEVICE)
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0, dform=dform, bc=bcv)
+    rec = hold("E1", lambda fn, x, kw: fn(x[0], x[1], x[3], x[4], **kw), hx.hrelax_cuda,
+               hx.hrelax_plain, inputs, cfg, hrelax_bytes("E1", n, bim, L), hx.TOL,
+               dict(n=n, bim=bim, dform=dform, L=L, bc=bc))
+    return dict(rec, flops_per_node=hrelax_flops("E1", bim, dform, L))
+
+
+def check_f1(n: int, q_dtype, seed: int = 14):
+    """Hold F1 against its plain version on the circle's (1, 20) Q stream
+    in ``q_dtype``; also its largest difference from A1's plain-form sweep
+    on the same inputs.  One record."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import qsweep as qs
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    u, f, _, ph = level_inputs(n, True, seed)
+    q = qs.make_q(circle_phase(2.0, n), dtype=q_dtype, device=DEVICE)
+    rec = hold("F1", lambda fn, x, kw: fn(x[0], x[1], x[2], **kw), qs.qsweep_cuda,
+               qs.qsweep_plain, (u, f, q), dict(omega=2.0 / 3.0),
+               4 * 3 * (n + 1) ** 2 + q.element_size() * n * n, qs.TOL,
+               dict(n=n, q_dtype=str(q_dtype).removeprefix("torch.")))
+    a1, _ = sw.sweep_cuda(u, f, ph, None, a0=1.0, da=19.0, omega=2.0 / 3.0, dform=False)
+    rec["a1_max_abs_diff"] = float((qs.qsweep_cuda(u, f, q, omega=2.0 / 3.0) - a1).abs().max())
+    return rec
+
+
+def check_membench(n: int = N_MAIN):
+    """Hold B1 and B2 against their plain versions, bitwise, on standard
+    normal (n+1)^2 fields; ``library_ms`` is the one PyTorch call that
+    computes the same function (torch.add), timed as the kernel.  Two
+    records."""
+    import torch
+    from multigrid_feanet_torch.ops import membench as mb
+
+    gen = torch.Generator().manual_seed(15)
+    a, b = (torch.randn((n + 1, n + 1), generator=gen).to(DEVICE) for _ in range(2))
+    out = torch.empty_like(a)
+    recs = [hold("B1", lambda fn, x, kw: fn(x[0], **kw), mb.copy_cuda, mb.copy_plain, (a,), {},
+                 8 * (n + 1) ** 2, 0.0, dict(n=n)),
+            hold("B2", lambda fn, x, kw: fn(x[0], x[1], **kw), mb.triad_cuda, mb.triad_plain,
+                 (a, b), {}, 12 * (n + 1) ** 2, 0.0, dict(n=n))]
+    recs[0]["library_ms"] = kernel_ms([lambda: torch.add(a, 1.0, out=out)])
+    recs[1]["library_ms"] = kernel_ms([lambda: torch.add(a, b, alpha=0.5, out=out)])
+    return recs
+
+
+def run_membench_cell(b_checks, a1_sweep: dict) -> dict:
+    """``membench_4097`` (bench.py:416-421): copy and triad GB/s at 4097^2
+    f32 (each field 67.1 MB, above the 50 MB L2), the torch.add rates beside
+    them, and the A1 plain-form sweep's share of the triad rate
+    (bench.py's sweep_stream_fraction_of_triad: the time the triad rate
+    needs for the sweep's 12 B/node over the sweep's time)."""
+    from multigrid_feanet_torch.ops import membench as mb
+
+    H2 = (N_MAIN + 1) ** 2
+    (copy, triad), launches = counted(lambda: (mb.copy_gbps(), mb.triad_gbps()))
+    lib = {r["name"]: r["library_ms"] for r in b_checks}
+    sweep_s = a1_sweep["ms"] / 1e3
+    rec = dict(solve="membench_4097", n=N_MAIN, copy_gbps=copy, triad_gbps=triad,
+               torch_add_copy_gbps=8 * H2 / (lib["B1"] / 1e3) / 1e9,
+               torch_add_triad_gbps=12 * H2 / (lib["B2"] / 1e3) / 1e9,
+               sweep_ms=a1_sweep["ms"],
+               sweep_stream_fraction_of_triad=(12 * H2 / (triad * 1e9)) / sweep_s,
+               sweep_vs_copy_peak=(13 * H2 / sweep_s / 1e9) / copy, launches=launches)
+    print(json.dumps(rec), flush=True)
+    if not (np.isfinite(copy) and np.isfinite(triad) and copy > 0 and triad > 0):
+        fail(f"membench_4097: rates {copy}, {triad}")
+    if not (launches.get("B1") and launches.get("B2")):
+        fail(f"membench_4097: a kernel of the path never launched: {launches}")
+    return rec
+
+
+def run_qsweep_cell() -> dict:
+    """``qsweep_4097`` (bench.py:102-118): 512 F1 sweeps (two chunks of 256,
+    a synchronize after each) at 4097^2 on the circle's bf16 (1, 20) Q
+    stream, from phase 2's u and bench_f; exactly 512 F1 launches, and the
+    last iterate equal to 512 A1 plain-form sweeps from the same start to
+    TOL."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import qsweep as qs
+    from multigrid_feanet_torch.ops.sweep import TOL, SweepLevel
+
+    n, sweeps = N_MAIN, 512
+    u0, _, _, ph = level_inputs(n, True, 1)
+    f = torch.as_tensor(bench_f(n), device=DEVICE)
+    q = qs.make_q(circle_phase(2.0, n), device=DEVICE)
+    level = SweepLevel(n, phase=ph, dform=False, device=DEVICE)
+    bufs = [torch.empty_like(u0) for _ in range(2)]
+
+    def run(sweep=lambda u, out: qs.qsweep(level, u, f, q, out=out)):
+        u = u0
+        for chunk in range(2):
+            for s in range(sweeps // 2):
+                u = sweep(u, bufs[s % 2])
+            torch.cuda.synchronize()
+        return u.clone(), None
+
+    (u, _), launches = counted(run)
+    if launches != {"F1": sweeps} or not torch.isfinite(u).all():
+        fail(f"qsweep_4097: launches {launches}, finite {bool(torch.isfinite(u).all())}")
+    ua, _ = run(lambda u, out: level.sweep(u, f, out=out)[0])
+    err = float((u - ua).abs().max()) / max(1.0, float(ua.abs().max()))
+    if err > TOL:
+        fail(f"qsweep_4097: F1's iterate departs from A1's by {err}")
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        run()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+    rec = dict(solve="qsweep_4097", n=n, sweeps=sweeps, q_dtype="bfloat16", wall_s=wall,
+               walls_s=walls, ms_per_sweep=1e3 * wall / sweeps, rel_err_vs_a1=err,
+               launches=launches, profile=profile_solve(run, sweeps, wall))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_hjac_cell() -> dict:
+    """``hjac_4097``: 256 h_relax sweeps on E1 at 4097^2 homogeneous with
+    the L = 3 net of results/learn_iterator/hnet.npz, from the f = 0 decay
+    start; exactly 256 E1 launches, a finite iterate whose residual fell."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.models import hnet
+    from multigrid_feanet_torch.solvers.jacobi import interior_norm
+
+    n, sweeps = N_MAIN, 256
+    lv = build_level(Problem(n=n), n, device=DEVICE)
+    params = load_params(HNET_ITER)
+    u0, f = decay_start(lv)
+
+    def run():
+        return hnet.h_relax(lv, params, u0, f, sweeps), None
+
+    (u, _), launches = counted(run)
+    r0, r1 = float(interior_norm(lv.apply(u0))), float(interior_norm(f - lv.apply(u)))
+    if launches != {"E1": sweeps} or not torch.isfinite(u).all() or not r1 < r0:
+        fail(f"hjac_4097: launches {launches}, residual {r0} -> {r1}")
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    wall = min(walls)
+    rec = dict(solve="hjac_4097", n=n, sweeps=sweeps, L=int(params.shape[0]), wall_s=wall,
+               walls_s=walls, ms_per_sweep=1e3 * wall / sweeps, res0=r0, res_last=r1,
+               launches=launches, profile=profile_solve(run, sweeps, wall))
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_hjac_iter_cell() -> dict:
+    """``hjac_iter_32``, the learned-iterator anchor: a 33^2 sample of the
+    port's generate_isopoisson(32, 1, seed=0) (dense f64 solve); plain
+    solve_jacobi to 1e-5 against H-Jacobi on E1 with hnet.npz from u0 = 0
+    under the sample's Dirichlet field.  The speedup must be >= 5x
+    (tests/test_hnet.py:80) and the CPU's plain path must take the card's
+    H-Jacobi count within 2%; the iterate must approach the sample's u to
+    5e-4."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.data.datasets import generate_isopoisson
+    from multigrid_feanet_torch.models import hnet
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+    from multigrid_feanet_torch.solvers.jacobi import interior_norm, solve_jacobi
+
+    n, eps = 32, 1e-5
+    u_star, f_raw, bc_value, _ = generate_isopoisson(n, 1, seed=0)[0]
+
+    def problem(dev):
+        lv = build_level(Problem(n=n), n, device=dev)
+        return lv, apply_mass(torch.as_tensor(f_raw, device=dev), lv.h), torch.as_tensor(
+            bc_value, device=dev)
+
+    def hjacobi(dev):
+        lv, f, bc = problem(dev)
+        params = load_params(HNET_ITER, dev)
+        u, k, res = torch.zeros_like(f), 0, float("inf")
+        while res > eps and k < 5000:
+            u = hnet.h_relax(lv, params, u, f, 1, bc)
+            res = float(interior_norm(f - lv.apply(u)))
+            k += 1
+        return u, k, res
+
+    lv, f, bc = problem(DEVICE)
+    _, hist = solve_jacobi(lv, f, bc_value=bc, eps=eps, max_iters=20_000)
+    (ug, kg, rg), launches = counted(lambda: hjacobi(DEVICE))
+    _, kc, rc = hjacobi("cpu")
+    err = float(np.max(np.abs(ug.cpu().numpy() - u_star)))
+    rec = dict(solve="hjac_iter_32", n=n, eps=eps, jacobi_iters=len(hist), hjacobi_iters=kg,
+               hjacobi_iters_cpu=kc, speedup=len(hist) / kg, res=[rg, rc],
+               max_err_vs_sample=err, launches=launches)
+    print(json.dumps(rec), flush=True)
+    if not (hist[-1] <= eps and rg <= eps and launches == {"E1": kg}):
+        fail(f"hjac_iter_32: no convergence or launches off: {rec}")
+    if not (len(hist) >= 5 * kg and abs(kg - kc) <= 0.02 * kc and err <= 5e-4):
+        fail(f"hjac_iter_32 departs from the learned-iterator anchor: {rec}")
+    return rec
+
+
+def run_measure_q_cells() -> dict:
+    """``measure_q_1024`` and ``measure_q_4096``: measure_q with the L = 1
+    net, m = 10, H-Jacobi (every relax on E1: 2 per level and cycle) and
+    plain V(1,1) cycles on GridHierarchy.create(Problem(n)) (log2 n
+    levels, homogeneous); at 1024 within 10% / 5% of the JAX values."""
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.learn.train_hnet import measure_q
+
+    params = load_params(HNET_L1)
+    out = {}
+    for n in (1024, N_MAIN):
+        hier = GridHierarchy.create(Problem(n=n), device=DEVICE)
+        rec = dict(solve=f"measure_q_{n}", n=n, levels=hier.num_levels, m=10)
+        for mode in ("hjac", "jac"):
+            t0 = time.time()
+            (q, rs), launches = counted(lambda: measure_q(hier, params, m=10, mode=mode))
+            rec[mode] = dict(q=q, rs=rs.tolist(), wall_s=time.time() - t0, launches=launches)
+        expect = {"E1": 2 * hier.num_levels * 10}
+        rec["launches"] = rec["hjac"]["launches"]
+        print(json.dumps(rec), flush=True)
+        if rec["hjac"]["launches"] != expect or rec["jac"]["launches"]:
+            fail(f"measure_q_{n}: launches {rec['hjac']['launches']}, {rec['jac']['launches']}")
+        if not all(np.all(np.isfinite(rec[m]["rs"])) for m in ("hjac", "jac")):
+            fail(f"measure_q_{n}: non-finite residuals")
+        if n == 1024 and (abs(rec["hjac"]["q"] / Q_JAX_1024["hjac"] - 1) > 0.10
+                          or abs(rec["jac"]["q"] / Q_JAX_1024["jac"] - 1) > 0.05):
+            fail(f"measure_q_1024 departs from the JAX q: {rec['hjac']['q']}, {rec['jac']['q']}")
+        out[rec["solve"]] = rec
+    return out
+
+
+def run_decay_train() -> dict:
+    """``decay_train``: make_decay_step at experiments/train_hnet_decay.py's
+    configuration (sizes 64-512, batch 2, m 6, warm 2, L = 1, Adam 3e-3,
+    seed 0), 20 steps.  The step differentiates, so no kernel launches; the
+    loss (mean log q) must fall by at least 0.2."""
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.learn.train_hnet import make_decay_step
+
+    hiers = [GridHierarchy.create(Problem(n=n), device=DEVICE) for n in (64, 128, 256, 512)]
+    init_fn, step = make_decay_step(hiers, m=6, batch=2, warm=2, learning_rate=3e-3)
+    state, losses = init_fn(seed=0, num_layers=1), []
+
+    def run(state=state):
+        for _ in range(20):
+            state, loss = step(state)
+            losses.append(float(loss))
+        return state
+
+    t0 = time.time()
+    _, launches = counted(run)
+    wall = time.time() - t0
+    rec = dict(solve="decay_train", sizes=[64, 128, 256, 512], steps=20, s_per_step=wall / 20,
+               losses=losses, drop=losses[0] - losses[-1], launches=launches)
+    print(json.dumps(rec), flush=True)
+    if launches or not np.all(np.isfinite(losses)) or not rec["drop"] >= 0.2:
+        fail(f"decay_train: launches {launches}, loss {losses[0]} -> {losses[-1]}")
+    return rec
+
+
+def run_hnet_train_cell() -> dict:
+    """``hnet_train_129``: train (L = 3, batch 5, k_max 20) on the port's
+    generate_isopoisson(128, 10, seed=0) (the C++ CG oracle, built with g++
+    at first use) for 8 epochs; losses[-1] < 0.9 losses[0]
+    (tests/test_hnet.py:94's anchor), and a run stopped after 4 epochs and
+    resumed from its checkpoint under build/ gives the straight run's
+    losses and kernels."""
+    import shutil
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.data.datasets import generate_isopoisson
+    from multigrid_feanet_torch.learn.train_hnet import train
+
+    t0 = time.time()
+    ds = generate_isopoisson(128, 10, seed=0)
+    gen_s = time.time() - t0
+    lv = build_level(Problem(n=128), 128, device=DEVICE)
+    ckpt = ROOT / "build" / "smoke_hnet_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(batch_size=5, seed=0, k_max=20, verbose=False)
+    t0 = time.time()
+    (p_full, l_full), launches = counted(lambda: train(lv, ds, num_epochs=8, **kw))
+    wall = time.time() - t0
+    train(lv, ds, num_epochs=4, ckpt_dir=ckpt, **kw)
+    p_res, l_res = train(lv, ds, num_epochs=8, ckpt_dir=ckpt, **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rec = dict(solve="hnet_train_129", n=128, samples=10, epochs=8, dataset_s=gen_s,
+               train_s=wall, losses=l_full.tolist(), losses_resumed=l_res.tolist(),
+               ratio=float(l_full[-1] / l_full[0]), launches=launches)
+    print(json.dumps(rec), flush=True)
+    if launches or not l_full[-1] < 0.9 * l_full[0]:
+        fail(f"hnet_train_129: launches {launches}, losses {l_full}")
+    if not (np.allclose(l_res, l_full, rtol=1e-5)
+            and np.allclose(p_res.cpu().numpy(), p_full.cpu().numpy(), rtol=1e-5, atol=1e-7)):
+        fail(f"hnet_train_129: the resumed run departs from the straight run: {l_res}")
+    return rec
+
+
 def bound(key: str, rec: dict):
     """(bound ms, "bytes" or "operations") of a check record: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
@@ -1446,8 +1788,9 @@ def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
                 max_rel_err=rec["max_rel_err"], rsq_rel_err=rec["rsq_rel_err"],
                 ms=rec["ms"], warm_ms=rec["warm_ms"], plain_ms=rec["plain_ms"],
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, path=path, n=n,
-                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L", "sweeps", "mass")
+                library_ms=rec.get("library_ms"), path=path, n=n, bytes=rec["bytes"],
+                **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L", "sweeps", "mass", "bc",
+                                       "q_dtype", "a1_max_abs_diff")
                    if t in rec})
 
 
@@ -1477,7 +1820,8 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log").read_text()
     regs = [line.strip() for line in log.splitlines()
             if "registers" in line or ("spill" in line and " 0 bytes spill" not in line)]
-    print(json.dumps(dict(build_s=build_s, ptxas=regs[:60])), flush=True)
+    warnings = [line.strip() for line in log.splitlines() if "warning" in line]
+    print(json.dumps(dict(build_s=build_s, ptxas=regs[:60], warnings=warnings[:20])), flush=True)
 
     checks = []
     a13 = ["A1_sweep", "A1_residual", "A1_psweep", "A2"]
@@ -1572,6 +1916,29 @@ def main() -> int:
     heat = run_heat_cell()
     small_r6 = check_r6_small_against_cpu()
 
+    # slice 7: B1, B2, F1 and E1 against their plain versions, then the
+    # bandwidth, Q-stream, H-Jacobi and training cells
+    r7checks = check_membench()
+    r7checks += [check_f1(n, dt) for n, dt in ((N_MAIN, torch.bfloat16), (N_MAIN, torch.float32),
+                                               (N_COARSE, torch.bfloat16))]
+    r7checks += [check_e1(N_MAIN, False, False, HNET_ITER, bc=0.0),
+                 check_e1(N_MAIN, False, False, HNET_L1, bc=0.0),
+                 check_e1(N_MAIN, True, False, HNET_L1), check_e1(N_MAIN, True, True, HNET_L1)]
+    r7checks += [check_e1(n, bim, False, ckpt, bc="field") for n in (2, 32, N_COARSE)
+                 for bim, ckpt in ((False, HNET_ITER), (True, HNET_L1))]
+    for rec in r7checks:
+        rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
+    print(json.dumps({"r7_kernel_checks": r7checks}), flush=True)
+    a1_plain = next(c for c in checks if c["name"] == "A1_sweep" and c["n"] == N_MAIN
+                    and c["bim"] and not c["dform"])
+    membench = run_membench_cell(r7checks[:2], a1_plain)
+    qsweep_cell = run_qsweep_cell()
+    hjac = run_hjac_cell()
+    hjac_iter = run_hjac_iter_cell()
+    mq = run_measure_q_cells()
+    run_decay_train()
+    run_hnet_train_cell()
+
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must
     # be 0
@@ -1657,6 +2024,27 @@ def main() -> int:
     for path, suffix in (("torus_jacobi_4096", ""), ("pbc_mg_4096", "_mg")):
         row = summary_row("H1", h1, pbc_cells[path]["launches"]["H1"], path)
         summary.append(dict(row, name=row["name"] + suffix))
+    # B1/B2 on membench_4097, F1 (bf16 Q) on qsweep_4097, E1 at 4097^2 on
+    # hjac_4097 (L = 3) and measure_q_4096 (L = 1), and at n = 32 on the
+    # learned-iterator cell (L = 3, a boundary field)
+    def r7rec(name, **tags):
+        return next(c for c in r7checks if c["name"] == name
+                    and all(c.get(k) == v for k, v in tags.items()))
+
+    for key in ("B1", "B2"):
+        summary.append(summary_row(key, r7rec(key), membench["launches"][key], "membench_4097"))
+    summary.append(summary_row("F1", r7rec("F1", n=N_MAIN, q_dtype="bfloat16"),
+                               qsweep_cell["launches"]["F1"], "qsweep_4097"))
+    for rec, cell, suffix in (
+            (r7rec("E1", n=N_MAIN, L=3), hjac, ""),
+            (r7rec("E1", n=N_MAIN, L=1, bim=False), mq[f"measure_q_{N_MAIN}"], "_measure_q"),
+            (r7rec("E1", n=32, L=3), hjac_iter, "_iter")):
+        row = summary_row("E1", rec, cell["launches"]["E1"], cell["solve"])
+        summary.append(dict(row, name=row["name"] + suffix))
+    # every row's byte bound also at the measured copy and triad rates
+    for row in summary:
+        row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
+        row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,8 +87,10 @@ class Problem:
         raise ValueError(f"unknown inclusion kind {kind!r}")
 
 
-def build_level(problem: Problem, n: int, device="cpu") -> Level:
-    """Assemble level ``n`` of ``problem`` in numpy and place it on ``device``."""
+def build_level(problem: Problem, n: int, device=None) -> Level:
+    """Assemble level ``n`` of ``problem`` in numpy and place it on
+    ``device``; ``device=None`` means CUDA and raises when there is none."""
+    device = resolve_device(device)
     h = problem.size / n
     phase = problem.phase(n)
     if phase is None:

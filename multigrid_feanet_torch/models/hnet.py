@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multigrid_feanet_torch.core.problem import Level
+from multigrid_feanet_torch.ops import hrelax as hx
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA, jacobi_step
 
 
@@ -61,13 +62,70 @@ def apply_hnet(params: torch.Tensor, x: torch.Tensor, geo: torch.Tensor) -> torc
     return x
 
 
-def h_relax(level: Level, params: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
-            num_sweeps: int, bc_value=0.0, omega: float = DEFAULT_OMEGA) -> torch.Tensor:
-    """``num_sweeps`` H-corrected Jacobi sweeps."""
+def _records_grad(*xs) -> bool:
+    """Whether autograd records through any tensor of ``xs``."""
+    return torch.is_grad_enabled() and any(torch.is_tensor(x) and x.requires_grad for x in xs)
+
+
+def _h_relax_plain(level: Level, params, u, f, num_sweeps: int, bc_value, omega: float):
+    """``num_sweeps`` sweeps of the JAX package's form, in torch ops."""
     for _ in range(num_sweeps):
         jac_it = jacobi_step(level, u, f, bc_value, omega)
         u = jac_it + apply_hnet(params, jac_it - u, level.geo)
     return u
+
+
+def _h_relax_e1(level: Level, params, u, f, num_sweeps: int, bc_value, omega: float):
+    """``num_sweeps`` launches of kernel E1 (``ops/hrelax.py``) on the
+    level's operator in plain form, each resetting the ring to
+    ``bc_value`` first, as ``jacobi_step`` does."""
+    if level.base is not None or (level.pid is not None and level.a0 is None):
+        raise ValueError("kernel E1 runs the homogeneous or two-phase stiffness operator, "
+                         "not a phase-affine or general-table level")
+    bim = level.phase is not None
+    a0 = float(level.a0) if bim else 1.0  # homogeneous levels are the a = 1 operator
+    da = float(level.a1) - a0 if bim else 0.0
+    bc = bc_value
+    if torch.is_tensor(bc):
+        bc = (float(bc) if bc.numel() == 1 else
+              torch.broadcast_to(bc.to(u.dtype), u.shape).contiguous())
+    workspace = {}
+    for _ in range(num_sweeps):
+        u, _ = hx.hrelax_cuda(u, f, level.phase, params, a0=a0, da=da, omega=omega, dform=False,
+                              bc=bc, workspace=workspace)
+    return u
+
+
+def h_relax(level: Level, params: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
+            num_sweeps: int, bc_value=0.0, omega: float = DEFAULT_OMEGA) -> torch.Tensor:
+    """``num_sweeps`` H-corrected Jacobi sweeps.
+
+    The form is chosen by the need for a gradient, not by any failure: on
+    CUDA tensors through which autograd does not record (no ``requires_grad``
+    on ``params``, ``u``, ``f`` or a tensor ``bc_value``, or grad mode off),
+    each sweep is one launch of kernel E1 (``ops/hrelax.py``), at every
+    level and any even n >= 2, with the (n+1, n+1) float32 fields and
+    (L, 3, 3) float32 kernels it takes (L = 1 or 3).  Otherwise (CPU
+    tensors, or a graph to differentiate, as
+    ``learn/train_hnet.py::make_decay_step`` builds) the JAX package's form
+    runs in torch ops; E1 has no backward pass, as the Pallas kernel had
+    none.  Both give the JAX package's answer: E1 resets u's
+    ring to ``bc_value`` and feeds the ring increment bc - u to the chain."""
+    if u.is_cuda and not _records_grad(params, u, f, bc_value):
+        return _h_relax_e1(level, params, u, f, num_sweeps, bc_value, omega)
+    return _h_relax_plain(level, params, u, f, num_sweeps, bc_value, omega)
+
+
+def h_relax_dynamic(level: Level, params: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
+                    num_sweeps, max_sweeps: int, bc_value=0.0,
+                    omega: float = DEFAULT_OMEGA) -> torch.Tensor:
+    """The training form of :func:`h_relax`: ``min(num_sweeps, max_sweeps)``
+    sweeps in plain torch, always, so that autograd differentiates them.
+    The JAX package runs ``max_sweeps`` steps with the updates masked beyond
+    ``num_sweeps`` (a traced count); the iterate and its gradient are the
+    same."""
+    return _h_relax_plain(level, params, u, f, min(int(num_sweeps), int(max_sweeps)), bc_value,
+                          omega)
 
 
 def compose_kernels(params: torch.Tensor) -> torch.Tensor:

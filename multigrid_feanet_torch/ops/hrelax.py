@@ -1,6 +1,7 @@
-"""Fused H-MG V-cycle legs with the learned H-Net smoother, on compact fields.
+"""The H-relax step and the fused H-MG V-cycle legs with the learned H-Net
+smoother, on compact fields.
 
-Port of the fused legs of ``multigrid_feanet_tpu/ops/pallas_hrelax.py``.
+Port of ``multigrid_feanet_tpu/ops/pallas_hrelax.py``.
 One H-relax step is a weighted-Jacobi sweep corrected by the H-Net's chain
 of L interior-masked 3x3 convolutions (``params``: the (L, 3, 3) float32
 kernels):
@@ -14,11 +15,12 @@ Fields are those of ``ops/sweep.py``: (n+1, n+1) float32 node fields, an
 float32 coarse fields.  ``dform`` selects the difference-form apply for the
 operator applies; the zero-guess start g0 = (omega/d) f takes no apply.
 
-Four kernels, hand-written in CUDA C++ (``csrc/hrelax.cu``):
+Five kernels, hand-written in CUDA C++ (``csrc/hrelax.cu``):
 
 ====  ================  ============================================  ==================
 name  C entry point     replaces                                      computes
 ====  ================  ============================================  ==================
+E1    ``mg_hrelax``     ``pallas_hrelax.py:55 _hrelax_kernel``        u_new = hrelax(u); rsq of u
 E2    ``mg_hswrr``      ``pallas_hrelax.py:287 _hswrr_kernel``        u1 = hrelax(u0); f_c = 4 FW(f - A u1); rsq of u0
 E3    ``mg_phrelax``    ``pallas_hrelax.py:361 _phrelax_kernel``      u3 = hrelax(u1 + P(uc))
 E4    ``mg_zhswrr``     ``pallas_hrelax.py:420 _zhswrr_kernel``       f_c = 4 FW(f - A hrelax(0))
@@ -27,9 +29,10 @@ E5    ``mg_zphrelax``   ``pallas_hrelax.py:460 _zphrelax_kernel``     u3 = hrela
 
 Each has a wrapper ``<leg>_cuda`` and a plain PyTorch version
 ``<leg>_plain`` with the same signature, built from :func:`hrelax_plain`,
-the plain twin of the single H-relax step (``_hrelax_kernel``, whose own
-kernel is not ported yet).  The level-facing functions :func:`hswrr`,
-:func:`phrelax`, :func:`zhswrr` and :func:`zphrelax` take a
+E1's plain version.  E1 alone takes a boundary value ``bc``: the ring reset
+of ``jacobi_step``, so that ``models/hnet.py::h_relax`` runs on it with the
+JAX package's arithmetic.  The level-facing functions :func:`hrelax`,
+:func:`hswrr`, :func:`phrelax`, :func:`zhswrr` and :func:`zphrelax` take a
 :class:`~multigrid_feanet_torch.ops.sweep.SweepLevel`: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  Kernels and plain
 versions agree to ``TOL`` as those of ``ops/sweep.py`` do.
@@ -93,18 +96,27 @@ def _hrelax0(f, ph, params, a0, da, omega):
     return g0 + _hchain(g0, params, mask)
 
 
-def hrelax_plain(u, f, ph, params, *, a0, da, omega, dform):
-    """E1's math: one H-relax step -> (u_new, interior ||f - A u||^2 of u)."""
+def hrelax_plain(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None):
+    """E1: one H-relax step -> (u_new, interior ||f - A u||^2 of u).
+
+    ``bc`` (a float or an (n+1)^2 field; None: keep u's ring) first sets
+    u's boundary ring to the boundary value, as ``jacobi_step`` resets it,
+    and the chain's first layer then reads the ring increment bc - u, as
+    JAX's ``models/hnet.py::h_relax`` feeds jac - u to it unmasked."""
     _depth(params)
     mask = sw._interior(u)
+    u0 = u
+    if bc is not None:
+        u = torch.where(mask, u, torch.as_tensor(bc, dtype=u.dtype, device=u.device))
     bim = ph is not None
     Qp = sw.element_q(ph, a0, da) if bim else None
     au, C4 = sw._apply_op(u, Qp, a0, bim, dform)
     d = sw._diag_bim(C4) if bim else sw._diag_hom(a0, device=u.device)
     jac = torch.where(mask, u + (omega / d) * (f - au), u)
-    x = _hchain(torch.where(mask, jac - u, 0.0), params, mask)
+    x0 = torch.where(mask, jac - u, 0.0) if bc is None else jac - u0
+    x = _hchain(x0, params, mask)
     r = torch.where(mask, f - au, 0.0)
-    return jac + x, torch.sum(r * r)
+    return sw._emit(jac + x, out), sw._emit(torch.sum(r * r), rsq)
 
 
 def _restrict_residual(u1, f, ph, cfg):
@@ -161,6 +173,8 @@ _REPLACES = "multigrid_feanet_tpu/ops/pallas_hrelax.py:"
 _TAIL = [_I, _D, _D, _D, _I, _I, _I, _P]  # n, a0, da, omega, bim, dform, L, stream
 
 KERNELS = {
+    "E1": sw.CudaKernel("E1_hrelax", "mg_hrelax", [_P] * 8 + [_D, _I] + _TAIL,
+                        _REPLACES + "55", _SOURCE),
     "E2": sw.CudaKernel("E2_hswrr", "mg_hswrr", [_P] * 8 + _TAIL, _REPLACES + "287", _SOURCE),
     "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL, _REPLACES + "361",
                         _SOURCE),
@@ -183,6 +197,33 @@ def _kernel_depth(params, odd: bool = False) -> int:
 
 def _tail(n, L, ph, a0, da, omega, dform, dev):
     return (n, a0, da, omega, int(ph is not None), int(dform), L, sw._stream(dev))
+
+
+def _bc_operand(bc, n, dev):
+    """(bc field or None, bc scalar, mode) of E1's boundary value: mode 0
+    keeps u's ring, 1 sets it to a number, 2 to an (n+1)^2 field."""
+    if bc is None:
+        return None, 0.0, 0
+    if torch.is_tensor(bc):
+        sw._check(bc, "bc", (n + 1, n + 1), torch.float32, dev)
+        return bc, 0.0, 2
+    return None, float(bc), 1
+
+
+def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None,
+                workspace=None):
+    """E1 on the card; same contract as :func:`hrelax_plain`."""
+    L = _kernel_depth(params)
+    n, dev = u.shape[0] - 1, u.device
+    sw._operands(n, dev, [("u", u), ("f", f)], ph)
+    sw._check(params, "params", (L, 3, 3), torch.float32, dev)
+    bcf, bcs, mode = _bc_operand(bc, n, dev)
+    out = sw._output(out, "out", (n + 1, n + 1), dev, (u, f, bcf))
+    rsq = sw._scalar_out(rsq, dev)
+    KERNELS["E1"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), params.data_ptr(), sw._ptr(bcf),
+                  out.data_ptr(), sw._partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(),
+                  bcs, mode, *_tail(n, L, ph, a0, da, omega, dform, dev))
+    return out, rsq
 
 
 def hswrr_cuda(u, f, ph, params, *, a0, da, omega, dform, out=None, fc_out=None, rsq=None,
@@ -240,6 +281,14 @@ def zphrelax_cuda(f, ph, uc, params, *, a0, da, omega, dform, out=None):
 # ---------------------------------------------------------------------------
 # Level-facing legs (the names of the JAX package's PallasLevel functions).
 # ---------------------------------------------------------------------------
+
+
+def hrelax(level: sw.SweepLevel, u, f, params, out=None, rsq=None, dform: bool = False,
+           bc=None):
+    """One H-relax step -> (u_new, rsq of u); ``bc`` as in
+    :func:`hrelax_plain`."""
+    return level._call(hrelax_cuda, hrelax_plain, u, f, level.ph, params, dform=dform, bc=bc,
+                       out=out, rsq=rsq)
 
 
 def hswrr(level: sw.SweepLevel, u, f, params, out=None, fc_out=None, rsq=None,

@@ -74,7 +74,7 @@ def level_arrays(jlevel, jproblem):
 @pytest.mark.parametrize("n", [16, 64, 128])
 def test_build_level_matches_jax_bitwise(n, inc):
     jl = j_build_level(JProblem(n=n, inclusion=INCLUSIONS[inc]), n)
-    tl = build_level(Problem(n=n, inclusion=INCLUSIONS[inc]), n)
+    tl = build_level(Problem(n=n, inclusion=INCLUSIONS[inc]), n, device="cpu")
     assert (tl.n, tl.h, tl.a0, tl.a1) == (jl.n, jl.h, jl.a0, jl.a1)
     for name in ("table", "geo", "diag"):
         np.testing.assert_array_equal(_np(getattr(tl, name)), np.asarray(getattr(jl, name)))
@@ -106,7 +106,7 @@ def test_geometry_matches_jax():
 @pytest.mark.parametrize("n", [8, 16])
 def test_coarse_inverse_matches_jax_bitwise(n, inc):
     jl = j_build_level(JProblem(n=n, inclusion=INCLUSIONS[inc]), n)
-    tl = build_level(Problem(n=n, inclusion=INCLUSIONS[inc]), n)
+    tl = build_level(Problem(n=n, inclusion=INCLUSIONS[inc]), n, device="cpu")
     np.testing.assert_array_equal(tco.dense_interior_matrix(tl), jco.dense_interior_matrix(jl))
     tinv = tco.coarse_inverse(tl)
     np.testing.assert_array_equal(_np(tinv), np.asarray(jco.coarse_inverse(jl)))
@@ -135,7 +135,7 @@ def test_transfers_match_jax():
 def test_applies_and_jacobi_match_jax(inc):
     n = 64
     jp, tp = JProblem(n=n, inclusion=INCLUSIONS[inc]), Problem(n=n, inclusion=INCLUSIONS[inc])
-    jl, tl = j_build_level(jp, n), build_level(tp, n)
+    jl, tl = j_build_level(jp, n), build_level(tp, n, device="cpu")
     rng = np.random.default_rng(3)
     u, f = _f32(rng, (n + 1, n + 1)), _f32(rng, (n + 1, n + 1))
     tu, tf = torch.from_numpy(u), torch.from_numpy(f)
@@ -203,6 +203,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert GridHierarchy.create(prob, device="cpu").device == torch.device("cpu")
 
 
+def test_build_level_defaults_to_cuda(monkeypatch):
+    """build_level places its level on CUDA unless told otherwise, and
+    raises without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = Problem(n=8, inclusion=INCLUSIONS["circle"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_level(prob, 8)
+    assert build_level(prob, 8, device="cpu").device == torch.device("cpu")
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     u = torch.zeros(17, 17)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -215,7 +225,9 @@ def _port_sources():
     assert {"ops/sweep.py", "ops/general.py", "ops/boxmg.py", "ops/adaptive_transfer.py",
             "solvers/mg2.py", "solvers/boxmg.py", "core/convert.py", "ops/hrelax.py",
             "models/hnet.py", "utils/checkpoint.py", "solvers/hmg.py", "ops/stencil_sweep.py",
-            "solvers/mg.py", "solvers/multigrid.py"} <= names
+            "solvers/mg.py", "solvers/multigrid.py", "learn/train_hnet.py", "data/fem.py",
+            "data/rhs.py", "data/datasets.py", "oracle/__init__.py", "ops/qsweep.py",
+            "ops/membench.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -249,7 +261,8 @@ def test_library_hash_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     cu = sorted(csrc.glob("*.cu"))
-    names = ["elastic.cu", "general.cu", "hrelax.cu", "stencil.cu", "sweep.cu", "torus.cu"]
+    names = ["elastic.cu", "general.cu", "hrelax.cu", "membench.cu", "qsweep.cu", "stencil.cu",
+             "sweep.cu", "torus.cu"]
     assert [p.name for p in cu] == names
     assert [p.name for p in _build.sources()] == names
     seen = {_build.library_path()}

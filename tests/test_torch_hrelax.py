@@ -1,8 +1,9 @@
-"""The port's fused H-MG legs (multigrid_feanet_torch/ops/hrelax.py) against
-the JAX pallas_hrelax kernels in interpret mode, on the CPU.
+"""The port's H-relax step and fused H-MG legs
+(multigrid_feanet_torch/ops/hrelax.py) against the JAX pallas_hrelax kernels
+in interpret mode, and the model's h_relax against JAX's, on the CPU.
 
 Here every leg runs its plain PyTorch version (the tensors lie on the CPU);
-the CUDA kernels E2-E5 are held against those same plain versions on the
+the CUDA kernels E1-E5 are held against those same plain versions on the
 card by chip_smoke.py.  Inputs are made with numpy from a seed and handed to
 both sides; the JAX buffers are padded into PallasLevel's ghost-block
 stride-lane layout and unpadded for comparison, as tests/test_torch_sweep.py
@@ -16,7 +17,8 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from multigrid_feanet_tpu.core.problem import Problem as JProblem
+from multigrid_feanet_tpu.core.problem import Problem as JProblem, build_level as j_build_level
+from multigrid_feanet_tpu.models import hnet as jhnet
 from multigrid_feanet_tpu.ops import pallas_hrelax as phx
 from multigrid_feanet_tpu.ops.pallas_sweep import PallasLevel
 
@@ -111,7 +113,7 @@ def test_hrelax_plain_matches_h_relax(bim):
     assembled stencil (models/hnet.py), an independent construction."""
     n = 64
     _, _, tl, u, f, _, params = _levels(n, 1, bim, 3, seed=3)
-    lv = build_level(Problem(n=n, inclusion=CIRCLE if bim else None), n)
+    lv = build_level(Problem(n=n, inclusion=CIRCLE if bim else None), n, device="cpu")
     tu, tf, tp = map(torch.from_numpy, (u * np.asarray(lv.geo), f, params))
     got, _ = hx.hrelax_plain(tu, tf, tl.ph, tp, a0=tl.a0, da=tl.da, omega=tl.omega,
                              dform=False)
@@ -183,3 +185,74 @@ def test_plain_versions_fill_out_buffers():
     assert hx.phrelax(tl, tu, tf, tuc, tp, out=out) is out
     assert hx.zhswrr(tl, tf, tp, out=fc) is fc
     assert hx.zphrelax(tl, tf, tuc, tp, out=out) is out
+
+
+@pytest.mark.parametrize("bim", [False, True], ids=["hom", "bim"])
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("dform", [False, True], ids=["plain", "dform"])
+def test_hrelax_matches_pallas_n32(bim, L, dform):
+    """E1's plain version against the Pallas _hrelax_kernel at n = 32, on an
+    iterate whose ring is not zero (bc=None keeps it, as the kernel does),
+    to 1e-5 (the two differ by ~2e-7 here)."""
+    jl, _, tl, u, f, _, params = _levels(32, 1, bim, L, seed=7)
+    want, rsq_w = phx.hrelax(jl, jl.pad(jnp.asarray(u)), jl.pad(jnp.asarray(f)),
+                             jnp.asarray(params), dform=dform)
+    tu, tf, tp = map(torch.from_numpy, (u, f, params))
+    got, rsq_g = hx.hrelax(tl, tu, tf, tp, dform=dform)
+    assert _rel_err(got, jl.unpad(want)) < 1e-5
+    assert _rsq_err(rsq_g, rsq_w) < 1e-5
+
+
+H_CASES = [(n, bim, L) for n in (2, 32, 64) for bim in (False, True) for L in (1, 3)]
+
+
+@pytest.mark.parametrize("n,bim,L", H_CASES,
+                         ids=[f"n{n}-{'bim' if b else 'hom'}-L{L}" for n, b, L in H_CASES])
+def test_h_relax_matches_jax(n, bim, L):
+    """The model's h_relax (plain path) and E1's plain version with a
+    boundary value, one sweep at a time, both give JAX's models/hnet.py
+    h_relax to 1e-5: from u0 = 0 under a nonzero Dirichlet field (the
+    learned-iterator protocol, where jac - u carries bc - u on the ring
+    into the first conv) and from a random iterate, with a field and a
+    scalar boundary value."""
+    inc = CIRCLE if bim else None
+    jl = j_build_level(JProblem(n=n, inclusion=inc), n)
+    tl = build_level(Problem(n=n, inclusion=inc), n, device="cpu")
+    rng = np.random.default_rng(11 + n)
+    H = n + 1
+    ring = np.ones((H, H), np.float32)
+    ring[1:-1, 1:-1] = 0.0
+    f = rng.standard_normal((H, H)).astype(np.float32)
+    bcf = rng.standard_normal((H, H)).astype(np.float32) * ring
+    params = (0.2 * rng.standard_normal((L, 3, 3))).astype(np.float32)
+    tf, tp = torch.from_numpy(f), torch.from_numpy(params)
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0, dform=False)
+    for u0 in (np.zeros((H, H), np.float32), rng.standard_normal((H, H)).astype(np.float32)):
+        for bc in (bcf, 0.7):
+            want = np.asarray(jhnet.h_relax(jl, jnp.asarray(params), jnp.asarray(u0),
+                                            jnp.asarray(f), 3, jnp.asarray(bc)))
+            tbc = torch.from_numpy(bc) if isinstance(bc, np.ndarray) else bc
+            got = hnet.h_relax(tl, tp, torch.from_numpy(u0), tf, 3, tbc)
+            scale = max(1.0, float(np.abs(want).max()))
+            assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
+            e = torch.from_numpy(u0)
+            for _ in range(3):
+                e, _ = hx.hrelax_plain(e, tf, tl.phase, tp, bc=tbc, **cfg)
+            assert float(np.abs(e.numpy() - want).max()) <= 1e-5 * scale
+            np.testing.assert_array_equal(e.numpy()[0], np.broadcast_to(np.float32(bc), (H, H))[0])
+
+
+def test_e1_wrapper_refuses_cpu_tensors_and_bad_bc():
+    """hrelax_cuda refuses CPU tensors before any build or launch; a
+    boundary field must be an (n+1)^2 float32 tensor."""
+    _, _, tl, u, f, _, params = _levels(16, 1, True, 1)
+    tu, tf, tp = map(torch.from_numpy, (u, f, params))
+    cfg = dict(a0=1.0, da=19.0, omega=2 / 3, dform=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        hx.hrelax_cuda(tu, tf, tl.ph, tp, **cfg)
+    with pytest.raises(ValueError, match="chain depths"):
+        hx.hrelax_cuda(tu, tf, tl.ph, torch.zeros(2, 3, 3), **cfg)
+    with pytest.raises(ValueError, match="bc"):
+        hx._bc_operand(torch.zeros(5, 5), 16, torch.device("cpu"))
+    assert hx._bc_operand(None, 16, None) == (None, 0.0, 0)
+    assert hx._bc_operand(0.5, 16, None) == (None, 0.5, 1)
