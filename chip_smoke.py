@@ -11,10 +11,13 @@ Phases, in order; any failure exits non-zero:
 2. Hold each kernel of ``ops/sweep.py`` (A1 in its sweep, residual and
    psweep modes, A2, A3, A4) against its plain PyTorch version on the card,
    at ``ops.sweep.TOL``: at the shapes of both solves below (4097^2 and
-   2049^2, bi-material and homogeneous), on a 4097^2 bi-material level in
-   plain form, and on n = 512 levels.  Time both with CUDA events around a
-   run of launches (the kernel's captured in a CUDA graph), on inputs
-   rotated to exceed the L2 cache.
+   2049^2, bi-material and homogeneous), on 4097^2 levels in plain form,
+   and on n = 512 levels; A1 and A2 also at n = 2, 16 and 32 and in every
+   form at n = 126 (the row-streaming tiles' single block, ragged bands and
+   strips, odd row offsets), and twice on the same 4097^2 inputs, which
+   must give bitwise-equal outputs and norms.  Time both with CUDA events
+   around a run of launches (the kernel's captured in a CUDA graph), on
+   inputs rotated to exceed the L2 cache.
 3. The main path of ``solvers/mg2.py``: the 4097^2 bi-material interface
    solve (circle r = 0.5, coefficients (1, 20), 9 levels, kernel threshold
    32, direct coarse solve, f = 0, u0 = 150000 * uniform(rng 0) * geo, eps
@@ -94,9 +97,11 @@ Phases, in order; any failure exits non-zero:
    launches, the loss falls by >= 0.2) and ``hnet_train_129`` (8 epochs on
    the oracle's 129^2 dataset, the loss falls 10%, resume equals the
    straight run).
-14. Print the kernel summary line (one row per kernel and path, with the
-   path's launch counts; each row's byte bound also at the measured copy
-   and triad rates), then the device line as the last line.
+14. Print A1's and A2's 4097^2 times beside those recorded for the kernels
+   before their row-streaming redesign (``a12_vs_parent``), the kernel
+   summary line (one row per kernel and path, with the path's launch
+   counts; each row's byte bound also at the measured copy and triad
+   rates), then the device line as the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -160,6 +165,7 @@ HNET_ITER = "results/learn_iterator/hnet.npz"  # the learned iterator, L = 3
 Q_JAX_1024 = {"hjac": 0.05573512241244316, "jac": 0.23737014830112457}
 DEVICE = "cuda"
 N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
+N_ODD = 126  # A1/A2 checks: 127 rows, odd against both tile widths and strips
 CIRCLE = ("circle", (0.0, 0.0), 0.5)
 N_EL = 2048  # the elastic cells: 2049^2 nodes (bench.py:296)
 E_EL, NU_EL = 212e3, 0.288  # Plane_Stress_modify.m:11-12
@@ -414,6 +420,62 @@ def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0
                  dict(n=n, bim=bim, dform=dform if leg not in ("A3", "A4") else False,
                       mass=mass is not None))
             for leg in legs]
+
+
+def check_repeat(n: int = N_MAIN, seed: int = 1) -> None:
+    """A1 (three modes) and A2 on the interface level's form: two launches on
+    the same inputs and workspace give bitwise-equal outputs and norms."""
+    import torch
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    u, f, uc, ph = level_inputs(n, True, seed)
+    cfg = dict(a0=1.0, da=19.0, omega=2.0 / 3.0, dform=True, workspace={})
+    runs = {"A1_sweep": lambda: sw.sweep_cuda(u, f, ph, None, mode="sweep", **cfg),
+            "A1_residual": lambda: sw.sweep_cuda(u, f, ph, None, mode="residual", **cfg),
+            "A1_psweep": lambda: sw.sweep_cuda(u, f, ph, uc, **cfg),
+            "A2": lambda: sw.swrr_cuda(u, f, ph, **cfg)}
+    same = {}
+    for leg, run in runs.items():
+        first = [t.clone() for t in run()]
+        again = run()
+        torch.cuda.synchronize()
+        same[leg] = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(json.dumps({"a12_repeat_bitwise": dict(n=n, **same)}), flush=True)
+    if not all(same.values()):
+        fail(f"A1/A2 repeat differently: {same}")
+
+
+# A1 and A2 at 4097^2 before the row-streaming redesign (csrc/sweep.cu's
+# 32 x 8 / 16 x 8 tiles), timed in turns with the new kernels by
+# a12_variants.py (see PERF.md): the yardstick of the a12_vs_parent line
+A12_PARENT = dict(source="a12_variants.py", card="NVIDIA H100 80GB HBM3, 700.00 W", ms={
+    "A1_sweep_bim_dform": 0.212,
+    "A1_residual_bim_dform": 0.2098,
+    "A1_psweep_bim_dform": 0.2319,
+    "A2_bim_dform": 0.2686,
+    "A1_sweep_hom_dform": 0.1585,
+    "A1_residual_hom_dform": 0.1541,
+    "A1_psweep_hom_dform": 0.1816,
+    "A2_hom_dform": 0.2063,
+    "A1_sweep_bim_mass": 0.2155,
+    "A1_residual_bim_mass": 0.212,
+    "A1_psweep_bim_mass": 0.2336,
+    "A2_bim_mass": 0.2836,
+})
+
+
+def a12_vs_parent(checks) -> dict:
+    """This run's A1/A2 times at 4097^2 beside the parent's recorded ones."""
+    rows = {}
+    for rec in checks:
+        if rec["n"] != N_MAIN or not rec["name"].startswith(("A1", "A2")):
+            continue
+        key = (f"{rec['name']}_{'bim' if rec['bim'] else 'hom'}_"
+               f"{'mass' if rec['mass'] else 'dform' if rec['dform'] else 'plain'}")
+        parent = A12_PARENT["ms"].get(key)
+        rows[key] = dict(ms=rec["ms"], parent_ms=parent,
+                         speedup=None if parent is None else parent / rec["ms"])
+    return dict(parent_from=A12_PARENT["source"], parent_card=A12_PARENT["card"], legs=rows)
 
 
 def check_torus(n: int, seed: int = 11):
@@ -1829,12 +1891,23 @@ def main() -> int:
     checks += check_kernels(N_MAIN, True, False, a13)
     checks += check_kernels(N_MAIN // 2, True, True, ["A3", "A4"])
     # the homogeneous builds at the sizes the Poisson solve runs them
-    checks += check_kernels(N_MAIN, False, True, ["A1_psweep", "A2"])
+    checks += check_kernels(N_MAIN, False, True, a13)
+    checks += check_kernels(N_MAIN, False, False, a13)
     checks += check_kernels(N_MAIN // 2, False, True, ["A3", "A4"])
     checks += check_kernels(N_COARSE, True, True, a13 + ["A3", "A4"])
     checks += check_kernels(N_COARSE, False, True, a13 + ["A3", "A4"])
     checks += check_kernels(N_COARSE, False, False, a13)
+    # the row-streaming A1/A2 on a single block (n = 2), ragged last bands
+    # and strips and odd row offsets (n = 16, 32, 126), every form at 126
+    for n in (2, 16, 32):
+        checks += check_kernels(n, True, True, a13)
+    for bim in (True, False):
+        for dform in (True, False):
+            checks += check_kernels(N_ODD, bim, dform, a13)
+        checks += check_kernels(N_ODD, bim, False, a13, mass=level_mass(N_ODD),
+                                coef=(HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT))
     print(json.dumps({"kernel_checks": checks}), flush=True)
+    check_repeat()
 
     check_small_against_cpu()
     a_keys = ("A1", "A2", "A3", "A4")
@@ -2045,6 +2118,7 @@ def main() -> int:
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
+    print(json.dumps({"a12_vs_parent": a12_vs_parent(checks + r6checks)}), flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
