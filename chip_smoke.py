@@ -97,11 +97,11 @@ Phases, in order; any failure exits non-zero:
    launches, the loss falls by >= 0.2) and ``hnet_train_129`` (8 epochs on
    the oracle's 129^2 dataset, the loss falls 10%, resume equals the
    straight run).
-14. Print A1's and A2's 4097^2 times beside those recorded for the kernels
-   before their row-streaming redesign (``a12_vs_parent``), the kernel
-   summary line (one row per kernel and path, with the path's launch
-   counts; each row's byte bound also at the measured copy and triad
-   rates), then the device line as the last line.
+14. Print A1's and A2's 4097^2 times in every form held, each beside its
+   byte bound (``a12_4097``), the kernel summary line (one row per kernel
+   and path, with the path's launch counts; each row's byte bound also at
+   the measured copy and triad rates), then the device line as the last
+   line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -445,37 +445,19 @@ def check_repeat(n: int = N_MAIN, seed: int = 1) -> None:
         fail(f"A1/A2 repeat differently: {same}")
 
 
-# A1 and A2 at 4097^2 before the row-streaming redesign (csrc/sweep.cu's
-# 32 x 8 / 16 x 8 tiles), timed in turns with the new kernels by
-# a12_variants.py (see PERF.md): the yardstick of the a12_vs_parent line
-A12_PARENT = dict(source="a12_variants.py", card="NVIDIA H100 80GB HBM3, 700.00 W", ms={
-    "A1_sweep_bim_dform": 0.212,
-    "A1_residual_bim_dform": 0.2098,
-    "A1_psweep_bim_dform": 0.2319,
-    "A2_bim_dform": 0.2686,
-    "A1_sweep_hom_dform": 0.1585,
-    "A1_residual_hom_dform": 0.1541,
-    "A1_psweep_hom_dform": 0.1816,
-    "A2_hom_dform": 0.2063,
-    "A1_sweep_bim_mass": 0.2155,
-    "A1_residual_bim_mass": 0.212,
-    "A1_psweep_bim_mass": 0.2336,
-    "A2_bim_mass": 0.2836,
-})
-
-
-def a12_vs_parent(checks) -> dict:
-    """This run's A1/A2 times at 4097^2 beside the parent's recorded ones."""
+def a12_times(checks) -> dict:
+    """This run's A1/A2 times at 4097^2 in every form held, each beside its
+    byte bound; the parent's times are measured beside them by
+    a12_vs_parent.py, not here."""
     rows = {}
     for rec in checks:
         if rec["n"] != N_MAIN or not rec["name"].startswith(("A1", "A2")):
             continue
         key = (f"{rec['name']}_{'bim' if rec['bim'] else 'hom'}_"
                f"{'mass' if rec['mass'] else 'dform' if rec['dform'] else 'plain'}")
-        parent = A12_PARENT["ms"].get(key)
-        rows[key] = dict(ms=rec["ms"], parent_ms=parent,
-                         speedup=None if parent is None else parent / rec["ms"])
-    return dict(parent_from=A12_PARENT["source"], parent_card=A12_PARENT["card"], legs=rows)
+        bound = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
+        rows[key] = dict(ms=rec["ms"], bound_ms=bound, of_bound=bound / rec["ms"])
+    return rows
 
 
 def check_torus(n: int, seed: int = 11):
@@ -2118,7 +2100,7 @@ def main() -> int:
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
-    print(json.dumps({"a12_vs_parent": a12_vs_parent(checks + r6checks)}), flush=True)
+    print(json.dumps({"a12_4097": a12_times(checks + r6checks)}), flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

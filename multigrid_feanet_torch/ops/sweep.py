@@ -47,7 +47,6 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -357,10 +356,10 @@ class CudaKernel:
 
 KERNELS = {
     "A1": CudaKernel("A1_sweep", "mg_sweep",
-                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 8 + [_P],
+                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:284", _SOURCE),
     "A2": CudaKernel("A2_swrr", "mg_swrr",
-                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 7 + [_P],
+                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:374", _SOURCE),
     "A3": CudaKernel("A3_zrr", "mg_zrr", [_P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:629", _SOURCE),
@@ -403,16 +402,14 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Launch geometry of A1 and A2: row-streaming tiles (csrc/sweep.cu).  A block
-# of ``threads`` threads owns a band of fine columns and a strip of fine
-# rows and stages the rows it reads with 16-byte cp.async chunks from each
-# row's aligned-down window start.  The functions below mirror the kernels'
-# index arithmetic so that the CPU tests can check it.
+# of A12_THREADS threads of A12_COLUMNS adjacent columns each owns a band of
+# fine columns and marches down a strip of fine rows; the grid and the strip
+# height are computed here and passed to the kernels, which refuse a grid
+# that does not match their block shape.
 # ---------------------------------------------------------------------------
 
-# threads per block and adjacent columns per thread of A1 and A2 in the
-# default build (csrc/sweep.cu's A12_T and A12_C; the wrappers take the
-# build's own from mg_a12_occupancy), the default strip heights, and the
-# tallest strip the kernels take (A12_STRIP_MAX)
+# csrc/sweep.cu's block shape (ST threads of SC columns), the default strip
+# height, and the tallest strip the kernels take (A12_STRIP_MAX)
 A12_THREADS, A12_COLUMNS = 128, 2
 A12_STRIP, A12_STRIP_MAX = 32, 128
 # steps a block takes beyond its strip's rows: the staged halo rows
@@ -421,69 +418,46 @@ _HALO_STEPS = {"A1": 2, "A2": 6}
 
 class Tiles(NamedTuple):
     """One leg's launch geometry at level n: a ``gx`` x ``gy`` grid of
-    blocks of ``threads`` threads of ``columns`` columns each, block
-    (bx, by) owning fine columns ``[bx band, (bx+1) band)`` and rows
-    ``[by strip, (by+1) strip)`` of the (n+1)^2 grid (A2 also the coarse
-    nodes under them).  Staged windows
-    start ``col0`` columns left of the band; step s stages u row
-    ``by strip + row0 + s`` and f and phase row ``by strip + row0 + s - 1``."""
+    blocks, block (bx, by) owning fine columns ``[bx band, (bx+1) band)``
+    and rows ``[by strip, (by+1) strip)`` of the (n+1)^2 grid (A2 also the
+    coarse nodes under them)."""
 
     leg: str
     n: int
-    threads: int
-    columns: int
     band: int
     strip: int
     gx: int
     gy: int
-    col0: int
-    row0: int
 
     @property
     def blocks(self) -> int:
         return self.gx * self.gy
 
-    def steps(self, by: int) -> int:
-        """Rows block row ``by`` stages (the ragged last strip stages
-        fewer)."""
-        H, y0 = self.n + 1, by * self.strip
-        if self.leg == "A1":
-            return min(self.strip, H - y0) + 2
-        return min(self.strip, H + 1 - y0) + 5
 
-
-def _check_tiles(n, threads, columns, strip):
-    if threads & (threads - 1) or not 32 <= threads <= 1024:
-        raise ValueError(f"blocks take a power of 2 from 32 to 1024 threads, not {threads}")
-    if columns not in (2, 4):
-        raise ValueError(f"threads take 2 or 4 columns, not {columns}")
+def _check_strip(strip):
     if strip < 2 or strip % 2 or strip > A12_STRIP_MAX:
         raise ValueError(f"strips hold an even number of rows in [2, {A12_STRIP_MAX}], "
                          f"not {strip}")
 
 
-def a1_tiles(n: int, threads: int = A12_THREADS, columns: int = A12_COLUMNS,
-             strip: int = A12_STRIP) -> Tiles:
-    """A1: thread t owns columns ``x0 + columns t`` on; stages u, f and
-    phases from column ``x0 - 1`` and u from row ``y0 - 1``."""
-    _check_tiles(n, threads, columns, strip)
-    H, band = n + 1, threads * columns
-    return Tiles("A1", n, threads, columns, band, strip, -(-H // band), -(-H // strip), -1, -1)
+def a1_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
+    """A1: a block owns the ``A12_THREADS A12_COLUMNS`` columns its threads
+    cover."""
+    _check_strip(strip)
+    H, band = n + 1, A12_THREADS * A12_COLUMNS
+    return Tiles("A1", n, band, strip, -(-H // band), -(-H // strip))
 
 
-def a2_tiles(n: int, threads: int = A12_THREADS, columns: int = A12_COLUMNS,
-             strip: int = A12_STRIP) -> Tiles:
-    """A2: thread t works on columns ``x0 - 2 + columns t`` on; a block owns
-    ``threads columns - 4`` columns (its u1 and r1 halo is two and one
-    columns on each side) and stages from column ``x0 - 3`` and row
-    ``y0 - 3``."""
-    _check_tiles(n, threads, columns, strip)
-    Hc, band = n // 2 + 1, threads * columns - 4
-    return Tiles("A2", n, threads, columns, band, strip, -(-Hc // (band // 2)),
-                 -(-Hc // (strip // 2)), -3, -3)
+def a2_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
+    """A2: a block owns ``A12_THREADS A12_COLUMNS - 4`` columns (its u1 and
+    r1 halo is two and one columns on each side) and the coarse nodes under
+    its band and strip."""
+    _check_strip(strip)
+    Hc, band = n // 2 + 1, A12_THREADS * A12_COLUMNS - 4
+    return Tiles("A2", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
 
 
-def balanced_strip(leg: str, n: int, threads: int, columns: int, slots) -> int:
+def balanced_strip(leg: str, n: int, slots) -> int:
     """The even strip height in [8, A12_STRIP_MAX] that finishes the level
     in the fewest block-steps on a card that holds ``slots(strip)`` blocks
     at once: whole waves of blocks, each taking strip + halo steps.  A grid
@@ -492,44 +466,14 @@ def balanced_strip(leg: str, n: int, threads: int, columns: int, slots) -> int:
     tiles = a1_tiles if leg == "A1" else a2_tiles
     best = None
     for strip in range(8, A12_STRIP_MAX + 1, 2):
-        blocks = tiles(n, threads, columns, strip).blocks
-        cost = -(-blocks // max(1, slots(strip))) * (strip + _HALO_STEPS[leg])
+        cost = -(-tiles(n, strip).blocks // max(1, slots(strip))) * (strip + _HALO_STEPS[leg])
         if best is None or cost < best[0]:
             best = (cost, strip)
     return best[1]
 
 
-def slot_sizes(threads: int = A12_THREADS, columns: int = A12_COLUMNS) -> tuple:
-    """(floats of a u or f slot, bytes of a phase slot) of the kernels'
-    shared ring: a window of threads columns + 2 (+ 1) elements after an
-    offset of up to one chunk, in whole 16-byte chunks."""
-    w = threads * columns
-    return (w + 2 + 6) // 4 * 4, (w + 1 + 30) // 16 * 16
-
-
-def staged_chunks(row, col, width: int, row_len: int, rows: int, total: int, elems: int,
-                  slot: int):
-    """The 16-byte chunks that stage the window ``[col, col + width)`` of
-    ``row`` of a compact field of ``rows`` rows of ``row_len`` elements
-    (``total`` in all, ``elems`` elements per chunk), as ``stage_chunk``
-    copies them; ``row`` and ``col`` broadcast.  Returns (start, valid,
-    used, offset): each chunk slot's first element index, the elements it
-    copies (0: zero-filled), whether the window uses it, and the window's
-    offset in its first chunk."""
-    row, col = np.broadcast_arrays(np.asarray(row, np.int64), np.asarray(col, np.int64))
-    a = row * row_len + col
-    start0 = a & ~(elems - 1)
-    nch = (a - start0 + width + elems - 1) // elems
-    k = np.arange(slot // elems)
-    start = start0[..., None] + elems * k
-    used = k < nch[..., None]
-    inside = (row[..., None] >= 0) & (row[..., None] < rows) & (start >= 0)
-    valid = np.where(used & inside, np.clip(total - start, 0, elems), 0)
-    return start, valid, used, a - start0
-
-
 def _tiles_key(tiles: Tiles) -> tuple:
-    return ("tiles", tiles.leg, tiles.n, tiles.threads, tiles.columns, tiles.strip)
+    return ("tiles", tiles.leg, tiles.n, tiles.strip)
 
 
 def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
@@ -551,34 +495,30 @@ _LAUNCH_TILES = {}
 
 def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device) -> Tiles:
     """The geometry A1 (``mode`` 0-2) or A2 launches with on ``device``: the
-    library's threads and columns, and the balanced strip height for the
-    occupancy the card reports for that kernel; computed once per level
-    shape."""
+    balanced strip height for the occupancy the card reports for that
+    kernel; computed once per level shape."""
     key = (leg, n, bim, form, mode, device.index)
     tiles = _LAUNCH_TILES.get(key)
     if tiles is None:
         fn = _build.load().mg_a12_occupancy
-        fn.argtypes, fn.restype = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)], _I
-        tc = (_I * 2)()
+        fn.argtypes, fn.restype = [_I, _I, _I, _I, _I], _I
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        which = 1 if leg == "A1" else 2
 
         def slots(strip):
-            blocks = fn(which, int(bim), form, mode, strip, tc)
+            blocks = fn(1 if leg == "A1" else 2, int(bim), form, mode, strip)
             if blocks <= 0:
                 raise RuntimeError(f"mg_a12_occupancy: CUDA error {-blocks}")
             return blocks * sms
 
-        slots(A12_STRIP)  # reads the build's threads and columns into tc
-        threads, columns = tc[0], tc[1]
-        strip = balanced_strip(leg, n, threads, columns, slots)
-        tiles = (a1_tiles if leg == "A1" else a2_tiles)(n, threads, columns, strip)
+        tiles = (a1_tiles if leg == "A1" else a2_tiles)(n, balanced_strip(leg, n, slots))
         _LAUNCH_TILES[key] = tiles
     return tiles
 
 
 def _check_aligned(*named):
-    """cp.async copies 16-byte chunks from the fields' base pointers."""
+    """A1 and A2 stage u, f and the phases with 16-byte cp.async chunks
+    counted from the fields' base pointers, which must therefore start on a
+    16-byte boundary: whole tensors do, offset views may not."""
     for name, t in named:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -639,7 +579,9 @@ def _stream(device):
 
 def sweep_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, mode="sweep",
                mass=None, out=None, rsq=None, workspace=None):
-    """A1 on the card; same contract as :func:`sweep_plain`."""
+    """A1 on the card; same contract as :func:`sweep_plain`, and u, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     _check_mode(mode, uc)
     form, m = _form(dform, mass)
     n, dev = u.shape[0] - 1, u.device
@@ -653,14 +595,16 @@ def sweep_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, mode="sweep",
     partial, done = _tile_scratch(tiles, dev, workspace)
     KERNELS["A1"](u.data_ptr(), f.data_ptr(), _ptr(ph), _ptr(uc), out.data_ptr(),
                   partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, *m,
-                  int(ph is not None), form, mode_id, tiles.threads, tiles.columns, tiles.strip,
-                  tiles.gx, tiles.gy, _stream(dev))
+                  int(ph is not None), form, mode_id, tiles.strip, tiles.gx, tiles.gy,
+                  _stream(dev))
     return out, rsq
 
 
 def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
               rsq=None, workspace=None):
-    """A2 on the card; same contract as :func:`swrr_plain`."""
+    """A2 on the card; same contract as :func:`swrr_plain`, and u, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     form, m = _form(dform, mass)
     n, dev = u.shape[0] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)], ph)
@@ -672,8 +616,7 @@ def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_ou
     partial, done = _tile_scratch(tiles, dev, workspace)
     KERNELS["A2"](u.data_ptr(), f.data_ptr(), _ptr(ph), out.data_ptr(), fc_out.data_ptr(),
                   partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, *m,
-                  int(ph is not None), form, tiles.threads, tiles.columns, tiles.strip, tiles.gx,
-                  tiles.gy, _stream(dev))
+                  int(ph is not None), form, tiles.strip, tiles.gx, tiles.gy, _stream(dev))
     return out, fc_out, rsq
 
 
@@ -775,25 +718,29 @@ class SweepLevel:
         return cuda_fn(x, *args, **kw)
 
     def sweep(self, u, f, out=None, rsq=None):
-        """One weighted-Jacobi sweep -> (u_new, rsq of u)."""
+        """One weighted-Jacobi sweep -> (u_new, rsq of u).  On the card u and
+        f must start on a 16-byte boundary (:func:`sweep_cuda`)."""
         return self._call(sweep_cuda, sweep_plain, u, f, self.ph, None,
                           dform=self.dform, mass=self.mass, out=out, rsq=rsq)
 
     def residual(self, u, f, out=None, rsq=None):
-        """Interior-masked residual f - A u -> (r, ||r||^2)."""
+        """Interior-masked residual f - A u -> (r, ||r||^2).  On the card u
+        and f must start on a 16-byte boundary (:func:`sweep_cuda`)."""
         return self._call(sweep_cuda, sweep_plain, u, f, self.ph, None,
                           dform=self.dform, mode="residual", mass=self.mass, out=out,
                           rsq=rsq)
 
     def psweep(self, u, f, uc, out=None, rsq=None):
         """u += masked bilinear prolongation of ``uc``; one sweep ->
-        (u_new, rsq of the corrected u)."""
+        (u_new, rsq of the corrected u).  On the card u and f must start
+        on a 16-byte boundary (:func:`sweep_cuda`)."""
         return self._call(sweep_cuda, sweep_plain, u, f, self.ph, uc,
                           dform=self.dform, mass=self.mass, out=out, rsq=rsq)
 
     def sweep_restrict(self, u, f, out=None, fc_out=None, rsq=None):
         """Pre-smoothing sweep + residual + x4 full weighting ->
-        (u1, f_c, rsq of u)."""
+        (u1, f_c, rsq of u).  On the card u and f must start on a 16-byte
+        boundary (:func:`swrr_cuda`)."""
         return self._call(swrr_cuda, swrr_plain, u, f, self.ph, dform=self.dform,
                           mass=self.mass, out=out, fc_out=fc_out, rsq=rsq)
 
