@@ -14,10 +14,13 @@ Phases, in order; any failure exits non-zero:
    2049^2, bi-material and homogeneous), on 4097^2 levels in plain form,
    and on n = 512 levels; A1 and A2 also at n = 2, 16 and 32 and in every
    form at n = 126 (the row-streaming tiles' single block, ragged bands and
-   strips, odd row offsets), and twice on the same 4097^2 inputs, which
-   must give bitwise-equal outputs and norms.  Time both with CUDA events
-   around a run of launches (the kernel's captured in a CUDA graph), on
-   inputs rotated to exceed the L2 cache.
+   strips, odd row offsets); A3 and A4 in every form (bi-material and
+   homogeneous, with and without the mass triple) at n = 2, 16, 32, 126 and
+   at every level size of the interface solve (64 ... 4096); all four twice
+   on the same 4097^2 inputs, which must give bitwise-equal outputs and
+   norms.  Time both with CUDA events around a run of launches (the
+   kernel's captured in a CUDA graph), on inputs rotated to exceed the L2
+   cache.
 3. The main path of ``solvers/mg2.py``: the 4097^2 bi-material interface
    solve (circle r = 0.5, coefficients (1, 20), 9 levels, kernel threshold
    32, direct coarse solve, f = 0, u0 = 150000 * uniform(rng 0) * geo, eps
@@ -98,7 +101,8 @@ Phases, in order; any failure exits non-zero:
    the oracle's 129^2 dataset, the loss falls 10%, resume equals the
    straight run).
 14. Print A1's and A2's 4097^2 times in every form held, each beside its
-   byte bound (``a12_4097``), the kernel summary line (one row per kernel
+   byte bound (``a12_4097``), A3's and A4's at each level size of the
+   interface solve (``a34_levels``), the kernel summary line (one row per kernel
    and path, with the path's launch counts; each row's byte bound also at
    the measured copy and triad rates), then the device line as the last
    line.
@@ -110,6 +114,7 @@ kernel from torch.profiler and the busy share of its wall time.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -166,6 +171,8 @@ Q_JAX_1024 = {"hjac": 0.05573512241244316, "jac": 0.23737014830112457}
 DEVICE = "cuda"
 N_MAIN, N_COARSE, N_SMALL = 4096, 512, 128
 N_ODD = 126  # A1/A2 checks: 127 rows, odd against both tile widths and strips
+# the level sizes the 4097^2 interface solve launches A3 and A4 at
+A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 CIRCLE = ("circle", (0.0, 0.0), 0.5)
 N_EL = 2048  # the elastic cells: 2049^2 nodes (bench.py:296)
 E_EL, NU_EL = 212e3, 0.288  # Plane_Stress_modify.m:11-12
@@ -423,17 +430,21 @@ def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0
 
 
 def check_repeat(n: int = N_MAIN, seed: int = 1) -> None:
-    """A1 (three modes) and A2 on the interface level's form: two launches on
-    the same inputs and workspace give bitwise-equal outputs and norms."""
+    """A1 (three modes), A2, A3 and A4 on the interface level's form: two
+    launches on the same inputs (and workspace) give bitwise-equal outputs
+    and norms."""
     import torch
     from multigrid_feanet_torch.ops import sweep as sw
 
     u, f, uc, ph = level_inputs(n, True, seed)
     cfg = dict(a0=1.0, da=19.0, omega=2.0 / 3.0, dform=True, workspace={})
+    zcfg = dict(a0=1.0, da=19.0, omega=2.0 / 3.0)
     runs = {"A1_sweep": lambda: sw.sweep_cuda(u, f, ph, None, mode="sweep", **cfg),
             "A1_residual": lambda: sw.sweep_cuda(u, f, ph, None, mode="residual", **cfg),
             "A1_psweep": lambda: sw.sweep_cuda(u, f, ph, uc, **cfg),
-            "A2": lambda: sw.swrr_cuda(u, f, ph, **cfg)}
+            "A2": lambda: sw.swrr_cuda(u, f, ph, **cfg),
+            "A3": lambda: (sw.zrr_cuda(f, ph, **zcfg),),
+            "A4": lambda: (sw.zpsweep_cuda(f, ph, uc, **zcfg),)}
     same = {}
     for leg, run in runs.items():
         first = [t.clone() for t in run()]
@@ -442,7 +453,35 @@ def check_repeat(n: int = N_MAIN, seed: int = 1) -> None:
         same[leg] = all(torch.equal(a, b) for a, b in zip(first, again))
     print(json.dumps({"a12_repeat_bitwise": dict(n=n, **same)}), flush=True)
     if not all(same.values()):
-        fail(f"A1/A2 repeat differently: {same}")
+        fail(f"A1-A4 repeat differently: {same}")
+
+
+def check_a34(sizes) -> list:
+    """Hold A3 and A4 against their plain versions at each n of ``sizes`` in
+    every form: bi-material and homogeneous, the plain form with and
+    without the heat level's mass triple; one record per leg and form."""
+    heat = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
+    recs = []
+    for n in sizes:
+        mass = level_mass(n)
+        for bim in (True, False):
+            recs += check_kernels(n, bim, False, ["A3", "A4"])
+            recs += check_kernels(n, bim, False, ["A3", "A4"], coef=heat, mass=mass)
+    return recs
+
+
+def a34_levels(recs) -> dict:
+    """This run's A3/A4 times at each level size of the interface solve, in
+    every form held, each beside its byte bound."""
+    rows = {}
+    for rec in recs:
+        if rec["n"] not in A34_LEVELS:
+            continue
+        key = (f"{rec['name']}_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_"
+               f"{'mass' if rec['mass'] else 'plain'}")
+        bound = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
+        rows[key] = dict(ms=rec["ms"], bound_ms=bound, of_bound=bound / rec["ms"])
+    return rows
 
 
 def a12_times(checks) -> dict:
@@ -739,8 +778,10 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
 
 
 # profiler kernel names -> summary labels; no name is a substring of another
-# label's name except sweep_kernel, which is tested after zpsweep_kernel
-KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"), ("zrr_kernel", "A3"),
+# label's name except sweep_kernel, which is tested after zpsweep_kernel, and
+# swrr_kernel, whose zero-guess instances (A3) A3_NAME tells apart first
+A3_NAME = re.compile(r"swrr_kernel(<[^>]*,\s*(true|1)>|ILb\dELi\dELb1E)")
+KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("sweep_kernel", "A1"), ("d1_gen_relax", "D1"), ("d2_gen_descent", "D2"),
                ("d3_gen_ascent", "D3"), ("d4_gen_zdescent", "D4"), ("d5_gen_zascent", "D5"),
                ("e2_h_descent", "E2"), ("e3_h_ascent", "E3"), ("e4_h_zdescent", "E4"),
@@ -774,7 +815,7 @@ def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
         name = evt.key
         for tag, label in KERNEL_TAGS:
             if tag in name:
-                name = label
+                name = "A3" if A3_NAME.search(name) else label
                 break
         else:
             name = "torch:" + name[:40]
@@ -1889,6 +1930,10 @@ def main() -> int:
         checks += check_kernels(N_ODD, bim, False, a13, mass=level_mass(N_ODD),
                                 coef=(HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT))
     print(json.dumps({"kernel_checks": checks}), flush=True)
+    # the row-streaming A3/A4 on a single block (n = 2), ragged bands and
+    # strips (16, 32, 126) and every level size of the interface solve
+    a34checks = check_a34((2, 16, N_ODD) + A34_LEVELS[::-1] + (N_MAIN,))
+    print(json.dumps({"a34_kernel_checks": a34checks}), flush=True)
     check_repeat()
 
     check_small_against_cpu()
@@ -2101,6 +2146,7 @@ def main() -> int:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
     print(json.dumps({"a12_4097": a12_times(checks + r6checks)}), flush=True)
+    print(json.dumps({"a34_levels": a34_levels(a34checks)}), flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

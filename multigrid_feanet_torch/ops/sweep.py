@@ -361,10 +361,9 @@ KERNELS = {
     "A2": CudaKernel("A2_swrr", "mg_swrr",
                      [_P] * 8 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:374", _SOURCE),
-    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
+    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P] * 3 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:629", _SOURCE),
-    "A4": CudaKernel("A4_zpsweep", "mg_zpsweep",
-                     [_P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
+    "A4": CudaKernel("A4_zpsweep", "mg_zpsweep", [_P] * 4 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
     "A5": CudaKernel("A5_resid_restrict", "mg_rr",
                      [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _I, _I, _P],
@@ -401,11 +400,11 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of A1 and A2: row-streaming tiles (csrc/sweep.cu).  A block
-# of A12_THREADS threads of A12_COLUMNS adjacent columns each owns a band of
+# Launch geometry of A1-A4: row-streaming tiles (csrc/sweep.cu).  A block of
+# A12_THREADS threads of A12_COLUMNS adjacent columns each owns a band of
 # fine columns and marches down a strip of fine rows; the grid and the strip
 # height are computed here and passed to the kernels, which refuse a grid
-# that does not match their block shape.
+# that does not match their block shape.  A3 takes A2's bands and strips.
 # ---------------------------------------------------------------------------
 
 # csrc/sweep.cu's block shape (ST threads of SC columns), the default strip
@@ -413,14 +412,23 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 A12_THREADS, A12_COLUMNS = 128, 2
 A12_STRIP, A12_STRIP_MAX = 32, 128
 # steps a block takes beyond its strip's rows: the staged halo rows
-_HALO_STEPS = {"A1": 2, "A2": 6}
+_HALO_STEPS = {"A1": 2, "A2": 6, "A3": 5, "A4": 4}
+# the shortest strip balanced_strip considers: A3 and A4 run on the coarse
+# levels, where one wave holds the whole grid and the strip's step chain
+# is the time
+_MIN_STRIP = {"A1": 8, "A2": 8, "A3": 2, "A4": 2}
+# A3/A4: a step's latency in units of one block's share of its SM's issue
+# time (fitted to the H100's times of A3 and A4 at n = 128 ... 2048 over
+# strips of 2 ... 48 rows, PERF.md)
+_STEP_LATENCY = 3
+_LEG_ID = {"A1": 1, "A2": 2, "A3": 3, "A4": 4}
 
 
 class Tiles(NamedTuple):
     """One leg's launch geometry at level n: a ``gx`` x ``gy`` grid of
     blocks, block (bx, by) owning fine columns ``[bx band, (bx+1) band)``
-    and rows ``[by strip, (by+1) strip)`` of the (n+1)^2 grid (A2 also the
-    coarse nodes under them)."""
+    and rows ``[by strip, (by+1) strip)`` of the (n+1)^2 grid (A2 and A3
+    also the coarse nodes under them)."""
 
     leg: str
     n: int
@@ -457,16 +465,46 @@ def a2_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
     return Tiles("A2", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
 
 
-def balanced_strip(leg: str, n: int, slots) -> int:
-    """The even strip height in [8, A12_STRIP_MAX] that finishes the level
-    in the fewest block-steps on a card that holds ``slots(strip)`` blocks
-    at once: whole waves of blocks, each taking strip + halo steps.  A grid
-    that overfills its last wave by a few blocks pays a whole wave, so the
-    height adapts to the level and to the occupancy the card reports."""
-    tiles = a1_tiles if leg == "A1" else a2_tiles
+def a3_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
+    """A3: A2's bands and strips (the zero-guess descent restricts the same
+    coarse nodes)."""
+    return a2_tiles(n, strip)._replace(leg="A3")
+
+
+def a4_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
+    """A4: a block owns ``A12_THREADS A12_COLUMNS - 2`` columns (the u2 it
+    sweeps reaches one column past each side)."""
+    _check_strip(strip)
+    H, band = n + 1, A12_THREADS * A12_COLUMNS - 2
+    return Tiles("A4", n, band, strip, -(-H // band), -(-H // strip))
+
+
+TILES = {"A1": a1_tiles, "A2": a2_tiles, "A3": a3_tiles, "A4": a4_tiles}
+
+
+def balanced_strip(leg: str, n: int, slots, sms: int = 132) -> int:
+    """The even strip height in [``_MIN_STRIP[leg]``, A12_STRIP_MAX] that
+    finishes the level soonest on a card of ``sms`` SMs that holds
+    ``slots(strip)`` blocks at once.
+
+    A1 and A2 (the finest level, many waves of blocks): the fewest
+    block-steps, whole waves of blocks each taking strip + halo steps.  A
+    grid that overfills its last wave by a few blocks pays a whole wave, so
+    the height adapts to the level and to the occupancy the card reports.
+
+    A3 and A4 (the coarse levels, at most a few waves): a step costs a block
+    a fixed latency plus the issue time it shares with the blocks beside it
+    on its SM, so a level takes steps x (_STEP_LATENCY waves + blocks per
+    SM): short strips shorten each block's chain of steps, until their halo
+    steps crowd the SMs."""
     best = None
-    for strip in range(8, A12_STRIP_MAX + 1, 2):
-        cost = -(-tiles(n, strip).blocks // max(1, slots(strip))) * (strip + _HALO_STEPS[leg])
+    for strip in range(_MIN_STRIP[leg], A12_STRIP_MAX + 1, 2):
+        blocks = TILES[leg](n, strip).blocks
+        waves, steps = -(-blocks // max(1, slots(strip))), strip + _HALO_STEPS[leg]
+        if leg in ("A1", "A2"):
+            cost = waves * steps
+        else:
+            cost = steps * (_STEP_LATENCY * waves + -(-blocks // sms))
         if best is None or cost < best[0]:
             best = (cost, strip)
     return best[1]
@@ -494,9 +532,9 @@ _LAUNCH_TILES = {}
 
 
 def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device) -> Tiles:
-    """The geometry A1 (``mode`` 0-2) or A2 launches with on ``device``: the
-    balanced strip height for the occupancy the card reports for that
-    kernel; computed once per level shape."""
+    """The geometry A1 (``mode`` 0-2), A2, A3 or A4 launches with on
+    ``device``: the balanced strip height for the occupancy the card
+    reports for that kernel; computed once per level shape."""
     key = (leg, n, bim, form, mode, device.index)
     tiles = _LAUNCH_TILES.get(key)
     if tiles is None:
@@ -505,20 +543,21 @@ def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device) -> 
         sms = torch.cuda.get_device_properties(device).multi_processor_count
 
         def slots(strip):
-            blocks = fn(1 if leg == "A1" else 2, int(bim), form, mode, strip)
+            blocks = fn(_LEG_ID[leg], int(bim), form, mode, strip)
             if blocks <= 0:
                 raise RuntimeError(f"mg_a12_occupancy: CUDA error {-blocks}")
             return blocks * sms
 
-        tiles = (a1_tiles if leg == "A1" else a2_tiles)(n, balanced_strip(leg, n, slots))
+        tiles = TILES[leg](n, balanced_strip(leg, n, slots, sms))
         _LAUNCH_TILES[key] = tiles
     return tiles
 
 
 def _check_aligned(*named):
-    """A1 and A2 stage u, f and the phases with 16-byte cp.async chunks
-    counted from the fields' base pointers, which must therefore start on a
-    16-byte boundary: whole tensors do, offset views may not."""
+    """A1-A4 stage u, f and the phases with 16-byte cp.async chunks counted
+    from the fields' base pointers, which must therefore start on a 16-byte
+    boundary (whole tensors do, offset views may not); A4's coarse
+    correction is held to the same rule."""
     for name, t in named:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -651,24 +690,34 @@ def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_o
 
 
 def zrr_cuda(f, ph=None, *, a0, da, omega, mass=None, out=None):
-    """A3 on the card; same contract as :func:`zrr_plain`."""
-    _, m = _form(False, mass)
+    """A3 on the card; same contract as :func:`zrr_plain`, and f and ``ph``
+    must start on a 16-byte boundary (whole tensors do; an offset view may
+    not, and raises ValueError)."""
+    form, m = _form(False, mass)
     n, dev = f.shape[0] - 1, f.device
     _operands(n, dev, [("f", f)], ph)
     out = _output(out, "out", (n // 2 + 1, n // 2 + 1), dev, (f,))
+    _check_aligned(("f", f), ("phase", ph))
+    tiles = _launch_tiles("A3", n, ph is not None, form, 0, dev)
     KERNELS["A3"](f.data_ptr(), _ptr(ph), out.data_ptr(), n, a0, da, omega, *m,
-                  int(ph is not None), int(mass is not None), _stream(dev))
+                  int(ph is not None), int(mass is not None), tiles.strip, tiles.gx, tiles.gy,
+                  _stream(dev))
     return out
 
 
 def zpsweep_cuda(f, ph, uc, *, a0, da, omega, mass=None, out=None):
-    """A4 on the card; same contract as :func:`zpsweep_plain`."""
-    _, m = _form(False, mass)
+    """A4 on the card; same contract as :func:`zpsweep_plain`, and f,
+    ``ph`` and ``uc`` must start on a 16-byte boundary (whole tensors do;
+    an offset view may not, and raises ValueError)."""
+    form, m = _form(False, mass)
     n, dev = f.shape[0] - 1, f.device
     _operands(n, dev, [("f", f)], ph, [("uc", uc)])
     out = _output(out, "out", (n + 1, n + 1), dev, (f, uc))
+    _check_aligned(("f", f), ("phase", ph), ("uc", uc))
+    tiles = _launch_tiles("A4", n, ph is not None, form, 0, dev)
     KERNELS["A4"](f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(), n, a0,
-                  da, omega, *m, int(ph is not None), int(mass is not None), _stream(dev))
+                  da, omega, *m, int(ph is not None), int(mass is not None), tiles.strip,
+                  tiles.gx, tiles.gy, _stream(dev))
     return out
 
 
@@ -761,9 +810,11 @@ class SweepLevel:
                           mass=self.mass, out=out, fc_out=fc_out, rsq=rsq)
 
     def zsweep_restrict(self, f, out=None):
-        """Zero-initial-guess descent leg -> f_c."""
+        """Zero-initial-guess descent leg -> f_c.  On the card f must start
+        on a 16-byte boundary (:func:`zrr_cuda`)."""
         return self._call(zrr_cuda, zrr_plain, f, self.ph, mass=self.mass, out=out)
 
     def zpsweep(self, f, uc, out=None):
-        """Zero-initial-guess ascent leg -> u3."""
+        """Zero-initial-guess ascent leg -> u3.  On the card f and ``uc``
+        must start on a 16-byte boundary (:func:`zpsweep_cuda`)."""
         return self._call(zpsweep_cuda, zpsweep_plain, f, self.ph, uc, mass=self.mass, out=out)

@@ -1,16 +1,18 @@
-"""Launch geometry of the row-streaming A1 and A2 kernels (``ops/sweep.py``
-``a1_tiles``, ``a2_tiles``, ``balanced_strip``): the Python side of what the
-wrappers pass to ``csrc/sweep.cu``, checked without a card.
+"""Launch geometry of the row-streaming A1-A4 kernels (``ops/sweep.py``
+``a1_tiles`` ... ``a4_tiles``, ``balanced_strip``): the Python side of what
+the wrappers pass to ``csrc/sweep.cu``, checked without a card.
 
 For every even n from 2 to 64 and for n in {126, 128, 2048, 4096}:
-the bands and strips cover each output node (and A2's coarse nodes)
-exactly once; every staged row's 16-byte chunks, from the window's
-aligned-down start, stay inside the field's allocation and cover the
-window; the partial-sum buffer holds one float per block; and the
-scratch's workspace key differs from those of C1/D1 and A5/A6/D2.  The
-staging windows are computed here with the index arithmetic of
-``csrc/sweep.cu``'s ``stage_step``; the card checks of ``chip_smoke.py``
-hold the kernels themselves at ragged sizes.
+the bands and strips cover each output node (and A2's and A3's coarse
+nodes) exactly once, A3 and A4 at every strip the wrappers can pick; every
+staged row's 16-byte chunks, from the window's aligned-down start, stay
+inside the field's allocation and cover the window; ``balanced_strip``
+picks the cheapest height under each leg's cost; the partial-sum buffer
+holds one float per block; and the scratch's workspace key differs from
+those of C1/D1 and A5/A6/D2.  The staging windows are computed here with
+the index arithmetic of ``csrc/sweep.cu``'s ``stage_step`` and
+``stage_z``; the card checks of ``chip_smoke.py`` hold the kernels
+themselves at ragged sizes.
 """
 
 import re
@@ -114,6 +116,31 @@ def _staged_rows(tiles):
     return np.concatenate(us), np.concatenate(fs), np.concatenate(cols)
 
 
+def _check_windows(fields):
+    """Each (rows, cols, row_len, nrows, total, elems, slot, win) staged
+    window's chunks stay inside the field and cover the window."""
+    for rows, cols, row_len, nrows, total, elems, slot, win in fields:
+        start, valid, used, off = _staged_chunks(rows, cols, win, row_len, nrows, total,
+                                                 elems, slot)
+        copied = valid > 0
+        # every chunk that copies lies inside [0, total) and starts aligned
+        assert (start[copied] >= 0).all() and (start[copied] + valid[copied] <= total).all()
+        assert (start[used] % elems == 0).all()
+        # the window fits its slot after the offset
+        assert (off >= 0).all() and (off < elems).all()
+        assert (off + win <= slot).all()
+        # on the grid's rows, the used chunks copy every element of the
+        # window that lies inside the field, and only rows off it copy nothing
+        a = rows * row_len + cols
+        on = (rows >= 0) & (rows < nrows)
+        first = start[:, 0]
+        last = first + elems * used.sum(axis=1)
+        assert (last >= a + win).all()
+        want = np.clip(np.minimum(last, total) - np.maximum(first, 0), 0, None)
+        assert (valid.sum(axis=1)[on] == want[on]).all()
+        assert (valid[~on] == 0).all()
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_staging_windows_stay_inside_the_allocation(n):
     H = n + 1
@@ -121,29 +148,69 @@ def test_staging_windows_stay_inside_the_allocation(n):
     width = sw.A12_THREADS * sw.A12_COLUMNS
     for tiles in (sw.a1_tiles(n), sw.a2_tiles(n)):
         u_rows, f_rows, cols = _staged_rows(tiles)
-        fields = ((u_rows, H, H, H * H, 4, slot_f, width + 2),
-                  (f_rows, H, H, H * H, 4, slot_f, width + 2),
-                  (f_rows, n, n, n * n, 16, slot_q, width + 1))
-        for rows, row_len, nrows, total, elems, slot, win in fields:
-            start, valid, used, off = _staged_chunks(rows, cols, win, row_len, nrows, total,
-                                                     elems, slot)
-            copied = valid > 0
-            # every chunk that copies lies inside [0, total) and starts aligned
-            assert (start[copied] >= 0).all() and (start[copied] + valid[copied] <= total).all()
-            assert (start[used] % elems == 0).all()
-            # the window fits its slot after the offset
-            assert (off >= 0).all() and (off < elems).all()
-            assert (off + win <= slot).all()
-            # on the grid's rows, the used chunks copy every element of the
-            # window that lies inside the field, and only rows off it copy nothing
-            a = rows * row_len + cols
-            on = (rows >= 0) & (rows < nrows)
-            first = start[:, 0]
-            last = first + elems * used.sum(axis=1)
-            assert (last >= a + win).all()
-            want = np.clip(np.minimum(last, total) - np.maximum(first, 0), 0, None)
-            assert (valid.sum(axis=1)[on] == want[on]).all()
-            assert (valid[~on] == 0).all()
+        _check_windows(((u_rows, cols, H, H, H * H, 4, slot_f, width + 2),
+                        (f_rows, cols, H, H, H * H, 4, slot_f, width + 2),
+                        (f_rows, cols, n, n, n * n, 16, slot_q, width + 1)))
+
+
+# csrc/sweep.cu's A3 and A4 (stage_z): f and phase row y0 + A34_ROW0 + s at
+# step s, the f window from column x0 + A34_COL0, the phase window
+# A34_QOFF columns further
+A34_ROW0, A34_COL0, A34_QOFF = {"A3": -3, "A4": -2}, {"A3": -3, "A4": -1}, {"A3": 0, "A4": -1}
+
+
+def _a34_staged_rows(tiles):
+    """(f and phase row, f window column) of every step of every block of
+    A3 (``staged`` steps: its last step stages nothing) or A4."""
+    H, leg = tiles.n + 1, tiles.leg
+    rows, cols = [], []
+    for by in range(tiles.gy):
+        y0 = by * tiles.strip
+        staged = (min(tiles.strip, H + 1 - y0) + 4 if leg == "A3"
+                  else min(tiles.strip, H - y0) + 3)
+        r = y0 + A34_ROW0[leg] + np.arange(staged)
+        for bx in range(tiles.gx):
+            rows.append(r)
+            cols.append(np.full_like(r, bx * tiles.band + A34_COL0[leg]))
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_a34_staging_windows_stay_inside_the_allocation(n):
+    H, width = n + 1, sw.A12_THREADS * sw.A12_COLUMNS
+    for tiles_of in (sw.a3_tiles, sw.a4_tiles):
+        for strip in (2, sw.A12_STRIP):
+            tiles = tiles_of(n, strip)
+            slot_f, slot_q = _slot_sizes()
+            rows, cols = _a34_staged_rows(tiles)
+            # one chunk per thread: the f chunks on warps 0-2, the phase
+            # chunks on warp 3
+            assert slot_f // 4 <= sw.A12_THREADS - 32 and slot_q // 16 <= 32
+            _check_windows(((rows, cols, H, H, H * H, 4, slot_f, width + 2),
+                            (rows, cols + A34_QOFF[tiles.leg], n, n, n * n, 16, slot_q,
+                             width + 1)))
+
+
+def _cover_once(starts, width, total):
+    """Ranges [start, start + width) clipped to [0, total) cover it once."""
+    count = np.zeros(total + 1, np.int64)
+    np.add.at(count, np.minimum(starts, total), 1)
+    np.add.at(count, np.minimum(starts + width, total), -1)
+    return (np.cumsum(count)[:total] == 1).all() and (starts < total).all()
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_a34_bands_and_strips_cover_each_node_once(n):
+    # every strip the wrappers can pick: A4's bands and strips own each fine
+    # output node once, A3's each coarse node once
+    H, Hc = n + 1, n // 2 + 1
+    for strip in range(2, sw.A12_STRIP_MAX + 1, 2):
+        a4, a3 = sw.a4_tiles(n, strip), sw.a3_tiles(n, strip)
+        assert (a4.leg, a3.leg) == ("A4", "A3")
+        assert _cover_once(np.arange(a4.gy) * strip, strip, H)
+        assert _cover_once(np.arange(a4.gx) * a4.band, a4.band, H)
+        assert _cover_once(np.arange(a3.gy) * strip // 2, strip // 2, Hc)
+        assert _cover_once(np.arange(a3.gx) * a3.band // 2, a3.band // 2, Hc)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -162,6 +229,30 @@ def test_balanced_strip_takes_the_fewest_block_steps(n):
 
             assert all(cost(strip) <= cost(s) for s in range(8, sw.A12_STRIP_MAX + 1, 2))
             tiles_of(n, strip)  # a geometry the kernels take
+            # the SM count does not enter A1's and A2's choice
+            assert sw.balanced_strip(leg, n, slots, sms=66) == strip
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_a34_balanced_strip_weighs_latency_against_crowding(n):
+    # A3 and A4 take strips down to 2 rows; each step costs a block the
+    # step latency (3 units per wave) plus its SM's share of blocks
+    for sms in (132, 66):
+        for slots in (lambda s: 6 * sms, lambda s: sms * (8 if s <= 16 else 2)):
+            for leg in ("A3", "A4"):
+                strip = sw.balanced_strip(leg, n, slots, sms)
+                assert strip % 2 == 0 and 2 <= strip <= sw.A12_STRIP_MAX
+
+                def cost(s):
+                    blocks = sw.TILES[leg](n, s).blocks
+                    waves = -(-blocks // slots(s))
+                    return (s + sw._HALO_STEPS[leg]) * (3 * waves + -(-blocks // sms))
+
+                assert all(cost(strip) <= cost(s) for s in range(2, sw.A12_STRIP_MAX + 1, 2))
+    # the coarsest levels fit one wave at any height: the shortest chain wins
+    if n <= 256:
+        assert sw.balanced_strip("A3", n, lambda s: 792) == 2
+        assert sw.balanced_strip("A4", n, lambda s: 792) == 2
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -199,18 +290,30 @@ def test_block_shape_matches_the_kernels():
 
     assert (const("ST"), const("SC")) == (sw.A12_THREADS, sw.A12_COLUMNS)
     assert const("A12_STRIP_MAX") == sw.A12_STRIP_MAX
+    # A3 launches on A2's grid, as a3_tiles computes it; A4 on its own
+    for entry, check in (("mg_zrr", "a2_grid_ok"), ("mg_zpsweep", "a4_grid_ok"),
+                         ("mg_swrr", "a2_grid_ok"), ("mg_sweep", "a1_grid_ok")):
+        body = src[src.index(f"int {entry}("):]
+        assert body[:body.index("\n}\n")].count(f"{check}(n, strip, gx, gy)") == 1, entry
+    assert "bw = SB - 2" in src[src.index("inline bool a4_grid_ok("):]
+    for n in SIZES:
+        assert sw.a3_tiles(n)[2:] == sw.a2_tiles(n)[2:]
+        assert sw.a4_tiles(n).band == sw.A12_THREADS * sw.A12_COLUMNS - 2
 
 
-@pytest.mark.parametrize("name", ["u", "f", "phase"])
+@pytest.mark.parametrize("name", ["u", "f", "phase", "uc"])
 def test_fields_off_a_16_byte_boundary_are_refused(name):
     n = 8
     whole = torch.zeros((n + 1) * (n + 1) + 1)
     aligned = whole[:-1].view(n + 1, n + 1)
     shifted = whole[1:].view(n + 1, n + 1)  # 4 bytes past the allocation's start
     ph = torch.zeros(n * n + 1, dtype=torch.int8)
-    fields = {"u": aligned, "f": aligned, "phase": ph[:-1].view(n, n)}
+    coarse = torch.zeros((n // 2 + 1) ** 2 + 1)
+    fields = {"u": aligned, "f": aligned, "phase": ph[:-1].view(n, n),
+              "uc": coarse[:-1].view(n // 2 + 1, n // 2 + 1)}
     assert aligned.data_ptr() % 16 == 0 and ph.data_ptr() % 16 == 0
     sw._check_aligned(*fields.items())
-    fields[name] = ph[1:].view(n, n) if name == "phase" else shifted
+    fields[name] = {"phase": ph[1:].view(n, n),
+                    "uc": coarse[1:].view(n // 2 + 1, n // 2 + 1)}.get(name, shifted)
     with pytest.raises(ValueError, match=name):
         sw._check_aligned(*fields.items())
