@@ -100,11 +100,27 @@ Phases, in order; any failure exits non-zero:
    launches, the loss falls by >= 0.2) and ``hnet_train_129`` (8 epochs on
    the oracle's 129^2 dataset, the loss falls 10%, resume equals the
    straight run).
-14. Print A1's and A2's 4097^2 times in every form held, each beside its
+14. bf16 level storage: hold A1 (sweep, residual, psweep), A2, A5 and A6
+   in bf16 against their plain versions at 4097^2 (bi-material difference
+   form, homogeneous difference form, bi-material mass form; one bf16 ulp
+   per element beyond ``ops.sweep.TOL``, ``ops.sweep.bf16_excess``), A3
+   and A4 at 2049^2 (bi-material, homogeneous, mass), at every other level
+   size of the interface solve and at n = 2, 16, 32 and 126, A1/A2 at n =
+   2, 16 and 126; all six twice on the same inputs (bitwise).  Time
+   bench.py's bf16 row (the homogeneous plain-form sweep, its share of
+   the triad rate).  Then the cells ``interface_4097_bf16``,
+   ``poisson_4097_bf16`` (23 +- 1 cycles), ``pswrr_interface_4097_bf16``
+   and ``ir_4097_bf16`` (f64 residual <= 1e-6 within 20 outer steps), each
+   printed beside its f32 cell, and two 129^2 bi-material bf16 decay
+   solves (split and use_pswrr) on the card against the CPU (cycles +- 1,
+   histories within 2%).
+15. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
-   interface solve (``a34_levels``), the kernel summary line (one row per kernel
-   and path, with the path's launch counts; each row's byte bound also at
-   the measured copy and triad rates), then the device line as the last
+   interface solve (``a34_levels``), the bf16 times beside their bf16 byte
+   bounds and this run's f32 times (``bf16_times``), the kernel summary
+   line (one row per kernel and path, with the path's launch counts; the
+   bf16 rows suffixed ``_bf16``; each row's byte bound also at the
+   measured copy and triad rates), then the device line as the last
    line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
@@ -232,9 +248,11 @@ def plain_ms(runs, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def level_inputs(n: int, bim: bool, seed: int):
-    """Fields of one level on the card: u at the main path's scale, f and
-    the coarse correction standard normal, the circle's phase map."""
+def level_inputs(n: int, bim: bool, seed: int, dtype=None, ring: float = 0.0):
+    """Fields of one level on the card: u at the main path's scale (its
+    boundary ring ``ring``), f and the coarse correction standard normal,
+    the circle's phase map; the node fields rounded to ``dtype`` when
+    given."""
     import torch
     from multigrid_feanet_torch.core.geometry import circle_phase
 
@@ -243,26 +261,31 @@ def level_inputs(n: int, bim: bool, seed: int):
     geo = np.zeros((H, H), np.float32)
     geo[1:-1, 1:-1] = 1.0
     u = (150000.0 * rng.uniform(size=(H, H))).astype(np.float32) * geo
+    if ring:
+        u += np.float32(ring) * (1 - geo)
     f = rng.standard_normal((H, H)).astype(np.float32)
     uc = rng.standard_normal((Hc, Hc)).astype(np.float32)
     ph = circle_phase(2.0, n) if bim else None
-    return tuple(None if x is None else torch.as_tensor(x, device=DEVICE)
-                 for x in (u, f, uc, ph))
+    out = [None if x is None else torch.as_tensor(x, device=DEVICE) for x in (u, f, uc, ph)]
+    if dtype is not None:
+        out[:3] = [x.to(dtype) for x in out[:3]]
+    return tuple(out)
 
 
-def bytes_moved(name: str, n: int, bim: bool) -> int:
+def bytes_moved(name: str, n: int, bim: bool, es: int = 4) -> int:
     """Bytes a kernel must move: each input read once, each output written
-    once (f32 fields, int8 phase, f32 coarse fields)."""
+    once (node fields and coarse fields of ``es`` bytes: 4 in f32, 2 in
+    bf16; the int8 phase)."""
     H2, Hc2, ph = (n + 1) ** 2, (n // 2 + 1) ** 2, n * n if bim else 0
     return {
-        "A1_sweep": 4 * H2 * 3 + ph,
-        "A1_residual": 4 * H2 * 3 + ph,
-        "A1_psweep": 4 * H2 * 3 + ph + 4 * Hc2,
-        "A2": 4 * H2 * 3 + ph + 4 * Hc2,
-        "A3": 4 * H2 + ph + 4 * Hc2,
-        "A4": 4 * H2 * 2 + ph + 4 * Hc2,
-        "A5": 4 * H2 * 2 + ph + 4 * Hc2,
-        "A6": 4 * H2 * 3 + ph + 4 * Hc2 * 2,
+        "A1_sweep": es * H2 * 3 + ph,
+        "A1_residual": es * H2 * 3 + ph,
+        "A1_psweep": es * H2 * 3 + ph + es * Hc2,
+        "A2": es * H2 * 3 + ph + es * Hc2,
+        "A3": es * H2 + ph + es * Hc2,
+        "A4": es * H2 * 2 + ph + es * Hc2,
+        "A5": es * H2 * 2 + ph + es * Hc2,
+        "A6": es * H2 * 3 + ph + es * Hc2 * 2,
     }[name]
 
 
@@ -345,7 +368,10 @@ RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E1", "E2", "G1", "G
 
 def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
     """Run one leg's kernel and plain version on the same inputs; return a
-    record (errors, times) and fail beyond ``tol``.
+    record (errors, times) and fail beyond ``tol``.  A bf16 output is held
+    to one bf16 ulp per element beyond ``tol`` of max(1, max|plain|)
+    (``ops.sweep.bf16_excess``): both round an f32 value that agrees to
+    ``tol``.
 
     ``ms`` is the kernel's device time on cold inputs: the inputs are cloned
     into enough sets to fill twice the 50 MB L2 cache and the timed launches
@@ -359,16 +385,22 @@ def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    rel, abs_err, rsq_rel = 0.0, 0.0, 0.0
+    rel, abs_err, rsq_rel, excess = 0.0, 0.0, 0.0, None
     for g, w in zip(got, want):
         if g.dim() == 0:
             rsq_rel = max(rsq_rel, abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
             continue
         if not torch.isfinite(g).all():
             fail(f"{leg} {tags}: non-finite output")
-        err = float((g - w).abs().max())
+        if g.dtype != w.dtype:
+            fail(f"{leg} {tags}: the kernel returns {g.dtype}, its plain version {w.dtype}")
+        err = float((g.float() - w.float()).abs().max())
         abs_err = max(abs_err, err)
-        rel = max(rel, err / max(1.0, float(w.abs().max())))
+        rel = max(rel, err / max(1.0, float(w.float().abs().max())))
+        if g.dtype == torch.bfloat16:
+            from multigrid_feanet_torch.ops.sweep import bf16_excess
+
+            excess = max(-1.0 if excess is None else excess, bf16_excess(g, w))
 
     sets = min(32, -(-2 * L2_BYTES // nbytes))
     xs = [inputs] + [tuple(None if t is None else t.clone() for t in inputs)
@@ -379,8 +411,10 @@ def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float
     rec = dict(name=leg, **tags, max_rel_err=rel, max_abs_err=abs_err, rsq_rel_err=rsq_rel,
                ms=kernel_ms(kruns), warm_ms=kernel_ms(kruns[:1]), plain_ms=plain_ms(pruns),
                input_sets=sets, bytes=nbytes)
+    if excess is not None:
+        rec["bf16_excess"] = excess
     del xs, outs, kruns, pruns
-    if rel > tol or rsq_rel > tol:
+    if (rel > tol if excess is None else excess > tol) or rsq_rel > tol:
         fail(f"kernel disagrees with its plain version: {rec}")
     return rec
 
@@ -395,13 +429,17 @@ def level_mass(n: int) -> tuple:
 
 
 def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0, 20.0),
-                  mass=None):
+                  mass=None, dtype=None):
     """Hold each leg of ``ops/sweep.py`` against its plain version on one
-    level's seeded inputs, with the operator ``coef`` (+ ``mass``); one
-    record per leg."""
+    level's seeded inputs, with the operator ``coef`` (+ ``mass``), the node
+    fields in ``dtype`` (bf16: a nonzero boundary ring, which the legs pass
+    through, and the record tagged ``dtype="bfloat16"``); one record per
+    leg."""
+    import torch
     from multigrid_feanet_torch.ops import sweep as sw
 
-    inputs = level_inputs(n, bim, seed)
+    bf16 = dtype == torch.bfloat16
+    inputs = level_inputs(n, bim, seed, dtype, ring=0.7 if bf16 else 0.0)
     cfg = dict(a0=coef[0], da=coef[1] - coef[0] if bim else 0.0, omega=2.0 / 3.0, mass=mass)
     calls = {
         "A1_sweep": lambda fn, x, kw: fn(x[0], x[1], x[3], None, dform=dform, mode="sweep", **kw),
@@ -423,20 +461,20 @@ def check_kernels(n: int, bim: bool, dform: bool, legs, seed: int = 1, coef=(1.0
            "A6": (sw.pswrr_cuda, sw.pswrr_plain)}
     a5cfg = dict(a0=cfg["a0"], da=cfg["da"], mass=mass)
     return [hold(leg, calls[leg], *fns[leg], inputs, a5cfg if leg == "A5" else cfg,
-                 bytes_moved(leg, n, bim), sw.TOL,
+                 bytes_moved(leg, n, bim, 2 if bf16 else 4), sw.TOL,
                  dict(n=n, bim=bim, dform=dform if leg not in ("A3", "A4") else False,
-                      mass=mass is not None))
+                      mass=mass is not None, **(dict(dtype="bfloat16") if bf16 else {})))
             for leg in legs]
 
 
-def check_repeat(n: int = N_MAIN, seed: int = 1) -> None:
-    """A1 (three modes), A2, A3 and A4 on the interface level's form: two
-    launches on the same inputs (and workspace) give bitwise-equal outputs
-    and norms."""
+def check_repeat(n: int = N_MAIN, seed: int = 1, dtype=None) -> None:
+    """A1 (three modes), A2, A3 and A4 on the interface level's form (in
+    bf16 storage also A5 and A6): two launches on the same inputs (and
+    workspace) give bitwise-equal outputs and norms."""
     import torch
     from multigrid_feanet_torch.ops import sweep as sw
 
-    u, f, uc, ph = level_inputs(n, True, seed)
+    u, f, uc, ph = level_inputs(n, True, seed, dtype)
     cfg = dict(a0=1.0, da=19.0, omega=2.0 / 3.0, dform=True, workspace={})
     zcfg = dict(a0=1.0, da=19.0, omega=2.0 / 3.0)
     runs = {"A1_sweep": lambda: sw.sweep_cuda(u, f, ph, None, mode="sweep", **cfg),
@@ -445,15 +483,19 @@ def check_repeat(n: int = N_MAIN, seed: int = 1) -> None:
             "A2": lambda: sw.swrr_cuda(u, f, ph, **cfg),
             "A3": lambda: (sw.zrr_cuda(f, ph, **zcfg),),
             "A4": lambda: (sw.zpsweep_cuda(f, ph, uc, **zcfg),)}
+    if dtype is not None:
+        runs["A5"] = lambda: sw.rr_cuda(u, f, ph, a0=1.0, da=19.0, dform=True, workspace={})
+        runs["A6"] = lambda: sw.pswrr_cuda(u, f, ph, uc, **cfg)
     same = {}
     for leg, run in runs.items():
         first = [t.clone() for t in run()]
         again = run()
         torch.cuda.synchronize()
         same[leg] = all(torch.equal(a, b) for a, b in zip(first, again))
-    print(json.dumps({"a12_repeat_bitwise": dict(n=n, **same)}), flush=True)
+    label = "a12_repeat_bitwise" if dtype is None else "bf16_repeat_bitwise"
+    print(json.dumps({label: dict(n=n, **same)}), flush=True)
     if not all(same.values()):
-        fail(f"A1-A4 repeat differently: {same}")
+        fail(f"{label}: the legs repeat differently: {same}")
 
 
 def check_a34(sizes) -> list:
@@ -672,13 +714,15 @@ def check_elastic(n: int, bim: bool, legs, seed: int = 7):
             for leg in legs]
 
 
-def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=None):
+def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=None,
+                    dtype=None):
+    import torch
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
 
     prob = Problem(n=n, inclusion=CIRCLE if bim else None)
     return HierarchyV2(prob, num_levels=num_levels, kernel_threshold=threshold,
-                       direct_coarse=True, device=device)
+                       direct_coarse=True, dtype=dtype or torch.float32, device=device)
 
 
 def all_kernels() -> dict:
@@ -757,14 +801,15 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
         fail(f"{label}: solution is not finite of shape {(n + 1, n + 1)}")
     if len(hist) >= max_cycles or not hist[-1] <= eps:
         fail(f"{label}: no convergence to {eps} in {max_cycles} cycles: {hist[-3:]}")
-    true_res = float(interior_norm(f0 - lv0.apply(u)))
+    true_res = float(interior_norm(f0 - lv0.apply(u.float())))  # bf16 u: its widened values
     if not true_res <= 2 * eps:
         fail(f"{label}: true residual of the returned u is {true_res}")
 
     walls = timed_runs(label, run, hist)
     cycles_run = chunk * -(-(len(hist) + 1) // chunk) if lagged else len(hist)
     wall = min(walls)
-    out = dict(solve=label, n=n, cycles=len(hist), cycles_run=cycles_run,
+    out = dict(solve=label, n=n, dtype=str(u.dtype).removeprefix("torch."), cycles=len(hist),
+               cycles_run=cycles_run,
                tail_q=float(np.exp(np.mean(np.diff(np.log(hist[-6:]))))),
                # bench.py's q: the mean of the last six log ratios
                q_last6=float(np.exp(np.mean(np.diff(np.log(hist))[-6:]))),
@@ -779,8 +824,9 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
 
 # profiler kernel names -> summary labels; no name is a substring of another
 # label's name except sweep_kernel, which is tested after zpsweep_kernel, and
-# swrr_kernel, whose zero-guess instances (A3) A3_NAME tells apart first
-A3_NAME = re.compile(r"swrr_kernel(<[^>]*,\s*(true|1)>|ILb\dELi\dELb1E)")
+# swrr_kernel, whose zero-guess instances (A3: third template argument true,
+# then the storage type) A3_NAME tells apart first
+A3_NAME = re.compile(r"swrr_kernel(<[^,>]*,[^,>]*,\s*(true|1)\s*[,>]|ILb\dELi\dELb1E)")
 KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("sweep_kernel", "A1"), ("d1_gen_relax", "D1"), ("d2_gen_descent", "D2"),
                ("d3_gen_ascent", "D3"), ("d4_gen_zdescent", "D4"), ("d5_gen_zascent", "D5"),
@@ -1209,13 +1255,14 @@ def run_pcg_cell() -> dict:
     return rec
 
 
-def run_ir_cell() -> dict:
+def run_ir_cell(dtype=None, max_outer: int = 12) -> dict:
     """``ir_4097``: ``solve_ir`` on the homogeneous 4097^2 HierarchyV2
     (threshold 32, 9 levels, direct coarse) with f = apply_mass(1, h), V(1,1),
-    eps 1e-6, 6 cycles per correction, at most 12 outer steps (bench.py's
-    hard row).  The f64 true residual of the returned u, from a level
-    assembled anew in f64, must be <= 1e-6.  Beside it, the f32 floor: 20
-    plain V(1,1) cycles on the same f."""
+    eps 1e-6, 6 cycles per correction, at most ``max_outer`` outer steps
+    (bench.py's hard row: 12).  The f64 true residual of the returned u, from
+    a level assembled anew in f64, must be <= 1e-6.  Beside it, the floor of
+    the level storage: 20 plain V(1,1) cycles on the same f.  With ``dtype``
+    bf16 the hierarchy stores its levels in bf16 (``ir_4097_bf16``)."""
     import torch
     from multigrid_feanet_torch.core.problem import Problem, build_level
     from multigrid_feanet_torch.ops.stencil import apply_mass
@@ -1223,30 +1270,32 @@ def run_ir_cell() -> dict:
     from multigrid_feanet_torch.solvers.mg import solve_ir
 
     eps = 1e-6
+    label = "ir_4097" if dtype is None else "ir_4097_bf16"
     t0 = time.time()
-    hv = build_hierarchy(N_MAIN, False, 9, 32, DEVICE)
+    hv = build_hierarchy(N_MAIN, False, 9, 32, DEVICE, dtype)
     lv0 = hv.hier.finest
     f = apply_mass(torch.ones((N_MAIN + 1, N_MAIN + 1), device=DEVICE), lv0.h)
     setup_s = time.time() - t0
 
     def run():
-        return solve_ir(hv, f, nu1=1, nu2=1, eps=eps, cycles_per_correction=6, max_outer=12)
+        return solve_ir(hv, f, nu1=1, nu2=1, eps=eps, cycles_per_correction=6,
+                        max_outer=max_outer)
 
     (u, hist), launches = counted(run)
     lv64 = build_level(Problem(n=N_MAIN, dtype=torch.float64), N_MAIN, device=DEVICE)
     true64 = float(interior_norm(f.double() - lv64.apply(u)))
     if u.dtype != torch.float64 or not torch.isfinite(u).all() or not true64 <= eps:
-        fail(f"ir_4097: the f64 true residual is {true64} after {len(hist)} steps: {hist}")
+        fail(f"{label}: the f64 true residual is {true64} after {len(hist)} steps: {hist}")
     if not all(launches.get(key) for key in ("A1", "A2", "A3", "A4")):
-        fail(f"ir_4097: a kernel of the path never launched: {launches}")
-    walls = timed_runs("ir_4097", run, hist)
+        fail(f"{label}: a kernel of the path never launched: {launches}")
+    walls = timed_runs(label, run, hist)
     cycles = 6 * (len(hist) - 1)
     u20, h20 = hv.solve(f, eps=0.0, max_cycles=20)
     floor64 = float(interior_norm(f.double() - lv64.apply(u20.double())))
-    rec = dict(solve="ir_4097", n=N_MAIN, outer_steps=len(hist), corrections=len(hist) - 1,
+    rec = dict(solve=label, n=N_MAIN, outer_steps=len(hist), corrections=len(hist) - 1,
                hist=hist.tolist(), true_res_f64=true64, wall_s=min(walls), walls_s=walls,
-               setup_s=setup_s, launches=launches, f32_20_cycles_hist_last=float(h20[-1]),
-               f32_20_cycles_true_res_f64=floor64,
+               setup_s=setup_s, launches=launches, dtype=str(hv.dtype).removeprefix("torch."),
+               v11_20_cycles_hist_last=float(h20[-1]), v11_20_cycles_true_res_f64=floor64,
                profile=profile_solve(run, max(1, cycles), min(walls)))
     print(json.dumps(rec), flush=True)
     return rec
@@ -1854,6 +1903,149 @@ def run_hnet_train_cell() -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 10: bf16 level storage of A1-A6 and the V2 solves
+# ---------------------------------------------------------------------------
+
+
+def check_bf16_kernels() -> list:
+    """Hold A1-A6 in bf16 storage against their plain versions: A1 (three
+    modes), A2, A5 and A6 at 4097^2 in the bi-material difference form, the
+    homogeneous difference form and the bi-material mass form; A3 and A4 at
+    2049^2 (bi-material, homogeneous and mass), at the other level sizes of
+    the interface solve and at n = 2, 16, 32 and 126; A1 and A2 also at
+    n = 2, 16 and 126.  Then all six twice on the same 4097^2 inputs
+    (bitwise)."""
+    import torch
+
+    bf = torch.bfloat16
+    heat = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
+    main = ["A1_sweep", "A1_residual", "A1_psweep", "A2", "A5", "A6"]
+    recs = check_kernels(N_MAIN, True, True, main, dtype=bf)
+    recs += check_kernels(N_MAIN, False, True, main, dtype=bf)
+    recs += check_kernels(N_MAIN, True, False, main, coef=heat, mass=level_mass(N_MAIN), dtype=bf)
+    recs += check_kernels(N_MAIN // 2, False, False, ["A3", "A4"], dtype=bf)
+    recs += check_kernels(N_MAIN // 2, True, False, ["A3", "A4"], coef=heat,
+                          mass=level_mass(N_MAIN // 2), dtype=bf)
+    for n in (2, 16, N_ODD) + A34_LEVELS:
+        recs += check_kernels(n, True, False, ["A3", "A4"], dtype=bf)
+    for n in (2, 16, N_ODD):
+        recs += check_kernels(n, True, True, ["A1_sweep", "A1_residual", "A1_psweep", "A2"],
+                              dtype=bf)
+    print(json.dumps({"bf16_kernel_checks": recs}), flush=True)
+    check_repeat(dtype=bf)
+    return recs
+
+
+def bf16_times(recs, f32_recs) -> dict:
+    """This run's bf16 times at 4097^2 (A3/A4: each level size), each beside
+    its bf16 byte bound and this run's f32 time of the same leg and form."""
+    def key(r):
+        return (r["name"], r["n"], r["bim"], r["dform"], r["mass"])
+
+    f32 = {key(r): r["ms"] for r in f32_recs if r["name"][0] == "A" and "dtype" not in r}
+    rows = {}
+    for r in recs:
+        if r["n"] not in (N_MAIN,) + A34_LEVELS:
+            continue
+        form = "mass" if r["mass"] else "dform" if r["dform"] else "plain"
+        bound = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+        rows[f"{r['name']}_{r['n']}_{'bim' if r['bim'] else 'hom'}_{form}"] = dict(
+            ms=r["ms"], bound_ms=bound, of_bound=bound / r["ms"], f32_ms=f32.get(key(r)),
+            f32_over_bf16=f32[key(r)] / r["ms"] if key(r) in f32 else None)
+    return rows
+
+
+def run_bench_bf16_sweep(recs, membench: dict) -> dict:
+    """bench.py's ``sweep_us_homogeneous_bf16`` row (bench.py:138-145): the
+    homogeneous plain-form A1 sweep at 4097^2 in bf16 storage, in us and as
+    the share of the measured triad rate that its 6 B/node stream takes
+    (bench.py's sweep_stream_fraction_of_triad, with bf16's bytes)."""
+    import torch
+
+    rec = check_kernels(N_MAIN, False, False, ["A1_sweep"], dtype=torch.bfloat16)[0]
+    recs.append(rec)
+    H2 = (N_MAIN + 1) ** 2
+    out = dict(solve="bench_sweep_hom_bf16", n=N_MAIN, sweep_us=1e3 * rec["ms"],
+               sweep_stream_fraction_of_triad=(6 * H2 / (membench["triad_gbps"] * 1e9))
+               / (rec["ms"] / 1e3), triad_gbps=membench["triad_gbps"])
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_bf16_cells(solves: dict, ir32: dict) -> dict:
+    """The V2 solves with bf16 level storage, each held to its f32 cell:
+    ``poisson_4097_bf16`` (23 +- 1 cycles, the JAX package's count for both
+    storage types), ``interface_4097_bf16`` (inside the 120-cycle cap;
+    cycles and tail q beside f32's), ``pswrr_interface_4097_bf16`` (A6 in
+    bf16, which rounds only u4 where the split path rounds u1 and u3, so its
+    cycles are printed beside the split path's, not held to them) and
+    ``ir_4097_bf16`` (solve_ir with
+    bf16 corrections to an f64 residual <= 1e-6 within 20 outer steps)."""
+    import torch
+
+    bf = torch.bfloat16
+    a_keys = ("A1", "A2", "A3", "A4")
+    out = {}
+    for label, bim in (("interface_4097_bf16", True), ("poisson_4097_bf16", False)):
+        out[label] = run_solve(label, lambda bim=bim: build_hierarchy(N_MAIN, bim, 9, 32, DEVICE,
+                                                                      bf), a_keys, 120)
+    out["pswrr_interface_4097_bf16"] = run_solve(
+        "pswrr_interface_4097_bf16", lambda: build_hierarchy(N_MAIN, True, 9, 32, DEVICE, bf),
+        ("A6", "A3", "A4"), 120, solve=lambda hv, f, **kw: hv.solve(f, use_pswrr=True, **kw))
+    out["ir_4097_bf16"] = run_ir_cell(bf, max_outer=20)
+    p, i, ps = (out[k] for k in ("poisson_4097_bf16", "interface_4097_bf16",
+                                 "pswrr_interface_4097_bf16"))
+    f32_p, f32_i = solves["poisson_4097"], solves["interface_4097"]
+    print(json.dumps({"bf16_vs_f32": dict(
+        poisson_cycles=[p["cycles"], f32_p["cycles"]],
+        interface_cycles=[i["cycles"], f32_i["cycles"]],
+        interface_tail_q=[i["tail_q"], f32_i["tail_q"]],
+        pswrr_cycles=[ps["cycles"], i["cycles"]],
+        ir_corrections=[out["ir_4097_bf16"]["corrections"], ir32["corrections"]],
+        ms_per_cycle=dict(interface=[i["ms_per_cycle"], f32_i["ms_per_cycle"]],
+                          poisson=[p["ms_per_cycle"], f32_p["ms_per_cycle"]]))}), flush=True)
+    if abs(p["cycles"] - 23) > 1:
+        fail(f"poisson_4097_bf16 takes {p['cycles']} cycles, not 23 +- 1")
+    return out
+
+
+def check_bf16_small_against_cpu() -> dict:
+    """129^2 bi-material decay solves with bf16 storage on the card against
+    the same solves on the CPU's plain path (threshold 16, 4 levels, u0
+    standard normal, f = 0, eps 1e-6): the split V(1,1) path and use_pswrr;
+    cycles +- 1, histories within 2%.  Returns each solve's launches on the
+    card."""
+    import torch
+
+    n = N_SMALL
+    u0 = np.random.default_rng(3).standard_normal((n + 1, n + 1)).astype(np.float32)
+    f0 = np.zeros_like(u0)
+    out = {}
+    for label, pswrr, expect in (("bf16_small_split", False, ("A1", "A2", "A3", "A4")),
+                                 ("bf16_small_pswrr", True, ("A6", "A3", "A4"))):
+        hist = {}
+        for dev in (DEVICE, "cpu"):
+            hv = build_hierarchy(n, True, 4, 16, dev, torch.bfloat16)
+            (u, h), launches = counted(lambda: hv.solve(f0, u0=u0, eps=1e-6, max_cycles=120,
+                                                        use_pswrr=pswrr))
+            if u.dtype != torch.bfloat16 or not h[-1] <= 1e-6:
+                fail(f"{label}: no bf16 convergence on {dev}: {h[-3:]}")
+            hist[dev] = h
+            if dev == DEVICE:
+                out[label] = launches
+                if not all(launches.get(key) for key in expect):
+                    fail(f"{label}: a kernel of the path never launched: {launches}")
+        hg, hc = hist[DEVICE], hist["cpu"]
+        m = min(len(hg), len(hc))
+        dev_ratio = float(np.max(np.abs(hg[:m] / hc[:m] - 1.0)))
+        print(json.dumps({label: dict(cycles=[len(hg), len(hc)], max_hist_ratio_dev=dev_ratio,
+                                      launches=out[label])}), flush=True)
+        if abs(len(hg) - len(hc)) > 1 or dev_ratio > 0.02:
+            fail(f"{label}: the bf16 solve on the card disagrees with the CPU plain path")
+    return out
+
+
 def bound(key: str, rec: dict):
     """(bound ms, "bytes" or "operations") of a check record: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
@@ -1875,7 +2067,7 @@ def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=rec.get("library_ms"), path=path, n=n, bytes=rec["bytes"],
                 **{t: rec[t] for t in ("bim", "coef_dtype", "dform", "L", "sweeps", "mass", "bc",
-                                       "q_dtype", "a1_max_abs_diff")
+                                       "q_dtype", "a1_max_abs_diff", "dtype", "bf16_excess")
                    if t in rec})
 
 
@@ -1906,7 +2098,10 @@ def main() -> int:
     regs = [line.strip() for line in log.splitlines()
             if "registers" in line or ("spill" in line and " 0 bytes spill" not in line)]
     warnings = [line.strip() for line in log.splitlines() if "warning" in line]
-    print(json.dumps(dict(build_s=build_s, ptxas=regs[:60], warnings=warnings[:20])), flush=True)
+    compile_s = {m.group(1): float(m.group(2)) for m in re.finditer(r"^== (\S+) \(([\d.]+) s\)",
+                                                                     log, re.M)}
+    print(json.dumps(dict(build_s=build_s, compile_s=compile_s, ptxas=regs[:60],
+                          warnings=warnings[:20])), flush=True)
 
     checks = []
     a13 = ["A1_sweep", "A1_residual", "A1_psweep", "A2"]
@@ -2039,13 +2234,22 @@ def main() -> int:
     run_decay_train()
     run_hnet_train_cell()
 
+    # slice 10: A1-A6 in bf16 storage against their plain versions, bench.py's
+    # bf16 sweep row, the bf16 V2 solves and two 129^2 bf16 solves against
+    # the CPU
+    bf_checks = check_bf16_kernels()
+    bench_bf16 = run_bench_bf16_sweep(bf_checks, membench)
+    bf_cells = run_bf16_cells({rec["solve"]: rec for rec in solves}, ir)
+    small_bf16 = check_bf16_small_against_cpu()
+
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must
     # be 0
     a5_runs = {rec["solve"]: rec["launches"] for rec in (*solves, pswrr, pcg, ir, heat,
-                                                         *r1.values())}
+                                                         *r1.values(), *bf_cells.values())}
     a5_runs.update(small_r5)
     a5_runs.update(small_r6)
+    a5_runs.update(small_bf16)
     a5_launches = sum(launches.get("A5", 0) for launches in a5_runs.values())
     if a5_launches:
         fail(f"A5 launched on a solver path, its row says none does: {a5_runs}")
@@ -2141,12 +2345,36 @@ def main() -> int:
             (r7rec("E1", n=32, L=3), hjac_iter, "_iter")):
         row = summary_row("E1", rec, cell["launches"]["E1"], cell["solve"])
         summary.append(dict(row, name=row["name"] + suffix))
+    # bf16 storage: A1 (psweep) and A2 at level 0, A3 and A4 at level 1 of
+    # interface_4097_bf16 ("_bf16") and poisson_4097_bf16 ("_hom_bf16"); A6
+    # at level 0 of pswrr_interface_4097_bf16; A5, which no path runs
+    for cell, bim, suffix in (("interface_4097_bf16", True, "_bf16"),
+                              ("poisson_4097_bf16", False, "_hom_bf16")):
+        for key, (leg, n) in main_shape.items():
+            rec = next(c for c in bf_checks if c["name"] == leg and c["n"] == n
+                       and c["bim"] == bim and not c["mass"]
+                       and (c["dform"] or key in ("A3", "A4")))
+            row = summary_row(key, rec, bf_cells[cell]["launches"][key], cell)
+            summary.append(dict(row, name=row["name"] + suffix))
+
+    def bfrec(name):
+        return next(c for c in bf_checks if c["name"] == name and c["n"] == N_MAIN
+                    and c["bim"] and c["dform"])
+
+    row = summary_row("A5", bfrec("A5"), a5_launches, "no solver path (level method)")
+    summary.append(dict(row, name=row["name"] + "_bf16"))
+    row = summary_row("A6", bfrec("A6"), bf_cells["pswrr_interface_4097_bf16"]["launches"]["A6"],
+                      "pswrr_interface_4097_bf16")
+    summary.append(dict(row, name=row["name"] + "_bf16"))
     # every row's byte bound also at the measured copy and triad rates
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
     print(json.dumps({"a12_4097": a12_times(checks + r6checks)}), flush=True)
     print(json.dumps({"a34_levels": a34_levels(a34checks)}), flush=True)
+    print(json.dumps({"bf16_times": bf16_times(bf_checks, checks + a34checks + schecks
+                                                + r6checks),
+                      "bench_bf16": bench_bf16}), flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ with a plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/kernels/`` at the root of the checkout, named by a hash of every
 source and header under ``csrc/`` and of the flags, so an edit to any of
 them rebuilds and an unchanged tree is reused.  The compilers' logs
-(``-Xptxas -v``: registers, shared memory, spills) are kept beside it.
+(``-Xptxas -v``: registers, shared memory, spills; each source's seconds of
+compile) are kept beside it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -53,15 +55,27 @@ def library_path() -> Path:
 
 def _compile(lib: Path) -> str:
     """Compile every source in parallel and link them into ``lib``; returns
-    the compilers' log, raises with it when a step fails."""
+    the compilers' log (each source's with its seconds of compile), raises
+    with it when a step fails."""
     srcs, compiler = sources(), nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
-        procs = [subprocess.Popen([compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(srcs, objs)]
-        outs = [p.communicate()[0] for p in procs]
-        log = "".join(f"== {src.name}\n{out}" for src, out in zip(srcs, outs))
+        logs = [Path(tmp) / f"{src.stem}.log" for src in srcs]
+        t0 = time.monotonic()
+        procs = []
+        for src, obj, out in zip(srcs, objs, logs):
+            with open(out, "w") as fh:
+                procs.append(subprocess.Popen(
+                    [compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=fh, stderr=subprocess.STDOUT))
+        seconds = {}
+        while len(seconds) < len(procs):
+            for i, proc in enumerate(procs):
+                if i not in seconds and proc.poll() is not None:
+                    seconds[i] = time.monotonic() - t0
+            time.sleep(0.05)
+        log = "".join(f"== {src.name} ({seconds[i]:.1f} s)\n{out.read_text()}"
+                      for i, (src, out) in enumerate(zip(srcs, logs)))
         failed = [src.name for src, p in zip(srcs, procs) if p.returncode != 0]
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")

@@ -16,6 +16,10 @@ coefficients theta dt (a0, a1) plus the per-element mass triple
 ``HeatSolver``'s backends: ``"plain"`` (the JAX package's ``"xla"``,
 ``solvers/multigrid.py`` on the system hierarchy) and ``"fused"`` (its
 ``"pallas"``, ``HierarchyV2`` on kernels A1-A4 with the mass triple).
+``kernel_kw={"dtype": torch.bfloat16}`` (JAX: ``pallas_kw``) stores the
+fused levels in bf16: ``step`` and ``march`` then return a bf16 u, and the
+right-hand side is computed in f32 from it and rounded to bf16 for the
+cycles (the JAX march pads it to bf16 the same way).
 """
 
 from __future__ import annotations
@@ -86,13 +90,14 @@ def heat_mass(level) -> tuple:
 
 def heat_hierarchy(problem: Problem, dt: float, theta: float = 1.0,
                    num_levels: Optional[int] = None, sys=None, device=None,
-                   **kw) -> HierarchyV2:
+                   dtype=torch.float32, **kw) -> HierarchyV2:
     """``HierarchyV2`` for the theta-system B = M + theta dt K, the port of
     ``pallas_heat_hierarchy``: the fused legs run coefficients
     theta dt (a0, a1) with the mass triple; the plain subtree and the direct
     coarse solve run ``sys`` (default: :func:`heat_system_hierarchy`), so
     a solve is cycle for cycle ``multigrid.solve`` on that hierarchy.
-    ``device=None`` means CUDA."""
+    ``dtype`` is the fused levels' storage type (float32 or bfloat16: the
+    mass form of A1-A6 in bf16).  ``device=None`` means CUDA."""
     device = resolve_device(device)
     if sys is None:
         sys = heat_system_hierarchy(problem, dt, theta, num_levels, device=device)
@@ -100,7 +105,7 @@ def heat_hierarchy(problem: Problem, dt: float, theta: float = 1.0,
     a0, a1 = problem.coefficients
     return HierarchyV2(problem, num_levels=num_levels, hier=sys,
                        coefficients=(td * a0, td * a1), mass_fn=heat_mass,
-                       device=device, **kw)
+                       dtype=dtype, device=device, **kw)
 
 
 @dataclasses.dataclass
@@ -169,12 +174,14 @@ class HeatSolver:
         geo = self.sys.finest.geo
         u = reset_boundary(self._field(u0), geo, bc_value)
         if self.ph is not None:
-            u = u.contiguous()
+            u = u.to(self.ph.dtype).contiguous()
             sp = torch.empty_like(u)
             rsq = torch.empty((), dtype=torch.float32, device=self.device)
         for k in range(num_steps):
             f_n, f_np1 = (f[k], f[k + 1]) if timedep else (f, f)
             b = self.rhs(u, f_n, f_np1)
+            if self.ph is not None:
+                b = b.to(self.ph.dtype)
             for _ in range(cycles_per_step):
                 if self.ph is not None:
                     u, sp = self.ph._cycle0(u, sp, b, 1, 1, rsq)

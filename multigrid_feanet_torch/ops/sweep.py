@@ -1,9 +1,17 @@
 """Fused V-cycle legs of the bi-material Q1 operator on compact fields.
 
 Port of ``multigrid_feanet_tpu/ops/pallas_sweep.py``.  Fields are plain
-row-major tensors: (n+1, n+1) float32 node fields and an (n, n) int8 element
-phase map (element (r, c) spans nodes r..r+1 x c..c+1, Q = a0 + da*phase);
-the TPU's ghost-block stride-lane layout has no counterpart here.
+row-major tensors: (n+1, n+1) node fields and an (n, n) int8 element phase
+map (element (r, c) spans nodes r..r+1 x c..c+1, Q = a0 + da*phase); the
+TPU's ghost-block stride-lane layout has no counterpart here.
+
+Node fields (u, f, the coarse fields and the outputs) are stored as float32
+or, as ``PallasLevel(dtype=jnp.bfloat16)`` stores them, as bfloat16: every
+leg then widens its operands to float32, computes in float32 and rounds
+only what it stores (u, u1, u4 and f_c; the residual of A1's residual
+mode), so the values that stay inside a leg (A2's u1 before its residual,
+the prolongation-corrected iterate of A1 and A6, A4's pointwise u2) are
+never rounded.  The residual norm is float32 either way.
 
 Six kernels, hand-written in CUDA C++ (``csrc/sweep.cu``):
 
@@ -24,7 +32,11 @@ built from the plain twins of the shared in-kernel math below.  Tensors on
 the CPU take the plain version; tensors on a CUDA device launch the kernel
 or raise.  The kernels and their plain versions agree to ``TOL`` relative to
 ``max(1, max|plain|)`` on fields and ``TOL`` relative on the residual norm:
-f32 reassociation and FMA contraction change each term by about one ulp.
+f32 reassociation and FMA contraction change each term by about one ulp.  A
+bf16 field is the rounding of such a float32 value, so two roundings may
+fall on neighbouring bf16 values: bf16 fields agree when they differ by at
+most one bf16 ulp, ``TOL_BF16 |plain|``, beyond that same ``TOL`` share of
+``max(1, max|plain|)`` (:func:`bf16_excess`); the norm is held to ``TOL``.
 
 Every leg takes an optional ``mass`` triple (mp, ms, mo): the plain-form
 operator then gains the pattern-independent per-element term
@@ -54,6 +66,11 @@ from multigrid_feanet_torch import _build
 from multigrid_feanet_torch.core.device import resolve_device
 
 TOL = 2e-5
+# One bf16 ulp relative to the value (2^-7: bf16 keeps 8 significant bits,
+# and the ulp above x is at most 2^-7 |x|).
+TOL_BF16 = 2.0 ** -7
+# The storage types of the node fields, and the kernels' flag for each.
+STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 # ---------------------------------------------------------------------------
 # Plain twins of the shared in-kernel math (pallas_sweep.py:93-265), on whole
@@ -214,11 +231,30 @@ def _diag(ph, Qp, a0, like, mass=None):
             else _diag_hom(a0, device=like.device, mass=mass))
 
 
-def _emit(x, out):
+def _emit(x, out, dtype=None):
+    """``x`` (rounded to ``dtype`` when given) as the result, written into
+    ``out`` when one is given."""
+    if dtype is not None:
+        x = x.to(dtype)
     if out is None:
         return x
     out.copy_(x)
     return out
+
+
+def _widen(*xs):
+    """bf16 fields widened to float32 (the legs compute in float32); any
+    other field as it is."""
+    return tuple(x.float() if x is not None and x.dtype == torch.bfloat16 else x for x in xs)
+
+
+def bf16_excess(got, want) -> float:
+    """How far ``got`` strays from ``want`` beyond one bf16 ulp of each
+    element (``TOL_BF16 |want|``), as a share of ``max(1, max|want|)``: two
+    bf16 fields agree when this is at most ``TOL``."""
+    got, want = got.float(), want.float()
+    excess = (got - want).abs() - TOL_BF16 * want.abs()
+    return float(excess.max()) / max(1.0, float(want.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +269,8 @@ def sweep_plain(u, f, ph=None, uc=None, *, a0, da, omega, dform,
     ``uc`` it first adds its masked bilinear prolongation and sweeps."""
     _check_mode(mode, uc)
     _check_form(dform, mass)
+    store = u.dtype
+    u, f, uc = _widen(u, f, uc)
     mask = _interior(u)
     if uc is not None:
         u = u + torch.where(mask, _prolong(uc), 0.0)
@@ -245,30 +283,37 @@ def sweep_plain(u, f, ph=None, uc=None, *, a0, da, omega, dform,
     else:
         d = _diag_bim(C4, mass) if bim else _diag_hom(a0, device=u.device, mass=mass)
         res = u + (omega / d) * r
-    return _emit(res, out), _emit(torch.sum(r * r), rsq)
+    return _emit(res, out, store), _emit(torch.sum(r * r), rsq)
 
 
 def swrr_plain(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
                rsq=None):
-    """A2: u1 = sweep(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u)."""
+    """A2: u1 = sweep(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u).
+    The residual is that of the unrounded u1."""
     cfg = dict(a0=a0, da=da, omega=omega, dform=dform, mass=mass)
+    store = u.dtype
+    u, f = _widen(u, f)
     u1, rsq0 = sweep_plain(u, f, ph, **cfg)
     r1, _ = sweep_plain(u1, f, ph, mode="residual", **cfg)
-    return _emit(u1, out), _emit(_restrict4(r1), fc_out), _emit(rsq0, rsq)
+    return _emit(u1, out, store), _emit(_restrict4(r1), fc_out, store), _emit(rsq0, rsq)
 
 
 def zrr_plain(f, ph=None, *, a0, da, omega, mass=None, out=None):
     """A3: f_c = 4 FW(f - A u1) with u1 = (omega/d) f at interior nodes,
     plain-form apply."""
+    store = f.dtype
+    (f,) = _widen(f)
     mask = _interior(f)
     Qp = element_q(ph, a0, da) if ph is not None else None
     u1 = torch.where(mask, (omega / _diag(ph, Qp, a0, f, mass)) * f, 0.0)
     au, _ = _apply_op(u1, Qp, a0, ph is not None, False, mass)
-    return _emit(_restrict4(torch.where(mask, f - au, 0.0)), out)
+    return _emit(_restrict4(torch.where(mask, f - au, 0.0)), out, store)
 
 
 def zpsweep_plain(f, ph, uc, *, a0, da, omega, mass=None, out=None):
     """A4: one sweep of u2 = (omega/d) f + P(uc) (interior), plain form."""
+    store = f.dtype
+    f, uc = _widen(f, uc)
     mask = _interior(f)
     Qp = element_q(ph, a0, da) if ph is not None else None
     d = _diag(ph, Qp, a0, f, mass)
@@ -276,25 +321,29 @@ def zpsweep_plain(f, ph, uc, *, a0, da, omega, mass=None, out=None):
           + torch.where(mask, _prolong(uc), 0.0))
     au, _ = _apply_op(u2, Qp, a0, ph is not None, False, mass)
     r = torch.where(mask, f - au, 0.0)
-    return _emit(u2 + (omega / d) * r, out)
+    return _emit(u2 + (omega / d) * r, out, store)
 
 
 def rr_plain(u, f, ph=None, *, a0, da, dform, mass=None, fc_out=None, rsq=None):
     """A5: f_c = 4 FW(f - A u) -> (f_c, rsq of u)."""
+    store = u.dtype
+    u, f = _widen(u, f)
     r, rsq0 = sweep_plain(u, f, ph, a0=a0, da=da, omega=0.0, dform=dform, mass=mass,
                           mode="residual")
-    return _emit(_restrict4(r), fc_out), _emit(rsq0, rsq)
+    return _emit(_restrict4(r), fc_out, store), _emit(rsq0, rsq)
 
 
 def pswrr_plain(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
                 rsq=None):
     """A6: u3 = sweep(u1 + P(uc)), u4 = sweep(u3), f_c = 4 FW(f - A u4)
-    -> (u4, f_c, rsq of u3)."""
+    -> (u4, f_c, rsq of u3); u3 and u4 stay unrounded until u4 is stored."""
     cfg = dict(a0=a0, da=da, omega=omega, dform=dform, mass=mass)
+    store = u1.dtype
+    u1, f, uc = _widen(u1, f, uc)
     u3, _ = sweep_plain(u1, f, ph, uc, **cfg)
     u4, rsq3 = sweep_plain(u3, f, ph, **cfg)
     r4, _ = sweep_plain(u4, f, ph, mode="residual", **cfg)
-    return _emit(u4, out), _emit(_restrict4(r4), fc_out), _emit(rsq3, rsq)
+    return _emit(u4, out, store), _emit(_restrict4(r4), fc_out, store), _emit(rsq3, rsq)
 
 
 def _check_mode(mode, uc):
@@ -356,20 +405,20 @@ class CudaKernel:
 
 KERNELS = {
     "A1": CudaKernel("A1_sweep", "mg_sweep",
-                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 6 + [_P],
+                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 7 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:284", _SOURCE),
     "A2": CudaKernel("A2_swrr", "mg_swrr",
-                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
+                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:374", _SOURCE),
-    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P] * 3 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
+    "A3": CudaKernel("A3_zrr", "mg_zrr", [_P] * 3 + [_I] + [_D] * 6 + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:629", _SOURCE),
-    "A4": CudaKernel("A4_zpsweep", "mg_zpsweep", [_P] * 4 + [_I] + [_D] * 6 + [_I] * 5 + [_P],
+    "A4": CudaKernel("A4_zpsweep", "mg_zpsweep", [_P] * 4 + [_I] + [_D] * 6 + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
     "A5": CudaKernel("A5_resid_restrict", "mg_rr",
-                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _I, _I, _P],
+                     [_P] * 6 + [_I] + [_D] * 5 + [_I] * 3 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:758", _SOURCE),
     "A6": CudaKernel("A6_cross_cycle", "mg_pswrr",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _D, _D, _D, _I, _I, _P],
+                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 3 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:493", _SOURCE),
 }
 
@@ -531,19 +580,22 @@ def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
 _LAUNCH_TILES = {}
 
 
-def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device) -> Tiles:
+def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device,
+                  bf16: int) -> Tiles:
     """The geometry A1 (``mode`` 0-2), A2, A3 or A4 launches with on
     ``device``: the balanced strip height for the occupancy the card
-    reports for that kernel; computed once per level shape."""
-    key = (leg, n, bim, form, mode, device.index)
+    reports for the instance launched (its form and storage type: bf16
+    changes its shared memory and registers); computed once per level
+    shape."""
+    key = (leg, n, bim, form, mode, bf16, device.index)
     tiles = _LAUNCH_TILES.get(key)
     if tiles is None:
         fn = _build.load().mg_a12_occupancy
-        fn.argtypes, fn.restype = [_I, _I, _I, _I, _I], _I
+        fn.argtypes, fn.restype = [_I] * 6, _I
         sms = torch.cuda.get_device_properties(device).multi_processor_count
 
         def slots(strip):
-            blocks = fn(_LEG_ID[leg], int(bim), form, mode, strip)
+            blocks = fn(_LEG_ID[leg], int(bim), form, mode, bf16, strip)
             if blocks <= 0:
                 raise RuntimeError(f"mg_a12_occupancy: CUDA error {-blocks}")
             return blocks * sms
@@ -574,26 +626,36 @@ def _check(t, name, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _operands(n, device, fields=(), phase=None, coarse=(), lead=()):
-    """Check the f32 node fields, the int8 phase and the f32 coarse fields
-    of one launch on an (n+1)^2 level; fields and coarse fields carry the
-    leading dimensions ``lead`` (``(2,)`` for displacement fields)."""
+def _operands(n, device, fields=(), phase=None, coarse=(), lead=(), dtype=torch.float32):
+    """Check the node fields (of ``dtype``), the int8 phase and the coarse
+    fields (of ``dtype``) of one launch on an (n+1)^2 level; fields and
+    coarse fields carry the leading dimensions ``lead`` (``(2,)`` for
+    displacement fields)."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {device} ones")
     if n < 2 or n % 2:
         raise ValueError(f"levels must have an even n >= 2, got n={n}")
     for name, t in fields:
-        _check(t, name, (*lead, n + 1, n + 1), torch.float32, device)
+        _check(t, name, (*lead, n + 1, n + 1), dtype, device)
     if phase is not None:
         _check(phase, "phase", (n, n), torch.int8, device)
     for name, t in coarse:
-        _check(t, name, (*lead, n // 2 + 1, n // 2 + 1), torch.float32, device)
+        _check(t, name, (*lead, n // 2 + 1, n // 2 + 1), dtype, device)
 
 
-def _output(t, name, shape, device, inputs):
+def _storage(t) -> int:
+    """The kernels' storage flag for a leg whose first node field is
+    ``t`` (0: float32, 1: bfloat16); raises for any other dtype: no leg
+    falls back to another type."""
+    if t.dtype not in STORAGE:
+        raise ValueError(f"the legs store node fields as float32 or bfloat16, not {t.dtype}")
+    return STORAGE[t.dtype]
+
+
+def _output(t, name, shape, device, inputs, dtype=torch.float32):
     if t is None:
-        return torch.empty(shape, dtype=torch.float32, device=device)
-    _check(t, name, shape, torch.float32, device)
+        return torch.empty(shape, dtype=dtype, device=device)
+    _check(t, name, shape, dtype, device)
     if any(x is not None and x.data_ptr() == t.data_ptr() for x in inputs):
         raise ValueError(f"{name} must not alias an input")
     return t
@@ -620,21 +682,22 @@ def sweep_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, mode="sweep",
                mass=None, out=None, rsq=None, workspace=None):
     """A1 on the card; same contract as :func:`sweep_plain`, and u, f and
     ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
-    view may not, and raises ValueError)."""
+    view may not, and raises ValueError).  The node fields and ``out`` are
+    all float32 or all bfloat16."""
     _check_mode(mode, uc)
     form, m = _form(dform, mass)
-    n, dev = u.shape[0] - 1, u.device
+    n, dev, bf16 = u.shape[0] - 1, u.device, _storage(u)
     _operands(n, dev, [("u", u), ("f", f)], ph,
-              [] if uc is None else [("uc", uc)])
-    out = _output(out, "out", (n + 1, n + 1), dev, (u, f, uc))
+              [] if uc is None else [("uc", uc)], dtype=u.dtype)
+    out = _output(out, "out", (n + 1, n + 1), dev, (u, f, uc), u.dtype)
     rsq = _scalar_out(rsq, dev)
     mode_id = 2 if uc is not None else (0 if mode == "sweep" else 1)
     _check_aligned(("u", u), ("f", f), ("phase", ph))
-    tiles = _launch_tiles("A1", n, ph is not None, form, mode_id, dev)
+    tiles = _launch_tiles("A1", n, ph is not None, form, mode_id, dev, bf16)
     partial, done = _tile_scratch(tiles, dev, workspace)
     KERNELS["A1"](u.data_ptr(), f.data_ptr(), _ptr(ph), _ptr(uc), out.data_ptr(),
                   partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, *m,
-                  int(ph is not None), form, mode_id, tiles.strip, tiles.gx, tiles.gy,
+                  int(ph is not None), form, mode_id, bf16, tiles.strip, tiles.gx, tiles.gy,
                   _stream(dev))
     return out, rsq
 
@@ -645,17 +708,18 @@ def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_ou
     ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
     view may not, and raises ValueError)."""
     form, m = _form(dform, mass)
-    n, dev = u.shape[0] - 1, u.device
-    _operands(n, dev, [("u", u), ("f", f)], ph)
-    out = _output(out, "out", (n + 1, n + 1), dev, (u, f))
-    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f, out))
+    n, dev, bf16 = u.shape[0] - 1, u.device, _storage(u)
+    _operands(n, dev, [("u", u), ("f", f)], ph, dtype=u.dtype)
+    out = _output(out, "out", (n + 1, n + 1), dev, (u, f), u.dtype)
+    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f, out), u.dtype)
     rsq = _scalar_out(rsq, dev)
     _check_aligned(("u", u), ("f", f), ("phase", ph))
-    tiles = _launch_tiles("A2", n, ph is not None, form, 0, dev)
+    tiles = _launch_tiles("A2", n, ph is not None, form, 0, dev, bf16)
     partial, done = _tile_scratch(tiles, dev, workspace)
     KERNELS["A2"](u.data_ptr(), f.data_ptr(), _ptr(ph), out.data_ptr(), fc_out.data_ptr(),
                   partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, *m,
-                  int(ph is not None), form, tiles.strip, tiles.gx, tiles.gy, _stream(dev))
+                  int(ph is not None), form, bf16, tiles.strip, tiles.gx, tiles.gy,
+                  _stream(dev))
     return out, fc_out, rsq
 
 
@@ -663,13 +727,13 @@ def rr_cuda(u, f, ph=None, *, a0, da, dform, mass=None, fc_out=None, rsq=None,
             workspace=None):
     """A5 on the card; same contract as :func:`rr_plain`."""
     form, m = _form(dform, mass)
-    n, dev = u.shape[0] - 1, u.device
-    _operands(n, dev, [("u", u), ("f", f)], ph)
-    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f))
+    n, dev, bf16 = u.shape[0] - 1, u.device, _storage(u)
+    _operands(n, dev, [("u", u), ("f", f)], ph, dtype=u.dtype)
+    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f), u.dtype)
     rsq = _scalar_out(rsq, dev)
     KERNELS["A5"](u.data_ptr(), f.data_ptr(), _ptr(ph), fc_out.data_ptr(),
                   _partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(), n, a0, da,
-                  *m, int(ph is not None), form, _stream(dev))
+                  *m, int(ph is not None), form, bf16, _stream(dev))
     return fc_out, rsq
 
 
@@ -677,14 +741,15 @@ def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_o
                rsq=None, workspace=None):
     """A6 on the card; same contract as :func:`pswrr_plain`."""
     form, m = _form(dform, mass)
-    n, dev = u1.shape[0] - 1, u1.device
-    _operands(n, dev, [("u1", u1), ("f", f)], ph, [("uc", uc)])
-    out = _output(out, "out", (n + 1, n + 1), dev, (u1, f, uc))
-    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u1, f, uc, out))
+    n, dev, bf16 = u1.shape[0] - 1, u1.device, _storage(u1)
+    _operands(n, dev, [("u1", u1), ("f", f)], ph, [("uc", uc)], dtype=u1.dtype)
+    out = _output(out, "out", (n + 1, n + 1), dev, (u1, f, uc), u1.dtype)
+    fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u1, f, uc, out),
+                     u1.dtype)
     rsq = _scalar_out(rsq, dev)
     KERNELS["A6"](u1.data_ptr(), f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(),
                   fc_out.data_ptr(), _partials(1, n, dev, workspace).data_ptr(),
-                  rsq.data_ptr(), n, a0, da, omega, *m, int(ph is not None), form,
+                  rsq.data_ptr(), n, a0, da, omega, *m, int(ph is not None), form, bf16,
                   _stream(dev))
     return out, fc_out, rsq
 
@@ -694,14 +759,14 @@ def zrr_cuda(f, ph=None, *, a0, da, omega, mass=None, out=None):
     must start on a 16-byte boundary (whole tensors do; an offset view may
     not, and raises ValueError)."""
     form, m = _form(False, mass)
-    n, dev = f.shape[0] - 1, f.device
-    _operands(n, dev, [("f", f)], ph)
-    out = _output(out, "out", (n // 2 + 1, n // 2 + 1), dev, (f,))
+    n, dev, bf16 = f.shape[0] - 1, f.device, _storage(f)
+    _operands(n, dev, [("f", f)], ph, dtype=f.dtype)
+    out = _output(out, "out", (n // 2 + 1, n // 2 + 1), dev, (f,), f.dtype)
     _check_aligned(("f", f), ("phase", ph))
-    tiles = _launch_tiles("A3", n, ph is not None, form, 0, dev)
+    tiles = _launch_tiles("A3", n, ph is not None, form, 0, dev, bf16)
     KERNELS["A3"](f.data_ptr(), _ptr(ph), out.data_ptr(), n, a0, da, omega, *m,
-                  int(ph is not None), int(mass is not None), tiles.strip, tiles.gx, tiles.gy,
-                  _stream(dev))
+                  int(ph is not None), int(mass is not None), bf16, tiles.strip, tiles.gx,
+                  tiles.gy, _stream(dev))
     return out
 
 
@@ -710,13 +775,13 @@ def zpsweep_cuda(f, ph, uc, *, a0, da, omega, mass=None, out=None):
     ``ph`` and ``uc`` must start on a 16-byte boundary (whole tensors do;
     an offset view may not, and raises ValueError)."""
     form, m = _form(False, mass)
-    n, dev = f.shape[0] - 1, f.device
-    _operands(n, dev, [("f", f)], ph, [("uc", uc)])
-    out = _output(out, "out", (n + 1, n + 1), dev, (f, uc))
+    n, dev, bf16 = f.shape[0] - 1, f.device, _storage(f)
+    _operands(n, dev, [("f", f)], ph, [("uc", uc)], dtype=f.dtype)
+    out = _output(out, "out", (n + 1, n + 1), dev, (f, uc), f.dtype)
     _check_aligned(("f", f), ("phase", ph), ("uc", uc))
-    tiles = _launch_tiles("A4", n, ph is not None, form, 0, dev)
+    tiles = _launch_tiles("A4", n, ph is not None, form, 0, dev, bf16)
     KERNELS["A4"](f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(), n, a0,
-                  da, omega, *m, int(ph is not None), int(mass is not None), tiles.strip,
+                  da, omega, *m, int(ph is not None), int(mass is not None), bf16, tiles.strip,
                   tiles.gx, tiles.gy, _stream(dev))
     return out
 
@@ -736,12 +801,20 @@ class SweepLevel:
     the difference-form apply for A1/A2/A5/A6; it defaults to on for a
     pure-stiffness operator and off with ``mass``, as ``PallasLevel``'s
     default, and is refused with ``mass``.  A3/A4 always use the plain
-    form, as their TPU kernels do.  Every method takes optional ``out``
-    buffers (and ``rsq`` for the legs that emit one) so a solve loop can
-    run without allocating; ``device=None`` means CUDA."""
+    form, as their TPU kernels do.  ``dtype`` is the node fields' storage
+    type, ``PallasLevel``'s ``dtype``: float32, or bfloat16 (computed in
+    float32, rounded where stored); every field and ``out`` buffer handed
+    to a method must have it, on the CPU too.  Every method takes optional
+    ``out`` buffers (and ``rsq``, always float32, for the legs that emit
+    one) so a solve loop can run without allocating; ``device=None`` means
+    CUDA."""
 
     def __init__(self, n: int, phase=None, coefficients=(1.0, 20.0),
-                 omega: float = 2.0 / 3.0, dform=None, mass=None, device=None):
+                 omega: float = 2.0 / 3.0, dform=None, mass=None, dtype=torch.float32,
+                 device=None):
+        if dtype not in STORAGE:
+            raise ValueError(f"levels store node fields as float32 or bfloat16, not {dtype}")
+        self.dtype = dtype
         self.mass = None if mass is None else tuple(float(m) for m in mass)
         self.dform = (self.mass is None) if dform is None else bool(dform)
         _check_form(self.dform, self.mass)
@@ -755,10 +828,18 @@ class SweepLevel:
             phase, dtype=torch.int8, device=self.device).contiguous())
         self._workspace = {}
 
+    def _check_dtype(self, *fields):
+        for t in fields:
+            if t is not None and t.dtype != self.dtype:
+                raise ValueError(f"a field of dtype {t.dtype} on a level that stores "
+                                 f"{self.dtype}")
+
     def _call(self, cuda_fn, plain_fn, x, *args, **kw):
         """``plain_fn`` on CPU tensors, ``cuda_fn`` on CUDA ones; the legs
         that emit ``rsq`` (A1, A2, A6) keep their partial-sum scratch in the
         level's workspace."""
+        self._check_dtype(x, *(a for a in args if a is not self.ph),
+                          kw.get("out"), kw.get("fc_out"))
         kw.update(a0=self.a0, da=self.da, omega=self.omega)
         if not x.is_cuda:
             return plain_fn(x, *args, **kw)
@@ -796,6 +877,7 @@ class SweepLevel:
     def restrict_residual(self, u, f, fc_out=None, rsq=None):
         """Residual + x4 full weighting -> (f_c, rsq of u); no solver path
         calls it (``sweep_restrict`` fuses it with the sweep)."""
+        self._check_dtype(u, f, fc_out)
         kw = dict(a0=self.a0, da=self.da, dform=self.dform, mass=self.mass, fc_out=fc_out,
                   rsq=rsq)
         if not u.is_cuda:

@@ -63,19 +63,21 @@ def run_chunks(run, u, max_iters: int, chunk: int, eps):
     return u, np.concatenate(history)
 
 
-def start_fields(finest, f, u0=None, bc_value=None):
-    """``(f, u)`` as contiguous f32 tensors on the finest level's device:
-    ``u`` is ``u0`` (zero if None) with its boundary set to ``bc_value``."""
+def start_fields(finest, f, u0=None, bc_value=None, dtype=torch.float32):
+    """``(f, u)`` as contiguous tensors of the storage type ``dtype`` on the
+    finest level's device: ``u`` is ``u0`` (zero if None) with its boundary
+    set to ``bc_value``, in f32, then rounded to ``dtype`` as the JAX
+    solvers' ``pad`` rounds it."""
     dev = finest.device
-    f = torch.as_tensor(f, dtype=torch.float32, device=dev).contiguous()
+    f = torch.as_tensor(f, dtype=torch.float32, device=dev)
     u = torch.zeros_like(f) if u0 is None else torch.as_tensor(
         u0, dtype=torch.float32, device=dev)
     u = reset_boundary(u, finest.geo, 0.0 if bc_value is None else bc_value)
-    return f, u.contiguous()
+    return f.to(dtype).contiguous(), u.to(dtype).contiguous()
 
 
 def solve_cycles(cycle, finest, f, u0=None, bc_value=None, eps: float = 1e-6,
-                 max_cycles: int = 100, chunk: int = 1):
+                 max_cycles: int = 100, chunk: int = 1, dtype=torch.float32):
     """Run ``cycle(u, spare, f, rsq) -> (u_new, spare_new)`` on the finest
     level until the residual norm reaches ``eps``.
 
@@ -83,12 +85,13 @@ def solve_cycles(cycle, finest, f, u0=None, bc_value=None, eps: float = 1e-6,
     iterate ENTERING it.  ``f`` is the (..., n+1, n+1) RHS (tensor or
     array; a scalar field, or the (2, n+1, n+1) displacement RHS of the
     elastic solver) and ``u0`` the initial iterate of the same shape (zero
-    if None), whose boundary is set to ``bc_value``.  The history stays on
-    the device, with -1 sentinels, and is read back once per ``chunk``
-    cycles: one host sync per chunk.
+    if None), whose boundary is set to ``bc_value``; both are stored as
+    ``dtype`` (the fused levels' storage type), the history in f32.  The
+    history stays on the device, with -1 sentinels, and is read back once
+    per ``chunk`` cycles: one host sync per chunk.
     Returns ``(u, history)`` in the convention of :func:`trim_history`."""
     dev = finest.device
-    f, u = start_fields(finest, f, u0, bc_value)
+    f, u = start_fields(finest, f, u0, bc_value, dtype)
     sp = torch.empty_like(u)
     rsq = torch.empty((), dtype=torch.float32, device=dev)
     hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=dev)

@@ -165,9 +165,11 @@ def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: floa
     iterate u and the residual r = f - A u are kept in f64 (one fused f64
     step per outer iteration, eager torch ops, and one host sync for its
     norm); each correction equation A e = r is solved from zero with
-    ``cycles_per_correction`` f32 V(nu1, nu2) cycles and accumulated as
-    u += e.  Returns ``(u, history)``: the f64 ``u`` and the f64 interior
-    residual norms, one per outer iteration.
+    ``cycles_per_correction`` V(nu1, nu2) cycles (r goes in as f32; on a
+    bf16 ``HierarchyV2`` the levels store bf16, as ``pallas_mg2.py``
+    recommends, and the bf16 e is widened) and accumulated as u += e.
+    Returns ``(u, history)``: the f64 ``u`` and the f64 interior residual
+    norms, one per outer iteration.
 
     At ``max_outer`` the JAX solver computes one more correction and
     throws it away; this one returns the same ``u`` and history without

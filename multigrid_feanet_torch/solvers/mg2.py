@@ -12,6 +12,12 @@ coarsest level.  Per V(1,1) cycle:
   inside both kernels and never stored;
 - level K: the plain subtree.
 
+``dtype=torch.bfloat16`` stores the fused levels' fields in bfloat16, as
+``PallasHierarchyV2(dtype=jnp.bfloat16)`` does: the legs compute in f32 and
+round what they store, the plain subtree and the direct coarse solve run in
+f32 (the handoff widens the level-K right-hand side and rounds the
+correction back), and ``solve`` returns a bf16 ``u`` with an f32 history.
+
 The convergence test rides the pre-update residual norm that the first
 level-0 kernel of every cycle emits for free.  The history stays on the
 device in a preallocated tensor with -1 sentinels and is read back once per
@@ -53,7 +59,10 @@ class HierarchyV2:
     level), while ``hier`` (the system hierarchy, whose levels apply the
     same operator) drives the plain subtree and the direct coarse solve;
     ``ops/heat.py::heat_hierarchy`` builds the heat theta-system so.
-    ``device=None`` means CUDA and raises when there is none."""
+    ``dtype`` is the fused levels' storage type, float32 or bfloat16 (the
+    JAX solver recommends bf16 for the f = 0 decay protocol and as the
+    correction solver of ``solvers/mg.py::solve_ir``; ``solve_pcg`` refuses
+    it).  ``device=None`` means CUDA and raises when there is none."""
 
     def __init__(self, problem: Problem, num_levels: Optional[int] = None,
                  omega: float = DEFAULT_OMEGA, kernel_threshold: int = 256,
@@ -61,10 +70,9 @@ class HierarchyV2:
                  hier: Optional[GridHierarchy] = None, coefficients=None,
                  mass_fn=None, dtype=torch.float32, dform: Optional[bool] = None,
                  device=None):
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "bfloat16 storage of the level fields comes with a later "
-                "slice of the port (ROADMAP queue 1, item 6)")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the fused levels store float32 or bfloat16, not {dtype}")
+        self.dtype = dtype
         device = resolve_device(device)
         # TF32 keeps ~3 decimal digits: the direct coarse solve's matmul
         # must run in full f32 to stay exact.
@@ -90,7 +98,7 @@ class HierarchyV2:
         self.sweep_levels = [
             SweepLevel(levels[l].n, phase=levels[l].phase, coefficients=coeffs, omega=omega,
                        dform=dform, mass=None if mass_fn is None else mass_fn(levels[l]),
-                       device=device)
+                       dtype=dtype, device=device)
             for l in range(K)]
         self.coarse_inv = None
         if direct_coarse and L > 1:
@@ -106,7 +114,7 @@ class HierarchyV2:
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.hier.levels[l].n_nodes
-        return torch.empty((H, H), dtype=torch.float32, device=self.device)
+        return torch.empty((H, H), dtype=self.dtype, device=self.device)
 
     # ---- plain subtree (levels K..L-1) ----
 
@@ -133,10 +141,13 @@ class HierarchyV2:
 
     def _coarse_correction(self, l: int, fcb, nu1: int, nu2: int):
         """Solve the level-l error equation from a zero initial guess;
-        ``fcb`` is the level-l RHS.  Returns the level-l correction."""
+        ``fcb`` is the level-l RHS.  Returns the level-l correction.  The
+        plain subtree runs in f32 and its correction is rounded to the
+        storage type, as ``pallas_mg2.py``'s handoff does."""
         if l >= self.K:
-            return self._plain_vcycle(l, torch.zeros_like(fcb), fcb, nu1,
-                                      nu2).contiguous()
+            f32 = fcb.float()
+            return self._plain_vcycle(l, torch.zeros_like(f32), f32, nu1,
+                                      nu2).to(self.dtype).contiguous()
         p = self.sweep_levels[l]
         cur, spare = self._u[l]
         rsq = self._rsq_scratch
@@ -200,17 +211,20 @@ class HierarchyV2:
         solver) runs level 0 on the cross-cycle fused leg A6, which ends one
         cycle and starts the next in one pass, after a peeled first descent
         (A2) and before a closing ascent (A1); ``chunk`` is rounded up to
-        even.  The history and the extra-cycle convention are the same."""
+        even.  The history and the extra-cycle convention are the same.
+
+        With bf16 storage ``f`` and ``u0`` are rounded to bf16 (as the JAX
+        solver pads them) and ``u`` comes back in bf16."""
         if use_pswrr and nu1 == 1 and nu2 == 1:
             return self._solve_pswrr(f, u0, bc_value, eps, max_cycles, chunk + (chunk & 1))
         return solve_cycles(
             lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
-            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk)
+            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk, self.dtype)
 
     def _solve_pswrr(self, f, u0, bc_value, eps, max_cycles, chunk):
         """The V(1,1) solve on A6; port of ``pallas_mg2.py:270-312``."""
         p = self.sweep_levels[0]
-        fb, u = start_fields(self.hier.finest, f, u0, bc_value)
+        fb, u = start_fields(self.hier.finest, f, u0, bc_value, self.dtype)
         rsq, fc1 = torch.empty_like(self._rsq_scratch), self._fc[1]
         hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=self.device)
         # the peeled first descent: hist[0] is the residual of u0
@@ -244,7 +258,19 @@ class HierarchyV2:
 
         Returns ``(u, history)``: ``history[j]`` is the interior residual
         norm after iteration j+1 (post-iteration, no lag: the returned u's
-        residual is ``history[-1]``)."""
+        residual is ``history[-1]``).
+
+        Refused with bf16 storage (NotImplementedError).  The JAX solver
+        runs it, iterate, vectors and dot products in bf16, and on a
+        nonzero right-hand side it stalls at the bf16 floor: on a random f
+        at n = 64 (homogeneous) its residual still stands at 1.25 after 20
+        iterations, where f32 reaches 1e-3 in 5 (tests/test_torch_bf16.py).
+        Nonzero f in bf16 goes through ``solvers/mg.py::solve_ir``."""
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                "solve_pcg with bfloat16 level storage: on a nonzero right-hand side the "
+                "bf16 Krylov iteration stalls at the bf16 floor (the JAX solver's bf16 PCG "
+                "does); use solve_ir with the bf16 hierarchy, or float32 storage")
         if self._cg is None:
             self._u.setdefault(0, (self._field(0), self._field(0)))
             self._cg = pcg_buffers(self._field(0))

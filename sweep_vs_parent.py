@@ -35,10 +35,13 @@ set by hand instead of ``ops/sweep.py::balanced_strip``), beside the height
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
-with ``cuobjdump -sass``: whether every A1 and A2 instantiation of this
-checkout compiles to the parent's instructions (addresses, encodings and
-the anonymous namespace's name aside), and the instructions of A3 and A4
-in all and per step of their row loop (between two barriers).  Writes
+with ``cuobjdump -sass``: whether every kernel of the parent's library (the
+f32 instances of A1-A6 and every other source's kernels) compiles to the
+same instructions in this checkout (addresses, encodings and the anonymous
+namespace's name aside; a leg's storage-type template argument maps its
+float instance to the parent's), the number of bf16 instances, and the
+instructions of A3 and A4 in all and per step of their row loop (between
+two barriers).  Fails unless every kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
 """
 
@@ -109,15 +112,15 @@ def strip_scan() -> list:
     out = []
     for n in A34_LEVELS:
         picked = {r["name"]: r["ms"] for r in cs.check_kernels(n, True, False, ["A3", "A4"])}
-        chosen = {leg: sw._LAUNCH_TILES[(leg, n, True, 0, 0, dev)].strip for leg in ("A3", "A4")}
+        chosen = {leg: sw._LAUNCH_TILES[(leg, n, True, 0, 0, 0, dev)].strip for leg in ("A3", "A4")}
         by_strip = {}
         for strip in SCAN_STRIPS[n]:
             for leg in ("A3", "A4"):
-                sw._LAUNCH_TILES[(leg, n, True, 0, 0, dev)] = sw.TILES[leg](n, strip)
+                sw._LAUNCH_TILES[(leg, n, True, 0, 0, 0, dev)] = sw.TILES[leg](n, strip)
             by_strip[strip] = {r["name"]: r["ms"]
                                for r in cs.check_kernels(n, True, False, ["A3", "A4"])}
         for leg in ("A3", "A4"):
-            sw._LAUNCH_TILES[(leg, n, True, 0, 0, dev)] = sw.TILES[leg](n, chosen[leg])
+            sw._LAUNCH_TILES[(leg, n, True, 0, 0, 0, dev)] = sw.TILES[leg](n, chosen[leg])
         out.append(dict(n=n, chosen=chosen, chosen_ms=picked, ms=by_strip))
         print(json.dumps(out[-1]), flush=True)
     return out
@@ -132,9 +135,17 @@ def _library(tree: Path) -> Path:
     return Path(done.stdout.strip().splitlines()[-1])
 
 
-def _sweep_functions(lib: Path) -> dict:
-    """The sweep.cu kernels of a library: demangled-enough name -> their
-    instructions, without addresses, encodings or the namespace's hash."""
+# sweep.cu's kernels take their storage type as a last template argument
+# (float: "f", bf16: "13__nv_bfloat16"); an earlier checkout's have none
+STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restrict|"
+                    r"a6_cross_cycle)I((?:L[bi]\d+E)+)(f|13__nv_bfloat16)?E")
+
+
+def _functions(lib: Path) -> dict:
+    """Every kernel of a library: (source, name key, storage) -> its
+    instructions, without addresses, encodings or the anonymous namespace's
+    hash.  The name key of a sweep.cu leg is its name and non-type template
+    arguments (its mangled parameter types follow the storage argument)."""
     sys.path.insert(0, str(ROOT))
     from multigrid_feanet_torch import _build
 
@@ -144,36 +155,40 @@ def _sweep_functions(lib: Path) -> dict:
     out = {}
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "_sweep_cu_" not in name:
-            continue
-        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_sweep_cu_[0-9a-f]{8}", "", name)
+        # the anonymous namespace: _GLOBAL__N__<hash>_<len>_<file>_cu_[<hash>]
+        src = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_([a-z0-9]+)_cu_", name)
+        src = src.group(1) if src else ""
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
+        name = re.sub(r"(_cu_)[0-9a-f]{8}(?=\d)", r"\1", name)
+        m = STORED.search(name) if src == "sweep" else None
+        key = (src, f"{m.group(1)}<{m.group(2)}>" if m else name,
+               "bf16" if m and m.group(3) and m.group(3) != "f" else "f32")
         ins = [" ".join(re.sub(r"/\*[^*]*\*/", " ", line).split())
                for line in fn.split("\n") if re.search(r"/\*[0-9a-f]{4}\*/", line)]
-        out[name] = [i for i in ins if i]
+        out[key] = [i for i in ins if i]
     return out
 
 
 def sass_report(parent: Path) -> dict:
-    """A1/A2 of this checkout against the parent's, instruction for
-    instruction; A3/A4's instruction counts."""
-    mine, theirs = _sweep_functions(_library(ROOT)), _sweep_functions(_library(parent))
-    a12 = {}
-    for name, ins in theirs.items():
-        if not re.search(r"(?<!zp)sweep_kernel|swrr_kernel", name):
-            continue
-        # this checkout's swrr_kernel carries a third template argument (ZG = false)
-        ours = re.sub(r"(swrr_kernelILb\dELi\d)E", r"\1ELb0E", name, count=1)
-        a12[name] = mine.get(ours) == ins
+    """Every kernel of the parent's library (its f32 sweep.cu legs A1-A6 and
+    all the other sources' kernels) against this checkout's, instruction for
+    instruction; A3/A4's instruction counts per step in both storage
+    types."""
+    mine, theirs = _functions(_library(ROOT)), _functions(_library(parent))
+    same = {k: mine.get(k) == ins for k, ins in theirs.items()}
+    legs = {k: v for k, v in same.items() if k[0] == "sweep" and "<" in k[1]}
     a34 = {}
-    for name, ins in mine.items():
-        if "zpsweep_kernel" in name or re.search(r"swrr_kernelILb\dELi\dELb1E", name):
+    for (src, name, storage), ins in mine.items():
+        if src == "sweep" and (name.startswith("zpsweep_kernel")
+                               or re.match(r"swrr_kernel<Lb\dELi\dELb1E>", name)):
             bars = [i for i, x in enumerate(ins) if x.startswith("BAR.SYNC")]
             steps = [b - a for a, b in zip(bars, bars[1:])]
-            a34[name] = dict(instructions=len(ins), per_step=statistics.median(steps))
-    old = {name: len(ins) for name, ins in theirs.items()
-           if "zpsweep_kernel" in name or "zrr_kernel" in name}
-    return dict(a12_same=sum(a12.values()), a12_total=len(a12),
-                a12_differ=[k for k, v in a12.items() if not v], a34=a34, parent_a34=old)
+            a34[f"{name} {storage}"] = dict(instructions=len(ins),
+                                            per_step=statistics.median(steps))
+    return dict(same=sum(same.values()), total=len(same),
+                sweep_legs_same=sum(legs.values()), sweep_legs_total=len(legs),
+                differ=[" ".join(k) for k, v in same.items() if not v],
+                bf16_instances=sum(1 for k in mine if k[2] == "bf16"), a34=a34)
 
 
 def _key(rec) -> str:
@@ -218,7 +233,7 @@ def main() -> int:
             args.out.with_name("sweep_sass.json")
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(card=smi, sass=report)) + "\n")
-        return 0 if report["a12_same"] == report["a12_total"] else 1
+        return 0 if report["same"] == report["total"] else 1
     print(smi, flush=True)
     lines = [dict(card=smi)]
     times = {}

@@ -118,9 +118,11 @@ def test_history_convention_and_one_sync_per_chunk():
 
 
 def test_later_slices_raise():
-    """What a later slice ports still raises (bf16 level storage); the
-    cross-cycle leg and solve_pcg, once refused here, now run (they are held
-    to the JAX solver in tests/test_torch_pswrr.py and test_torch_pcg.py)."""
+    """What the port refuses on purpose: solve_pcg on bf16 level storage
+    (the JAX solver's bf16 PCG stalls, tests/test_torch_bf16.py); bf16
+    storage itself, the cross-cycle leg and solve_pcg in f32, once refused
+    here, now run (held to the JAX solver in tests/test_torch_bf16.py,
+    test_torch_pswrr.py and test_torch_pcg.py)."""
     prob = Problem(n=32, inclusion=CIRCLE)
     th = HierarchyV2(prob, num_levels=3, kernel_threshold=16, device="cpu")
     f = np.random.default_rng(6).standard_normal((33, 33)).astype(np.float32)
@@ -128,8 +130,12 @@ def test_later_slices_raise():
     assert hist[-1] <= 1e-3 and bool(torch.isfinite(u).all())
     u, hist = th.solve_pcg(f, eps=1e-3, max_iters=40)
     assert hist[-1] <= 1e-3 and bool(torch.isfinite(u).all())
+    tb = HierarchyV2(prob, num_levels=3, kernel_threshold=16, device="cpu",
+                     dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
+        tb.solve_pcg(f, eps=1e-3, max_iters=40)
+    with pytest.raises(ValueError, match="float16"):
         HierarchyV2(prob, num_levels=3, kernel_threshold=16, device="cpu",
-                    dtype=torch.bfloat16)
+                    dtype=torch.float16)
     with pytest.raises(ValueError, match="kernel_threshold"):
         HierarchyV2(prob, num_levels=3, kernel_threshold=64, device="cpu")

@@ -12,7 +12,8 @@ holds one float per block; and the scratch's workspace key differs from
 those of C1/D1 and A5/A6/D2.  The staging windows are computed here with
 the index arithmetic of ``csrc/sweep.cu``'s ``stage_step`` and
 ``stage_z``; the card checks of ``chip_smoke.py`` hold the kernels
-themselves at ragged sizes.
+themselves at ragged sizes.  The bf16 storage form stages the same windows
+of 2-byte elements, 8 to a chunk (``test_bf16_*``).
 """
 
 import re
@@ -75,12 +76,13 @@ def _steps(tiles, by):
     return min(tiles.strip, H + 1 - y0) + 5
 
 
-def _slot_sizes():
-    """(floats of a u or f slot, bytes of a phase slot) of the kernels'
+def _slot_sizes(elems=4):
+    """(elements of a u or f slot, bytes of a phase slot) of the kernels'
     shared ring: a window of threads x columns + 2 (+ 1) elements after an
-    offset of up to one chunk, in whole 16-byte chunks."""
+    offset of up to one chunk, in whole 16-byte chunks of ``elems`` node
+    values (4 floats, 8 bf16)."""
     w = sw.A12_THREADS * sw.A12_COLUMNS
-    return (w + 2 + 6) // 4 * 4, (w + 1 + 30) // 16 * 16
+    return (w + 2 + 2 * (elems - 1)) // elems * elems, (w + 1 + 30) // 16 * 16
 
 
 def _staged_chunks(row, col, width, row_len, rows, total, elems, slot):
@@ -153,6 +155,23 @@ def test_staging_windows_stay_inside_the_allocation(n):
                         (f_rows, cols, n, n, n * n, 16, slot_q, width + 1)))
 
 
+@pytest.mark.parametrize("n", SIZES)
+def test_bf16_staging_windows_stay_inside_the_allocation(n):
+    # bf16 rows: 8 values per 16-byte chunk and offsets of up to 7 values,
+    # in slots of 272 (csrc/sweep.cu's Ring<__nv_bfloat16>); row starts fall
+    # on every 2-byte offset, and the last partial chunk holds an odd
+    # number of values
+    H = n + 1
+    slot_u, slot_q = _slot_sizes(8)
+    assert slot_u == 272 and slot_u % 8 == 0
+    width = sw.A12_THREADS * sw.A12_COLUMNS
+    for tiles in (sw.a1_tiles(n), sw.a2_tiles(n)):
+        u_rows, f_rows, cols = _staged_rows(tiles)
+        _check_windows(((u_rows, cols, H, H, H * H, 8, slot_u, width + 2),
+                        (f_rows, cols, H, H, H * H, 8, slot_u, width + 2),
+                        (f_rows, cols, n, n, n * n, 16, slot_q, width + 1)))
+
+
 # csrc/sweep.cu's A3 and A4 (stage_z): f and phase row y0 + A34_ROW0 + s at
 # step s, the f window from column x0 + A34_COL0, the phase window
 # A34_QOFF columns further
@@ -187,6 +206,22 @@ def test_a34_staging_windows_stay_inside_the_allocation(n):
             # chunks on warp 3
             assert slot_f // 4 <= sw.A12_THREADS - 32 and slot_q // 16 <= 32
             _check_windows(((rows, cols, H, H, H * H, 4, slot_f, width + 2),
+                            (rows, cols + A34_QOFF[tiles.leg], n, n, n * n, 16, slot_q,
+                             width + 1)))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_bf16_a34_staging_windows_stay_inside_the_allocation(n):
+    H, width = n + 1, sw.A12_THREADS * sw.A12_COLUMNS
+    slot_u, slot_q = _slot_sizes(8)
+    # one chunk per thread: 34 bf16 f chunks on warps 0-2, the phase chunks
+    # on warp 3
+    assert slot_u // 8 <= sw.A12_THREADS - 32 and slot_q // 16 <= 32
+    for tiles_of in (sw.a3_tiles, sw.a4_tiles):
+        for strip in (2, sw.A12_STRIP):
+            tiles = tiles_of(n, strip)
+            rows, cols = _a34_staged_rows(tiles)
+            _check_windows(((rows, cols, H, H, H * H, 8, slot_u, width + 2),
                             (rows, cols + A34_QOFF[tiles.leg], n, n, n * n, 16, slot_q,
                              width + 1)))
 
