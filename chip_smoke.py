@@ -114,7 +114,19 @@ Phases, in order; any failure exits non-zero:
    printed beside its f32 cell, and two 129^2 bi-material bf16 decay
    solves (split and use_pswrr) on the card against the CPU (cycles +- 1,
    histories within 2%).
-15. Print A1's and A2's 4097^2 times in every form held, each beside its
+15. Slice 11, the learned inter-grid operators and the elastic H-Net,
+   which launch no kernel (every count is zeroed before each phase and
+   must read zero after it): ``intergrid_train_64`` (the reference's q_m
+   training protocol at 65^2, 10 epochs, card against CPU, resume, the
+   train_kernel = 3 curriculum, 10 multi-size decay steps),
+   ``learned_vcycle_4097`` (12 learned V-cycles at 4097^2 with the init
+   and the multi-size trained operators; 6 two-grid cycles at 129^2 with
+   the n = 64 checkpoint against the CPU), ``hnet_elastic_train_16`` (the
+   elastic H-Net's training anchor) and ``h_elastic_2049`` (32 H-corrected
+   block-Jacobi sweeps at 2049^2 beside 32 plain ones; 4 sweeps at 129^2
+   against the CPU); and one profiled periodic training step, which like
+   every slice-11 profile must run no TF32 kernel.
+16. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
    interface solve (``a34_levels``), the bf16 times beside their bf16 byte
    bounds and this run's f32 times (``bf16_times``), the kernel summary
@@ -852,10 +864,12 @@ def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
         solve()
         torch.cuda.synchronize()
         prof_wall = time.time() - t0
-    by_kernel = {}
+    by_kernel, tf32 = {}, set()
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        if "tf32" in evt.key:
+            tf32.add(evt.key[:80])
         us = getattr(evt, "self_device_time_total", None)
         us = getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
         name = evt.key
@@ -871,9 +885,11 @@ def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
     busy_ms = sum(r["ms_per_cycle"] for r in by_kernel.values()) * cycles_run
     if busy_ms == 0.0:
         return dict(device_time="not measured")
-    return dict(busy_ms_per_cycle=busy_ms / cycles_run,
-                busy_share_of_wall=busy_ms / (1e3 * wall_s),
-                profiled_wall_s=prof_wall, by_kernel=by_kernel)
+    out = dict(busy_ms_per_cycle=busy_ms / cycles_run, busy_share_of_wall=busy_ms / (1e3 * wall_s),
+               profiled_wall_s=prof_wall, by_kernel=by_kernel)
+    if tf32:
+        out["tf32_kernels"] = sorted(tf32)
+    return out
 
 
 def same_solve(label: str, runs: dict) -> None:
@@ -2046,6 +2062,372 @@ def check_bf16_small_against_cpu() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 11: learned inter-grid operators and the elastic H-Net
+# ---------------------------------------------------------------------------
+#
+# None of these paths runs a hand-written kernel: the JAX package computes
+# them in XLA, outside any pallas_call, and the port in torch ops (cuDNN
+# convolutions in full f32).  Each phase runs with every launch count zeroed
+# and fails if any count is not zero after it.
+
+IG_N64 = "results/intergrid_trained_interface_n64.npz"
+IG_ROBUST = "results/intergrid_robust/intergrid_robust.npz"
+
+
+def no_launches(label: str, run):
+    """``run()`` with every launch count zeroed; fails if it launched any
+    kernel."""
+    out, launches = counted(run)
+    if launches:
+        fail(f"{label}: launched {launches}; this path runs no kernel")
+    return out
+
+
+def run_intergrid_train_cell() -> dict:
+    """``intergrid_train_64``: the reference's training protocol
+    (experiments/config.py IntergridTrainConfig: the 64^2 interface problem,
+    its default 6 levels, m = 6, m0 = 2, batch 64, Adam 1e-3) on the port's
+    make_dataset(65, 120, seed=0) for 10 epochs (20 steps).  The losses must
+    be finite and equal the CPU's run of the same 10 epochs within 1e-4;
+    the JAX package's own run rises over these epochs too
+    (tests/test_torch_train_intergrid.py), so no fall is required.  A run
+    stopped after 5 epochs and resumed from its checkpoint under build/
+    gives the straight run's losses and weights (rtol 1e-5); a 2-epoch
+    train_kernel = 3 run changes channel 3 of conv and deconv only, and
+    never w; 10 steps of train_step_decay_multisize at 16, 32 and 64
+    (batches 16, 8, 2: experiments/intergrid_robust.py) stay finite."""
+    import shutil
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.data.rhs import make_dataset
+    from multigrid_feanet_torch.learn import train_intergrid as ti
+    from multigrid_feanet_torch.models.intergrid import IntergridParams
+
+    def hier(n, device=DEVICE):
+        return GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), device=device)
+
+    label = "intergrid_train_64"
+    F = make_dataset(65, 120, seed=0).numpy()
+    kw = dict(batch_size=64, seed=0, m=6, m0=2, lr=1e-3, verbose=False)
+    h64 = hier(64)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params, losses = no_launches(label, lambda: ti.train(h64, F, num_epochs=10, **kw))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    t0 = time.time()
+    _, l_cpu = ti.train(hier(64, "cpu"), F, num_epochs=10, **kw)
+    cpu_s = time.time() - t0
+    ckpt = ROOT / "build" / "smoke_intergrid_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    no_launches(label, lambda: ti.train(h64, F, num_epochs=5, ckpt_dir=ckpt, **kw))
+    p_res, l_res = no_launches(label, lambda: ti.train(h64, F, num_epochs=10, ckpt_dir=ckpt,
+                                                       **kw))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    p_cur, _ = no_launches(label, lambda: ti.train(h64, F, num_epochs=2, train_kernel=3, **kw))
+    init = IntergridParams.init(device=DEVICE)
+    moved = {k: [i for i in range(getattr(init, k).shape[0])
+                 if not torch.equal(getattr(p_cur, k)[i], getattr(init, k)[i])]
+             for k in ("conv", "deconv", "w")}
+    sizes, batches = (16, 32, 64), (16, 8, 2)
+    hiers = tuple(hier(n) for n in sizes)
+    shapes = tuple((b, n + 1, n + 1) for b, n in zip(batches, sizes))
+    ms_losses = []
+
+    def multisize(state=ti.init_state(0, device=DEVICE)):
+        for _ in range(10):
+            state, loss = ti.train_step_decay_multisize(hiers, state, shapes=shapes)
+            ms_losses.append(float(loss))
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    no_launches(label, multisize)
+    ms_wall = time.time() - t0
+    step_state = ti.init_state(0, device=DEVICE)
+    F_batch = torch.as_tensor(F[:64], device=DEVICE)
+    prof = profile_top(label, lambda: ti.train_step(h64, step_state, F_batch), 1, wall / 20)
+    dev_cpu = float(np.max(np.abs(losses / l_cpu - 1.0)))
+    rec = dict(solve=label, n=64, levels=h64.num_levels, rhs=120, epochs=10, steps=20,
+               s_per_step=wall / 20, cpu_s_per_step=cpu_s / 20, losses=losses.tolist(),
+               losses_cpu=l_cpu.tolist(), max_rel_dev_cpu=dev_cpu,
+               drop=float(losses[0] - losses[-1]), losses_resumed=l_res.tolist(),
+               curriculum_moved=moved, multisize_sizes=list(sizes),
+               multisize_losses=ms_losses, multisize_s_per_step=ms_wall / 10, profile=prof,
+               launches={})
+    print(json.dumps(rec), flush=True)
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(ms_losses))):
+        fail(f"{label}: non-finite loss: {rec}")
+    if not dev_cpu <= 1e-4:
+        fail(f"{label}: the card's losses depart from the CPU's: {rec}")
+    same = all(np.allclose(getattr(p_res, k).detach().cpu().numpy(),
+                           getattr(params, k).detach().cpu().numpy(), rtol=1e-5, atol=1e-7)
+               for k in ("conv", "deconv", "w"))
+    if not (np.allclose(l_res, losses, rtol=1e-5) and same):
+        fail(f"{label}: the resumed run departs from the straight run: {rec}")
+    if moved != {"conv": [3], "deconv": [3], "w": []}:
+        fail(f"{label}: the train_kernel=3 curriculum moved {moved}")
+    return rec
+
+
+def profile_top(label: str, run, units: int, wall_s: float, top: int = 6) -> dict:
+    """``profile_solve`` of ``run()`` (``units`` cycles, steps or sweeps
+    taking ``wall_s`` unprofiled), its kernels cut to the ``top`` by device
+    time; fails if any kernel ran in TF32 (the port's convolutions, and
+    their backward, run in full f32)."""
+    prof = profile_solve(run, units, wall_s)
+    if "tf32_kernels" in prof:
+        fail(f"{label}: kernels ran in TF32: {prof['tf32_kernels']}")
+    if "by_kernel" in prof:
+        ranked = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1]["ms_per_cycle"])
+        prof["by_kernel"] = dict(ranked[:top])
+        prof["kernel_names"] = len(ranked)
+    return prof
+
+
+def learned_history(hier, params, f, cycles: int):
+    """``cycles`` learned V-cycles from u = 0 without gradient -> (u, the
+    interior residual norm after each cycle, each cycle's seconds on the
+    host clock, synchronised)."""
+    import torch
+    from multigrid_feanet_torch.models.intergrid import learned_v_cycle
+    from multigrid_feanet_torch.solvers.jacobi import interior_norm
+
+    u, hist, secs = torch.zeros_like(f), [], []
+    with torch.no_grad():
+        for _ in range(cycles):
+            if u.is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.time()
+            u = learned_v_cycle(hier, params, u, f)
+            if u.is_cuda:
+                torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            hist.append(float(interior_norm(f - hier.finest.apply(u))[0]))
+    return u, np.asarray(hist), secs
+
+
+def run_learned_vcycle_cell() -> dict:
+    """``learned_vcycle_4097``: the evaluator of experiments/
+    learn_intergrid.py:35-47 at the production size, the 4097^2 interface
+    problem with 12 levels, f = mass(1), u0 = 0, 12 cycles, with the init
+    parameters and with results/intergrid_robust/intergrid_robust.npz: ms
+    per cycle (median), hist[6] / hist[5] and the peak memory; with the
+    init parameters also the level-0 restriction's and prolongation's ms
+    (CUDA events, 5 calls) and a profile of one cycle.  Finite, and
+    the init history must fall.  Then 6 cycles at 129^2 with the n = 64
+    checkpoint on the card against the CPU: histories within 1e-4.  That
+    checkpoint is a two-grid operator (results/intergrid_training_notes.md):
+    on the full 7-level hierarchy its cycle diverges to inf within 5
+    cycles, in the JAX package as in the port, so it runs on 2 levels."""
+    import torch
+    from multigrid_feanet_torch.core.convert import intergrid_params_from_npz
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.models.intergrid import (IntergridParams, learned_v_cycle,
+                                                         prolong_learned, restrict_learned)
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+
+    def problem(n, levels, device):
+        h = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), num_levels=levels,
+                                 device=device)
+        H = h.finest.n_nodes
+        return h, apply_mass(torch.ones((1, H, H), device=h.device), h.finest.h)
+
+    label = "learned_vcycle_4097"
+    hier, f = problem(N_MAIN, int(np.log2(N_MAIN)), DEVICE)  # 12 levels: 4097^2 ... 3^2
+    rec = dict(solve=label, n=N_MAIN, levels=hier.num_levels, cycles=12, launches={})
+    for name, params in (("init", IntergridParams.init(device=DEVICE)),
+                         ("robust", intergrid_params_from_npz(IG_ROBUST, DEVICE))):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.max_memory_allocated()
+        u, hist, secs = no_launches(label, lambda: learned_history(hier, params, f, 12))
+        rec[name] = dict(ms_per_cycle=1e3 * float(np.median(secs)), ms_cycles=[
+            1e3 * t for t in secs], q_6_5=float(hist[6] / hist[5]), hist=hist.tolist(),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, base_gb=base / 1e9)
+        if not (np.all(np.isfinite(hist)) and bool(torch.isfinite(u).all())):
+            fail(f"{label}: non-finite values with the {name} parameters: {rec}")
+        if name == "init":
+            with torch.no_grad():
+                r0 = f - hier.finest.apply(u)
+                rec[name]["restrict_ms"] = plain_ms([lambda: restrict_learned(
+                    params, r0, hier.levels[0].pid)], 5)
+                m = hier.levels[1].n_nodes
+                v1 = torch.ones((1, m, m), device=DEVICE)
+                rec[name]["prolong_ms"] = plain_ms([lambda: prolong_learned(
+                    params, v1, hier.levels[1].pid)], 5)
+                rec[name]["profile"] = profile_top(
+                    label, lambda: learned_v_cycle(hier, params, u, f), 1,
+                    1e-3 * rec[name]["ms_per_cycle"])
+        del u
+    if not rec["init"]["hist"][-1] < rec["init"]["hist"][0]:
+        fail(f"{label}: the init-parameter history does not fall: {rec}")
+    hists = {}
+    for dev in (DEVICE, "cpu"):
+        h, f_small = problem(128, 2, dev)
+        params = intergrid_params_from_npz(IG_N64, dev)
+        hists[dev] = no_launches(label, lambda: learned_history(h, params, f_small, 6))[1]
+    dev_cpu = float(np.max(np.abs(hists[DEVICE] / hists["cpu"] - 1.0)))
+    rec["small_129"] = dict(cycles=6, hist=hists[DEVICE].tolist(),
+                            hist_cpu=hists["cpu"].tolist(), max_rel_dev_cpu=dev_cpu)
+    print(json.dumps(rec), flush=True)
+    if not dev_cpu <= 1e-4:
+        fail(f"{label}: the 129^2 learned cycles on the card depart from the CPU's: {rec}")
+    return rec
+
+
+def run_hnet_elastic_train_cell() -> dict:
+    """``hnet_elastic_train_16``: tests/test_hnet_elastic.py:62-90 on the
+    card: train_elastic on generate_elastic(16, 10, seed=0) (E = 1, nu =
+    0.3), 12 epochs, batch 5, k_max 4.  The per-epoch losses are samples of
+    one random k and start per batch, and rise at this seed on the port's
+    draws, so the fall of at least 10% is read on the fixed evaluation
+    (learn/train_hnet.py::elastic_eval_loss) before and after training.  On
+    the held-out generate_elastic(16, 1, seed=123) the H-corrected sweep
+    must reach 1e-4 in fewer sweeps than block-Jacobi and end within 5e-3
+    of the oracle.  Returns the record with the trained kernels."""
+    import torch
+    from multigrid_feanet_torch.data.datasets import generate_elastic
+    from multigrid_feanet_torch.learn import train_hnet as th
+    from multigrid_feanet_torch.models import hnet
+    from multigrid_feanet_torch.ops.elasticity import elastic_interior_norm
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+    from multigrid_feanet_torch.solvers import elastic
+
+    label = "hnet_elastic_train_16"
+    lv = elastic.build_elastic_hierarchy(16, E=1.0, nu=0.3, num_levels=1, device=DEVICE)[0]
+    t0 = time.time()
+    ds = generate_elastic(16, 10, seed=0)
+    ds_test = generate_elastic(16, 1, seed=123)
+    gen_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params, losses = no_launches(label, lambda: th.train_elastic(
+        lv, ds, num_epochs=12, batch_size=5, seed=0, k_max=4, verbose=False))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    init = th.init_state_elastic(lv, seed=0).params.detach()
+    before, after = (th.elastic_eval_loss(lv, p, ds, 4) for p in (init, params))
+    prof = profile_top(label, lambda: th.train_elastic(lv, ds, num_epochs=1, batch_size=5,
+                                                       seed=0, k_max=4, verbose=False),
+                       1, wall / 12)
+    u_star = torch.as_tensor(ds_test.u[0], device=DEVICE)
+    ff = apply_mass(torch.as_tensor(ds_test.f[0], device=DEVICE), lv.h)
+
+    def sweeps_to(step):
+        u = torch.zeros_like(u_star)
+        for i in range(1, 3001):
+            u = step(u)
+            if float(elastic_interior_norm(ff - lv.apply(u))) <= 1e-4:
+                return i, u
+        return 3001, u
+
+    with torch.no_grad():
+        n_jac, _ = no_launches(label, lambda: sweeps_to(lambda u: elastic.relax(lv, u, ff, 1)))
+        n_h, u = no_launches(label, lambda: sweeps_to(
+            lambda u: hnet.h_relax_elastic(lv, params, u, ff, 1)))
+    err = float((u - u_star).abs().max())
+    rec = dict(solve=label, n=16, samples=10, epochs=12, dataset_s=gen_s,
+               s_per_epoch=wall / 12, losses=losses.tolist(),
+               epoch_ratio=float(losses[-1] / losses[0]), eval_before=before,
+               eval_after=after, eval_ratio=after / before, jacobi_sweeps=n_jac,
+               h_sweeps=n_h, max_err_vs_oracle=err, profile=prof, launches={})
+    print(json.dumps(rec), flush=True)
+    if not (np.all(np.isfinite(losses)) and after < 0.9 * before):
+        fail(f"{label}: the evaluation loss does not fall by 10%: {rec}")
+    if not (n_h < n_jac and err < 5e-3):
+        fail(f"{label}: the trained corrector misses the held-out anchor: {rec}")
+    return dict(rec, params=params)
+
+
+def run_h_elastic_cell(params) -> dict:
+    """``h_elastic_2049``: h_relax_elastic with the trained net, without
+    gradient, for 32 sweeps on the 2049^2 plane-stress level of the
+    elastic_2049 cell (E = 212e3, nu = 0.288, circle (1, 20); u0 standard
+    normal from rng 1 on the interior, f = 0), ms per sweep beside 32
+    solvers/elastic.relax sweeps (CUDA events around each run of 32); then 4
+    sweeps at n = 128 on the card against the CPU, within 1e-5."""
+    import torch
+    from multigrid_feanet_torch.models import hnet
+    from multigrid_feanet_torch.ops.elasticity import elastic_interior_norm
+    from multigrid_feanet_torch.solvers import elastic
+
+    label = "h_elastic_2049"
+
+    def problem(n, device):
+        lv = elastic.build_elastic_hierarchy(n, E_EL, NU_EL, inclusion=CIRCLE,
+                                             coefficients=(1.0, 20.0), num_levels=1,
+                                             device=device)[0]
+        u0 = np.random.default_rng(1).standard_normal((2, n + 1, n + 1)).astype(np.float32)
+        u0 = torch.as_tensor(u0, device=device) * lv.geo
+        return lv, u0, torch.zeros_like(u0), params.to(device)
+
+    def sweeps(lv, u, f, p, k):
+        with torch.no_grad():
+            return (hnet.h_relax_elastic(lv, p, u, f, k) if p is not None
+                    else elastic.relax(lv, u, f, k))
+
+    lv, u0, f, p = problem(N_EL, DEVICE)
+    rec = dict(solve=label, n=N_EL, sweeps=32, launches={})
+    for name, net in (("h_relax_elastic", p), ("relax", None)):
+        sweeps(lv, u0, f, net, 2)  # warm
+        times = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            u = no_launches(label, lambda: sweeps(lv, u0, f, net, 32))
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / 32)
+        r0, r1 = (float(elastic_interior_norm(f - lv.apply(x))) for x in (u0, u))
+        rec[name] = dict(ms_per_sweep=float(np.median(times)), ms_runs=times,
+                         residual_ratio=r1 / r0, profile=profile_top(
+                             label, lambda: sweeps(lv, u0, f, net, 4), 4,
+                             4e-3 * np.median(times)))
+        if not bool(torch.isfinite(u).all()):
+            fail(f"{label}: non-finite iterate from {name}: {rec}")
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        lv_s, u0_s, f_s, p_s = problem(N_SMALL, dev)
+        outs[dev] = no_launches(label, lambda: sweeps(lv_s, u0_s, f_s, p_s, 4)).cpu().numpy()
+    rel = float(np.max(np.abs(outs[DEVICE] - outs["cpu"])) / np.max(np.abs(outs["cpu"])))
+    rec["small_128"] = dict(sweeps=4, max_rel_dev_cpu=rel)
+    print(json.dumps(rec), flush=True)
+    if not rel <= 1e-5:
+        fail(f"{label}: the 128^2 sweeps on the card depart from the CPU's: {rec}")
+    return rec
+
+
+def check_pbc_train_f32() -> dict:
+    """One ``solvers/pbc_mg.py::pbc_train_step`` (a 64^2 torus, a batch of
+    2 standard normal right-hand sides from rng 3, 4 levels, k = 4) under
+    the profiler: the restriction kernel's gradient must run in full f32
+    (its convolutions' backward once ran in TF32)."""
+    import torch
+    from multigrid_feanet_torch.ops.stencil import make_homogeneous_stencil
+    from multigrid_feanet_torch.solvers.pbc_mg import init_pbc_state, pbc_train_step
+
+    table = make_homogeneous_stencil(device=DEVICE)
+    state = init_pbc_state(0, device=DEVICE)
+    f_raw = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 64, 64)),
+                            dtype=torch.float32, device=DEVICE)
+    prof = profile_top("pbc_train_f32", lambda: pbc_train_step(table, state, f_raw,
+                                                               num_levels=4), 1, 1.0)
+    rec = dict(solve="pbc_train_f32", n=64, busy_ms=prof.get("busy_ms_per_cycle"),
+               launches={})
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_slice11() -> dict:
+    """The slice-11 phases, in order."""
+    ig_train = run_intergrid_train_cell()
+    learned = run_learned_vcycle_cell()
+    el_train = run_hnet_elastic_train_cell()
+    h_el = run_h_elastic_cell(el_train.pop("params"))
+    pbc_f32 = no_launches("pbc_train_f32", check_pbc_train_f32)
+    return {rec["solve"]: rec for rec in (ig_train, learned, el_train, h_el, pbc_f32)}
+
+
 def bound(key: str, rec: dict):
     """(bound ms, "bytes" or "operations") of a check record: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
@@ -2241,6 +2623,10 @@ def main() -> int:
     bench_bf16 = run_bench_bf16_sweep(bf_checks, membench)
     bf_cells = run_bf16_cells({rec["solve"]: rec for rec in solves}, ir)
     small_bf16 = check_bf16_small_against_cpu()
+
+    # slice 11: the learned inter-grid operators and the elastic H-Net, which
+    # launch no kernel
+    run_slice11()
 
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must

@@ -7,10 +7,14 @@ per-level numpy fields (for example those of a JAX ``GridHierarchy``),
 :func:`elastic_hierarchy_from_arrays` the elastic levels (those of a JAX
 ``build_elastic_hierarchy``) in the same container,
 :func:`boxmg_setup_from_arrays` the BoxMG transfers and Galerkin operators,
-so that both sides run on the identical operator, and
+so that both sides run on the identical operator,
 :func:`hnet_params_from_arrays` the H-Net's (L, 3, 3) kernels (for example
 a JAX parameter array, or a leaf of a ``.npz`` checkpoint read by
-``utils/checkpoint.py``).
+``utils/checkpoint.py``), :func:`hnet_elastic_params_from_arrays` the
+elastic H-Net's (L, 2, 2, 3, 3) kernels, and
+:func:`intergrid_params_from_arrays` the learned inter-grid operators
+(:func:`intergrid_params_from_npz` reads them from the repository's
+``.npz`` files, with plain keys or in ``utils/checkpoint``'s form).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.core.problem import GridHierarchy, Level
+from multigrid_feanet_torch.models.intergrid import IntergridParams
 from multigrid_feanet_torch.solvers.elastic import ElasticLevel
 
 
@@ -100,12 +105,57 @@ def boxmg_setup_from_arrays(setup: Sequence, device=None, dtype=None) -> list:
             for pair in setup]
 
 
+def _kernels(params, tail: tuple, what: str, device) -> torch.Tensor:
+    """``params`` as a contiguous float32 tensor of shape (L, *tail), L >= 1."""
+    out = torch.tensor(np.asarray(params), dtype=torch.float32, device=resolve_device(device))
+    if out.dim() != 1 + len(tail) or tuple(out.shape[1:]) != tail or out.shape[0] < 1:
+        raise ValueError(f"{what} params must be (L, {', '.join(map(str, tail))}), "
+                         f"not {tuple(out.shape)}")
+    return out.contiguous()
+
+
 def hnet_params_from_arrays(params, device=None) -> torch.Tensor:
     """The H-Net's (L, 3, 3) kernels (numpy or any array) as the contiguous
     float32 tensor on ``device`` that the fused legs take.  ``device=None``
     means CUDA."""
+    return _kernels(params, (3, 3), "H-Net", device)
+
+
+def hnet_elastic_params_from_arrays(params, device=None) -> torch.Tensor:
+    """The elastic H-Net's (L, 2, 2, 3, 3) kernels (out channel, in channel,
+    3 x 3; for example a JAX ``init_params_elastic`` or ``train_elastic``
+    result) as a contiguous float32 tensor on ``device``.  ``device=None``
+    means CUDA."""
+    return _kernels(params, (2, 2, 3, 3), "elastic H-Net", device)
+
+
+def intergrid_params_from_arrays(conv, deconv, w=None, device=None) -> IntergridParams:
+    """The learned inter-grid operators from arrays: ``conv`` and ``deconv``
+    (C, 3, 3), channel = pid, and ``w`` (2,) (None: the reference's frozen
+    [4, 1]), as float32 parameters on ``device``.  ``device=None`` means
+    CUDA."""
     device = resolve_device(device)
-    out = torch.tensor(np.asarray(params), dtype=torch.float32, device=device)
-    if out.dim() != 3 or tuple(out.shape[1:]) != (3, 3) or out.shape[0] < 1:
-        raise ValueError(f"H-Net params must be (L, 3, 3), not {tuple(out.shape)}")
-    return out.contiguous()
+    conv, deconv = (torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+                    for x in (conv, deconv))
+    if conv.dim() != 3 or tuple(conv.shape[1:]) != (3, 3) or deconv.shape != conv.shape:
+        raise ValueError(f"conv and deconv must both be (C, 3, 3), not {tuple(conv.shape)} "
+                         f"and {tuple(deconv.shape)}")
+    w = torch.tensor(np.asarray([4.0, 1.0] if w is None else w), dtype=torch.float32,
+                     device=device)
+    if w.shape != (2,):
+        raise ValueError(f"w must be (2,), not {tuple(w.shape)}")
+    return IntergridParams(conv, deconv, w)
+
+
+def intergrid_params_from_npz(path, device=None) -> IntergridParams:
+    """The inter-grid operators of a ``.npz`` file: plain ``conv``,
+    ``deconv`` and optional ``w`` keys, or the leaves conv, deconv, w of a
+    JAX ``IntergridParams`` saved by ``utils/checkpoint``.  ``device=None``
+    means CUDA."""
+    from multigrid_feanet_torch.utils import checkpoint
+
+    with np.load(path) as data:
+        if "conv" in data.files:
+            return intergrid_params_from_arrays(
+                data["conv"], data["deconv"], data["w"] if "w" in data.files else None, device)
+    return intergrid_params_from_arrays(*checkpoint.load(path), device=device)

@@ -1,6 +1,9 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points, and the full-f32
+scope of the cuDNN convolutions."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,3 +24,19 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convolutions in full f32 (TF32, cuDNN's default, keeps about
+    three digits) and with deterministic algorithms, so that a training run
+    repeats itself exactly.  The flags are read when a convolution runs,
+    and autograd runs a convolution's backward inside ``backward()``: wrap
+    that call too."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = prev

@@ -125,6 +125,21 @@ class TestPoissonDataset:
                 self.solution[idx])
 
 
+@dataclasses.dataclass
+class ElasticDataset:
+    """(u*, f) pairs of the elastic learned-iterator family: displacement
+    solutions and raw 2-component body-force fields, zero Dirichlet ring."""
+
+    u: np.ndarray  # (N, 2, H, H)
+    f: np.ndarray  # (N, 2, H, H)
+
+    def __len__(self):
+        return self.u.shape[0]
+
+    def __getitem__(self, idx):
+        return self.u[idx], self.f[idx]
+
+
 def batches(dataset, batch_size: int, *, shuffle: bool = True, seed: int = 0,
             drop_remainder: bool = False, device=None) -> Iterator:
     """Iterate minibatches of tensors on ``device`` (stacked tuple fields),
@@ -196,6 +211,35 @@ def generate_isopoisson_pbc(n: int, num_samples: int, seed: int = 0) -> IsoPoiss
         f_unique = rhs.gaussian_random_field(gen, n, alpha=4.0).numpy()
         fs.append(np.pad(f_unique, ((0, 1), (0, 1)), mode="wrap").astype(np.float32))
     return IsoPoissonPBCDataset(f=np.stack(fs))
+
+
+def generate_elastic(n: int, num_samples: int, seed: int = 0, E: float = 1.0,
+                     nu: float = 0.3, size: float = 2.0, phase: np.ndarray | None = None,
+                     coefficients=(1.0, 1.0), plane: str = "stress") -> ElasticDataset:
+    """The elastic dataset: body forces from the six RHS families
+    (``rhs.make_dataset(n + 1, 2 * num_samples, seed)``, two fields per
+    sample) and displacements from the dense f64 oracle
+    (``fem.solve_dirichlet_elastic``, the counterpart of the reference's
+    MATLAB elasticity ground truths, Plane_Stress_modify.m).  The oracle is
+    dense: n <= 64 (8450 unknowns) is its practical range."""
+    H = n + 1
+    forces = rhs.make_dataset(H, 2 * num_samples, seed).numpy().astype(np.float64)
+    forces = forces.reshape(num_samples, 2, H, H)
+    us = [fem.solve_dirichlet_elastic(n, forces[i], E=E, nu=nu, size=size, phase=phase,
+                                      coefficients=coefficients, plane=plane).astype(np.float32)
+          for i in range(num_samples)]
+    return ElasticDataset(u=np.stack(us), f=forces.astype(np.float32))
+
+
+def save_elastic(ds: ElasticDataset, path: str) -> None:
+    with _h5py().File(path, "w") as h5:
+        h5["u"] = ds.u
+        h5["force"] = ds.f
+
+
+def load_elastic(path: str) -> ElasticDataset:
+    with _h5py().File(path, "r") as h5:
+        return ElasticDataset(u=np.asarray(h5["u"]), f=np.asarray(h5["force"]))
 
 
 def save_isopoisson(ds: IsoPoissonDataset, path: str) -> None:

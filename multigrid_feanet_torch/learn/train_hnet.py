@@ -1,12 +1,16 @@
 """H-Net smoother training: the reference's HJacIterator, and error-decay
 training through the H-MG V-cycle.
 
-Port of ``multigrid_feanet_tpu/learn/train_hnet.py`` (its scalar half).
-Reference protocol (M-FEANet-mg_test.ipynb cell 5 / learn_iterator cell 8):
-per batch, reset Dirichlet data from the dataset, mass-convolve f, draw a
-random initial guess u0 ~ N(0, 1), run k H-corrected Jacobi sweeps
-(k ~ U{1..k_max}), and minimize the summed MSE against the dataset
-solution with Adadelta (torch defaults: lr=1.0, rho=0.9, eps=1e-6).
+Port of ``multigrid_feanet_tpu/learn/train_hnet.py``.  Reference protocol
+(M-FEANet-mg_test.ipynb cell 5 / learn_iterator cell 8): per batch, reset
+Dirichlet data from the dataset, mass-convolve f, draw a random initial
+guess u0 ~ N(0, 1), run k H-corrected Jacobi sweeps (k ~ U{1..k_max}), and
+minimize the summed MSE against the dataset solution with Adadelta (torch
+defaults: lr=1.0, rho=0.9, eps=1e-6).  The elastic learned iterator
+(:func:`train_elastic`) follows the same protocol with the 2x2 block-Jacobi
+smoother and the 2 -> 2-channel net, against the dense oracle's
+displacements (``data/datasets.py::generate_elastic``); the reference
+trains only the scalar family.
 
 Training differentiates plain torch ops with autograd, as the JAX package
 differentiates XLA ones: ``models/hnet.py::h_relax_dynamic`` and, in
@@ -25,7 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from multigrid_feanet_torch.core.convert import hnet_params_from_arrays
+from multigrid_feanet_torch.core.convert import (hnet_elastic_params_from_arrays,
+                                                 hnet_params_from_arrays)
+from multigrid_feanet_torch.core.device import full_f32
 from multigrid_feanet_torch.core.problem import Level
 from multigrid_feanet_torch.data import datasets
 from multigrid_feanet_torch.models import hnet
@@ -55,12 +61,12 @@ def make_optimizer(params: torch.Tensor) -> torch.optim.Optimizer:
     return torch.optim.Adadelta([params], lr=1.0, rho=0.9, eps=1e-6)
 
 
-def _state(params, optimizer_fn, seed: int, num_layers: int, device) -> TrainState:
+def _state(params, optimizer_fn, seed: int, num_layers: int, device, init=hnet.init_params,
+           convert=hnet_params_from_arrays) -> TrainState:
     gen = torch.Generator().manual_seed(seed)
     if params is None:
-        params = hnet.init_params(num_layers, generator=gen)
-    params = hnet_params_from_arrays(
-        params.detach().cpu() if torch.is_tensor(params) else params, device=device)
+        params = init(num_layers, generator=gen)
+    params = convert(params.detach().cpu() if torch.is_tensor(params) else params, device=device)
     params.requires_grad_(True)
     return TrainState(params, optimizer_fn(params), gen)
 
@@ -121,6 +127,54 @@ def train_step(level: Level, state: TrainState, u_star, f, bc_value, bc_index,
     loss.backward()
     state.optimizer.step()
     return state, loss.detach()
+
+
+def init_state_elastic(level, seed: int = 0, num_layers: int = 3, params=None) -> TrainState:
+    """A fresh elastic state on the ``ElasticLevel``'s device with a fresh
+    Adadelta: (L, 2, 2, 3, 3) kernels drawn from the seeded generator
+    (``hnet.init_params_elastic``), or ``params``."""
+    return _state(params, make_optimizer, seed, num_layers, level.device,
+                  hnet.init_params_elastic, hnet_elastic_params_from_arrays)
+
+
+def elastic_loss(level, params, u_star, f, u0, k: int, k_max: int) -> torch.Tensor:
+    """The elastic step's loss from the start ``u0`` and ``k`` sweeps:
+    sum((u_k - u*)^2), the body forces ``f`` (N, 2, H, W) mass-convolved
+    per component."""
+    ff = stencil.apply_mass(f, level.h)
+    u_out = hnet.h_relax_elastic_dynamic(level, params, u0, ff, k, k_max)
+    return torch.sum((u_out - u_star) ** 2)
+
+
+def train_step_elastic(level, state: TrainState, u_star, f, k_max: int = 20):
+    """One batch step on an ``ElasticLevel`` -> (state, loss as a 0-d
+    tensor).  ``u_star`` / ``f``: (N, 2, H, W) oracle displacements and raw
+    body forces (zero Dirichlet ring); k ~ U{1..k_max} and u0 ~ N(0, 1)
+    from the state's generator."""
+    k = int(torch.randint(1, k_max + 1, (), generator=state.generator))
+    u0 = _normal(state.generator, u_star.shape, u_star)
+    state.optimizer.zero_grad()
+    loss = elastic_loss(level, state.params, u_star, f, u0, k, k_max)
+    with full_f32():  # the convolutions' backward
+        loss.backward()
+    state.optimizer.step()
+    return state, loss.detach()
+
+
+def elastic_eval_loss(level, params, dataset, k_max: int, seed: int = 99) -> float:
+    """A fixed evaluation of elastic kernels: the sum over k = 1..k_max of
+    :func:`elastic_loss` on the whole dataset, each k from its own standard
+    normal start drawn from a generator seeded with ``seed``.  The training
+    losses are samples (one random k and start per batch); this reads the
+    learning on the same draws before and after."""
+    gen = torch.Generator().manual_seed(seed)
+    u_star, f = (torch.as_tensor(x, device=level.device) for x in (dataset.u, dataset.f))
+    total = 0.0
+    with torch.no_grad():
+        for k in range(1, k_max + 1):
+            u0 = _normal(gen, u_star.shape, u_star)
+            total += float(elastic_loss(level, params, u_star, f, u0, k, k_max))
+    return total
 
 
 def _hjac_vcycle(hier, params, u, f, omega=2.0 / 3.0, h_levels=None):
@@ -226,7 +280,34 @@ def train(level: Level, dataset, *, num_epochs: int = 100, batch_size: int = 5,
     loss history).  ``ckpt_dir`` enables per-epoch checkpointing with
     automatic resume from ``{ckpt_dir}/latest.npz`` (the port's own
     checkpoints: kernels, optimizer state and generator state)."""
-    state = init_state(level, seed)
+
+    def step(state, batch):
+        u_star, f, bc_value, bc_index = batch
+        return train_step(level, state, u_star, f, bc_value, bc_index, k_max=k_max)
+
+    return _train_loop(level, init_state(level, seed), step, dataset, num_epochs, batch_size,
+                       seed, log_every, verbose, ckpt_dir, ckpt_every)
+
+
+def train_elastic(level, dataset, *, num_epochs: int = 100, batch_size: int = 5,
+                  seed: int = 0, k_max: int = 20, log_every: int = 50, verbose: bool = True,
+                  ckpt_dir=None, ckpt_every: int = 1):
+    """The elastic training loop on the ``ElasticLevel``'s device over an
+    ``ElasticDataset`` -> (params (L, 2, 2, 3, 3), per-epoch mean loss
+    history), with :func:`train`'s checkpoints and resume."""
+
+    def step(state, batch):
+        u_star, f = batch
+        return train_step_elastic(level, state, u_star, f, k_max=k_max)
+
+    return _train_loop(level, init_state_elastic(level, seed), step, dataset, num_epochs,
+                       batch_size, seed, log_every, verbose, ckpt_dir, ckpt_every)
+
+
+def _train_loop(level, state: TrainState, step, dataset, num_epochs: int, batch_size: int,
+                seed: int, log_every: int, verbose: bool, ckpt_dir, ckpt_every: int):
+    """Epochs of ``step(state, batch) -> (state, loss)`` over shuffled
+    batches on the level's device, with per-epoch checkpoints and resume."""
     start, losses = 0, []
     if ckpt_dir is not None:
         tree, start, losses = checkpoint.load_training(ckpt_dir, state_tree(state))
@@ -235,8 +316,7 @@ def train(level: Level, dataset, *, num_epochs: int = 100, batch_size: int = 5,
         total, nb = 0.0, 0
         for batch in datasets.batches(dataset, batch_size, shuffle=True, seed=seed + epoch,
                                       device=level.device):
-            u_star, f, bc_value, bc_index = batch
-            state, loss = train_step(level, state, u_star, f, bc_value, bc_index, k_max=k_max)
+            state, loss = step(state, batch)
             total += float(loss)
             nb += 1
         losses.append(total / max(nb, 1))

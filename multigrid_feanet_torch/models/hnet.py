@@ -11,9 +11,16 @@ Parameters are an (L, 3, 3) float32 tensor, the layout of the JAX package
 and of the fused kernels (``ops/hrelax.py``).  :class:`HNet` holds the same
 kernels as bias-free 1->1 ``Conv2d`` layers named ``convLayers.{i}``, the
 names of the reference's ``.pth`` state dicts, which therefore load with
-``load_state_dict``.  The convolutions here are shift-and-add sums in the
-JAX package's order, never cuDNN (which runs float32 convolutions in TF32
-by default).
+``load_state_dict``.  The scalar convolutions here are shift-and-add sums
+in the JAX package's order, never cuDNN (which runs float32 convolutions in
+TF32 by default).
+
+The elastic H-Net (the JAX module's ``init_params_elastic`` ...
+``h_relax_elastic_dynamic``) is the same corrector with 2 -> 2-channel
+kernels, (L, 2, 2, 3, 3), on displacement increments, beside the 2x2
+block-Jacobi smoother of ``solvers/elastic.py``.  Its convolutions are
+cuDNN's in full f32 (``core/device.full_f32``); the JAX package runs it in
+XLA, outside any Pallas kernel, so no hand-written kernel is on its path.
 """
 
 from __future__ import annotations
@@ -25,8 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multigrid_feanet_torch.core.device import full_f32
 from multigrid_feanet_torch.core.problem import Level
 from multigrid_feanet_torch.ops import hrelax as hx
+from multigrid_feanet_torch.solvers import elastic as elastic_solver
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA, jacobi_step
 
 
@@ -161,3 +170,56 @@ class HNet(nn.Module):
     def forward(self, x: torch.Tensor, geo: torch.Tensor) -> torch.Tensor:
         """H(x) of :func:`apply_hnet`, differentiable in the weights."""
         return apply_hnet(self._stacked(), x, geo)
+
+
+# ---- elastic (2-DOF/node) H-Net: the learned iterator for elastic material
+# response, a 2 -> 2-channel conv chain on block-Jacobi increments
+
+
+def init_params_elastic(num_layers: int = 3, generator: Optional[torch.Generator] = None,
+                        dtype=torch.float32) -> torch.Tensor:
+    """(L, 2, 2, 3, 3) kernels (out channel, in channel, 3 x 3), torch
+    Conv2d's default init: U(-b, b) with b = 1/sqrt(fan_in) = 1/sqrt(18).
+    Draws from ``generator``; its numbers are not the JAX package's."""
+    u = torch.rand((num_layers, 2, 2, 3, 3), generator=generator, dtype=dtype)
+    return (2.0 * u - 1.0) / np.sqrt(18.0)
+
+
+def conv3x3_mc(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """2 -> 2-channel 3x3 cross-correlation with zero padding, in full f32:
+    ``x`` (..., 2, H, W), ``k`` (2, 2, 3, 3) as given (torch Conv2d
+    semantics)."""
+    H, W = x.shape[-2:]
+    with full_f32():
+        out = F.conv2d(x.reshape(-1, 2, H, W), k.to(x.dtype), padding=1)
+    return out.reshape(x.shape)
+
+
+def apply_hnet_elastic(params: torch.Tensor, x: torch.Tensor, geo: torch.Tensor) -> torch.Tensor:
+    """H(x) for displacement fields: the chain of geo-masked 2 -> 2-channel
+    convolutions."""
+    for i in range(params.shape[0]):
+        x = conv3x3_mc(x, params[i]) * geo
+    return x
+
+
+def h_relax_elastic(level, params: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
+                    num_sweeps: int, bc_value=0.0, omega: float = DEFAULT_OMEGA) -> torch.Tensor:
+    """``num_sweeps`` H-corrected block-Jacobi sweeps on an ``ElasticLevel``:
+    jac = BlockJacobi(u); u <- jac + H(jac - u).  Plain torch ops, which
+    autograd differentiates; no kernel launches."""
+    for _ in range(num_sweeps):
+        jac_it = elastic_solver.relax(level, u, f, 1, bc_value, omega)
+        u = jac_it + apply_hnet_elastic(params, jac_it - u, level.geo)
+    return u
+
+
+def h_relax_elastic_dynamic(level, params: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
+                            num_sweeps, max_sweeps: int, bc_value=0.0,
+                            omega: float = DEFAULT_OMEGA) -> torch.Tensor:
+    """The training form: ``min(num_sweeps, max_sweeps)`` sweeps of
+    :func:`h_relax_elastic`, as :func:`h_relax_dynamic` does for the scalar
+    net (the JAX package masks the updates of a ``max_sweeps``-step scan
+    beyond ``num_sweeps``; the iterate and its gradient are the same)."""
+    return h_relax_elastic(level, params, u, f, min(int(num_sweeps), int(max_sweeps)),
+                           bc_value, omega)

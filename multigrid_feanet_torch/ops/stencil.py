@@ -1,10 +1,11 @@
 """Stencil assembly and application for structured-quad Q1 FEM operators.
 
-Port of the parts of ``multigrid_feanet_tpu/ops/stencil.py`` that the fused
-V-cycle needs: the (16, 3, 3) stencil table, the homogeneous stencil, the
-per-node pattern ids, and the plain applies (bitplane and phase-affine) that
-the plain subtree of ``solvers/mg2.py`` and the tests use.  See the JAX
-module for the derivation; the encoding is identical:
+Port of ``multigrid_feanet_tpu/ops/stencil.py``: the (16, 3, 3) stencil
+table, the homogeneous stencil, the per-node pattern ids, the plain applies
+(gather, bitplane and phase-affine) that the plain subtree of
+``solvers/mg2.py`` and the tests use, and the 16-channel pattern split that
+the learned inter-grid operators (``models/intergrid.py``) consume.  See the
+JAX module for the derivation; the encoding is identical:
 
   element ``(r, c)`` spans nodes ``r..r+1`` x ``c..c+1``; the four elements
   around node ``(i, j)`` are, in bit order, SW ``(i-1, j-1)``, SE
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.core.device import full_f32, resolve_device
 
 # Q1 Laplace element stiffness on a square element, local nodes CCW.
 KE = -(1.0 / 6.0) * np.array(
@@ -74,12 +75,46 @@ def make_stencil_table_np(coefficients=(1.0, 20.0)) -> np.ndarray:
     return table
 
 
+def make_stencil_table(coefficients=(1.0, 20.0), dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """The (16, 3, 3) stencil table of :func:`make_stencil_table_np` as a
+    tensor on ``device`` (None means CUDA)."""
+    return torch.as_tensor(make_stencil_table_np(coefficients), dtype=dtype,
+                           device=resolve_device(device))
+
+
 def make_homogeneous_stencil(dtype=torch.float32, device=None) -> torch.Tensor:
     """The (3, 3) stencil of the homogeneous (a = 1) Laplace operator, the
     FEM 9-point stencil (1/3) [[-1, -1, -1], [-1, 8, -1], [-1, -1, -1]].
     ``device=None`` means CUDA."""
     return torch.as_tensor(make_stencil_table_np((1.0, 1.0))[0], dtype=dtype,
                            device=resolve_device(device))
+
+
+def reference_pattern_permutation() -> np.ndarray:
+    """perm[k] = the port's pid for the reference's pattern key k.
+
+    The reference enumerates patterns as ``[e1, e2, e3, e4]`` where, in the
+    (row i up, col j right) index space, e1 = (i-1, j), e2 = (i-1, j-1),
+    e3 = (i, j-1), e4 = (i, j) (reference FEANet/mesh.py:44-47 and :78-93);
+    the pid bits are (SW, SE, NW, NE) = (e2, e1, e3, e4)."""
+    ref_patterns = {
+        0: [0, 0, 0, 0], 1: [1, 1, 1, 1], 2: [0, 0, 0, 1], 3: [0, 0, 1, 0],
+        4: [1, 0, 0, 0], 5: [0, 1, 0, 0], 6: [0, 0, 1, 1], 7: [1, 1, 0, 0],
+        8: [0, 1, 1, 0], 9: [1, 0, 0, 1], 10: [0, 1, 0, 1], 11: [1, 0, 1, 0],
+        12: [1, 1, 1, 0], 13: [1, 1, 0, 1], 14: [0, 1, 1, 1], 15: [1, 0, 1, 1],
+    }
+    perm = np.zeros(16, dtype=np.int32)
+    for k, (e1, e2, e3, e4) in ref_patterns.items():
+        perm[k] = e2 + 2 * e1 + 4 * e3 + 8 * e4
+    return perm
+
+
+def pattern_ids(phase: torch.Tensor) -> torch.Tensor:
+    """(n, n) element phases -> (n+1, n+1) int8 per-node pattern ids on
+    ``phase``'s device: the 2x2 window of the zero-padded phase map."""
+    p = F.pad(phase.to(torch.int8), (1, 1, 1, 1))
+    return (p[:-1, :-1] + 2 * p[:-1, 1:] + 4 * p[1:, :-1] + 8 * p[1:, 1:]).to(torch.int8)
 
 
 def pattern_ids_np(phase: np.ndarray) -> np.ndarray:
@@ -90,6 +125,11 @@ def pattern_ids_np(phase: np.ndarray) -> np.ndarray:
             + 8 * p[1:, 1:]).astype(np.int8)
 
 
+def gather_coefficients(table: torch.Tensor, pid: torch.Tensor) -> torch.Tensor:
+    """Per-node 3x3 stencils: (16, 3, 3) table + (H, W) pid -> (H, W, 3, 3)."""
+    return table.reshape(table.shape[0], 9)[pid.long()].reshape(*pid.shape, 3, 3)
+
+
 def apply_stencil(table: torch.Tensor, pid, u: torch.Tensor) -> torch.Tensor:
     """A @ u as a 9-tap spatially varying stencil with zero ghosts.
 
@@ -97,9 +137,7 @@ def apply_stencil(table: torch.Tensor, pid, u: torch.Tensor) -> torch.Tensor:
     (then ``table`` is a single (3, 3) stencil)."""
     H, W = u.shape[-2:]
     up = F.pad(u, (1, 1, 1, 1))
-    coeff = None
-    if pid is not None:
-        coeff = table.reshape(table.shape[0], 9)[pid.long()].reshape(H, W, 3, 3)
+    coeff = None if pid is None else gather_coefficients(table, pid)
     out = torch.zeros_like(u)
     for dr in range(3):
         for dc in range(3):
@@ -158,3 +196,31 @@ def apply_mass(f: torch.Tensor, h: float) -> torch.Tensor:
     """Consistent load vector M_f @ f as a fixed 3x3 stencil (h^2-scaled)."""
     k = (h * h) * torch.as_tensor(MASS_KERNEL, dtype=f.dtype, device=f.device)
     return apply_stencil(k, None, f)
+
+
+def split_by_pattern(u: torch.Tensor, pid: torch.Tensor, num_patterns: int = 16) -> torch.Tensor:
+    """One-hot split of a field by pattern id: (..., H, W) -> (..., P, H, W).
+
+    Channel p holds ``u`` where ``pid == p`` and 0 elsewhere (a pid >= P
+    lands in no channel, as ``jax.nn.one_hot`` puts it).  The mask is a
+    comparison of the int8 pids with the P classes, not ``F.one_hot``,
+    whose int64 (H, W, P) result is eight times the size: at 4097^2 the
+    split itself is 16 x 4097^2 floats, about 1.07 GB.  (reference:
+    KNet.split_x, FEANet/model.py:37-47)"""
+    classes = torch.arange(num_patterns, dtype=pid.dtype, device=pid.device)
+    onehot = (pid[None] == classes[:, None, None]).to(u.dtype)
+    return u[..., None, :, :] * onehot
+
+
+def apply_stencil_conv(table: torch.Tensor, pid: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A @ u through the 16-channel masked convolution of the reference
+    (KNet.forward, FEANet/model.py:22-30), in full f32: a cross-check of
+    :func:`apply_stencil`, which the solvers use.  The mask hits u before
+    the 16 -> 1 convolution, so channel p's kernel is pattern p's stencil
+    rotated by 180 degrees; the two forms agree because A is symmetric."""
+    H, W = u.shape[-2:]
+    x = u.reshape(-1, H, W)
+    rot = torch.flip(table, dims=(-2, -1)).reshape(1, table.shape[0], 3, 3).to(u.dtype)
+    with full_f32():
+        out = F.conv2d(split_by_pattern(x, pid, table.shape[0]), rot, padding=1)
+    return out.reshape(u.shape)

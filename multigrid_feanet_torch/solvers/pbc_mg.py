@@ -18,29 +18,17 @@ that path.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.core.device import full_f32, resolve_device
 from multigrid_feanet_torch.ops import pbc
 from multigrid_feanet_torch.ops.torus import TorusLevel
 
 BILINEAR_4 = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=np.float32) / 4.0
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """cuDNN convolutions in full f32 (TF32 keeps about three digits)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _kernel(k, like: torch.Tensor) -> torch.Tensor:
@@ -52,7 +40,7 @@ def pbc_restrict(r: torch.Tensor, kernel) -> torch.Tensor:
     with a 3x3 kernel and circular wrap."""
     lead, n = r.shape[:-2], r.shape[-1]
     x = pbc.wrap_pad(r.reshape(-1, n, n))[:, None]
-    with _full_f32():
+    with full_f32():
         out = F.conv2d(x, _kernel(kernel, r), stride=2)[:, 0]
     return out.reshape(*lead, *out.shape[-2:])
 
@@ -64,7 +52,7 @@ def pbc_prolong(v: torch.Tensor, kernel) -> torch.Tensor:
     by hand for its dilated correlation)."""
     lead, m = v.shape[:-2], v.shape[-1]
     x = pbc.wrap_pad(v.reshape(-1, m, m))[:, None]
-    with _full_f32():
+    with full_f32():
         # padding 2: fine indices [-1, 2m] of the wrapped input's [-2, 2m+1]
         out = F.conv_transpose2d(x, _kernel(kernel, v), stride=2, padding=2)[:, 0]
     # crop one leading row and column: start at fine index 0
@@ -196,6 +184,7 @@ def pbc_train_step(table, state: PBCTrainState, f_raw, *, num_levels: int, k: in
     state.opt.zero_grad()
     loss = pbc_loss(table, state.r_kernel, f, torch.as_tensor(u0, device=f_raw.device),
                     num_levels, k)
-    loss.backward()
+    with full_f32():  # the transfers' backward
+        loss.backward()
     state.opt.step()
     return state, loss.item()
