@@ -78,7 +78,10 @@ Phases, in order; any failure exits non-zero:
 12. Hold H1 (4096^2, n = 32 and 96, both norms) and A1-A6 in mass form
    (the heat level's operands: theta dt (1, 20), mass h^2 (1/18, 1/18,
    -1/36); 4097^2 bi-material and homogeneous, A3/A4 also at 2049^2)
-   against their plain versions.  Then the periodic cells on H1:
+   against their plain versions; H1 also at n = 2, 3, 32, 96, 130 and 4096
+   in each design the size takes (the one-pass tile up to
+   ``ops.torus.H1_ONE_PASS_MAX_N``, where the row-streaming kernel is held
+   too), two launches bitwise equal.  Then the periodic cells on H1:
    ``pbc_jacobi_32`` (the reference's analytic problem, exactly 46 sweeps
    with its history head), ``torus_jacobi_4096`` (512 sweeps, eps None)
    and ``pbc_mg_4096`` (``solve_pbc_mg``, 12 levels, H1 on n >= 32, within
@@ -91,7 +94,11 @@ Phases, in order; any failure exits non-zero:
    plain-form sweep) and E1 (4097^2 homogeneous with the L = 3 and L = 1
    nets and the ring reset of h_relax; bi-material with the L = 1 net in
    both forms; n = 2, 32 and 512 with a boundary field) against their plain
-   versions.  Then ``membench_4097`` (copy and triad GB/s, the sweep's
+   versions; E1 also at n = 2, 32, 130, 2048 and 4096 in each design the
+   size takes (the one-pass tile up to ``ops.hrelax.E1_ONE_PASS_MAX_N[L]``,
+   where the row-streaming kernel is held too), with L = 1 and 3,
+   homogeneous, bi-material and difference form, the ring kept, reset to a
+   number and to a field, two launches bitwise equal.  Then ``membench_4097`` (copy and triad GB/s, the sweep's
    share of the triad rate), ``qsweep_4097`` (512 F1 sweeps, equal to 512
    A1 sweeps), ``hjac_4097`` (256 h_relax sweeps on E1), ``hjac_iter_32``
    (Jacobi against H-Jacobi on the learned-iterator sample, >= 5x, card and
@@ -834,8 +841,9 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
     return out
 
 
-# profiler kernel names -> summary labels; no name is a substring of another
-# label's name except sweep_kernel, which is tested after zpsweep_kernel, and
+# profiler kernel names -> summary labels (e1_h_relax also names E1's
+# one-pass tile, e1_h_relax_tile); no name is a substring of another label's
+# name except sweep_kernel, which is tested after zpsweep_kernel, and
 # swrr_kernel, whose zero-guess instances (A3: third template argument true,
 # then the storage type) A3_NAME tells apart first
 A3_NAME = re.compile(r"swrr_kernel(<[^,>]*,[^,>]*,\s*(true|1)\s*[,>]|ILb\dELi\dELb1E)")
@@ -847,9 +855,9 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("g3_el_ascent", "G3"), ("g4_el_zdescent", "G4"), ("g5_el_zascent", "G5"),
                ("c1_stencil_relax", "C1"), ("c2_stencil_multi", "C2"),
                ("a5_resid_restrict", "A5"), ("a6_cross_cycle", "A6"),
-               ("h1_torus_relax", "H1"), ("reduce_kernel", "rsq_reduce"),
-               ("h1_reduce_pair", "rsq_reduce"), ("e1_h_relax", "E1"), ("f1_qsweep", "F1"),
-               ("b1_copy", "B1"), ("b2_triad", "B2"))
+               ("h1_torus_relax", "H1"), ("h1_torus_tile", "H1"),
+               ("reduce_kernel", "rsq_reduce"), ("h1_reduce_pair", "rsq_reduce"),
+               ("e1_h_relax", "E1"), ("f1_qsweep", "F1"), ("b1_copy", "B1"), ("b2_triad", "B2"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -1624,6 +1632,113 @@ def check_e1(n: int, bim: bool, dform: bool, ckpt: str, bc=None, seed: int = 13)
                hx.hrelax_plain, inputs, cfg, hrelax_bytes("E1", n, bim, L), hx.TOL,
                dict(n=n, bim=bim, dform=dform, L=L, bc=bc))
     return dict(rec, flops_per_node=hrelax_flops("E1", bim, dform, L))
+
+
+def hold_twice(label: str, kernel, plain, tol: float) -> dict:
+    """Run a kernel twice and its plain version once on the same inputs
+    (closures returning output tuples); fail unless the kernel's first
+    outputs agree with the plain version's within ``tol`` (fields relative
+    to max(1, max|plain|), scalar norms relative to themselves) and its two
+    launches agree bitwise.  One record of the errors."""
+    import torch
+
+    first = [t.clone() for t in kernel()]
+    again = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    rel = rsq_rel = 0.0
+    for g, w in zip(first, want):
+        w = w.to(g.device)
+        if g.dim() == 0:
+            rsq_rel = max(rsq_rel, abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
+        else:
+            rel = max(rel, float((g - w).abs().max()) / max(1.0, float(w.abs().max())))
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+    finite = all(bool(torch.isfinite(g).all()) for g in first)
+    rec = dict(case=label, max_rel_err=rel, rsq_rel_err=rsq_rel, bitwise=bitwise)
+    if not (finite and bitwise and rel <= tol and rsq_rel <= tol):
+        fail(f"{label}: the kernel disagrees with its plain version or with itself: {rec}")
+    return rec
+
+
+# E1 and H1 held at ragged sizes: n = 2 (one block), 32 and 130 (one band,
+# ragged strips), 2048 and 4096 (E1: 17 bands of 250 columns, a ragged last
+# band and strip); H1 also at odd n and 96.  Up to E1_ONE_PASS_MAX_N /
+# H1_ONE_PASS_MAX_N the wrappers launch the one-pass tiles; there both
+# designs are held, the row-streaming one by setting the threshold below n.
+E1_SIZES, H1_SIZES = (2, 32, 130, 2048, N_MAIN), (2, 3, 32, 96, 130, N_MAIN)
+
+
+def designs(module, name: str, n: int):
+    """Whether to force row streaming, for each design of ``module``'s kernel
+    to hold at size n: False (the design its wrapper launches) and, where n
+    is at most ``module.<name>`` (its one-pass threshold, a number or one
+    per chain depth), True, with every threshold set below n while the
+    caller's loop runs it."""
+    saved = getattr(module, name)
+    yield False
+    if n <= (max(saved.values()) if isinstance(saved, dict) else saved):
+        setattr(module, name, {k: -1 for k in saved} if isinstance(saved, dict) else -1)
+        try:
+            yield True
+        finally:
+            setattr(module, name, saved)
+
+
+def check_e1_variants() -> list:
+    """E1 against its plain version at each n of E1_SIZES, in each design the
+    size takes (``designs``), with the L = 1 and L = 3 nets, homogeneous,
+    bi-material and bi-material in difference form, each with the ring kept
+    (BCMODE 0), reset to 0.7 (1) and to a standard normal boundary field (2);
+    two launches bitwise equal.  One record per case."""
+    import torch
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    nets = {L: load_params(ckpt) for L, ckpt in ((1, HNET_L1), (3, HNET_ITER))}
+    recs = []
+    for n in E1_SIZES:
+        bcf = torch.as_tensor(np.random.default_rng(n).standard_normal((n + 1, n + 1)).astype(
+            np.float32), device=DEVICE)
+        inputs = {bim: level_inputs(n, bim, 15, ring=0.3) for bim in (False, True)}
+        for forced in designs(hx, "E1_ONE_PASS_MAX_N", n):
+            for bim, dform in ((False, False), (True, False), (True, True)):
+                u, f, _, ph = inputs[bim]
+                for L, params in nets.items():
+                    tile = not forced and n <= hx.E1_ONE_PASS_MAX_N[L]
+                    design = "one-pass" if tile else "row-streaming"
+                    for mode, bc in ((0, None), (1, 0.7), (2, bcf)):
+                        cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0,
+                                   dform=dform, bc=bc)
+                        ws = {}
+                        label = (f"E1 {design} n={n} {'bim' if bim else 'hom'}"
+                                 f"{' dform' if dform else ''} L={L} bcmode={mode}")
+                        recs.append(hold_twice(
+                            label, lambda: hx.hrelax_cuda(u, f, ph, params, workspace=ws, **cfg),
+                            lambda: hx.hrelax_plain(u, f, ph, params, **cfg), hx.TOL))
+    return recs
+
+
+def check_h1_variants() -> list:
+    """H1 against its plain version (both norms) on standard normal n x n
+    torus fields at each n of H1_SIZES, in each design the size takes
+    (``designs``); two launches bitwise equal.  One record per case."""
+    import torch
+    from multigrid_feanet_torch.ops import torus as tt
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    recs = []
+    for n in H1_SIZES:
+        rng = np.random.default_rng(n)
+        u, f = (torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32), device=DEVICE)
+                for _ in range(2))
+        cfg = dict(a0=1.0, omega=2.0 / 3.0)
+        for forced in designs(tt, "H1_ONE_PASS_MAX_N", n):
+            design = "one-pass" if not forced and n <= tt.H1_ONE_PASS_MAX_N else "row-streaming"
+            ws = {}
+            recs.append(hold_twice(f"H1 {design} n={n}",
+                                   lambda: tt.torus_sweep_cuda(u, f, workspace=ws, **cfg),
+                                   lambda: tt.torus_sweep_plain(u, f, **cfg), TOL))
+    return recs
 
 
 def check_f1(n: int, q_dtype, seed: int = 14):
@@ -2589,6 +2704,7 @@ def main() -> int:
     for rec in r6checks:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
     print(json.dumps({"r6_kernel_checks": r6checks}), flush=True)
+    print(json.dumps({"h1_variants": check_h1_variants()}), flush=True)
     pbc_cells = run_pbc_cells()
     heat = run_heat_cell()
     small_r6 = check_r6_small_against_cpu()
@@ -2606,6 +2722,7 @@ def main() -> int:
     for rec in r7checks:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
     print(json.dumps({"r7_kernel_checks": r7checks}), flush=True)
+    print(json.dumps({"e1_variants": check_e1_variants()}), flush=True)
     a1_plain = next(c for c in checks if c["name"] == "A1_sweep" and c["n"] == N_MAIN
                     and c["bim"] and not c["dform"])
     membench = run_membench_cell(r7checks[:2], a1_plain)

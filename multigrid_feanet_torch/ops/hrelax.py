@@ -37,10 +37,15 @@ JAX package's arithmetic.  The level-facing functions :func:`hrelax`,
 plain version, CUDA tensors launch the kernel or raise.  Kernels and plain
 versions agree to ``TOL`` as those of ``ops/sweep.py`` do.
 
-The kernels are built for chain depths ``SUPPORTED_DEPTHS``; the wrappers
-raise ValueError for any other.  The prolongation-fused legs (E3, E5) need
-an odd depth, as the TPU wrappers assert; the plain versions take any
-depth otherwise.
+E1 streams rows (``csrc/hrelax.cu``): its wrapper launches it on the
+bands and strips of :func:`e1_tiles`, with the strip height
+:func:`row_strip` picks for the level's size and the card's occupancy, and
+levels of up to ``E1_ONE_PASS_MAX_N[L]`` on one-pass tiles
+(:func:`e1_launch_tiles`); u, f, the phase and a boundary field must
+start on a 16-byte boundary.  The kernels are built for chain depths
+``SUPPORTED_DEPTHS``; the wrappers raise ValueError for any other.  The
+prolongation-fused legs (E3, E5) need an odd depth, as the TPU wrappers
+assert; the plain versions take any depth otherwise.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import ctypes
 
 import torch
 
+from multigrid_feanet_torch import _build
 from multigrid_feanet_torch.ops import sweep as sw
 
 TOL = sw.TOL
@@ -173,8 +179,10 @@ _REPLACES = "multigrid_feanet_tpu/ops/pallas_hrelax.py:"
 _TAIL = [_I, _D, _D, _D, _I, _I, _I, _P]  # n, a0, da, omega, bim, dform, L, stream
 
 KERNELS = {
-    "E1": sw.CudaKernel("E1_hrelax", "mg_hrelax", [_P] * 8 + [_D, _I] + _TAIL,
-                        _REPLACES + "55", _SOURCE),
+    # u f ph params bcf out partial done rsq; bcs bcmode; n a0 da omega; bim dform L
+    # one_pass strip gx gy; stream
+    "E1": sw.CudaKernel("E1_hrelax", "mg_hrelax", [_P] * 9 + [_D, _I, _I, _D, _D, _D] + [_I] * 7
+                        + [_P], _REPLACES + "55", _SOURCE),
     "E2": sw.CudaKernel("E2_hswrr", "mg_hswrr", [_P] * 8 + _TAIL, _REPLACES + "287", _SOURCE),
     "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL, _REPLACES + "361",
                         _SOURCE),
@@ -210,9 +218,121 @@ def _bc_operand(bc, n, dev):
     return None, float(bc), 1
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry of E1 (and H1, ops/torus.py): row-streaming bands and
+# strips (csrc/common.cuh's row streaming), in A1's block shape
+# (ops/sweep.py's A12_THREADS threads of A12_COLUMNS adjacent columns, strips
+# of up to A12_STRIP_MAX rows).  A block computes a band of columns and
+# marches down a strip of rows; the grid and the strip height are computed
+# here and passed to the kernels, which refuse a grid that does not match
+# their block shape.
+# ---------------------------------------------------------------------------
+
+# levels of up to this many elements per side, by chain depth, run E1 on
+# one-pass tiles (csrc/hrelax.cu e1_h_relax_tile, E2's 16 x 32 fine tiles):
+# one wave holds the grid there, and a row-streaming block's 3L + 2
+# dependent steps take longer than a tile's L + 2 barriers.  The largest
+# level at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover``, PERF.md)
+E1_ONE_PASS_MAX_N = {1: 256, 3: 512}
+
+
+def e1_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
+    """E1 with chain depth L: a block computes ``A12_THREADS A12_COLUMNS``
+    columns and owns the middle ``A12_THREADS A12_COLUMNS - 2L`` (each
+    stage of the chain eats a column of halo on each side)."""
+    sw._check_strip(strip)
+    H, band = n + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2 * L
+    return sw.Tiles("E1", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def e1_one_pass_tiles(n: int) -> sw.Tiles:
+    """E1 on one-pass tiles: one block per 16 x 32 tile of fine nodes, the
+    fine tiles of csrc/common.cuh's CY x CX coarse tiles (E2's grid)."""
+    Hc = n // 2 + 1
+    return sw.Tiles("E1_tile", n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+
+
+def e1_halo_steps(L: int) -> int:
+    """Steps an E1 block takes beyond its strip's rows: the u rows of the
+    chain's halo (2L + 2) and the wavefront's lag (L: each conv layer reads
+    rows its input layer finished a step earlier)."""
+    return 3 * L + 2
+
+
+def row_strip(tiles_of, halo: int, slots: int, sms: int) -> int:
+    """The even strip height in [2, A12_STRIP_MAX] that finishes a level
+    soonest on a card of ``sms`` SMs that holds ``slots`` blocks at once,
+    ``tiles_of(strip)`` being the level's geometry and ``halo`` the steps a
+    block takes beyond its rows.  The cost is A3/A4's
+    (``ops/sweep.py::balanced_strip``): a step costs a block a fixed latency
+    plus the issue time it shares with the blocks beside it on its SM, so a
+    level takes steps x (``_STEP_LATENCY`` waves + blocks per SM).  On the
+    finest levels that is whole waves times steps; on coarse ones (one wave)
+    short strips shorten each block's chain of steps until their halo steps
+    crowd the SMs."""
+    best = None
+    for strip in range(2, sw.A12_STRIP_MAX + 1, 2):
+        blocks = tiles_of(strip).blocks
+        waves = -(-blocks // max(1, slots))
+        cost = (strip + halo) * (sw._STEP_LATENCY * waves + -(-blocks // sms))
+        if best is None or cost < best[0]:
+            best = (cost, strip)
+    return best[1]
+
+
+def occupancy(symbol: str, *args) -> int:
+    """Blocks per SM that the library's ``symbol`` reports for a kernel
+    instance; raises on a CUDA error."""
+    fn = getattr(_build.load(), symbol)
+    fn.argtypes, fn.restype = [_I] * len(args), _I
+    blocks = fn(*args)
+    if blocks <= 0:
+        raise RuntimeError(f"{symbol}: CUDA error {-blocks}")
+    return blocks
+
+
+def row_scratch(tiles: sw.Tiles, sums: int, device, workspace) -> tuple:
+    """(partials, counter) of one E1 (``sums`` 1) or H1 (2) launch: ``sums``
+    partial sums per block and the zeroed counter whose last block adds
+    them (and resets it), kept in ``workspace`` under the whole geometry
+    (E1's band, and so its grid, depends on the chain depth)."""
+    key = ("row_scratch", tiles)
+    bufs = None if workspace is None else workspace.get(key)
+    if bufs is None:
+        bufs = (torch.empty(sums * tiles.blocks, dtype=torch.float32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        if workspace is not None:
+            workspace[key] = bufs
+    return bufs
+
+
+_E1_TILES = {}
+
+
+def e1_launch_tiles(n: int, L: int, bim: bool, dform: bool, bcmode: int, device) -> sw.Tiles:
+    """The geometry E1 launches with on ``device``: one-pass tiles up to
+    ``E1_ONE_PASS_MAX_N[L]``, else row-streaming strips of :func:`row_strip`'s
+    height for the occupancy the card reports for the instance launched
+    (computed once per level shape)."""
+    if n <= E1_ONE_PASS_MAX_N[L]:
+        return e1_one_pass_tiles(n)
+    key = (n, L, bool(bim), bool(dform), bcmode, device.index)
+    tiles = _E1_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * occupancy("mg_hrelax_occupancy", int(bim), int(dform), L, bcmode)
+        tiles = e1_tiles(n, L, row_strip(lambda s: e1_tiles(n, L, s), e1_halo_steps(L), slots,
+                                         sms))
+        _E1_TILES[key] = tiles
+    return tiles
+
+
 def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None,
                 workspace=None):
-    """E1 on the card; same contract as :func:`hrelax_plain`."""
+    """E1 on the card; same contract as :func:`hrelax_plain`, and u, f,
+    ``ph`` and a field ``bc`` must start on a 16-byte boundary (whole
+    tensors do; an offset view may not, and raises ValueError)."""
     L = _kernel_depth(params)
     n, dev = u.shape[0] - 1, u.device
     sw._operands(n, dev, [("u", u), ("f", f)], ph)
@@ -220,9 +340,13 @@ def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rs
     bcf, bcs, mode = _bc_operand(bc, n, dev)
     out = sw._output(out, "out", (n + 1, n + 1), dev, (u, f, bcf))
     rsq = sw._scalar_out(rsq, dev)
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph), ("bc", bcf))
+    tiles = e1_launch_tiles(n, L, ph is not None, dform, mode, dev)
+    partial, done = row_scratch(tiles, 1, dev, workspace)
     KERNELS["E1"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), params.data_ptr(), sw._ptr(bcf),
-                  out.data_ptr(), sw._partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(),
-                  bcs, mode, *_tail(n, L, ph, a0, da, omega, dform, dev))
+                  out.data_ptr(), partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), bcs, mode,
+                  n, a0, da, omega, int(ph is not None), int(dform), L,
+                  int(tiles.leg == "E1_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out, rsq
 
 

@@ -23,18 +23,23 @@ As in ``ops/sweep.py``, the wrapper ``torus_sweep_cuda`` launches the kernel
 for CUDA tensors and raises on what it does not take; the plain PyTorch
 version ``torus_sweep_plain`` (``ops/pbc.py::jacobi_step_pbc`` plus both
 sums, in the kernel's order of operations) serves CPU tensors.  They agree
-to ``ops.sweep.TOL``.
+to ``ops.sweep.TOL``.  H1 streams rows (``csrc/torus.cu``): the wrapper
+launches it on the bands and strips of :func:`h1_tiles`, with the strip
+height ``ops.hrelax.row_strip`` picks for the level's size and the card's
+occupancy, and grids of up to ``H1_ONE_PASS_MAX_N`` on one-pass tiles
+(:func:`h1_launch_tiles`); u and f must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
 
 import torch
 
-from multigrid_feanet_torch import _build
 from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.ops.hrelax import occupancy, row_scratch, row_strip
 from multigrid_feanet_torch.ops.pbc import wrap_pad
 from multigrid_feanet_torch.ops.sweep import (
-    CudaKernel, _I, _D, _P, _check, _emit, _output, _scalar_out, _stream)
+    A12_COLUMNS, A12_THREADS, CudaKernel, Tiles, _I, _D, _P, _check, _check_aligned,
+    _check_strip, _emit, _output, _scalar_out, _stream)
 
 _SOURCE = "multigrid_feanet_torch/csrc/torus.cu"
 
@@ -57,25 +62,59 @@ def torus_sweep_plain(u, f, *, a0, omega, out=None, rsq=None, rsq_wrap=None):
 
 
 KERNELS = {
-    "H1": CudaKernel("H1_torus_relax", "mg_torus", [_P, _P, _P, _P, _P, _P, _I, _D, _D, _P],
+    # u f out partial done rsq rsq_wrap; n a0 omega; one_pass strip gx gy; stream
+    "H1": CudaKernel("H1_torus_relax", "mg_torus", [_P] * 7 + [_I, _D, _D] + [_I] * 4 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_torus.py:32", _SOURCE),
 }
 
+# steps an H1 block takes beyond its strip's rows: the u rows above and below
+H1_HALO_STEPS = 2
+# grids of up to this many nodes per side run H1 on one-pass tiles
+# (csrc/torus.cu h1_torus_tile, 32 x 8 nodes a block): one wave holds the
+# grid there, and a row-streaming strip's chain of steps takes longer.  The
+# largest level at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover``, PERF.md)
+H1_ONE_PASS_MAX_N = 512
 
-def _partials(n: int, device, workspace) -> torch.Tensor:
-    key = ("torus_partials", n)
-    buf = None if workspace is None else workspace.get(key)
-    if buf is None:
-        fn = _build.load().mg_torus_partials
-        fn.argtypes, fn.restype = [_I], _I
-        buf = torch.empty(fn(n), dtype=torch.float32, device=device)
-        if workspace is not None:
-            workspace[key] = buf
-    return buf
+
+def h1_tiles(n: int, strip: int = 32) -> Tiles:
+    """H1: a block owns the ``A12_THREADS A12_COLUMNS`` columns its threads
+    cover (the halo columns wrap) and a strip of the n rows."""
+    _check_strip(strip)
+    band = A12_THREADS * A12_COLUMNS
+    return Tiles("H1", n, band, strip, -(-n // band), -(-n // strip))
+
+
+def h1_one_pass_tiles(n: int) -> Tiles:
+    """H1 on one-pass tiles: one block (of one thread per node) per 32 x 8
+    tile of nodes (csrc/common.cuh's TX x TY)."""
+    return Tiles("H1_tile", n, 32, 8, -(-n // 32), -(-n // 8))
+
+
+_H1_TILES = {}
+
+
+def h1_launch_tiles(n: int, device) -> Tiles:
+    """The geometry H1 launches with on ``device``: one-pass tiles up to
+    ``H1_ONE_PASS_MAX_N``, else row-streaming strips of ``row_strip``'s
+    height for the occupancy the card reports (computed once per grid
+    size)."""
+    if n <= H1_ONE_PASS_MAX_N:
+        return h1_one_pass_tiles(n)
+    key = (n, device.index)
+    tiles = _H1_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * occupancy("mg_torus_occupancy")
+        tiles = h1_tiles(n, row_strip(lambda s: h1_tiles(n, s), H1_HALO_STEPS, slots, sms))
+        _H1_TILES[key] = tiles
+    return tiles
 
 
 def torus_sweep_cuda(u, f, *, a0, omega, out=None, rsq=None, rsq_wrap=None, workspace=None):
-    """H1 on the card; same contract as :func:`torus_sweep_plain`."""
+    """H1 on the card; same contract as :func:`torus_sweep_plain`, and u and
+    f must start on a 16-byte boundary (whole tensors do; an offset view may
+    not, and raises ValueError)."""
     n, dev = u.shape[-1], u.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev} ones")
@@ -85,9 +124,12 @@ def torus_sweep_cuda(u, f, *, a0, omega, out=None, rsq=None, rsq_wrap=None, work
         _check(t, name, (n, n), torch.float32, dev)
     out = _output(out, "out", (n, n), dev, (u, f))
     rsq, rsq_wrap = _scalar_out(rsq, dev), _scalar_out(rsq_wrap, dev)
-    KERNELS["H1"](u.data_ptr(), f.data_ptr(), out.data_ptr(),
-                  _partials(n, dev, workspace).data_ptr(), rsq.data_ptr(), rsq_wrap.data_ptr(),
-                  n, a0, omega, _stream(dev))
+    _check_aligned(("u", u), ("f", f))
+    tiles = h1_launch_tiles(n, dev)
+    partial, done = row_scratch(tiles, 2, dev, workspace)
+    KERNELS["H1"](u.data_ptr(), f.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                  done.data_ptr(), rsq.data_ptr(), rsq_wrap.data_ptr(), n, a0, omega,
+                  int(tiles.leg == "H1_tile"), tiles.strip, tiles.gx, tiles.gy, _stream(dev))
     return out, rsq, rsq_wrap
 
 

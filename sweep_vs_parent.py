@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4) of this checkout
-against those of an earlier checkout of the port on one GPU, in turns.
+"""Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4), ``csrc/hrelax.cu``
+(E1) and ``csrc/torus.cu`` (H1) of this checkout against those of an earlier
+checkout of the port on one GPU, in turns.
 
-    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34] [--out FILE]
+    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|pbc] [--out FILE]
     python3 sweep_vs_parent.py --strip-scan [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
 ``git archive <commit> multigrid_feanet_torch | tar -x -C build/parent``).
 Each turn is a process of its own that imports the package of one
 checkout, which builds that checkout's kernels into its own
-``build/kernels``, and runs ``chip_smoke.check_kernels`` on it: each
-checkout's own wrappers are held against their plain versions at ``TOL``
-and timed with ``chip_smoke.kernel_ms`` (50 graph-replayed launches on
-L2-cold inputs, median of 3).  The turns run parent, this, this, parent.
+``build/kernels``, and runs ``chip_smoke``'s holds (``check_kernels``,
+``check_e1``, ``check_torus``) on it: each checkout's own wrappers are held
+against their plain versions at ``TOL`` and timed with
+``chip_smoke.kernel_ms`` (50 graph-replayed launches on L2-cold inputs,
+median of 3).  The turns run parent, this, this, parent.
 
 - ``a12``: ``sweep_cuda`` (sweep, residual and psweep modes) and
   ``swrr_cuda`` at 4097^2, in the bi-material difference form (the
@@ -22,6 +25,18 @@ L2-cold inputs, median of 3).  The turns run parent, this, this, parent.
 - ``a34``: ``zrr_cuda`` (A3) and ``zpsweep_cuda`` (A4) at every level size
   the 4097^2 interface solve launches them at (n = 2048 ... 32), in the
   bi-material and homogeneous plain forms and the bi-material mass form.
+- ``e1h1``: ``hrelax_cuda`` (E1) at 4097^2 homogeneous with the L = 3 and
+  L = 1 nets and the ring reset to 0 (``hjac_4097``, ``measure_q_4096``),
+  bi-material with the L = 1 net in plain and difference form; homogeneous
+  L = 1 with the reset at every other level size of ``measure_q_4096``
+  (n = 2048 ... 2); at n = 32 with the L = 3 net and a boundary field
+  (``hjac_iter_32``); and ``torus_sweep_cuda`` (H1) at n = 4096, 2048, ...,
+  32 (``torus_jacobi_4096`` and the kernel levels of ``pbc_mg_4096``).
+- ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
+  (the periodic cells, with their checks), and from its torch.profiler
+  profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
+  ``pbc_mg_4096``: of every H1 launch and its norm pass (``H1`` plus
+  ``rsq_reduce``, one-pass tiles included) and of the whole device.
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -34,6 +49,16 @@ set by hand instead of ``ops/sweep.py::balanced_strip``), beside the height
 ``balanced_strip`` picks: the data its cost model for A3/A4 is fitted to.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
+``--crossover`` times this checkout's E1 and H1 in both designs, the
+one-pass tile and row streaming (the size threshold of
+``ops/hrelax.py::E1_ONE_PASS_MAX_N`` and ``ops/torus.py::H1_ONE_PASS_MAX_N``
+set at or below n), at n = 64 ... 1024: E1 homogeneous with the L = 1 and
+L = 3 nets and the ring reset (``measure_q_4096``'s and ``hjac_4097``'s
+form), bi-material with the L = 1 net; H1.  The designs take turns (tile,
+streaming, streaming, tile); the summary gives each design's mean and the
+tile-over-streaming ratio, the data the thresholds are set from.  Writes
+``chiprun_out/sweep_crossover.json`` by default.
+
 ``--sass`` builds both checkouts' libraries and reads their machine code
 with ``cuobjdump -sass``: whether every kernel of the parent's library (the
 f32 instances of A1-A6 and every other source's kernels) compiles to the
@@ -41,8 +66,10 @@ same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
 instructions of A3 and A4 in all and per step of their row loop (between
-two barriers).  Fails unless every kernel matches.  Writes
-``chiprun_out/sweep_sass.json`` by default.
+two barriers).  The parent's kernels named in CHANGED (E1 and H1, and
+H1's norm pass) are compared apart, with this checkout's one-pass tiles of
+E1 and H1 (RENAMED), and the new row-streaming kernels are listed; fails
+unless every other kernel matches.  Writes ``chiprun_out/sweep_sass.json`` by default.
 """
 
 from __future__ import annotations
@@ -59,6 +86,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 A12_LEGS = ["A1_sweep", "A1_residual", "A1_psweep", "A2"]
 A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
+# measure_q_4096's level sizes below 4096 (E1), the kernel levels of
+# pbc_mg_4096 (H1)
+E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
+H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
+# the kernels this checkout redesigns or removes (--sass lists them apart)
+CHANGED = ("e1_h_relax", "h1_torus_relax", "h1_reduce_pair")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -88,11 +121,71 @@ def child(checkout: Path, legs: str) -> int:
                      + cs.check_kernels(n, False, False, ["A3", "A4"])
                      + cs.check_kernels(n, True, False, ["A3", "A4"], coef=heat,
                                         mass=cs.level_mass(n)))
+    if legs in ("all", "e1h1"):
+        n = cs.N_MAIN
+        recs += [cs.check_e1(n, False, False, cs.HNET_ITER, bc=0.0),
+                 cs.check_e1(n, False, False, cs.HNET_L1, bc=0.0),
+                 cs.check_e1(n, True, False, cs.HNET_L1), cs.check_e1(n, True, True, cs.HNET_L1)]
+        recs += [cs.check_e1(m, False, False, cs.HNET_L1, bc=0.0) for m in E1_LEVELS]
+        recs.append(cs.check_e1(32, False, False, cs.HNET_ITER, bc="field"))
+        recs += [cs.check_torus(m) for m in H1_LEVELS]
+    if legs == "pbc":
+        cells = cs.run_pbc_cells()
+        for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
+            prof = cells[cell]["profile"]
+            by = [prof["by_kernel"].get(k, dict(ms_per_cycle=0.0, launches=0))
+                  for k in ("H1", "rsq_reduce")]
+            recs += [dict(name=f"{cell}_H1_and_norms", ms=sum(r["ms_per_cycle"] for r in by),
+                          launches=sum(r["launches"] for r in by)),
+                     dict(name=f"{cell}_device", ms=prof["busy_ms_per_cycle"])]
+        recs = [dict(r, bytes=0, max_rel_err=0.0) for r in recs]
     torch.cuda.synchronize()
     for r in recs:
         r["bound_ms"] = 1e3 * r["bytes"] / cs.HBM_BYTES_PER_S
     print(json.dumps(recs), flush=True)
     return 0
+
+
+CROSS_LEVELS = (64, 128, 256, 512, 1024)
+
+
+def crossover() -> list:
+    """E1 (three forms) and H1 at each size of CROSS_LEVELS in both designs,
+    in turns; one record per size, then a summary."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import hrelax as hx
+    from multigrid_feanet_torch.ops import torus as tt
+
+    saved = hx.E1_ONE_PASS_MAX_N, tt.H1_ONE_PASS_MAX_N
+    legs = {"E1_hom_L1": lambda n: cs.check_e1(n, False, False, cs.HNET_L1, bc=0.0),
+            "E1_hom_L3": lambda n: cs.check_e1(n, False, False, cs.HNET_ITER, bc=0.0),
+            "E1_bim_L1": lambda n: cs.check_e1(n, True, False, cs.HNET_L1),
+            "H1": cs.check_torus}
+    out, summary = [], {}
+    try:
+        for n in CROSS_LEVELS:
+            ms = {leg: {"tile": [], "stream": []} for leg in legs}
+            for design in ("tile", "stream", "stream", "tile"):
+                limit = n if design == "tile" else -1
+                hx.E1_ONE_PASS_MAX_N = {L: limit for L in saved[0]}
+                tt.H1_ONE_PASS_MAX_N = limit
+                for leg, run in legs.items():
+                    ms[leg][design].append(run(n)["ms"])
+            strips = {f"E1_{'bim' if key[2] else 'hom'}_L{key[1]}": t.strip
+                      for key, t in hx._E1_TILES.items() if key[0] == n}
+            strips["H1"] = next(t.strip for key, t in tt._H1_TILES.items() if key[0] == n)
+            out.append(dict(n=n, ms=ms, stream_strips=strips))
+            print(json.dumps(out[-1]), flush=True)
+            for leg, by in ms.items():
+                tile, stream = (statistics.mean(by[d]) for d in ("tile", "stream"))
+                summary[f"{leg}_{n}"] = dict(tile_ms=tile, stream_ms=stream,
+                                             tile_over_stream=tile / stream,
+                                             spread=max((max(by[d]) - min(by[d])) / min(by[d])
+                                                        for d in by))
+    finally:
+        hx.E1_ONE_PASS_MAX_N, tt.H1_ONE_PASS_MAX_N = saved
+    return out + [dict(summary=summary)]
 
 
 SCAN_STRIPS = {n: (2, 4, 6, 8) if n <= 512 else (4, 6, 8, 12, 16, 20, 24, 28, 32, 48)
@@ -141,11 +234,30 @@ STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restr
                     r"a6_cross_cycle)I((?:L[bi]\d+E)+)(f|13__nv_bfloat16)?E")
 
 
+# this checkout keeps the parent's E1 and H1 for small grids under new names
+RENAMED = {"15e1_h_relax_tile": "10e1_h_relax", "13h1_torus_tile": "14h1_torus_relax"}
+
+
+def _plain_name(name: str) -> tuple:
+    """(source, name) of a kernel's mangled name with its anonymous
+    namespace, whose identifier (a hash and a suffix that nvcc varies between
+    builds) is given by its length prefix, reduced to the source's name."""
+    m = re.match(r"_ZN(\d+)(_GLOBAL__N__\w+)", name)
+    if not m:
+        return "", name
+    size = int(m.group(1))
+    ident, rest = m.group(2)[:size], m.group(2)[size:] + name[m.end():]
+    src = re.search(r"_\d+_([a-z0-9]+)_cu_", ident)
+    src = src.group(1) if src else ""
+    return src, f"_ZN_GLOBAL__N__{src}_cu_{rest}"
+
+
 def _functions(lib: Path) -> dict:
     """Every kernel of a library: (source, name key, storage) -> its
     instructions, without addresses, encodings or the anonymous namespace's
-    hash.  The name key of a sweep.cu leg is its name and non-type template
-    arguments (its mangled parameter types follow the storage argument)."""
+    identifier.  The name key of a sweep.cu leg is its name and non-type
+    template arguments (its mangled parameter types follow the storage
+    argument)."""
     sys.path.insert(0, str(ROOT))
     from multigrid_feanet_torch import _build
 
@@ -154,12 +266,7 @@ def _functions(lib: Path) -> dict:
                           check=True).stdout
     out = {}
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
-        name = fn.split("\n", 1)[0].strip()
-        # the anonymous namespace: _GLOBAL__N__<hash>_<len>_<file>_cu_[<hash>]
-        src = re.search(r"_GLOBAL__N__[0-9a-f]+_\d+_([a-z0-9]+)_cu_", name)
-        src = src.group(1) if src else ""
-        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
-        name = re.sub(r"(_cu_)[0-9a-f]{8}(?=\d)", r"\1", name)
+        src, name = _plain_name(fn.split("\n", 1)[0].strip())
         m = STORED.search(name) if src == "sweep" else None
         key = (src, f"{m.group(1)}<{m.group(2)}>" if m else name,
                "bf16" if m and m.group(3) and m.group(3) != "f" else "f32")
@@ -171,11 +278,22 @@ def _functions(lib: Path) -> dict:
 
 def sass_report(parent: Path) -> dict:
     """Every kernel of the parent's library (its f32 sweep.cu legs A1-A6 and
-    all the other sources' kernels) against this checkout's, instruction for
-    instruction; A3/A4's instruction counts per step in both storage
-    types."""
+    all the other sources' kernels) but those named in CHANGED against this
+    checkout's, instruction for instruction; the CHANGED ones against this
+    checkout's kernels of the RENAMED names (reported, not required); A3/A4's
+    instruction counts per step in both storage types."""
     mine, theirs = _functions(_library(ROOT)), _functions(_library(parent))
-    same = {k: mine.get(k) == ins for k, ins in theirs.items()}
+    renamed = {}
+    for (src, name, storage), ins in mine.items():
+        for new, old in RENAMED.items():
+            if new in name:
+                renamed[(src, name.replace(new, old), storage)] = ins
+    hit = {k: any(c in k[1] for c in CHANGED) for k in {*mine, *theirs}}
+    same = {k: mine.get(k) == ins for k, ins in theirs.items() if not hit[k]}
+    kept = {" ".join(k): renamed.get(k, mine.get(k)) == ins for k, ins in theirs.items()
+            if hit[k]}
+    new = sorted(" ".join(k) for k in mine if hit[k] and k not in theirs
+                 and not any(r in k[1] for r in RENAMED))
     legs = {k: v for k, v in same.items() if k[0] == "sweep" and "<" in k[1]}
     a34 = {}
     for (src, name, storage), ins in mine.items():
@@ -188,21 +306,31 @@ def sass_report(parent: Path) -> dict:
     return dict(same=sum(same.values()), total=len(same),
                 sweep_legs_same=sum(legs.values()), sweep_legs_total=len(legs),
                 differ=[" ".join(k) for k, v in same.items() if not v],
+                changed_kept_same=sum(kept.values()), changed_kept_total=len(kept),
+                changed_differ=[k for k, v in kept.items() if not v], new=new,
                 bf16_instances=sum(1 for k in mine if k[2] == "bf16"), a34=a34)
 
 
 def _key(rec) -> str:
-    form = "mass" if rec["mass"] else "dform" if rec["dform"] else "plain"
-    return f"{rec['name']}_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_{form}"
+    if rec["name"] == "H1":
+        return f"H1_{rec['n']}"
+    if "n" not in rec:
+        return rec["name"]
+    form = "mass" if rec.get("mass") else "dform" if rec["dform"] else "plain"
+    key = f"{rec['name']}_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_{form}"
+    if rec["name"] == "E1":
+        key += f"_L{rec['L']}" + ("" if rec["bc"] is None else f"_bc{rec['bc']}")
+    return key
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--legs", choices=("all", "a12", "a34"), default="all")
+    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "pbc"), default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--crossover", action="store_true")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
@@ -214,11 +342,13 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    if args.strip_scan:
+    if args.strip_scan or args.crossover:
         print(smi, flush=True)
-        out = args.out if args.out.name != "sweep_vs_parent.json" else \
-            args.out.with_name("sweep_strip_scan.json")
-        lines = [dict(card=smi)] + strip_scan()
+        name = "sweep_strip_scan.json" if args.strip_scan else "sweep_crossover.json"
+        out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
+        lines = [dict(card=smi)] + (strip_scan() if args.strip_scan else crossover())
+        if args.crossover:
+            print(json.dumps(lines[-1]), flush=True)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text("\n".join(json.dumps(line) for line in lines) + "\n")
         return 0
@@ -248,7 +378,9 @@ def main() -> int:
             print(f"sweep_vs_parent: the {label} turn failed", file=sys.stderr)
             return 1
         recs = json.loads(done.stdout.strip().splitlines()[-1])
-        turn = {_key(r): dict(ms=r["ms"], max_rel_err=r["max_rel_err"]) for r in recs}
+        turn = {_key(r): dict(ms=r["ms"], max_rel_err=r["max_rel_err"],
+                              **({"launches": r["launches"]} if "launches" in r else {}))
+                for r in recs}
         for r in recs:
             times.setdefault(_key(r), {}).setdefault(label, []).append(r["ms"])
             bounds[_key(r)] = r["bound_ms"]
