@@ -74,7 +74,16 @@ Phases, in order; any failure exits non-zero:
    stay finite and repeat its history over 3 runs.  Then ``elastic_2049``
    once more with the bench's kernel threshold of 512.
 11. Three 129^2 bi-material elastic solves on the card against the CPU's
-   plain path: V(2,2), V(1,1) and the PCG, to eps 1e-2.
+   plain path: V(2,2), V(1,1) and the PCG, to eps 1e-2.  Then hold C1, C2
+   (k = 2, 4, 8), A5 and A6 against their plain versions at 4097^2 and
+   512^2, and A6 at n = 2, 16, 126, each side of
+   ``ops.sweep.A6_ONE_PASS_MAX_N``, 1000 and 4096 in each design the size
+   takes (the one-pass tile up to the threshold, where the row-streaming
+   kernel is held too), bi-material and homogeneous, in plain, difference
+   and mass form, f32 and bf16 storage, two launches bitwise equal; then
+   the round-1 cells and ``pswrr_interface_4097`` (A6 at level 0, held to
+   the split path's cycles +- 1 and tail q within 1%, both paths' device
+   time per cycle printed).
 12. Hold H1 (4096^2, n = 32 and 96, both norms) and A1-A6 in mass form
    (the heat level's operands: theta dt (1, 20), mass h^2 (1/18, 1/18,
    -1/36); 4097^2 bi-material and homogeneous, A3/A4 also at 2049^2)
@@ -91,7 +100,10 @@ Phases, in order; any failure exits non-zero:
    the CPU (the fused heat step and march, ``solve_pbc_mg`` at 128^2).
 13. Hold B1 and B2 (4097^2, bitwise; torch.add timed beside them), F1
    (4097^2 circle (1, 20) in bf16 and f32 Q, n = 512; also against A1's
-   plain-form sweep) and E1 (4097^2 homogeneous with the L = 3 and L = 1
+   plain-form sweep; and at n = 2, 126, each side of
+   ``ops.qsweep.F1_ONE_PASS_MAX_N``, 1000 and 4096 in each design the size
+   takes, bf16 and f32 Q, two launches bitwise equal) and E1 (4097^2
+   homogeneous with the L = 3 and L = 1
    nets and the ring reset of h_relax; bi-material with the L = 1 net in
    both forms; n = 2, 32 and 512 with a boundary field) against their plain
    versions; E1 also at n = 2, 32, 130, 2048 and 4096 in each design the
@@ -1233,9 +1245,11 @@ def run_pswrr_cell(split: dict) -> dict:
                     ("A6", "A3", "A4"), 120,
                     solve=lambda hv, f, **kw: hv.solve(f, use_pswrr=True, **kw))
     dq = abs(rec["tail_q"] / split["tail_q"] - 1.0)
+    busy = [r["profile"].get("busy_ms_per_cycle") for r in (rec, split)]
     print(json.dumps(dict(pswrr_vs_split=dict(cycles=[rec["cycles"], split["cycles"]],
                                               tail_q=[rec["tail_q"], split["tail_q"]],
-                                              tail_q_rel_dev=dq))), flush=True)
+                                              tail_q_rel_dev=dq,
+                                              device_ms_per_cycle=busy))), flush=True)
     if abs(rec["cycles"] - split["cycles"]) > 1 or dq > 0.01:
         fail(f"pswrr_interface_4097 departs from the split path: {rec['cycles']} cycles, "
              f"tail q {rec['tail_q']} against {split['cycles']}, {split['tail_q']}")
@@ -1638,9 +1652,12 @@ def hold_twice(label: str, kernel, plain, tol: float) -> dict:
     """Run a kernel twice and its plain version once on the same inputs
     (closures returning output tuples); fail unless the kernel's first
     outputs agree with the plain version's within ``tol`` (fields relative
-    to max(1, max|plain|), scalar norms relative to themselves) and its two
-    launches agree bitwise.  One record of the errors."""
+    to max(1, max|plain|), bf16 fields one bf16 ulp per element beyond that
+    (``ops.sweep.bf16_excess``), scalar norms relative to themselves) and
+    its two launches agree bitwise.  One record of the errors."""
     import torch
+
+    from multigrid_feanet_torch.ops.sweep import bf16_excess
 
     first = [t.clone() for t in kernel()]
     again = kernel()
@@ -1651,11 +1668,13 @@ def hold_twice(label: str, kernel, plain, tol: float) -> dict:
         w = w.to(g.device)
         if g.dim() == 0:
             rsq_rel = max(rsq_rel, abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
+        elif g.dtype == torch.bfloat16:
+            rel = max(rel, bf16_excess(g, w))
         else:
             rel = max(rel, float((g - w).abs().max()) / max(1.0, float(w.abs().max())))
     bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
     finite = all(bool(torch.isfinite(g).all()) for g in first)
-    rec = dict(case=label, max_rel_err=rel, rsq_rel_err=rsq_rel, bitwise=bitwise)
+    rec = dict(case=label, max_rel_err=rel, rsq_rel_err=rsq_rel, bitwise=bitwise, finite=finite)
     if not (finite and bitwise and rel <= tol and rsq_rel <= tol):
         fail(f"{label}: the kernel disagrees with its plain version or with itself: {rec}")
     return rec
@@ -1738,6 +1757,80 @@ def check_h1_variants() -> list:
             recs.append(hold_twice(f"H1 {design} n={n}",
                                    lambda: tt.torus_sweep_cuda(u, f, workspace=ws, **cfg),
                                    lambda: tt.torus_sweep_plain(u, f, **cfg), TOL))
+    return recs
+
+
+def ragged_sizes(threshold: int, *extra) -> tuple:
+    """F1's and A6's ragged sizes: n = 2 (one block), 126 (one band, ragged
+    strips), each side of the one-pass ``threshold``, 1000 (ragged bands
+    and strips) and 4096 (17 bands, a ragged last band and strip)."""
+    return tuple(sorted({2, N_ODD, threshold, threshold + 2, 1000, N_MAIN, *extra}))
+
+
+def check_f1_variants() -> list:
+    """F1 against its plain version on standard normal u and f (and the
+    circle's (1, 20) Q in bf16 and f32) at each size of ``ragged_sizes``, in
+    each design the size takes (``designs``); two launches bitwise equal.
+    One record per case."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import qsweep as qs
+
+    recs = []
+    for n in ragged_sizes(qs.F1_ONE_PASS_MAX_N):
+        rng = np.random.default_rng(n)
+        u, f = (torch.as_tensor(rng.standard_normal((n + 1, n + 1)).astype(np.float32),
+                                device=DEVICE) for _ in range(2))
+        qs_by = {dt: qs.make_q(circle_phase(2.0, n), dtype=dt, device=DEVICE)
+                 for dt in (torch.bfloat16, torch.float32)}
+        for forced in designs(qs, "F1_ONE_PASS_MAX_N", n):
+            design = "one-pass" if not forced and n <= qs.F1_ONE_PASS_MAX_N else "row-streaming"
+            for dt, q in qs_by.items():
+                recs.append(hold_twice(
+                    f"F1 {design} n={n} q={str(dt).removeprefix('torch.')}",
+                    lambda: (qs.qsweep_cuda(u, f, q, omega=2.0 / 3.0),),
+                    lambda: (qs.qsweep_plain(u, f, q, omega=2.0 / 3.0),), qs.TOL))
+    return recs
+
+
+def check_a6_variants() -> list:
+    """A6 against its plain version on standard normal u1 (boundary ring
+    0.7), f and uc at each size of ``ragged_sizes``, in each design the
+    size takes (``designs``): bi-material and homogeneous, plain (FORM 0),
+    difference (1) and mass form (2: the heat level's operands), f32 and
+    bf16 storage; two launches bitwise equal.  One record per case."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    heat = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
+    recs = []
+    for n in ragged_sizes(sw.A6_ONE_PASS_MAX_N, 16):
+        rng = np.random.default_rng(n)
+        H, Hc = n + 1, n // 2 + 1
+        u1 = rng.standard_normal((H, H)).astype(np.float32)
+        u1[[0, -1], :] = u1[:, [0, -1]] = 0.7
+        fields = {torch.float32: [torch.as_tensor(x, device=DEVICE) for x in (
+            u1, rng.standard_normal((H, H)).astype(np.float32),
+            rng.standard_normal((Hc, Hc)).astype(np.float32))]}
+        fields[torch.bfloat16] = [x.to(torch.bfloat16) for x in fields[torch.float32]]
+        ph = torch.as_tensor(circle_phase(2.0, n), device=DEVICE)
+        mass = level_mass(n)
+        for forced in designs(sw, "A6_ONE_PASS_MAX_N", n):
+            design = "one-pass" if not forced and n <= sw.A6_ONE_PASS_MAX_N else "row-streaming"
+            for dt, (u, f, uc) in fields.items():
+                for bim in (False, True):
+                    for form in (0, 1, 2):
+                        coef = heat if form == 2 else (1.0, 20.0)
+                        cfg = dict(a0=coef[0], da=coef[1] - coef[0] if bim else 0.0,
+                                   omega=2.0 / 3.0, dform=form == 1,
+                                   mass=mass if form == 2 else None)
+                        p, ws = ph if bim else None, {}
+                        recs.append(hold_twice(
+                            f"A6 {design} n={n} {'bim' if bim else 'hom'} form={form} "
+                            f"{str(dt).removeprefix('torch.')}",
+                            lambda: sw.pswrr_cuda(u, f, p, uc, workspace=ws, **cfg),
+                            lambda: sw.pswrr_plain(u, f, p, uc, **cfg), sw.TOL))
     return recs
 
 
@@ -2133,6 +2226,8 @@ def run_bf16_cells(solves: dict, ir32: dict) -> dict:
         interface_cycles=[i["cycles"], f32_i["cycles"]],
         interface_tail_q=[i["tail_q"], f32_i["tail_q"]],
         pswrr_cycles=[ps["cycles"], i["cycles"]],
+        pswrr_tail_q=[ps["tail_q"], i["tail_q"]],
+        pswrr_device_ms_per_cycle=[r["profile"].get("busy_ms_per_cycle") for r in (ps, i)],
         ir_corrections=[out["ir_4097_bf16"]["corrections"], ir32["corrections"]],
         ms_per_cycle=dict(interface=[i["ms_per_cycle"], f32_i["ms_per_cycle"]],
                           poisson=[p["ms_per_cycle"], f32_p["ms_per_cycle"]]))}), flush=True)
@@ -2684,6 +2779,7 @@ def main() -> int:
     for rec in schecks:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
     print(json.dumps({"r5_kernel_checks": schecks}), flush=True)
+    print(json.dumps({"a6_variants": check_a6_variants()}), flush=True)
     r1 = run_r1_cells()
     pswrr = run_pswrr_cell(solves[0])
     pcg = run_pcg_cell()
@@ -2723,6 +2819,7 @@ def main() -> int:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
     print(json.dumps({"r7_kernel_checks": r7checks}), flush=True)
     print(json.dumps({"e1_variants": check_e1_variants()}), flush=True)
+    print(json.dumps({"f1_variants": check_f1_variants()}), flush=True)
     a1_plain = next(c for c in checks if c["name"] == "A1_sweep" and c["n"] == N_MAIN
                     and c["bim"] and not c["dform"])
     membench = run_membench_cell(r7checks[:2], a1_plain)

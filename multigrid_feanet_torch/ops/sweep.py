@@ -418,7 +418,7 @@ KERNELS = {
                      [_P] * 6 + [_I] + [_D] * 5 + [_I] * 3 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:758", _SOURCE),
     "A6": CudaKernel("A6_cross_cycle", "mg_pswrr",
-                     [_P] * 8 + [_I] + [_D] * 6 + [_I] * 3 + [_P],
+                     [_P] * 9 + [_I] + [_D] * 6 + [_I] * 7 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:493", _SOURCE),
 }
 
@@ -449,11 +449,12 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of A1-A4: row-streaming tiles (csrc/sweep.cu).  A block of
-# A12_THREADS threads of A12_COLUMNS adjacent columns each owns a band of
-# fine columns and marches down a strip of fine rows; the grid and the strip
-# height are computed here and passed to the kernels, which refuse a grid
-# that does not match their block shape.  A3 takes A2's bands and strips.
+# Launch geometry of A1-A4 and A6: row-streaming tiles (csrc/sweep.cu).  A
+# block of A12_THREADS threads of A12_COLUMNS adjacent columns each owns a
+# band of fine columns and marches down a strip of fine rows; the grid and
+# the strip height are computed here and passed to the kernels, which
+# refuse a grid that does not match their block shape.  A3 takes A2's
+# bands and strips.
 # ---------------------------------------------------------------------------
 
 # csrc/sweep.cu's block shape (ST threads of SC columns), the default strip
@@ -461,16 +462,22 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 A12_THREADS, A12_COLUMNS = 128, 2
 A12_STRIP, A12_STRIP_MAX = 32, 128
 # steps a block takes beyond its strip's rows: the staged halo rows
-_HALO_STEPS = {"A1": 2, "A2": 6, "A3": 5, "A4": 4}
+_HALO_STEPS = {"A1": 2, "A2": 6, "A3": 5, "A4": 4, "A6": 9}
 # the shortest strip balanced_strip considers: A3 and A4 run on the coarse
 # levels, where one wave holds the whole grid and the strip's step chain
 # is the time
-_MIN_STRIP = {"A1": 8, "A2": 8, "A3": 2, "A4": 2}
+_MIN_STRIP = {"A1": 8, "A2": 8, "A3": 2, "A4": 2, "A6": 8}
 # A3/A4: a step's latency in units of one block's share of its SM's issue
 # time (fitted to the H100's times of A3 and A4 at n = 128 ... 2048 over
 # strips of 2 ... 48 rows, PERF.md)
 _STEP_LATENCY = 3
-_LEG_ID = {"A1": 1, "A2": 2, "A3": 3, "A4": 4}
+_LEG_ID = {"A1": 1, "A2": 2, "A3": 3, "A4": 4, "A6": 6}
+# levels of up to this many elements per side run A6 on its one-pass tiles
+# (csrc/sweep.cu a6_cross_cycle, one block per 32 x 16 fine nodes): one wave
+# holds the grid there, and a row-streaming strip's chain of steps takes
+# longer.  The largest size at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover``, PERF.md)
+A6_ONE_PASS_MAX_N = 512
 
 
 class Tiles(NamedTuple):
@@ -528,7 +535,23 @@ def a4_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
     return Tiles("A4", n, band, strip, -(-H // band), -(-H // strip))
 
 
-TILES = {"A1": a1_tiles, "A2": a2_tiles, "A3": a3_tiles, "A4": a4_tiles}
+def a6_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
+    """A6: a block owns ``A12_THREADS A12_COLUMNS - 6`` columns (its u3, u4
+    and r4 eat a column of halo on each side each, the restriction one
+    more) and the coarse nodes under its band and strip."""
+    _check_strip(strip)
+    Hc, band = n // 2 + 1, A12_THREADS * A12_COLUMNS - 6
+    return Tiles("A6", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
+
+
+def a6_one_pass_tiles(n: int) -> Tiles:
+    """A6 on one-pass tiles: one block per 32 x 16 tile of fine nodes, the
+    fine tiles of csrc/common.cuh's CY x CX coarse tiles (A5's grid)."""
+    Hc = n // 2 + 1
+    return Tiles("A6_tile", n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+
+
+TILES = {"A1": a1_tiles, "A2": a2_tiles, "A3": a3_tiles, "A4": a4_tiles, "A6": a6_tiles}
 
 
 def balanced_strip(leg: str, n: int, slots, sms: int = 132) -> int:
@@ -536,7 +559,7 @@ def balanced_strip(leg: str, n: int, slots, sms: int = 132) -> int:
     finishes the level soonest on a card of ``sms`` SMs that holds
     ``slots(strip)`` blocks at once.
 
-    A1 and A2 (the finest level, many waves of blocks): the fewest
+    A1, A2 and A6 (the finest level, many waves of blocks): the fewest
     block-steps, whole waves of blocks each taking strip + halo steps.  A
     grid that overfills its last wave by a few blocks pays a whole wave, so
     the height adapts to the level and to the occupancy the card reports.
@@ -550,7 +573,7 @@ def balanced_strip(leg: str, n: int, slots, sms: int = 132) -> int:
     for strip in range(_MIN_STRIP[leg], A12_STRIP_MAX + 1, 2):
         blocks = TILES[leg](n, strip).blocks
         waves, steps = -(-blocks // max(1, slots(strip))), strip + _HALO_STEPS[leg]
-        if leg in ("A1", "A2"):
+        if leg in ("A1", "A2", "A6"):
             cost = waves * steps
         else:
             cost = steps * (_STEP_LATENCY * waves + -(-blocks // sms))
@@ -564,9 +587,10 @@ def _tiles_key(tiles: Tiles) -> tuple:
 
 
 def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
-    """(partials, counter) of one A1 or A2 launch: one partial sum per block
-    and the zeroed counter whose last block adds them (and resets it), kept
-    in ``workspace`` under their own key when one is given."""
+    """(partials, counter) of one A1, A2 or row-streaming A6 launch: one
+    partial sum per block and the zeroed counter whose last block adds them
+    (and resets it), kept in ``workspace`` under their own key when one is
+    given."""
     key = _tiles_key(tiles)
     bufs = None if workspace is None else workspace.get(key)
     if bufs is None:
@@ -582,11 +606,11 @@ _LAUNCH_TILES = {}
 
 def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device,
                   bf16: int) -> Tiles:
-    """The geometry A1 (``mode`` 0-2), A2, A3 or A4 launches with on
-    ``device``: the balanced strip height for the occupancy the card
-    reports for the instance launched (its form and storage type: bf16
-    changes its shared memory and registers); computed once per level
-    shape."""
+    """The geometry A1 (``mode`` 0-2), A2, A3, A4 or the row-streaming A6
+    launches with on ``device``: the balanced strip height for the
+    occupancy the card reports for the instance launched (its form and
+    storage type: bf16 changes its shared memory and registers); computed
+    once per level shape."""
     key = (leg, n, bim, form, mode, bf16, device.index)
     tiles = _LAUNCH_TILES.get(key)
     if tiles is None:
@@ -606,9 +630,9 @@ def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device,
 
 
 def _check_aligned(*named):
-    """A1-A4 stage u, f and the phases with 16-byte cp.async chunks counted
-    from the fields' base pointers, which must therefore start on a 16-byte
-    boundary (whole tensors do, offset views may not); A4's coarse
+    """A1-A4 and A6 stage u, f and the phases with 16-byte cp.async chunks
+    counted from the fields' base pointers, which must therefore start on a
+    16-byte boundary (whole tensors do, offset views may not); A4's coarse
     correction is held to the same rule."""
     for name, t in named:
         if t is not None and t.data_ptr() % 16:
@@ -737,9 +761,20 @@ def rr_cuda(u, f, ph=None, *, a0, da, dform, mass=None, fc_out=None, rsq=None,
     return fc_out, rsq
 
 
+def a6_launch_tiles(n: int, bim: bool, form: int, device, bf16: int) -> Tiles:
+    """The geometry A6 launches with: its one-pass tiles up to
+    ``A6_ONE_PASS_MAX_N``, else the row-streaming strips of
+    :func:`_launch_tiles`."""
+    if n <= A6_ONE_PASS_MAX_N:
+        return a6_one_pass_tiles(n)
+    return _launch_tiles("A6", n, bim, form, 0, device, bf16)
+
+
 def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
                rsq=None, workspace=None):
-    """A6 on the card; same contract as :func:`pswrr_plain`."""
+    """A6 on the card; same contract as :func:`pswrr_plain`, and u1, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     form, m = _form(dform, mass)
     n, dev, bf16 = u1.shape[0] - 1, u1.device, _storage(u1)
     _operands(n, dev, [("u1", u1), ("f", f)], ph, [("uc", uc)], dtype=u1.dtype)
@@ -747,10 +782,16 @@ def pswrr_cuda(u1, f, ph, uc, *, a0, da, omega, dform, mass=None, out=None, fc_o
     fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u1, f, uc, out),
                      u1.dtype)
     rsq = _scalar_out(rsq, dev)
+    _check_aligned(("u1", u1), ("f", f), ("phase", ph))
+    tiles = a6_launch_tiles(n, ph is not None, form, dev, bf16)
+    if tiles.leg == "A6_tile":
+        partial, done = _partials(1, n, dev, workspace), None
+    else:
+        partial, done = _tile_scratch(tiles, dev, workspace)
     KERNELS["A6"](u1.data_ptr(), f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(),
-                  fc_out.data_ptr(), _partials(1, n, dev, workspace).data_ptr(),
-                  rsq.data_ptr(), n, a0, da, omega, *m, int(ph is not None), form, bf16,
-                  _stream(dev))
+                  fc_out.data_ptr(), partial.data_ptr(), _ptr(done), rsq.data_ptr(), n, a0, da,
+                  omega, *m, int(ph is not None), form, bf16, int(tiles.leg == "A6_tile"),
+                  tiles.strip, tiles.gx, tiles.gy, _stream(dev))
     return out, fc_out, rsq
 
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4), ``csrc/hrelax.cu``
-(E1) and ``csrc/torus.cu`` (H1) of this checkout against those of an earlier
-checkout of the port on one GPU, in turns.
+"""Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
+``csrc/hrelax.cu`` (E1), ``csrc/torus.cu`` (H1) and ``csrc/qsweep.cu`` (F1) of
+this checkout against those of an earlier checkout of the port on one GPU,
+in turns.
 
-    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|pbc] [--out FILE]
+    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|f1a6|pbc] [--out FILE]
     python3 sweep_vs_parent.py --strip-scan [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6] [--out FILE]
+    python3 sweep_vs_parent.py --levels [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -13,7 +15,8 @@ DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
 Each turn is a process of its own that imports the package of one
 checkout, which builds that checkout's kernels into its own
 ``build/kernels``, and runs ``chip_smoke``'s holds (``check_kernels``,
-``check_e1``, ``check_torus``) on it: each checkout's own wrappers are held
+``check_e1``, ``check_torus``, ``check_f1``) on it: each checkout's own
+wrappers are held
 against their plain versions at ``TOL`` and timed with
 ``chip_smoke.kernel_ms`` (50 graph-replayed launches on L2-cold inputs,
 median of 3).  The turns run parent, this, this, parent.
@@ -32,6 +35,14 @@ median of 3).  The turns run parent, this, this, parent.
   (n = 2048 ... 2); at n = 32 with the L = 3 net and a boundary field
   (``hjac_iter_32``); and ``torus_sweep_cuda`` (H1) at n = 4096, 2048, ...,
   32 (``torus_jacobi_4096`` and the kernel levels of ``pbc_mg_4096``).
+- ``f1a6``: ``qsweep_cuda`` (F1) at 4097^2 on the circle's bf16 and f32 Q
+  (``qsweep_4097``'s) and with the bf16 Q at every size of CROSS_LEVELS;
+  ``pswrr_cuda`` (A6) at 4097^2 in the bi-material difference form
+  (``pswrr_interface_4097``'s) in f32 and bf16 storage, with A2 and A1's
+  psweep (the split pair A6 fuses) timed beside it in the same turn, in the
+  homogeneous difference and the bi-material mass form, and bi-material at
+  every size of CROSS_LEVELS.  The summary adds A6 over A2 + A1 psweep for
+  each checkout.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -49,15 +60,30 @@ set by hand instead of ``ops/sweep.py::balanced_strip``), beside the height
 ``balanced_strip`` picks: the data its cost model for A3/A4 is fitted to.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
-``--crossover`` times this checkout's E1 and H1 in both designs, the
-one-pass tile and row streaming (the size threshold of
-``ops/hrelax.py::E1_ONE_PASS_MAX_N`` and ``ops/torus.py::H1_ONE_PASS_MAX_N``
-set at or below n), at n = 64 ... 1024: E1 homogeneous with the L = 1 and
-L = 3 nets and the ring reset (``measure_q_4096``'s and ``hjac_4097``'s
-form), bi-material with the L = 1 net; H1.  The designs take turns (tile,
-streaming, streaming, tile); the summary gives each design's mean and the
-tile-over-streaming ratio, the data the thresholds are set from.  Writes
+``--crossover`` times this checkout's kernels that have a one-pass tile
+in both designs, the tile and row streaming (the size threshold of
+``ops/hrelax.py::E1_ONE_PASS_MAX_N``, ``ops/torus.py::H1_ONE_PASS_MAX_N``,
+``ops/qsweep.py::F1_ONE_PASS_MAX_N`` and ``ops/sweep.py::A6_ONE_PASS_MAX_N``
+set at or below n), at n = 64 ... 1024: with ``--legs e1h1`` (or ``all``) E1
+homogeneous with the L = 1 and L = 3 nets and the ring reset
+(``measure_q_4096``'s and ``hjac_4097``'s form), bi-material with the L = 1
+net, and H1; with ``--legs f1a6`` (or ``all``) F1 on bf16 and f32 Q and A6
+in the bi-material and homogeneous difference form (f32) and the
+bi-material one in bf16 storage.  The designs take turns (tile, streaming,
+streaming, tile); the summary gives each design's mean and the
+tile-over-streaming ratio, the data the thresholds are set from, and the
+blocks per SM the card reports for the row-streaming F1 and A6.  Writes
 ``chiprun_out/sweep_crossover.json`` by default.
+
+``--levels`` times this checkout's kernels that run on more than one level
+size at every size of the path PERF.md's kernel table counts their
+launches on, each beside its byte bound: C1 (sweep and residual) and C2
+(k = 2) at 4096 ... 32 (``poisson_4097_r1``, ``_v22``; homogeneous), E4 and
+E5 at 2048 ... 32 with the L = 1 net (``hmg_4097`` homogeneous and
+``hmg_interface_4097`` bi-material in difference form), D4 and D5 at 2048
+... 32 on the 4097^2 BoxMG setup's bf16 planes (``boxmg_4097``), and G1-G5
+at 2048 ... 16 (the elastic cells, bi-material).  Writes
+``chiprun_out/sweep_levels.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
 with ``cuobjdump -sass``: whether every kernel of the parent's library (the
@@ -65,11 +91,14 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3 and A4 in all and per step of their row loop (between
-two barriers).  The parent's kernels named in CHANGED (E1 and H1, and
-H1's norm pass) are compared apart, with this checkout's one-pass tiles of
-E1 and H1 (RENAMED), and the new row-streaming kernels are listed; fails
-unless every other kernel matches.  Writes ``chiprun_out/sweep_sass.json`` by default.
+instructions of A3, A4 and the row-streaming F1 and A6 in all and per step
+of their row loop (between two barriers; ``loop_step`` the median of the
+six longest gaps, the unrolled loop's steps), with the registers and shared
+memory ``ptxas`` gave the new kernels.  The parent's kernels named in
+CHANGED (F1 and A6: the one-pass tiles, which keep their names and code)
+are compared apart, and the new row-streaming kernels are listed; fails
+unless every other kernel matches.  Writes ``chiprun_out/sweep_sass.json``
+by default.
 """
 
 from __future__ import annotations
@@ -90,8 +119,8 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 # pbc_mg_4096 (H1)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
-# the kernels this checkout redesigns or removes (--sass lists them apart)
-CHANGED = ("e1_h_relax", "h1_torus_relax", "h1_reduce_pair")
+# the kernels this checkout redesigns (--sass lists them apart)
+CHANGED = ("f1_qsweep", "a6_cross_cycle")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -129,6 +158,19 @@ def child(checkout: Path, legs: str) -> int:
         recs += [cs.check_e1(m, False, False, cs.HNET_L1, bc=0.0) for m in E1_LEVELS]
         recs.append(cs.check_e1(32, False, False, cs.HNET_ITER, bc="field"))
         recs += [cs.check_torus(m) for m in H1_LEVELS]
+    if legs in ("all", "f1a6"):
+        import torch
+
+        n = cs.N_MAIN
+        recs += [cs.check_f1(n, torch.bfloat16), cs.check_f1(n, torch.float32)]
+        recs += [cs.check_f1(m, torch.bfloat16) for m in CROSS_LEVELS]
+        split = ["A6", "A2", "A1_psweep"]
+        recs += (cs.check_kernels(n, True, True, split)
+                 + cs.check_kernels(n, True, True, split, dtype=torch.bfloat16)
+                 + cs.check_kernels(n, False, True, ["A6"])
+                 + cs.check_kernels(n, True, False, ["A6"], coef=heat, mass=cs.level_mass(n)))
+        for m in CROSS_LEVELS:
+            recs += cs.check_kernels(m, True, True, ["A6"])
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -149,32 +191,56 @@ def child(checkout: Path, legs: str) -> int:
 CROSS_LEVELS = (64, 128, 256, 512, 1024)
 
 
-def crossover() -> list:
-    """E1 (three forms) and H1 at each size of CROSS_LEVELS in both designs,
-    in turns; one record per size, then a summary."""
+def crossover(which: str) -> list:
+    """The kernels of ``which`` (E1 in three forms and H1; F1 on two Q types
+    and A6 in three forms) at each size of CROSS_LEVELS in both designs, in
+    turns; one record per size, then a summary."""
+    import torch
+
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from multigrid_feanet_torch.ops import hrelax as hx
+    from multigrid_feanet_torch.ops import qsweep as qs
+    from multigrid_feanet_torch.ops import sweep as sw
     from multigrid_feanet_torch.ops import torus as tt
 
-    saved = hx.E1_ONE_PASS_MAX_N, tt.H1_ONE_PASS_MAX_N
-    legs = {"E1_hom_L1": lambda n: cs.check_e1(n, False, False, cs.HNET_L1, bc=0.0),
-            "E1_hom_L3": lambda n: cs.check_e1(n, False, False, cs.HNET_ITER, bc=0.0),
-            "E1_bim_L1": lambda n: cs.check_e1(n, True, False, cs.HNET_L1),
-            "H1": cs.check_torus}
+    legs, thresholds, strips_of = {}, [], {}
+    if which in ("all", "e1h1"):
+        thresholds += [(hx, "E1_ONE_PASS_MAX_N"), (tt, "H1_ONE_PASS_MAX_N")]
+        legs.update({"E1_hom_L1": lambda n: cs.check_e1(n, False, False, cs.HNET_L1, bc=0.0),
+                     "E1_hom_L3": lambda n: cs.check_e1(n, False, False, cs.HNET_ITER, bc=0.0),
+                     "E1_bim_L1": lambda n: cs.check_e1(n, True, False, cs.HNET_L1),
+                     "H1": cs.check_torus})
+        for L in (1, 3):
+            for bim in (False, True):
+                strips_of[f"E1_{'bim' if bim else 'hom'}_L{L}"] = \
+                    lambda n, L=L, bim=bim: [t.strip for key, t in hx._E1_TILES.items()
+                                             if key[:3] == (n, L, bim)]
+        strips_of["H1"] = lambda n: [t.strip for key, t in tt._H1_TILES.items() if key[0] == n]
+    if which in ("all", "f1a6"):
+        thresholds += [(qs, "F1_ONE_PASS_MAX_N"), (sw, "A6_ONE_PASS_MAX_N")]
+        bf = torch.bfloat16
+        legs.update({"F1_bf16": lambda n: cs.check_f1(n, bf),
+                     "F1_f32": lambda n: cs.check_f1(n, torch.float32),
+                     "A6_bim_dform": lambda n: cs.check_kernels(n, True, True, ["A6"])[0],
+                     "A6_hom_dform": lambda n: cs.check_kernels(n, False, True, ["A6"])[0],
+                     "A6_bim_dform_bf16": lambda n: cs.check_kernels(n, True, True, ["A6"],
+                                                                     dtype=bf)[0]})
+        strips_of["F1"] = lambda n: [t.strip for key, t in qs._F1_TILES.items() if key[0] == n]
+        strips_of["A6"] = lambda n: [t.strip for key, t in sw._LAUNCH_TILES.items()
+                                     if key[:2] == ("A6", n)]
+    saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
         for n in CROSS_LEVELS:
             ms = {leg: {"tile": [], "stream": []} for leg in legs}
             for design in ("tile", "stream", "stream", "tile"):
                 limit = n if design == "tile" else -1
-                hx.E1_ONE_PASS_MAX_N = {L: limit for L in saved[0]}
-                tt.H1_ONE_PASS_MAX_N = limit
+                for (m, a), v in zip(thresholds, saved):
+                    setattr(m, a, {L: limit for L in v} if isinstance(v, dict) else limit)
                 for leg, run in legs.items():
                     ms[leg][design].append(run(n)["ms"])
-            strips = {f"E1_{'bim' if key[2] else 'hom'}_L{key[1]}": t.strip
-                      for key, t in hx._E1_TILES.items() if key[0] == n}
-            strips["H1"] = next(t.strip for key, t in tt._H1_TILES.items() if key[0] == n)
+            strips = {leg: sorted(set(fn(n))) for leg, fn in strips_of.items()}
             out.append(dict(n=n, ms=ms, stream_strips=strips))
             print(json.dumps(out[-1]), flush=True)
             for leg, by in ms.items():
@@ -184,8 +250,55 @@ def crossover() -> list:
                                              spread=max((max(by[d]) - min(by[d])) / min(by[d])
                                                         for d in by))
     finally:
-        hx.E1_ONE_PASS_MAX_N, tt.H1_ONE_PASS_MAX_N = saved
-    return out + [dict(summary=summary)]
+        for (m, a), v in zip(thresholds, saved):
+            setattr(m, a, v)
+    blocks = {}
+    if which in ("all", "f1a6"):
+        blocks = {"F1_bf16": hx.occupancy("mg_qsweep_occupancy", 1),
+                  "F1_f32": hx.occupancy("mg_qsweep_occupancy", 0)}
+        for bim, form, bf16 in ((1, 1, 0), (0, 1, 0), (1, 1, 1), (1, 2, 0)):
+            blocks[f"A6_bim{bim}_form{form}_bf16{bf16}_strip{sw.A12_STRIP_MAX}"] = hx.occupancy(
+                "mg_a12_occupancy", 6, bim, form, 0, bf16, sw.A12_STRIP_MAX)
+    return out + [dict(summary=summary, blocks_per_sm=blocks)]
+
+
+LEVEL_SIZES = (4096, 2048, 1024, 512, 256, 128, 64, 32)
+
+
+def levels() -> list:
+    """The multi-level kernels at each level size of their paths; one
+    record per kernel and size."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    def row(rec, path):
+        bound = 1e3 * rec["bytes"] / cs.HBM_BYTES_PER_S
+        return dict(name=rec["name"], n=rec["n"], path=path, ms=rec["ms"], warm_ms=rec["warm_ms"],
+                    bound_ms=bound, loss_ms=rec["ms"] - bound, max_rel_err=rec["max_rel_err"],
+                    **{k: rec[k] for k in ("bim", "dform", "coef_dtype") if k in rec})
+
+    out = []
+    for n in LEVEL_SIZES:
+        out += [row(r, "poisson_4097_r1")
+                for r in cs.check_stencil(n, False, ["C1_sweep", "C1_residual", "C2_k2"])]
+    for n in LEVEL_SIZES[1:]:
+        out += [row(r, "hmg_4097") for r in cs.check_hrelax(n, False, False, cs.HNET_L1,
+                                                            ["E4", "E5"])]
+        out += [row(r, "hmg_interface_4097") for r in cs.check_hrelax(n, True, True, cs.HNET_L1,
+                                                                      ["E4", "E5"])]
+    _, _, setup = cs.boxmg_setup_on_card()
+    for level in range(1, len(LEVEL_SIZES)):
+        out += [row(r, "boxmg_4097") for r in cs.check_general(level, False, ["D4", "D5"], setup,
+                                                               torch.bfloat16)]
+    del setup
+    for n in LEVEL_SIZES[1:] + (16,):
+        out += [row(r, "elastic_2049") for r in cs.check_elastic(
+            n, True, ["G1_sweep", "G2", "G3", "G4", "G5"])]
+    for r in out:
+        print(json.dumps(r), flush=True)
+    return out
 
 
 SCAN_STRIPS = {n: (2, 4, 6, 8) if n <= 512 else (4, 6, 8, 12, 16, 20, 24, 28, 32, 48)
@@ -231,11 +344,12 @@ def _library(tree: Path) -> Path:
 # sweep.cu's kernels take their storage type as a last template argument
 # (float: "f", bf16: "13__nv_bfloat16"); an earlier checkout's have none
 STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restrict|"
-                    r"a6_cross_cycle)I((?:L[bi]\d+E)+)(f|13__nv_bfloat16)?E")
+                    r"a6_cross_cycle|a6_cross_cycle_rows)I((?:L[bi]\d+E)+)"
+                    r"(f|13__nv_bfloat16)?E")
 
 
-# this checkout keeps the parent's E1 and H1 for small grids under new names
-RENAMED = {"15e1_h_relax_tile": "10e1_h_relax", "13h1_torus_tile": "14h1_torus_relax"}
+# kernels this checkout keeps under a new name (new name: parent's name)
+RENAMED = {}
 
 
 def _plain_name(name: str) -> tuple:
@@ -297,40 +411,73 @@ def sass_report(parent: Path) -> dict:
     legs = {k: v for k, v in same.items() if k[0] == "sweep" and "<" in k[1]}
     a34 = {}
     for (src, name, storage), ins in mine.items():
-        if src == "sweep" and (name.startswith("zpsweep_kernel")
-                               or re.match(r"swrr_kernel<Lb\dELi\dELb1E>", name)):
+        if (src == "sweep" and (name.startswith("zpsweep_kernel")
+                                or name.startswith("a6_cross_cycle_rows")
+                                or re.match(r"swrr_kernel<Lb\dELi\dELb1E>", name))) \
+                or "f1_qsweep_rows" in name:
             bars = [i for i, x in enumerate(ins) if x.startswith("BAR.SYNC")]
             steps = [b - a for a, b in zip(bars, bars[1:])]
+            # the unrolled row loop's steps are its longest gaps between barriers
             a34[f"{name} {storage}"] = dict(instructions=len(ins),
-                                            per_step=statistics.median(steps))
-    return dict(same=sum(same.values()), total=len(same),
+                                            per_step=statistics.median(steps),
+                                            loop_step=statistics.median(sorted(steps)[-6:]))
+    log = _library(ROOT).with_suffix(".log").read_text()
+    ptxas = {}
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?\n(?:.*\n)*?.*?Used (\d+) registers"
+                         r"(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", log):
+        if any(k in m.group(1) for k in ("f1_qsweep_rows", "a6_cross_cycle_rows")):
+            ptxas[_plain_name(m.group(1))[1]] = dict(registers=int(m.group(2)),
+                                                     smem=int(m.group(3) or 0))
+    return dict(same=sum(same.values()), total=len(same), new_ptxas=ptxas,
                 sweep_legs_same=sum(legs.values()), sweep_legs_total=len(legs),
                 differ=[" ".join(k) for k, v in same.items() if not v],
                 changed_kept_same=sum(kept.values()), changed_kept_total=len(kept),
                 changed_differ=[k for k, v in kept.items() if not v], new=new,
-                bf16_instances=sum(1 for k in mine if k[2] == "bf16"), a34=a34)
+                bf16_instances=sum(1 for k in mine if k[2] == "bf16"), per_step=a34)
 
 
 def _key(rec) -> str:
     if rec["name"] == "H1":
         return f"H1_{rec['n']}"
+    if rec["name"] == "F1":
+        return f"F1_{rec['n']}_{rec['q_dtype']}"
     if "n" not in rec:
         return rec["name"]
     form = "mass" if rec.get("mass") else "dform" if rec["dform"] else "plain"
     key = f"{rec['name']}_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_{form}"
     if rec["name"] == "E1":
         key += f"_L{rec['L']}" + ("" if rec["bc"] is None else f"_bc{rec['bc']}")
+    if rec.get("dtype"):
+        key += f"_{rec['dtype']}"
     return key
+
+
+def a6_against_split(times: dict) -> dict:
+    """For each checkout, A6 at 4097^2 (bi-material difference form, f32 and
+    bf16) beside A2 + A1's psweep, the split pair it fuses, from the same
+    turns: their means and A6's share of the pair's time."""
+    out = {}
+    for dt in ("", "_bfloat16"):
+        legs = [f"{leg}_4096_bim_dform{dt}" for leg in ("A6", "A2", "A1_psweep")]
+        if not all(k in times for k in legs):
+            continue
+        for label in ("parent", "this"):
+            a6, a2, a1 = (statistics.mean(times[k][label]) for k in legs)
+            out[f"{label}{dt}"] = dict(a6_ms=a6, a2_plus_a1_psweep_ms=a2 + a1,
+                                       a6_over_pair=a6 / (a2 + a1))
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "pbc"), default="all")
+    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "pbc"),
+                    default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--levels", action="store_true")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
@@ -342,11 +489,13 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    if args.strip_scan or args.crossover:
+    if args.strip_scan or args.crossover or args.levels:
         print(smi, flush=True)
-        name = "sweep_strip_scan.json" if args.strip_scan else "sweep_crossover.json"
+        name = ("sweep_strip_scan.json" if args.strip_scan else
+                "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
-        lines = [dict(card=smi)] + (strip_scan() if args.strip_scan else crossover())
+        lines = [dict(card=smi)] + (strip_scan() if args.strip_scan else levels() if args.levels
+                                    else crossover(args.legs))
         if args.crossover:
             print(json.dumps(lines[-1]), flush=True)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -396,6 +545,10 @@ def main() -> int:
                             parent_spread=p_spread, this_spread=t_spread)
     lines.append(dict(summary=summary))
     print(json.dumps(lines[-1]), flush=True)
+    pair = a6_against_split(times)
+    if pair:
+        lines.append(dict(a6_against_split=pair))
+        print(json.dumps(lines[-1]), flush=True)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text("\n".join(json.dumps(line) for line in lines) + "\n")
     return 0

@@ -80,6 +80,33 @@ def test_a5_a6_match_pallas(n, stride, bim, dform):
     np.testing.assert_array_equal(u4_g.numpy()[0], u[0])  # boundary kept
 
 
+@pytest.mark.parametrize("n", [sw.A6_ONE_PASS_MAX_N, sw.A6_ONE_PASS_MAX_N + 2],
+                         ids=["one_pass_side", "streaming_side"])
+def test_a6_matches_pallas_across_the_threshold(n):
+    """A6 (pswrr) in the interface solve's form (bi-material, difference
+    form) against the Pallas kernel at the largest level the wrapper runs on
+    one-pass tiles and the smallest it streams (``A6_ONE_PASS_MAX_N``)."""
+    phase = JProblem(n=n, inclusion=CIRCLE).phase(n)
+    jl = PallasLevel(n, stride=1, phase=phase, rows=32, rows_next=32, interpret=True,
+                     dform=True)
+    jc = PallasLevel(n // 2, stride=2, phase=None, Wp=jl.Wp, rows=32, rows_next=32,
+                     interpret=True)
+    tl = SweepLevel(n, phase=phase, dform=True, device="cpu")
+    rng = np.random.default_rng(n)
+    H = n + 1
+    geo = np.zeros((H, H), np.float32)
+    geo[1:-1, 1:-1] = 1.0
+    u = rng.standard_normal((H, H)).astype(np.float32) * geo + np.float32(0.7) * (1 - geo)
+    f = rng.standard_normal((H, H)).astype(np.float32)
+    uc = rng.standard_normal((n // 2 + 1, n // 2 + 1)).astype(np.float32)
+    u4_w, fc_w, rsq_w = jl.pswrr(jl.pad(jnp.asarray(u)), jl.pad(jnp.asarray(f)),
+                                 jc.pad(jnp.asarray(uc)), R_up=32)
+    u4_g, fc_g, rsq_g = tl.pswrr(*map(torch.from_numpy, (u, f, uc)))
+    assert _rel_err(u4_g, jl.unpad(u4_w)) < TOL
+    assert _rel_err(fc_g, jc.unpad(fc_w)) < TOL
+    assert _rsq_err(rsq_g, rsq_w) < TOL
+
+
 @pytest.mark.parametrize("bim", [False, True], ids=["hom", "bim"])
 def test_a5_a6_equal_their_compositions(bim):
     """restrict_residual == sweep_restrict without the sweep; pswrr ==

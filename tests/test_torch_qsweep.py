@@ -48,6 +48,24 @@ def test_qsweep_matches_pallas(dt):
     assert np.max(np.abs(got - want)) <= 1e-6 * max(1.0, float(np.abs(want).max()))
 
 
+@pytest.mark.parametrize("n", [qs.F1_ONE_PASS_MAX_N, qs.F1_ONE_PASS_MAX_N + 2],
+                         ids=["one_pass_side", "streaming_side"])
+def test_qsweep_matches_pallas_across_the_threshold(n):
+    """F1's plain version on the bf16 Q stream against the Pallas kernel at
+    the largest grid the wrapper runs on one-pass tiles and the smallest it
+    streams (``F1_ONE_PASS_MAX_N``)."""
+    rng = np.random.default_rng(n)
+    u, f = (rng.standard_normal((n + 1, n + 1)).astype(np.float32) for _ in range(2))
+    phase = geometry.circle_phase(2.0, n)
+    jl = PallasLevel(n, stride=1, phase=phase, coefficients=(1.0, 20.0), rows=32,
+                     interpret=True, dform=False)
+    want = np.asarray(jl.unpad(jqs.qsweep(jl, jl.pad(jnp.asarray(u)), jl.pad(jnp.asarray(f)),
+                                         jqs.make_q_pad(jl, phase, (1.0, 20.0)))))
+    q = qs.make_q(phase, (1.0, 20.0), device="cpu")
+    got = qs.qsweep_plain(torch.from_numpy(u), torch.from_numpy(f), q, omega=2.0 / 3.0).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-6 * max(1.0, float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_qsweep_equals_a1_plain_sweep(dt):
     phase, u, f = _inputs(1)
