@@ -47,6 +47,12 @@ Phases, in order; any failure exits non-zero:
    at 4097^2, E4 and E5 at 2049^2 (homogeneous in plain form and
    bi-material in difference form, the L = 1 net), and all four at n = 512
    (bi-material and homogeneous, the L = 3 net).  Timed as in phase 2.
+   Then E2 at n = 2, 126, each side of each
+   ``ops.hrelax.E2_ONE_PASS_MAX_N`` threshold, 1000 and 4096 in each
+   design the size takes (the one-pass tile up to the threshold, where the
+   row-streaming kernel is held too), with the L = 1 and L = 3 nets,
+   homogeneous and bi-material, plain and difference form, two launches
+   bitwise equal.
 8. The H-MG path of ``solvers/hmg.py``: ``hmg_4097``, the homogeneous
    4097^2 decay solve (same u0, 9 levels, threshold 32, direct coarse,
    plain form) with the L = 1 net of
@@ -57,7 +63,9 @@ Phases, in order; any failure exits non-zero:
    three 129^2 bi-material H-MG solves on the card against the CPU's plain
    path: the L = 3 net with ``h_levels=1`` (launching A3/A4 below level 0),
    the L = 3 net with ``coarse_zero_legs=False`` (E2/E3 on every kernel
-   level), and the L = 1 net with a boundary value of 0.7.
+   level), and the L = 1 net with a boundary value of 0.7.  The two
+   4097^2 H-MG solves must launch no separate norm pass (``rsq_reduce``):
+   E2 finishes its norm in its last block.
 9. Hold each kernel of ``ops/elastic.py`` (G1 in its sweep and residual
    modes, G2-G5) against its plain version, at ``ops.elastic.TOL``, on the
    plane-stress operator of ``Plane_Stress_modify.m`` (E = 212e3, nu =
@@ -75,13 +83,18 @@ Phases, in order; any failure exits non-zero:
    once more with the bench's kernel threshold of 512.
 11. Three 129^2 bi-material elastic solves on the card against the CPU's
    plain path: V(2,2), V(1,1) and the PCG, to eps 1e-2.  Then hold C1, C2
-   (k = 2, 4, 8), A5 and A6 against their plain versions at 4097^2 and
-   512^2, and A6 at n = 2, 16, 126, each side of
+   (k = 2, 4, 8; also against k chained C1 launches), A5 and A6 against
+   their plain versions at 4097^2 and 512^2; C1 at n = 2, 126, each side of
+   ``ops.stencil_sweep.C1_ONE_PASS_MAX_N``, 1000 and 4096 in each design the
+   size takes, homogeneous and bi-material, sweep and residual mode, two
+   launches bitwise equal; and A6 at n = 2, 16, 126, each side of
    ``ops.sweep.A6_ONE_PASS_MAX_N``, 1000 and 4096 in each design the size
    takes (the one-pass tile up to the threshold, where the row-streaming
    kernel is held too), bi-material and homogeneous, in plain, difference
    and mass form, f32 and bf16 storage, two launches bitwise equal; then
-   the round-1 cells and ``pswrr_interface_4097`` (A6 at level 0, held to
+   the round-1 cells (whose only norm passes, ``rsq_reduce``, are C2's:
+   C1 finishes its norm in its last block) and ``pswrr_interface_4097`` (A6
+   at level 0, held to
    the split path's cycles +- 1 and tail q within 1%, both paths' device
    time per cycle printed).
 12. Hold H1 (4096^2, n = 32 and 96, both norms) and A1-A6 in mass form
@@ -854,7 +867,9 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
 
 
 # profiler kernel names -> summary labels (e1_h_relax also names E1's
-# one-pass tile, e1_h_relax_tile); no name is a substring of another label's
+# one-pass tile, e1_h_relax_tile; c1_stencil_relax and e2_h_descent, the
+# one-pass tiles, also name the row-streaming c1_stencil_relax_rows and
+# e2_h_descent_rows); no name is a substring of another label's
 # name except sweep_kernel, which is tested after zpsweep_kernel, and
 # swrr_kernel, whose zero-guess instances (A3: third template argument true,
 # then the storage type) A3_NAME tells apart first
@@ -1217,6 +1232,18 @@ def build_r1(n: int, bim: bool, num_levels: int, threshold: int, device=DEVICE):
     return Hierarchy(hier, kernel_threshold=threshold, direct_coarse=True, device=device)
 
 
+def norm_passes(label: str, rec: dict, expect: int) -> None:
+    """Fail unless the profiled solve of ``rec`` launched ``expect``
+    separate norm passes (``rsq_reduce``); no check where the profiler
+    recorded no device time."""
+    prof = rec["profile"]
+    if "by_kernel" not in prof:
+        return
+    got = prof["by_kernel"].get("rsq_reduce", {}).get("launches", 0)
+    if got != expect:
+        fail(f"{label}: {got} norm passes (rsq_reduce), expected {expect}")
+
+
 def run_r1_cells() -> dict:
     """``poisson_4097_r1`` (V(1,1): C1) and ``poisson_4097_r1_v22`` (V(2,2):
     C2, C1 for the residuals): the homogeneous 4097^2 decay solve on the
@@ -1233,6 +1260,8 @@ def run_r1_cells() -> dict:
         expect = {"C1": (3 * K + 1) * c} if nu == 1 else {"C1": (K + 1) * c, "C2": 2 * K * c}
         if rec["launches"] != expect:
             fail(f"{label}: launches {rec['launches']}, expected {expect}")
+        # C1 adds its norm in its last block; C2 launches reduce_kernel
+        norm_passes(label, rec, expect.get("C2", 0))
         out[label] = rec
     return out
 
@@ -1760,11 +1789,13 @@ def check_h1_variants() -> list:
     return recs
 
 
-def ragged_sizes(threshold: int, *extra) -> tuple:
-    """F1's and A6's ragged sizes: n = 2 (one block), 126 (one band, ragged
-    strips), each side of the one-pass ``threshold``, 1000 (ragged bands
-    and strips) and 4096 (17 bands, a ragged last band and strip)."""
-    return tuple(sorted({2, N_ODD, threshold, threshold + 2, 1000, N_MAIN, *extra}))
+def ragged_sizes(*thresholds) -> tuple:
+    """F1's, A6's, C1's and E2's ragged sizes: n = 2 (one block), 126 (one
+    band, ragged strips), each side of each one-pass threshold, 1000
+    (ragged bands and strips) and 4096 (17 bands, a ragged last band and
+    strip)."""
+    return tuple(sorted({2, N_ODD, 1000, N_MAIN, *thresholds,
+                         *(t + 2 for t in thresholds)}))
 
 
 def check_f1_variants() -> list:
@@ -1805,7 +1836,7 @@ def check_a6_variants() -> list:
 
     heat = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
     recs = []
-    for n in ragged_sizes(sw.A6_ONE_PASS_MAX_N, 16):
+    for n in ragged_sizes(sw.A6_ONE_PASS_MAX_N) + (16,):
         rng = np.random.default_rng(n)
         H, Hc = n + 1, n // 2 + 1
         u1 = rng.standard_normal((H, H)).astype(np.float32)
@@ -1831,6 +1862,67 @@ def check_a6_variants() -> list:
                             f"{str(dt).removeprefix('torch.')}",
                             lambda: sw.pswrr_cuda(u, f, p, uc, workspace=ws, **cfg),
                             lambda: sw.pswrr_plain(u, f, p, uc, **cfg), sw.TOL))
+    return recs
+
+
+def check_c1_variants() -> list:
+    """C1 against its plain version on standard normal u and f (and the
+    circle's pattern ids) at each size of ``ragged_sizes``, in each design
+    the size takes (``designs``): homogeneous and bi-material, sweep and
+    residual mode; two launches bitwise equal.  One record per case."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import stencil as tst
+    from multigrid_feanet_torch.ops import stencil_sweep as ss
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    recs = []
+    for n in ragged_sizes(ss.C1_ONE_PASS_MAX_N):
+        rng = np.random.default_rng(n)
+        u, f = (torch.as_tensor(rng.standard_normal((n + 1, n + 1)).astype(np.float32),
+                                device=DEVICE) for _ in range(2))
+        pid = torch.as_tensor(tst.pattern_ids_np(circle_phase(2.0, n)), device=DEVICE)
+        for forced in designs(ss, "C1_ONE_PASS_MAX_N", n):
+            design = "one-pass" if not forced and n <= ss.C1_ONE_PASS_MAX_N else "row-streaming"
+            for bim in (False, True):
+                p = pid if bim else None
+                cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0)
+                for mode in ("sweep", "residual"):
+                    ws = {}
+                    recs.append(hold_twice(
+                        f"C1 {design} n={n} {'bim' if bim else 'hom'} {mode}",
+                        lambda: ss.relax_cuda(u, f, p, mode=mode, workspace=ws, **cfg),
+                        lambda: ss.relax_plain(u, f, p, mode=mode, **cfg), TOL))
+    return recs
+
+
+def check_e2_variants() -> list:
+    """E2 against its plain version at n = 2, 126, each side of each
+    ``ops.hrelax.E2_ONE_PASS_MAX_N`` threshold, 1000 and 4096, in each
+    design the size takes (``designs``), with the L = 1 and L = 3 nets,
+    homogeneous and bi-material, plain and difference form, on u of the
+    main path's scale (boundary ring 0.3) and standard normal f; two
+    launches bitwise equal.  One record per case."""
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    nets = {L: load_params(ckpt) for L, ckpt in ((1, HNET_L1), (3, HNET_L3))}
+    recs = []
+    for n in ragged_sizes(*hx.E2_ONE_PASS_MAX_N.values()):
+        inputs = {bim: level_inputs(n, bim, 16, ring=0.3) for bim in (False, True)}
+        for forced in designs(hx, "E2_ONE_PASS_MAX_N", n):
+            for bim in (False, True):
+                u, f, _, ph = inputs[bim]
+                for dform in (False, True):
+                    for L, params in nets.items():
+                        tile = not forced and n <= hx.E2_ONE_PASS_MAX_N[L]
+                        cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0,
+                                   dform=dform)
+                        ws = {}
+                        label = (f"E2 {'one-pass' if tile else 'row-streaming'} n={n} "
+                                 f"{'bim' if bim else 'hom'}{' dform' if dform else ''} L={L}")
+                        recs.append(hold_twice(
+                            label, lambda: hx.hswrr_cuda(u, f, ph, params, workspace=ws, **cfg),
+                            lambda: hx.hswrr_plain(u, f, ph, params, **cfg), hx.TOL))
     return recs
 
 
@@ -2751,6 +2843,7 @@ def main() -> int:
         hchecks += check_hrelax(N_MAIN // 2, bim, dform, HNET_L1, ["E4", "E5"])
         hchecks += check_hrelax(N_COARSE, bim, dform, HNET_L3, ["E2", "E3", "E4", "E5"])
     print(json.dumps({"hrelax_kernel_checks": hchecks}), flush=True)
+    print(json.dumps({"e2_variants": check_e2_variants()}), flush=True)
 
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
@@ -2761,6 +2854,8 @@ def main() -> int:
         kernel_threshold=32, direct_coarse=True, dform=bim, device=DEVICE),
         ("E2", "E3", "E4", "E5"), cap, solve=lambda hv, f, **kw: hv.solve(params, f, **kw))
         for label, bim, cap in (("hmg_4097", False, 40), ("hmg_interface_4097", True, 60))]
+    for rec in hmg_solves:  # E2 adds its norm in its last block; E3-E5 have none
+        norm_passes(rec["solve"], rec, 0)
     check_hmg_small_against_cpu()
 
     echecks = []
@@ -2779,6 +2874,7 @@ def main() -> int:
     for rec in schecks:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
     print(json.dumps({"r5_kernel_checks": schecks}), flush=True)
+    print(json.dumps({"c1_variants": check_c1_variants()}), flush=True)
     print(json.dumps({"a6_variants": check_a6_variants()}), flush=True)
     r1 = run_r1_cells()
     pswrr = run_pswrr_cell(solves[0])

@@ -20,8 +20,11 @@
 // A sweep writes u + (omega / d) r at interior nodes (1 <= i, j <= n-1) and
 // keeps u elsewhere (r is zero there: a select, never a product); the
 // residual mode writes the masked r.  The interior ||r||^2 of the incoming
-// iterate is summed per block in a fixed order and then by reduce_kernel
-// (no atomics: sums repeat run to run).
+// iterate is summed per block in a fixed order; C1 adds the blocks' sums in
+// its last block to finish (both designs, finish_sums), C2 in reduce_kernel
+// (no atomics either way: sums repeat run to run).  C1 streams rows above
+// C1_ONE_PASS_MAX_N (ops/stencil_sweep.py) and runs one-pass tiles at and
+// below it.
 
 #include "common.cuh"
 
@@ -84,28 +87,43 @@ __device__ __forceinline__ float diag(int p, const SCoef& k) {
   return BIM ? K23 * (k.four_a0 + k.da * (float)__popc(p & 15)) : k.d_hom;
 }
 
+// The 9 values of a thread's 3 x 3 register window around column e + 1 of
+// rows w[0] .. w[2], laid out as a tile of row stride 3.
+__device__ __forceinline__ void window9(float* v, const float (*w)[RC + 2], int e) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b) v[3 * a + b] = w[a][e + b];
+}
+
 // ---------------------------------------------------------------------------
 // C1: one weighted-Jacobi sweep (MODE 0) or the masked residual (MODE 1),
 // and the interior ||f - A u||^2 of the input.
 // Replaces multigrid_feanet_tpu/ops/pallas_stencil.py:122 _sweep_kernel.
 // Bound: bytes.  Per node it must read u and f (8 B) and the pattern id
 // (1 B; 0 when homogeneous) and write the output (4 B): 12-13 B/node,
-// against ~20-50 flops/node.  Design: one thread per node of a TX x TY
-// tile; the block stages its u tile with a 1-node halo in shared memory
-// (the halo re-read comes mostly from L2); f and the pattern id are read
-// once by the node's own thread.
+// against ~20-50 flops/node.
+//
+// One-pass tile, for levels of up to C1_ONE_PASS_MAX_N elements per side,
+// where one wave holds the grid and a row-streaming strip waits on its
+// chain of steps: one thread per node of a TX x TY tile (a 1-D block of
+// NT threads); the block stages its u tile with a 1-node halo in shared
+// memory (the halo re-read comes mostly from L2); f and the pattern id are
+// read once by the node's own thread.  The norm's partials are added by the
+// last block to finish (finish_sums), so one launch.
 // ---------------------------------------------------------------------------
 template <bool BIM, int MODE>
 __global__ void __launch_bounds__(NT)
 c1_stencil_relax(const float* __restrict__ u, const float* __restrict__ f,
                  const int8_t* __restrict__ pid, float* __restrict__ out,
-                 float* __restrict__ partial, SCoef k) {
+                 float* __restrict__ partial, unsigned* __restrict__ done,
+                 float* __restrict__ rsq, SCoef k) {
   constexpr int SU = TX + 2, RU = TY + 2;
+  static_assert(TX * TY == NT, "one thread per node of the tile");
   __shared__ float us[RU * SU];
-  __shared__ float red[NT / 32];
   const int H = k.n + 1;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
 
   for (int t = tid; t < RU * SU; t += NT) {
     const int i = y0 - 1 + t / SU, j = x0 - 1 + t % SU;
@@ -113,19 +131,149 @@ c1_stencil_relax(const float* __restrict__ u, const float* __restrict__ f,
   }
   __syncthreads();
 
-  const int i = y0 + threadIdx.y, j = x0 + threadIdx.x;
+  const int i = y0 + ty, j = x0 + tx;
   float rr = 0.f;
   if (i < H && j < H) {
     const size_t g = (size_t)i * H + j;
     const int p = BIM ? (int)pid[g] : 0;
-    const float* U = us + (threadIdx.y + 1) * SU + threadIdx.x + 1;
+    const float* U = us + (ty + 1) * SU + tx + 1;
     const float au = apply_bitplane<BIM>(U, SU, p, k);
     const float r = interior(i, j, H) ? f[g] - au : 0.f;
     out[g] = MODE == 1 ? r : U[0] + (k.omega / diag<BIM>(p, k)) * r;
     rr = r * r;
   }
-  rr = block_sum(rr, red);
-  if (tid == 0) partial[blockIdx.y * gridDim.x + blockIdx.x] = rr;
+  float sums[1] = {rr};
+  float* const outs[1] = {rsq};
+  finish_sums<NT, 1>(sums, partial, done, outs);
+}
+
+// ---------------------------------------------------------------------------
+// C1 as a row-streaming kernel, for levels above C1_ONE_PASS_MAX_N; the same
+// contract as the tile above.
+// Design: H1's and F1's row streaming (common.cuh) without the torus seam
+// and with the pattern id as a 1-byte row stream.  A block of RT threads of
+// RC adjacent columns owns a band of RB columns and marches down a strip
+// of rows; step s stages u row y0 - 1 + s and the f and pattern-id rows
+// y0 - 2 + s into a ring of RNS slots with cp.async, RD steps ahead (the id
+// row's window [x0, x0 + RB) in slots of RSLOTQ bytes), and from step 2 on
+// a thread computes row y0 - 2 + s from its 3 x (RC + 2) register window
+// of u.  Each staged value is read from shared memory once, and the
+// y-halo is paid once per strip.  The bi-material weight omega / d takes
+// one of five values (d depends on the pattern id's popcount only), so it
+// is divided once per block into a table (the quotient `/` gives per node)
+// and read by popcount.  The norm is summed over the owned nodes in a fixed
+// order and the last block to finish adds the blocks' partials
+// (finish_sums): one launch where the tile took two.
+// ---------------------------------------------------------------------------
+constexpr int C1_UNR = 6;  // steps per trip: whole turns of the slots and the window
+static_assert(C1_UNR % RNS == 0 && C1_UNR % 3 == 0, "C1_UNR: whole ring turns");
+
+template <bool BIM, int MODE>
+__global__ void __launch_bounds__(RT, 6)
+c1_stencil_relax_rows(const float* __restrict__ u, const float* __restrict__ f,
+                      const int8_t* __restrict__ pid, float* __restrict__ out,
+                      float* __restrict__ partial, unsigned* __restrict__ done,
+                      float* __restrict__ rsq, int strip, SCoef k) {
+  __shared__ __align__(16) float us[RNS][RSLOT];
+  __shared__ __align__(16) float fs[RNS][RSLOT];
+  __shared__ __align__(16) int8_t ps[BIM ? RNS : 1][RSLOTQ];
+  __shared__ float wdt[5];  // omega / d by the number of the node's phase-1 elements
+  const int H = k.n + 1, t = threadIdx.x;
+  const int x0 = blockIdx.x * RB, y0 = blockIdx.y * strip, c0 = x0 + RC * t;
+  const int col = x0 - 1, base = y0 - 1;
+  const int steps = min(strip, H - y0) + 2;
+  const unsigned ud = smem_addr(us), fd = smem_addr(fs), pd = smem_addr(ps);
+  // stages step s into ring slot `slot`: u row base + s, f and pattern-id
+  // rows base + s - 1; always commits
+  auto stage = [&](int s, int slot) {
+    const bool live = s < steps;
+    stage_window<4, RW>(ud + 4 * RSLOT * slot, u, base + s, H, H, col, live);
+    stage_window<4, RW>(fd + 4 * RSLOT * slot, f, base + s - 1, H, H, col, live);
+    if (BIM) stage_window<1, RB>(pd + RSLOTQ * slot, pid, base + s - 1, H, H, x0, live);
+    cp_commit();
+  };
+  for (int s = 0; s < RD; ++s) stage(s, s);
+  // diag's five values, divided once (as `/` divides them per node)
+  if (BIM && t < 5) wdt[t] = k.omega / diag<true>((1 << t) - 1, k);
+
+  bool col_in[RC], col_out[RC];  // columns c0 .. c0 + RC - 1 interior; inside the grid
+#pragma unroll
+  for (int e = 0; e < RC; ++e) {
+    col_in[e] = c0 + e >= 1 && c0 + e <= H - 2;
+    col_out[e] = c0 + e < H;
+  }
+  float w[3][RC + 2] = {};
+  float rr = 0.f;
+  // step s (ring slot s mod RNS)
+  auto step = [&](int s, auto S) {
+    constexpr int slot = decltype(S)::value % RNS;
+    if (s >= steps) return;
+    cp_wait<RD - 1>();
+    __syncthreads();
+    const int row = base + s, i = row - 1;
+    float un[RC + 2];
+    read_row<RC + 2>(un, us[slot], row, H, col, RC * t);
+    roll<RC + 2>(w, un);
+    if (s >= 2) {
+      float fv[RC];
+      read_row<RC>(fv, fs[slot], i, H, col, RC * t + 1);
+      int p[RC] = {};
+      if (BIM) {
+        const int8_t* q = ps[slot] + win_off<int8_t>(i, H, x0) + RC * t;
+#pragma unroll
+        for (int e = 0; e < RC; ++e) p[e] = q[e];
+      }
+      const bool i_in = i >= 1 && i <= H - 2;
+      float* orow = out + (size_t)i * H + c0;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        float v9[9];
+        window9(v9, w, e);
+        const float au = apply_bitplane<BIM>(v9 + 4, 3, p[e], k);
+        const float r = i_in && col_in[e] ? fv[e] - au : 0.f;
+        const float wd = BIM ? wdt[__popc(p[e] & 15)] : k.omega / k.d_hom;
+        if (col_out[e]) orow[e] = MODE == 1 ? r : w[1][e + 1] + wd * r;
+        rr += r * r;  // zero off the interior
+      }
+    }
+    // step s + RD reuses the slot of step s - 1
+    stage(s + RD, (slot + RD) % RNS);
+  };
+  for (int s0 = 0; s0 < steps; s0 += C1_UNR)
+    static_for<C1_UNR>([&](auto S) { step(s0 + decltype(S)::value, S); });
+  float sums[1] = {rr};
+  float* const outs[1] = {rsq};
+  finish_sums<RT, 1>(sums, partial, done, outs);
+}
+
+// C1's grid: on one-pass tiles, fine_grid; row streaming, bands of RB
+// columns and strips of `strip` rows (even, 2 .. RS_STRIP_MAX); as
+// ops/stencil_sweep.py::c1_launch_tiles computes them.
+inline bool c1_grid_ok(int n, bool one_pass, int strip, int gx, int gy) {
+  const int H = n + 1;
+  if (n < 2) return false;
+  if (one_pass) return (unsigned)gx == fine_grid(n).x && (unsigned)gy == fine_grid(n).y;
+  return strip >= 2 && strip % 2 == 0 && strip <= RS_STRIP_MAX && gx == (H + RB - 1) / RB &&
+         gy == (H + strip - 1) / strip;
+}
+
+// The row-streaming C1 for the runtime flags.
+inline const void* c1_rows_kernel(int bim, int mode) {
+  const void* by_mode[2][2] = {
+      {(const void*)c1_stencil_relax_rows<false, 0>, (const void*)c1_stencil_relax_rows<false, 1>},
+      {(const void*)c1_stencil_relax_rows<true, 0>, (const void*)c1_stencil_relax_rows<true, 1>}};
+  return by_mode[bim != 0][mode != 0];
+}
+
+template <bool BIM, int MODE>
+void launch_c1(bool one_pass, dim3 g, cudaStream_t st, const float* u, const float* f,
+               const int8_t* pid, float* out, float* partial, unsigned* done, float* rsq,
+               int strip, const SCoef& k) {
+  if (one_pass)
+    c1_stencil_relax<BIM, MODE><<<g, NT, 0, st>>>(u, f, pid, out, partial, done, rsq, k);
+  else
+    c1_stencil_relax_rows<BIM, MODE><<<g, RT, 0, st>>>(u, f, pid, out, partial, done, rsq, strip,
+                                                       k);
 }
 
 // ---------------------------------------------------------------------------
@@ -215,22 +363,38 @@ void launch_multi(int kk, cudaStream_t st, const float* u, const float* f,
 extern "C" {
 
 // C1.  mode 0: out = sweep(u); 1: out = masked residual.  rsq[0] =
-// interior ||f - A u||^2.  partial holds mg_partials(0, n) floats.
-int st_relax(const float* u, const float* f, const int8_t* pid, float* out,
-             float* partial, float* rsq, int n, double a0, double da, double omega,
-             int bim, int mode, void* stream) {
+// interior ||f - A u||^2.  The launch geometry of
+// ops/stencil_sweep.py::c1_launch_tiles: one-pass tiles when one_pass, else
+// row-streaming strips of `strip` rows, on gx x gy blocks; scratch of gx gy
+// partial sums and a zeroed counter that the last block resets.
+// cudaErrorInvalidValue for a geometry or mode C1 does not take.
+int st_relax(const float* u, const float* f, const int8_t* pid, float* out, float* partial,
+             unsigned* done, float* rsq, int n, double a0, double da, double omega, int bim,
+             int mode, int one_pass, int strip, int gx, int gy, void* stream) {
+  if (mode < 0 || mode > 1 || !c1_grid_ok(n, one_pass != 0, strip, gx, gy))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const SCoef k = make_scoef(n, a0, da, omega);
-  const dim3 g = fine_grid(n), b(TX, TY);
+  const dim3 g(gx, gy);
+  const bool op = one_pass != 0;
   if (bim) {
-    if (mode == 0) c1_stencil_relax<true, 0><<<g, b, 0, st>>>(u, f, pid, out, partial, k);
-    else c1_stencil_relax<true, 1><<<g, b, 0, st>>>(u, f, pid, out, partial, k);
+    if (mode == 0) launch_c1<true, 0>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
+    else launch_c1<true, 1>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
   } else {
-    if (mode == 0) c1_stencil_relax<false, 0><<<g, b, 0, st>>>(u, f, pid, out, partial, k);
-    else c1_stencil_relax<false, 1><<<g, b, 0, st>>>(u, f, pid, out, partial, k);
+    if (mode == 0) launch_c1<false, 0>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
+    else launch_c1<false, 1>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
   }
-  reduce_kernel<<<1, NT, 0, st>>>(partial, (int)(g.x * g.y), rsq);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the row-streaming C1 in one form and mode that one SM holds at
+// once: what ops/stencil_sweep.py balances the strip height against.
+// Negative on a CUDA error.
+int st_relax_occupancy(int bim, int mode) {
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c1_rows_kernel(bim, mode), RT, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // C2.  out = kk sweeps of u (1 <= kk <= 8); rsq[0] = interior ||f - A u||^2

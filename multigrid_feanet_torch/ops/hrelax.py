@@ -37,12 +37,14 @@ JAX package's arithmetic.  The level-facing functions :func:`hrelax`,
 plain version, CUDA tensors launch the kernel or raise.  Kernels and plain
 versions agree to ``TOL`` as those of ``ops/sweep.py`` do.
 
-E1 streams rows (``csrc/hrelax.cu``): its wrapper launches it on the
-bands and strips of :func:`e1_tiles`, with the strip height
-:func:`row_strip` picks for the level's size and the card's occupancy, and
-levels of up to ``E1_ONE_PASS_MAX_N[L]`` on one-pass tiles
-(:func:`e1_launch_tiles`); u, f, the phase and a boundary field must
-start on a 16-byte boundary.  The kernels are built for chain depths
+E1 and E2 stream rows (``csrc/hrelax.cu``): their wrappers launch them on
+the bands and strips of :func:`e1_tiles` and :func:`e2_tiles`, with the
+strip height :func:`row_strip` picks for the level's size and the card's
+occupancy, and levels of up to ``E1_ONE_PASS_MAX_N[L]`` and
+``E2_ONE_PASS_MAX_N[L]`` on one-pass tiles (:func:`e1_launch_tiles`,
+:func:`e2_launch_tiles`); both finish their norms in their last block.
+Their u, f, the phase and a boundary field must start on a 16-byte
+boundary.  The kernels are built for chain depths
 ``SUPPORTED_DEPTHS``; the wrappers raise ValueError for any other.  The
 prolongation-fused legs (E3, E5) need an odd depth, as the TPU wrappers
 assert; the plain versions take any depth otherwise.
@@ -183,7 +185,10 @@ KERNELS = {
     # one_pass strip gx gy; stream
     "E1": sw.CudaKernel("E1_hrelax", "mg_hrelax", [_P] * 9 + [_D, _I, _I, _D, _D, _D] + [_I] * 7
                         + [_P], _REPLACES + "55", _SOURCE),
-    "E2": sw.CudaKernel("E2_hswrr", "mg_hswrr", [_P] * 8 + _TAIL, _REPLACES + "287", _SOURCE),
+    # u f ph params u1 fc partial done rsq; n a0 da omega; bim dform L; one_pass strip gx gy;
+    # stream
+    "E2": sw.CudaKernel("E2_hswrr", "mg_hswrr", [_P] * 9 + [_I, _D, _D, _D] + [_I] * 7 + [_P],
+                        _REPLACES + "287", _SOURCE),
     "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL, _REPLACES + "361",
                         _SOURCE),
     "E4": sw.CudaKernel("E4_zhswrr", "mg_zhswrr", [_P] * 4 + _TAIL, _REPLACES + "420", _SOURCE),
@@ -293,10 +298,11 @@ def occupancy(symbol: str, *args) -> int:
 
 
 def row_scratch(tiles: sw.Tiles, sums: int, device, workspace) -> tuple:
-    """(partials, counter) of one E1 (``sums`` 1) or H1 (2) launch: ``sums``
-    partial sums per block and the zeroed counter whose last block adds
-    them (and resets it), kept in ``workspace`` under the whole geometry
-    (E1's band, and so its grid, depends on the chain depth)."""
+    """(partials, counter) of one launch that finishes its norms in its last
+    block (E1, E2, C1: ``sums`` 1; H1: 2): ``sums`` partial sums per block
+    and the zeroed counter whose last block adds them (and resets it), kept
+    in ``workspace`` under the whole geometry (E1's and E2's bands, and so
+    their grids, depend on the chain depth)."""
     key = ("row_scratch", tiles)
     bufs = None if workspace is None else workspace.get(key)
     if bufs is None:
@@ -328,6 +334,65 @@ def e1_launch_tiles(n: int, L: int, bim: bool, dform: bool, bcmode: int, device)
     return tiles
 
 
+# Launch geometry of E2: row-streaming bands and strips in E1's block shape,
+# each block restricting to the coarse nodes under its band and strip.
+
+# levels of up to this many elements per side, by chain depth, run E2 on
+# one-pass tiles (csrc/hrelax.cu e2_h_descent, 16 x 32 fine tiles of the
+# coarse grid): one wave holds the grid there, and a row-streaming block's
+# 3L + 6 halo steps take longer than a tile's barriers.  The largest level
+# at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover --legs c1e2``, PERF.md)
+E2_ONE_PASS_MAX_N = {1: 512, 3: 512}
+
+
+def e2_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
+    """E2 with chain depth L: a block computes ``A12_THREADS A12_COLUMNS``
+    columns and owns ``A12_THREADS A12_COLUMNS - 2L - 4`` of them (the
+    Jacobi stage, each conv layer and the residual eat a column of halo on
+    each side, the restriction one more, and the band is even) and the
+    coarse nodes under its band and strip."""
+    sw._check_strip(strip)
+    Hc, band = n // 2 + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2 * L - 4
+    return sw.Tiles("E2", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
+
+
+def e2_one_pass_tiles(n: int) -> sw.Tiles:
+    """E2 on one-pass tiles: one block per CY x CX coarse tile
+    (csrc/common.cuh), whose fine tile is 16 x 32 nodes."""
+    Hc = n // 2 + 1
+    return sw.Tiles("E2_tile", n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+
+
+def e2_halo_steps(L: int) -> int:
+    """Steps an E2 block takes beyond the fine rows its strip restricts:
+    the u rows of the chain's halo above (L + 3) and below (L + 2), the
+    wavefront's lag (L: each conv layer reads rows its input layer finished
+    a step earlier) and the residual's (1)."""
+    return 3 * L + 6
+
+
+_E2_TILES = {}
+
+
+def e2_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
+    """The geometry E2 launches with on ``device``: one-pass tiles up to
+    ``E2_ONE_PASS_MAX_N[L]``, else row-streaming strips of :func:`row_strip`'s
+    height for the occupancy the card reports for the instance launched
+    (computed once per level shape)."""
+    if n <= E2_ONE_PASS_MAX_N[L]:
+        return e2_one_pass_tiles(n)
+    key = (n, L, bool(bim), bool(dform), device.index)
+    tiles = _E2_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * occupancy("mg_hswrr_occupancy", int(bim), int(dform), L)
+        tiles = e2_tiles(n, L, row_strip(lambda s: e2_tiles(n, L, s), e2_halo_steps(L), slots,
+                                         sms))
+        _E2_TILES[key] = tiles
+    return tiles
+
+
 def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None,
                 workspace=None):
     """E1 on the card; same contract as :func:`hrelax_plain`, and u, f,
@@ -352,7 +417,9 @@ def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rs
 
 def hswrr_cuda(u, f, ph, params, *, a0, da, omega, dform, out=None, fc_out=None, rsq=None,
                workspace=None):
-    """E2 on the card; same contract as :func:`hswrr_plain`."""
+    """E2 on the card; same contract as :func:`hswrr_plain`, and u, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     L = _kernel_depth(params)
     n, dev = u.shape[0] - 1, u.device
     sw._operands(n, dev, [("u", u), ("f", f)], ph)
@@ -360,9 +427,13 @@ def hswrr_cuda(u, f, ph, params, *, a0, da, omega, dform, out=None, fc_out=None,
     out = sw._output(out, "out", (n + 1, n + 1), dev, (u, f))
     fc_out = sw._output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f, out))
     rsq = sw._scalar_out(rsq, dev)
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph))
+    tiles = e2_launch_tiles(n, L, ph is not None, dform, dev)
+    partial, done = row_scratch(tiles, 1, dev, workspace)
     KERNELS["E2"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), params.data_ptr(), out.data_ptr(),
-                  fc_out.data_ptr(), sw._partials(1, n, dev, workspace).data_ptr(),
-                  rsq.data_ptr(), *_tail(n, L, ph, a0, da, omega, dform, dev))
+                  fc_out.data_ptr(), partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0,
+                  da, omega, int(ph is not None), int(dform), L, int(tiles.leg == "E2_tile"),
+                  tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out, fc_out, rsq
 
 

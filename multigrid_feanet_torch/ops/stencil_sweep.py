@@ -30,6 +30,16 @@ residual is zero on the boundary, and ``rsq`` is the interior squared
 residual norm of the incoming iterate (for ``sweep_k``: of the last sweep's
 input, so it lags k - 1 sweeps behind the returned iterate).  The kernels
 agree with their plain versions to ``ops.sweep.TOL``.
+
+C1 has two designs (``csrc/stencil.cu``), both finishing the norm in their
+last block: above ``C1_ONE_PASS_MAX_N`` its wrapper launches the
+row-streaming kernel on the bands and strips of :func:`c1_tiles`, with the
+strip height ``ops.hrelax.row_strip`` picks for the level's size and the
+card's occupancy; at and below it the one-pass tiles of
+:func:`c1_one_pass_tiles` (:func:`c1_launch_tiles` chooses).  u, f and
+``pid`` must start on a 16-byte boundary (whole tensors do; an offset view
+may not, and raises ValueError).  C2 runs one-pass tiles and a second pass
+for its norm.
 """
 
 from __future__ import annotations
@@ -37,10 +47,12 @@ from __future__ import annotations
 import torch
 
 from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.ops.hrelax import occupancy, row_scratch, row_strip
 from multigrid_feanet_torch.ops.stencil import UNIT_S4, UNIT_S9
 from multigrid_feanet_torch.ops.sweep import (
-    CudaKernel, _I, _D, _P, _check, _emit, _interior, _operands, _output, _partials,
-    _ptr, _scalar_out, _shifts, _stream)
+    A12_COLUMNS, A12_THREADS, CudaKernel, Tiles, _I, _D, _P, _check, _check_aligned,
+    _check_strip, _emit, _interior, _operands, _output, _partials, _ptr, _scalar_out, _shifts,
+    _stream)
 
 _SOURCE = "multigrid_feanet_torch/csrc/stencil.cu"
 MAX_FUSED = 8  # sweeps per pass of C2, as the TPU kernel
@@ -112,40 +124,95 @@ def _check_k(k):
 # ---------------------------------------------------------------------------
 
 KERNELS = {
+    # u f pid out partial done rsq; n a0 da omega; bim mode one_pass strip gx gy; stream
     "C1": CudaKernel("C1_stencil_relax", "st_relax",
-                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     [_P] * 7 + [_I, _D, _D, _D] + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_stencil.py:122", _SOURCE),
     "C2": CudaKernel("C2_stencil_multi", "st_multi",
                      [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
                      "multigrid_feanet_tpu/ops/pallas_stencil.py:364", _SOURCE),
 }
 
+# steps a row-streaming C1 block takes beyond its strip's rows: the u rows
+# above and below
+C1_HALO_STEPS = 2
+# levels of up to this many elements per side run C1 on one-pass tiles
+# (csrc/stencil.cu c1_stencil_relax, 32 x 8 nodes a block): one wave holds
+# the grid there, and a row-streaming strip's chain of steps takes longer.
+# The largest level at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover --legs c1e2``, PERF.md)
+C1_ONE_PASS_MAX_N = 256
 
-def _launch(key, which, mode_or_k, u, f, pid, a0, da, omega, out, rsq, workspace):
+
+def c1_tiles(n: int, strip: int = 32) -> Tiles:
+    """C1: a block owns the ``A12_THREADS A12_COLUMNS`` columns its threads
+    cover and a strip of the (n+1) rows."""
+    _check_strip(strip)
+    H, band = n + 1, A12_THREADS * A12_COLUMNS
+    return Tiles("C1", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def c1_one_pass_tiles(n: int) -> Tiles:
+    """C1 on one-pass tiles: one block (of one thread per node) per 32 x 8
+    tile of nodes (csrc/common.cuh's TX x TY)."""
+    H = n + 1
+    return Tiles("C1_tile", n, 32, 8, -(-H // 32), -(-H // 8))
+
+
+_C1_TILES = {}
+
+
+def c1_launch_tiles(n: int, bim: bool, mode: int, device) -> Tiles:
+    """The geometry C1 launches with on ``device``: one-pass tiles up to
+    ``C1_ONE_PASS_MAX_N``, else row-streaming strips of ``row_strip``'s
+    height for the occupancy the card reports for the instance launched
+    (computed once per level shape)."""
+    if n <= C1_ONE_PASS_MAX_N:
+        return c1_one_pass_tiles(n)
+    key = (n, bool(bim), mode, device.index)
+    tiles = _C1_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * occupancy("st_relax_occupancy", int(bim), mode)
+        tiles = c1_tiles(n, row_strip(lambda s: c1_tiles(n, s), C1_HALO_STEPS, slots, sms))
+        _C1_TILES[key] = tiles
+    return tiles
+
+
+def _operands_c(u, f, pid, out, rsq):
+    """Check one C1 or C2 launch's operands; (n, device, out, rsq)."""
     n, dev = u.shape[0] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)])
     if pid is not None:
         _check(pid, "pid", (n + 1, n + 1), torch.int8, dev)
-    out = _output(out, "out", (n + 1, n + 1), dev, (u, f))
-    rsq = _scalar_out(rsq, dev)
-    KERNELS[key](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(),
-                 _partials(which, n, dev, workspace).data_ptr(), rsq.data_ptr(), n,
-                 a0, da, omega, int(pid is not None), mode_or_k, _stream(dev))
-    return out, rsq
+    return n, dev, _output(out, "out", (n + 1, n + 1), dev, (u, f)), _scalar_out(rsq, dev)
 
 
 def relax_cuda(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None, rsq=None,
                workspace=None):
-    """C1 on the card; same contract as :func:`relax_plain`."""
+    """C1 on the card; same contract as :func:`relax_plain`, and u, f and
+    ``pid`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     _check_mode(mode)
-    return _launch("C1", 0, 0 if mode == "sweep" else 1, u, f, pid, a0, da, omega,
-                   out, rsq, workspace)
+    n, dev, out, rsq = _operands_c(u, f, pid, out, rsq)
+    _check_aligned(("u", u), ("f", f), ("pid", pid))
+    m = 0 if mode == "sweep" else 1
+    tiles = c1_launch_tiles(n, pid is not None, m, dev)
+    partial, done = row_scratch(tiles, 1, dev, workspace)
+    KERNELS["C1"](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(), partial.data_ptr(),
+                  done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, int(pid is not None), m,
+                  int(tiles.leg == "C1_tile"), tiles.strip, tiles.gx, tiles.gy, _stream(dev))
+    return out, rsq
 
 
 def multi_cuda(u, f, pid=None, *, k, a0, da, omega, out=None, rsq=None, workspace=None):
     """C2 on the card; same contract as :func:`multi_plain`."""
     _check_k(k)
-    return _launch("C2", 2, int(k), u, f, pid, a0, da, omega, out, rsq, workspace)
+    n, dev, out, rsq = _operands_c(u, f, pid, out, rsq)
+    KERNELS["C2"](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(),
+                  _partials(2, n, dev, workspace).data_ptr(), rsq.data_ptr(), n, a0, da, omega,
+                  int(pid is not None), int(k), _stream(dev))
+    return out, rsq
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
-``csrc/hrelax.cu`` (E1), ``csrc/torus.cu`` (H1) and ``csrc/qsweep.cu`` (F1) of
-this checkout against those of an earlier checkout of the port on one GPU,
-in turns.
+``csrc/hrelax.cu`` (E1, E2), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1)
+and ``csrc/stencil.cu`` (C1) of this checkout against those of an earlier
+checkout of the port on one GPU, in turns.
 
-    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|f1a6|pbc] [--out FILE]
+    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|f1a6|c1e2|pbc] [--out FILE]
     python3 sweep_vs_parent.py --strip-scan [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6] [--out FILE]
-    python3 sweep_vs_parent.py --levels [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2] [--out FILE]
+    python3 sweep_vs_parent.py --levels [--legs all|c1e2] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -15,7 +15,8 @@ DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
 Each turn is a process of its own that imports the package of one
 checkout, which builds that checkout's kernels into its own
 ``build/kernels``, and runs ``chip_smoke``'s holds (``check_kernels``,
-``check_e1``, ``check_torus``, ``check_f1``) on it: each checkout's own
+``check_e1``, ``check_torus``, ``check_f1``, ``check_stencil``,
+``check_hrelax``) on it: each checkout's own
 wrappers are held
 against their plain versions at ``TOL`` and timed with
 ``chip_smoke.kernel_ms`` (50 graph-replayed launches on L2-cold inputs,
@@ -43,6 +44,13 @@ median of 3).  The turns run parent, this, this, parent.
   homogeneous difference and the bi-material mass form, and bi-material at
   every size of CROSS_LEVELS.  The summary adds A6 over A2 + A1 psweep for
   each checkout.
+- ``c1e2``: ``relax_cuda`` (C1) in sweep and residual mode, homogeneous
+  (``poisson_4097_r1``'s) and bi-material, at 4097^2 and 2049^2; and
+  ``hswrr_cuda`` (E2) at 4097^2 with the L = 1 and L = 3 nets, bi-material
+  in difference form (``hmg_interface_4097``'s) and homogeneous in plain
+  form (``hmg_4097``'s); and the one-pass tiles at the sizes this
+  checkout launches them, C1 homogeneous at n = 32 ... 256 and E2 in those
+  four forms at n = 64 ... 512.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -72,17 +80,22 @@ in the bi-material and homogeneous difference form (f32) and the
 bi-material one in bf16 storage.  The designs take turns (tile, streaming,
 streaming, tile); the summary gives each design's mean and the
 tile-over-streaming ratio, the data the thresholds are set from, and the
-blocks per SM the card reports for the row-streaming F1 and A6.  Writes
+blocks per SM the card reports for the row-streaming F1 and A6.  With
+``--legs c1e2`` (or ``all``): C1 homogeneous and bi-material (sweep mode)
+and E2 homogeneous with the L = 1 and L = 3 nets and bi-material in
+difference form with both nets (``ops/stencil_sweep.py::C1_ONE_PASS_MAX_N``,
+``ops/hrelax.py::E2_ONE_PASS_MAX_N``), with their blocks per SM.  Writes
 ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
 size at every size of the path PERF.md's kernel table counts their
 launches on, each beside its byte bound: C1 (sweep and residual) and C2
-(k = 2) at 4096 ... 32 (``poisson_4097_r1``, ``_v22``; homogeneous), E4 and
-E5 at 2048 ... 32 with the L = 1 net (``hmg_4097`` homogeneous and
-``hmg_interface_4097`` bi-material in difference form), D4 and D5 at 2048
-... 32 on the 4097^2 BoxMG setup's bf16 planes (``boxmg_4097``), and G1-G5
-at 2048 ... 16 (the elastic cells, bi-material).  Writes
+(k = 2) at 4096 ... 32 (``poisson_4097_r1``, ``_v22``; homogeneous), E2 at
+4096 and E4 and E5 at 2048 ... 32 with the L = 1 net (``hmg_4097``
+homogeneous and ``hmg_interface_4097`` bi-material in difference form), D4
+and D5 at 2048 ... 32 on the 4097^2 BoxMG setup's bf16 planes
+(``boxmg_4097``), and G1-G5 at 2048 ... 16 (the elastic cells,
+bi-material); with ``--legs c1e2`` only the C and E rows.  Writes
 ``chiprun_out/sweep_levels.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
@@ -91,12 +104,13 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3, A4 and the row-streaming F1 and A6 in all and per step
-of their row loop (between two barriers; ``loop_step`` the median of the
-six longest gaps, the unrolled loop's steps), with the registers and shared
-memory ``ptxas`` gave the new kernels.  The parent's kernels named in
-CHANGED (F1 and A6: the one-pass tiles, which keep their names and code)
-are compared apart, and the new row-streaming kernels are listed; fails
+instructions of A3, A4 and the row-streaming F1, A6, C1 and E2 in all and
+per step of their row loop (between two barriers; ``loop_step`` the median
+of the six longest gaps, the unrolled loop's steps), with the registers,
+spills and shared memory ``ptxas`` gave the new kernels.  The parent's
+kernels named in CHANGED (C1 and E2: the one-pass tiles, which keep their
+names and now finish their norms in their last block) are compared apart,
+and the new row-streaming kernels are listed; fails
 unless every other kernel matches.  Writes ``chiprun_out/sweep_sass.json``
 by default.
 """
@@ -105,6 +119,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import itertools
 import json
 import re
 import statistics
@@ -120,7 +135,11 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the kernels this checkout redesigns (--sass lists them apart)
-CHANGED = ("f1_qsweep", "a6_cross_cycle")
+CHANGED = ("c1_stencil_relax", "e2_h_descent")
+# the row-streaming kernels whose instructions per step and registers --sass
+# reports
+ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
+               "e2_h_descent_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -171,6 +190,18 @@ def child(checkout: Path, legs: str) -> int:
                  + cs.check_kernels(n, True, False, ["A6"], coef=heat, mass=cs.level_mass(n)))
         for m in CROSS_LEVELS:
             recs += cs.check_kernels(m, True, True, ["A6"])
+    if legs in ("all", "c1e2"):
+        for n in (cs.N_MAIN, cs.N_MAIN // 2):
+            for bim in (False, True):
+                recs += cs.check_stencil(n, bim, ["C1_sweep", "C1_residual"])
+        for bim, dform in ((True, True), (False, False)):
+            for ckpt in (cs.HNET_L1, cs.HNET_L3):
+                recs += cs.check_hrelax(cs.N_MAIN, bim, dform, ckpt, ["E2"])
+                # the one-pass tiles at the sizes this checkout runs them
+                for m in TILE_LEVELS:
+                    recs += cs.check_hrelax(m, bim, dform, ckpt, ["E2"])
+        for m in (32,) + TILE_LEVELS[:3]:
+            recs += cs.check_stencil(m, False, ["C1_sweep"])
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -189,18 +220,22 @@ def child(checkout: Path, legs: str) -> int:
 
 
 CROSS_LEVELS = (64, 128, 256, 512, 1024)
+# c1e2: the sizes at which C1 (up to 256) and E2 (up to 512) run one-pass tiles
+TILE_LEVELS = (64, 128, 256, 512)
 
 
 def crossover(which: str) -> list:
     """The kernels of ``which`` (E1 in three forms and H1; F1 on two Q types
-    and A6 in three forms) at each size of CROSS_LEVELS in both designs, in
-    turns; one record per size, then a summary."""
+    and A6 in three forms; C1 in two forms and E2 in four) at each size of
+    CROSS_LEVELS in both designs, in turns; one record per size, then a
+    summary."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from multigrid_feanet_torch.ops import hrelax as hx
     from multigrid_feanet_torch.ops import qsweep as qs
+    from multigrid_feanet_torch.ops import stencil_sweep as ss
     from multigrid_feanet_torch.ops import sweep as sw
     from multigrid_feanet_torch.ops import torus as tt
 
@@ -229,6 +264,18 @@ def crossover(which: str) -> list:
         strips_of["F1"] = lambda n: [t.strip for key, t in qs._F1_TILES.items() if key[0] == n]
         strips_of["A6"] = lambda n: [t.strip for key, t in sw._LAUNCH_TILES.items()
                                      if key[:2] == ("A6", n)]
+    if which in ("all", "c1e2"):
+        thresholds += [(ss, "C1_ONE_PASS_MAX_N"), (hx, "E2_ONE_PASS_MAX_N")]
+        for bim in (False, True):
+            legs[f"C1_{'bim' if bim else 'hom'}"] = \
+                lambda n, bim=bim: cs.check_stencil(n, bim, ["C1_sweep"])[0]
+        for (bim, dform), (L, ckpt) in itertools.product(((False, False), (True, True)),
+                                                         ((1, cs.HNET_L1), (3, cs.HNET_L3))):
+            legs[f"E2_{'bim_dform' if bim else 'hom'}_L{L}"] = \
+                lambda n, bim=bim, dform=dform, ckpt=ckpt: cs.check_hrelax(
+                    n, bim, dform, ckpt, ["E2"])[0]
+        strips_of["C1"] = lambda n: [t.strip for key, t in ss._C1_TILES.items() if key[0] == n]
+        strips_of["E2"] = lambda n: [t.strip for key, t in hx._E2_TILES.items() if key[0] == n]
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
@@ -259,14 +306,21 @@ def crossover(which: str) -> list:
         for bim, form, bf16 in ((1, 1, 0), (0, 1, 0), (1, 1, 1), (1, 2, 0)):
             blocks[f"A6_bim{bim}_form{form}_bf16{bf16}_strip{sw.A12_STRIP_MAX}"] = hx.occupancy(
                 "mg_a12_occupancy", 6, bim, form, 0, bf16, sw.A12_STRIP_MAX)
+    if which in ("all", "c1e2"):
+        for bim, mode in itertools.product((0, 1), (0, 1)):
+            blocks[f"C1_bim{bim}_mode{mode}"] = hx.occupancy("st_relax_occupancy", bim, mode)
+        for bim, dform, L in itertools.product((0, 1), (0, 1), (1, 3)):
+            blocks[f"E2_bim{bim}_dform{dform}_L{L}"] = hx.occupancy("mg_hswrr_occupancy", bim,
+                                                                    dform, L)
     return out + [dict(summary=summary, blocks_per_sm=blocks)]
 
 
 LEVEL_SIZES = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 
 
-def levels() -> list:
-    """The multi-level kernels at each level size of their paths; one
+def levels(which: str) -> list:
+    """The multi-level kernels (and E2, at its one size) at each level size
+    of their paths, all of them or (``which`` "c1e2") the C and E rows; one
     record per kernel and size."""
     import torch
 
@@ -283,11 +337,15 @@ def levels() -> list:
     for n in LEVEL_SIZES:
         out += [row(r, "poisson_4097_r1")
                 for r in cs.check_stencil(n, False, ["C1_sweep", "C1_residual", "C2_k2"])]
-    for n in LEVEL_SIZES[1:]:
-        out += [row(r, "hmg_4097") for r in cs.check_hrelax(n, False, False, cs.HNET_L1,
-                                                            ["E4", "E5"])]
+    for n in LEVEL_SIZES:
+        legs = ["E2"] if n == LEVEL_SIZES[0] else ["E4", "E5"]
+        out += [row(r, "hmg_4097") for r in cs.check_hrelax(n, False, False, cs.HNET_L1, legs)]
         out += [row(r, "hmg_interface_4097") for r in cs.check_hrelax(n, True, True, cs.HNET_L1,
-                                                                      ["E4", "E5"])]
+                                                                      legs)]
+    if which == "c1e2":
+        for r in out:
+            print(json.dumps(r), flush=True)
+        return out
     _, _, setup = cs.boxmg_setup_on_card()
     for level in range(1, len(LEVEL_SIZES)):
         out += [row(r, "boxmg_4097") for r in cs.check_general(level, False, ["D4", "D5"], setup,
@@ -412,9 +470,8 @@ def sass_report(parent: Path) -> dict:
     a34 = {}
     for (src, name, storage), ins in mine.items():
         if (src == "sweep" and (name.startswith("zpsweep_kernel")
-                                or name.startswith("a6_cross_cycle_rows")
                                 or re.match(r"swrr_kernel<Lb\dELi\dELb1E>", name))) \
-                or "f1_qsweep_rows" in name:
+                or any(k in name for k in ROW_KERNELS):
             bars = [i for i, x in enumerate(ins) if x.startswith("BAR.SYNC")]
             steps = [b - a for a, b in zip(bars, bars[1:])]
             # the unrolled row loop's steps are its longest gaps between barriers
@@ -423,11 +480,13 @@ def sass_report(parent: Path) -> dict:
                                             loop_step=statistics.median(sorted(steps)[-6:]))
     log = _library(ROOT).with_suffix(".log").read_text()
     ptxas = {}
-    for m in re.finditer(r"Compiling entry function '(\w+)'.*?\n(?:.*\n)*?.*?Used (\d+) registers"
-                         r"(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", log):
-        if any(k in m.group(1) for k in ("f1_qsweep_rows", "a6_cross_cycle_rows")):
-            ptxas[_plain_name(m.group(1))[1]] = dict(registers=int(m.group(2)),
-                                                     smem=int(m.group(3) or 0))
+    for m in re.finditer(r"Compiling entry function '(\w+)'[^\n]*\n[^\n]*\n\s*(\d+) bytes stack "
+                         r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n"
+                         r"[^\n]*Used (\d+) registers[^\n]*?(?:(\d+) bytes smem)?\n", log):
+        if any(k in m.group(1) for k in ROW_KERNELS):
+            ptxas[_plain_name(m.group(1))[1]] = dict(
+                registers=int(m.group(5)), spill_stores=int(m.group(3)),
+                spill_loads=int(m.group(4)), smem=int(m.group(6) or 0))
     return dict(same=sum(same.values()), total=len(same), new_ptxas=ptxas,
                 sweep_legs_same=sum(legs.values()), sweep_legs_total=len(legs),
                 differ=[" ".join(k) for k, v in same.items() if not v],
@@ -443,10 +502,10 @@ def _key(rec) -> str:
         return f"F1_{rec['n']}_{rec['q_dtype']}"
     if "n" not in rec:
         return rec["name"]
-    form = "mass" if rec.get("mass") else "dform" if rec["dform"] else "plain"
+    form = "mass" if rec.get("mass") else "dform" if rec.get("dform") else "plain"
     key = f"{rec['name']}_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_{form}"
-    if rec["name"] == "E1":
-        key += f"_L{rec['L']}" + ("" if rec["bc"] is None else f"_bc{rec['bc']}")
+    if rec["name"] in ("E1", "E2"):
+        key += f"_L{rec['L']}" + ("" if rec.get("bc") is None else f"_bc{rec['bc']}")
     if rec.get("dtype"):
         key += f"_{rec['dtype']}"
     return key
@@ -471,7 +530,7 @@ def a6_against_split(times: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "pbc"),
+    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "pbc"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -494,8 +553,8 @@ def main() -> int:
         name = ("sweep_strip_scan.json" if args.strip_scan else
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
-        lines = [dict(card=smi)] + (strip_scan() if args.strip_scan else levels() if args.levels
-                                    else crossover(args.legs))
+        lines = [dict(card=smi)] + (strip_scan() if args.strip_scan else
+                                    levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:
             print(json.dumps(lines[-1]), flush=True)
         out.parent.mkdir(parents=True, exist_ok=True)
