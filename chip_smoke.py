@@ -47,12 +47,12 @@ Phases, in order; any failure exits non-zero:
    at 4097^2, E4 and E5 at 2049^2 (homogeneous in plain form and
    bi-material in difference form, the L = 1 net), and all four at n = 512
    (bi-material and homogeneous, the L = 3 net).  Timed as in phase 2.
-   Then E2 at n = 2, 126, each side of each
-   ``ops.hrelax.E2_ONE_PASS_MAX_N`` threshold, 1000 and 4096 in each
-   design the size takes (the one-pass tile up to the threshold, where the
-   row-streaming kernel is held too), with the L = 1 and L = 3 nets,
-   homogeneous and bi-material, plain and difference form, two launches
-   bitwise equal.
+   Then E2, E3 and E5 each at n = 2, 126, each side of each of its
+   thresholds (``ops.hrelax.E2_ONE_PASS_MAX_N``, ``E3_ONE_PASS_MAX_N``,
+   ``E5_ONE_PASS_MAX_N``), 1000 and 4096 in each design the size takes (the
+   one-pass tile up to the threshold, where the row-streaming kernel is
+   held too), with the L = 1 and L = 3 nets, homogeneous and bi-material,
+   plain and difference form, two launches bitwise equal.
 8. The H-MG path of ``solvers/hmg.py``: ``hmg_4097``, the homogeneous
    4097^2 decay solve (same u0, 9 levels, threshold 32, direct coarse,
    plain form) with the L = 1 net of
@@ -867,9 +867,10 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
 
 
 # profiler kernel names -> summary labels (e1_h_relax also names E1's
-# one-pass tile, e1_h_relax_tile; c1_stencil_relax and e2_h_descent, the
-# one-pass tiles, also name the row-streaming c1_stencil_relax_rows and
-# e2_h_descent_rows); no name is a substring of another label's
+# one-pass tile, e1_h_relax_tile; c1_stencil_relax, e2_h_descent,
+# e3_h_ascent and e5_h_zascent, the one-pass tiles, also name the
+# row-streaming c1_stencil_relax_rows, e2_h_descent_rows, e3_h_ascent_rows
+# and e5_h_zascent_rows); no name is a substring of another label's
 # name except sweep_kernel, which is tested after zpsweep_kernel, and
 # swrr_kernel, whose zero-guess instances (A3: third template argument true,
 # then the storage type) A3_NAME tells apart first
@@ -1790,10 +1791,10 @@ def check_h1_variants() -> list:
 
 
 def ragged_sizes(*thresholds) -> tuple:
-    """F1's, A6's, C1's and E2's ragged sizes: n = 2 (one block), 126 (one
-    band, ragged strips), each side of each one-pass threshold, 1000
-    (ragged bands and strips) and 4096 (17 bands, a ragged last band and
-    strip)."""
+    """F1's, A6's, C1's, E2's, E3's and E5's ragged sizes: n = 2 (one
+    block), 126 (one band, ragged strips), each side of each one-pass
+    threshold, 1000 (ragged bands and strips) and 4096 (17 bands, a ragged
+    last band and strip)."""
     return tuple(sorted({2, N_ODD, 1000, N_MAIN, *thresholds,
                          *(t + 2 for t in thresholds)}))
 
@@ -1924,6 +1925,51 @@ def check_e2_variants() -> list:
                             label, lambda: hx.hswrr_cuda(u, f, ph, params, workspace=ws, **cfg),
                             lambda: hx.hswrr_plain(u, f, ph, params, **cfg), hx.TOL))
     return recs
+
+
+def check_ascent_variants(leg: str) -> list:
+    """E3 (``leg`` "E3") or E5 ("E5") against its plain version at n = 2,
+    126, each side of each ``ops.hrelax.E3_ONE_PASS_MAX_N`` /
+    ``E5_ONE_PASS_MAX_N`` threshold, 1000 and 4096, in each design the size
+    takes (``designs``), with the L = 1 and L = 3 nets, homogeneous and
+    bi-material, plain and difference form, on u1 of the main path's scale
+    (boundary ring 0.3; E3), standard normal f and uc; two launches bitwise
+    equal.  One record per case."""
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    name = f"{leg}_ONE_PASS_MAX_N"
+    nets = {L: load_params(ckpt) for L, ckpt in ((1, HNET_L1), (3, HNET_L3))}
+    recs = []
+    for n in ragged_sizes(*getattr(hx, name).values()):
+        inputs = {bim: level_inputs(n, bim, 17, ring=0.3) for bim in (False, True)}
+        for forced in designs(hx, name, n):
+            for bim in (False, True):
+                u, f, uc, ph = inputs[bim]
+                for dform in (False, True):
+                    for L, params in nets.items():
+                        tile = not forced and n <= getattr(hx, name)[L]
+                        cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0,
+                                   dform=dform)
+                        label = (f"{leg} {'one-pass' if tile else 'row-streaming'} n={n} "
+                                 f"{'bim' if bim else 'hom'}{' dform' if dform else ''} L={L}")
+                        if leg == "E3":
+                            kernel = lambda: (hx.phrelax_cuda(u, f, ph, uc, params, **cfg),)
+                            plain = lambda: (hx.phrelax_plain(u, f, ph, uc, params, **cfg),)
+                        else:
+                            kernel = lambda: (hx.zphrelax_cuda(f, ph, uc, params, **cfg),)
+                            plain = lambda: (hx.zphrelax_plain(f, ph, uc, params, **cfg),)
+                        recs.append(hold_twice(label, kernel, plain, hx.TOL))
+    return recs
+
+
+def check_e3_variants() -> list:
+    """E3 at its ragged sizes in both designs (``check_ascent_variants``)."""
+    return check_ascent_variants("E3")
+
+
+def check_e5_variants() -> list:
+    """E5 at its ragged sizes in both designs (``check_ascent_variants``)."""
+    return check_ascent_variants("E5")
 
 
 def check_f1(n: int, q_dtype, seed: int = 14):
@@ -2844,6 +2890,8 @@ def main() -> int:
         hchecks += check_hrelax(N_COARSE, bim, dform, HNET_L3, ["E2", "E3", "E4", "E5"])
     print(json.dumps({"hrelax_kernel_checks": hchecks}), flush=True)
     print(json.dumps({"e2_variants": check_e2_variants()}), flush=True)
+    print(json.dumps({"e3_variants": check_e3_variants()}), flush=True)
+    print(json.dumps({"e5_variants": check_e5_variants()}), flush=True)
 
     from multigrid_feanet_torch.core.problem import Problem
     from multigrid_feanet_torch.solvers.hmg import HMGHierarchy

@@ -37,14 +37,15 @@ JAX package's arithmetic.  The level-facing functions :func:`hrelax`,
 plain version, CUDA tensors launch the kernel or raise.  Kernels and plain
 versions agree to ``TOL`` as those of ``ops/sweep.py`` do.
 
-E1 and E2 stream rows (``csrc/hrelax.cu``): their wrappers launch them on
-the bands and strips of :func:`e1_tiles` and :func:`e2_tiles`, with the
-strip height :func:`row_strip` picks for the level's size and the card's
-occupancy, and levels of up to ``E1_ONE_PASS_MAX_N[L]`` and
-``E2_ONE_PASS_MAX_N[L]`` on one-pass tiles (:func:`e1_launch_tiles`,
-:func:`e2_launch_tiles`); both finish their norms in their last block.
-Their u, f, the phase and a boundary field must start on a 16-byte
-boundary.  The kernels are built for chain depths
+E1, E2, E3 and E5 stream rows (``csrc/hrelax.cu``): their wrappers launch
+them on the bands and strips of :func:`e1_tiles`, :func:`e2_tiles`,
+:func:`e3_tiles` and :func:`e5_tiles`, with the strip height
+:func:`row_strip` picks for the level's size and the card's occupancy, and
+levels of up to ``E1_ONE_PASS_MAX_N[L]``, ``E2_ONE_PASS_MAX_N[L]``,
+``E3_ONE_PASS_MAX_N[L]`` and ``E5_ONE_PASS_MAX_N[L]`` on one-pass tiles
+(:func:`e1_launch_tiles` .. :func:`e5_launch_tiles`); E1 and E2 finish
+their norms in their last block.  Their u, f, the phase, a boundary field
+and uc must start on a 16-byte boundary.  The kernels are built for chain depths
 ``SUPPORTED_DEPTHS``; the wrappers raise ValueError for any other.  The
 prolongation-fused legs (E3, E5) need an odd depth, as the TPU wrappers
 assert; the plain versions take any depth otherwise.
@@ -189,11 +190,13 @@ KERNELS = {
     # stream
     "E2": sw.CudaKernel("E2_hswrr", "mg_hswrr", [_P] * 9 + [_I, _D, _D, _D] + [_I] * 7 + [_P],
                         _REPLACES + "287", _SOURCE),
-    "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL, _REPLACES + "361",
-                        _SOURCE),
+    # u1 f ph uc params out; n a0 da omega; bim dform L; one_pass strip gx gy; stream
+    "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL[:-1] + [_I] * 4 + [_P],
+                        _REPLACES + "361", _SOURCE),
     "E4": sw.CudaKernel("E4_zhswrr", "mg_zhswrr", [_P] * 4 + _TAIL, _REPLACES + "420", _SOURCE),
-    "E5": sw.CudaKernel("E5_zphrelax", "mg_zphrelax", [_P] * 5 + _TAIL, _REPLACES + "460",
-                        _SOURCE),
+    # f ph uc params out; n a0 da omega; bim dform L; one_pass strip gx gy; stream
+    "E5": sw.CudaKernel("E5_zphrelax", "mg_zphrelax", [_P] * 5 + _TAIL[:-1] + [_I] * 4 + [_P],
+                        _REPLACES + "460", _SOURCE),
 }
 
 
@@ -265,11 +268,12 @@ def e1_halo_steps(L: int) -> int:
     return 3 * L + 2
 
 
-def row_strip(tiles_of, halo: int, slots: int, sms: int) -> int:
+def row_strip(tiles_of, halo: int, slots, sms: int) -> int:
     """The even strip height in [2, A12_STRIP_MAX] that finishes a level
-    soonest on a card of ``sms`` SMs that holds ``slots`` blocks at once,
-    ``tiles_of(strip)`` being the level's geometry and ``halo`` the steps a
-    block takes beyond its rows.  The cost is A3/A4's
+    soonest on a card of ``sms`` SMs that holds ``slots`` blocks at once
+    (a number, or ``slots(strip)`` where a strip's height sets the block's
+    shared memory), ``tiles_of(strip)`` being the level's geometry and
+    ``halo`` the steps a block takes beyond its rows.  The cost is A3/A4's
     (``ops/sweep.py::balanced_strip``): a step costs a block a fixed latency
     plus the issue time it shares with the blocks beside it on its SM, so a
     level takes steps x (``_STEP_LATENCY`` waves + blocks per SM).  On the
@@ -279,7 +283,7 @@ def row_strip(tiles_of, halo: int, slots: int, sms: int) -> int:
     best = None
     for strip in range(2, sw.A12_STRIP_MAX + 1, 2):
         blocks = tiles_of(strip).blocks
-        waves = -(-blocks // max(1, slots))
+        waves = -(-blocks // max(1, slots(strip) if callable(slots) else slots))
         cost = (strip + halo) * (sw._STEP_LATENCY * waves + -(-blocks // sms))
         if best is None or cost < best[0]:
             best = (cost, strip)
@@ -393,6 +397,113 @@ def e2_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
     return tiles
 
 
+# Launch geometry of E3 and E5: row-streaming bands and strips in E1's block
+# shape.  Both stage their strip's coarse rows in dynamic shared memory
+# (csrc/common.cuh stage_coarse), so the blocks an SM holds depend on the
+# strip's height, and row_strip asks the card at each height.
+
+# levels of up to this many elements per side, by chain depth, run E3 and
+# E5 on their one-pass tiles (csrc/hrelax.cu e3_h_ascent, e5_h_zascent, one
+# block per 16 x 32 fine nodes): the largest level at which the tile was
+# the faster on the H100 (``sweep_vs_parent.py --crossover --legs e3e5``,
+# PERF.md; at L = 1 E3's row-streaming kernel was faster from 17^2 up)
+E3_ONE_PASS_MAX_N = {1: 8, 3: 512}
+E5_ONE_PASS_MAX_N = {1: 512, 3: 512}
+
+
+def _ascent_one_pass_tiles(leg: str, n: int) -> sw.Tiles:
+    H = n + 1
+    return sw.Tiles(leg, n, 32, 16, -(-H // 32), -(-H // 16))
+
+
+def e3_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
+    """E3 with chain depth L: a block computes ``A12_THREADS A12_COLUMNS``
+    columns and owns ``A12_THREADS A12_COLUMNS - 2L - 2`` of them (each
+    stage of the chain eats a column of halo on each side, the Jacobi
+    stage's window one more; the band is even, so that the threads' columns
+    start on an even column and each column's prolongation is fixed)."""
+    sw._check_strip(strip)
+    H, band = n + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2 * L - 2
+    return sw.Tiles("E3", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def e3_one_pass_tiles(n: int) -> sw.Tiles:
+    """E3 on one-pass tiles: one block per 16 x 32 tile of fine nodes."""
+    return _ascent_one_pass_tiles("E3_tile", n)
+
+
+def e3_halo_steps(L: int) -> int:
+    """Steps an E3 block takes beyond its strip's rows: E1's 3L + 2 (the
+    u1 rows of the chain's halo, 2L + 2, and the wavefront's lag, L).  The
+    prolongation adds none: the strip's coarse rows are staged before its
+    first step, and each u1 row takes its correction as it is read."""
+    return 3 * L + 2
+
+
+def e5_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
+    """E5 with chain depth L: a block computes ``A12_THREADS A12_COLUMNS``
+    columns and owns ``A12_THREADS A12_COLUMNS - 4L - 2`` of them (both
+    chains' layers and the Jacobi stage eat a column of halo on each
+    side)."""
+    sw._check_strip(strip)
+    H, band = n + 1, sw.A12_THREADS * sw.A12_COLUMNS - 4 * L - 2
+    return sw.Tiles("E5", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def e5_one_pass_tiles(n: int) -> sw.Tiles:
+    """E5 on one-pass tiles: one block per 16 x 32 tile of fine nodes."""
+    return _ascent_one_pass_tiles("E5_tile", n)
+
+
+def e5_halo_steps(L: int) -> int:
+    """Steps an E5 block takes beyond its strip's rows: the rows staged
+    above it (2L + 2: the first chain's halo of 2L + 1 and the element row
+    under it) and the output row's lag behind g0 (4L + 2: each chain's L
+    layers two rows each, and the Jacobi stage two, reading u2 rows a step
+    old), during which the halo below is staged.  The prolongation adds
+    none (its coarse rows are staged before the first step)."""
+    return 6 * L + 4
+
+
+_ASCENT_TILES = {}
+
+
+def _ascent_launch_tiles(leg: str, n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
+    """The geometry E3 or E5 launches with on ``device``: one-pass tiles up
+    to ``E3_ONE_PASS_MAX_N[L]`` / ``E5_ONE_PASS_MAX_N[L]``, else row-streaming
+    strips of :func:`row_strip`'s height for the occupancy the card reports
+    for the instance launched at each height (computed once per level
+    shape)."""
+    limit, one_pass, tiles_of, halo, symbol = {
+        "E3": (E3_ONE_PASS_MAX_N, e3_one_pass_tiles, e3_tiles, e3_halo_steps,
+               "mg_phrelax_occupancy"),
+        "E5": (E5_ONE_PASS_MAX_N, e5_one_pass_tiles, e5_tiles, e5_halo_steps,
+               "mg_zphrelax_occupancy")}[leg]
+    if n <= limit[L]:
+        return one_pass(n)
+    key = (leg, n, L, bool(bim), bool(dform), device.index)
+    tiles = _ASCENT_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+        def slots(strip):
+            return sms * occupancy(symbol, int(bim), int(dform), L, strip)
+
+        tiles = tiles_of(n, L, row_strip(lambda s: tiles_of(n, L, s), halo(L), slots, sms))
+        _ASCENT_TILES[key] = tiles
+    return tiles
+
+
+def e3_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
+    """The geometry E3 launches with on ``device`` (:func:`_ascent_launch_tiles`)."""
+    return _ascent_launch_tiles("E3", n, L, bim, dform, device)
+
+
+def e5_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
+    """The geometry E5 launches with on ``device`` (:func:`_ascent_launch_tiles`)."""
+    return _ascent_launch_tiles("E5", n, L, bim, dform, device)
+
+
 def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None,
                 workspace=None):
     """E1 on the card; same contract as :func:`hrelax_plain`, and u, f,
@@ -438,14 +549,19 @@ def hswrr_cuda(u, f, ph, params, *, a0, da, omega, dform, out=None, fc_out=None,
 
 
 def phrelax_cuda(u, f, ph, uc, params, *, a0, da, omega, dform, out=None):
-    """E3 on the card; same contract as :func:`phrelax_plain`."""
+    """E3 on the card; same contract as :func:`phrelax_plain`, and u, f,
+    ``ph`` and uc must start on a 16-byte boundary (whole tensors do; an
+    offset view may not, and raises ValueError)."""
     L = _kernel_depth(params, odd=True)
     n, dev = u.shape[0] - 1, u.device
     sw._operands(n, dev, [("u", u), ("f", f)], ph, [("uc", uc)])
     sw._check(params, "params", (L, 3, 3), torch.float32, dev)
     out = sw._output(out, "out", (n + 1, n + 1), dev, (u, f, uc))
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph), ("uc", uc))
+    tiles = e3_launch_tiles(n, L, ph is not None, dform, dev)
     KERNELS["E3"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), uc.data_ptr(), params.data_ptr(),
-                  out.data_ptr(), *_tail(n, L, ph, a0, da, omega, dform, dev))
+                  out.data_ptr(), *_tail(n, L, ph, a0, da, omega, dform, dev)[:-1],
+                  int(tiles.leg == "E3_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out
 
 
@@ -462,14 +578,19 @@ def zhswrr_cuda(f, ph, params, *, a0, da, omega, dform, out=None):
 
 
 def zphrelax_cuda(f, ph, uc, params, *, a0, da, omega, dform, out=None):
-    """E5 on the card; same contract as :func:`zphrelax_plain`."""
+    """E5 on the card; same contract as :func:`zphrelax_plain`, and f,
+    ``ph`` and uc must start on a 16-byte boundary (whole tensors do; an
+    offset view may not, and raises ValueError)."""
     L = _kernel_depth(params, odd=True)
     n, dev = f.shape[0] - 1, f.device
     sw._operands(n, dev, [("f", f)], ph, [("uc", uc)])
     sw._check(params, "params", (L, 3, 3), torch.float32, dev)
     out = sw._output(out, "out", (n + 1, n + 1), dev, (f, uc))
+    sw._check_aligned(("f", f), ("phase", ph), ("uc", uc))
+    tiles = e5_launch_tiles(n, L, ph is not None, dform, dev)
     KERNELS["E5"](f.data_ptr(), sw._ptr(ph), uc.data_ptr(), params.data_ptr(), out.data_ptr(),
-                  *_tail(n, L, ph, a0, da, omega, dform, dev))
+                  *_tail(n, L, ph, a0, da, omega, dform, dev)[:-1],
+                  int(tiles.leg == "E5_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out
 
 

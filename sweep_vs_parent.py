@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
-``csrc/hrelax.cu`` (E1, E2), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1)
+``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1)
 and ``csrc/stencil.cu`` (C1) of this checkout against those of an earlier
 checkout of the port on one GPU, in turns.
 
-    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|f1a6|c1e2|pbc] [--out FILE]
-    python3 sweep_vs_parent.py --strip-scan [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2] [--out FILE]
-    python3 sweep_vs_parent.py --levels [--legs all|c1e2] [--out FILE]
+    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|pbc]
+                               [--out FILE]
+    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5] [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5] [--out FILE]
+    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -51,6 +52,11 @@ median of 3).  The turns run parent, this, this, parent.
   form (``hmg_4097``'s); and the one-pass tiles at the sizes this
   checkout launches them, C1 homogeneous at n = 32 ... 256 and E2 in those
   four forms at n = 64 ... 512.
+- ``e3e5``: ``phrelax_cuda`` (E3) at 4097^2 and ``zphrelax_cuda`` (E5) at
+  2049^2 with the L = 1 and L = 3 nets, bi-material in difference form
+  (``hmg_interface_4097``'s) and homogeneous in plain form
+  (``hmg_4097``'s); and both legs in those four forms at n = 64 ... 512,
+  where this checkout runs its one-pass tiles up to its thresholds.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -66,6 +72,9 @@ bound and the parent-over-this ratio), and writes them to ``--out``
 form, at each level size over a range of strip heights (the launch geometry
 set by hand instead of ``ops/sweep.py::balanced_strip``), beside the height
 ``balanced_strip`` picks: the data its cost model for A3/A4 is fitted to.
+With ``--legs e3e5``: E3 at 4097^2 and E5 at 2049^2 instead, with the L = 1
+and L = 3 nets, bi-material difference form and homogeneous plain form,
+over SCAN_STRIPS_E3E5 beside the height ``ops/hrelax.py::row_strip`` picks.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
 ``--crossover`` times this checkout's kernels that have a one-pass tile
@@ -84,7 +93,11 @@ blocks per SM the card reports for the row-streaming F1 and A6.  With
 ``--legs c1e2`` (or ``all``): C1 homogeneous and bi-material (sweep mode)
 and E2 homogeneous with the L = 1 and L = 3 nets and bi-material in
 difference form with both nets (``ops/stencil_sweep.py::C1_ONE_PASS_MAX_N``,
-``ops/hrelax.py::E2_ONE_PASS_MAX_N``), with their blocks per SM.  Writes
+``ops/hrelax.py::E2_ONE_PASS_MAX_N``), with their blocks per SM.  With
+``--legs e3e5`` (or ``all``): E3 and E5 in those four forms
+(``ops/hrelax.py::E3_ONE_PASS_MAX_N``, ``E5_ONE_PASS_MAX_N``; ``e3e5`` alone
+also at n = 8, 16 and 32), with the row-streaming kernels' blocks per SM at
+strips of 8, 32 and 128 rows.  Writes
 ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
@@ -95,7 +108,8 @@ launches on, each beside its byte bound: C1 (sweep and residual) and C2
 homogeneous and ``hmg_interface_4097`` bi-material in difference form), D4
 and D5 at 2048 ... 32 on the 4097^2 BoxMG setup's bf16 planes
 (``boxmg_4097``), and G1-G5 at 2048 ... 16 (the elastic cells,
-bi-material); with ``--legs c1e2`` only the C and E rows.  Writes
+bi-material); with ``--legs c1e2`` or ``e3e5`` only the C and E rows, which
+also time E3 at 4096 beside E2.  Writes
 ``chiprun_out/sweep_levels.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
@@ -104,15 +118,14 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3, A4 and the row-streaming F1, A6, C1 and E2 in all and
-per step of their row loop (between two barriers; ``loop_step`` the median
-of the six longest gaps, the unrolled loop's steps), with the registers,
-spills and shared memory ``ptxas`` gave the new kernels.  The parent's
-kernels named in CHANGED (C1 and E2: the one-pass tiles, which keep their
-names and now finish their norms in their last block) are compared apart,
-and the new row-streaming kernels are listed; fails
-unless every other kernel matches.  Writes ``chiprun_out/sweep_sass.json``
-by default.
+instructions of A3, A4 and the row-streaming F1, A6, C1, E2, E3 and E5 in
+all and per step of their row loop (between two barriers; ``loop_step`` the
+median of the six longest gaps, the unrolled loop's steps), with the
+registers, spills and shared memory ``ptxas`` gave the row-streaming
+kernels.  The parent's kernels named in CHANGED (none: E3's and E5's
+one-pass tiles keep their code) would be compared apart; the kernels new in
+this checkout are listed; fails unless every other kernel matches.  Writes
+``chiprun_out/sweep_sass.json`` by default.
 """
 
 from __future__ import annotations
@@ -134,12 +147,13 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 # pbc_mg_4096 (H1)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
-# the kernels this checkout redesigns (--sass lists them apart)
-CHANGED = ("c1_stencil_relax", "e2_h_descent")
+# the parent's kernels whose code this checkout changes (--sass compares
+# them apart): none, the one-pass E3 and E5 stay as they were
+CHANGED = ()
 # the row-streaming kernels whose instructions per step and registers --sass
 # reports
 ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
-               "e2_h_descent_rows")
+               "e2_h_descent_rows", "e3_h_ascent_rows", "e5_h_zascent_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -202,6 +216,14 @@ def child(checkout: Path, legs: str) -> int:
                     recs += cs.check_hrelax(m, bim, dform, ckpt, ["E2"])
         for m in (32,) + TILE_LEVELS[:3]:
             recs += cs.check_stencil(m, False, ["C1_sweep"])
+    if legs in ("all", "e3e5"):
+        for bim, dform in ((True, True), (False, False)):
+            for ckpt in (cs.HNET_L1, cs.HNET_L3):
+                recs += cs.check_hrelax(cs.N_MAIN, bim, dform, ckpt, ["E3"])
+                recs += cs.check_hrelax(cs.N_MAIN // 2, bim, dform, ckpt, ["E5"])
+                # the one-pass tiles at and below this checkout's thresholds
+                for m in TILE_LEVELS:
+                    recs += cs.check_hrelax(m, bim, dform, ckpt, ["E3", "E5"])
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -220,15 +242,19 @@ def child(checkout: Path, legs: str) -> int:
 
 
 CROSS_LEVELS = (64, 128, 256, 512, 1024)
-# c1e2: the sizes at which C1 (up to 256) and E2 (up to 512) run one-pass tiles
+# the smaller sizes e3e5 also times: E3 with L = 1 streamed faster than its
+# tile at 64^2 already
+SMALL_LEVELS = (8, 16, 32)
+# c1e2: the sizes at which C1 (up to 256) and E2 (up to 512) run one-pass
+# tiles; e3e5: the sizes around E3's and E5's thresholds
 TILE_LEVELS = (64, 128, 256, 512)
 
 
 def crossover(which: str) -> list:
     """The kernels of ``which`` (E1 in three forms and H1; F1 on two Q types
-    and A6 in three forms; C1 in two forms and E2 in four) at each size of
-    CROSS_LEVELS in both designs, in turns; one record per size, then a
-    summary."""
+    and A6 in three forms; C1 in two forms and E2 in four; E3 and E5 in
+    four each) at each size of CROSS_LEVELS (e3e5: also SMALL_LEVELS) in
+    both designs, in turns; one record per size, then a summary."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -264,6 +290,16 @@ def crossover(which: str) -> list:
         strips_of["F1"] = lambda n: [t.strip for key, t in qs._F1_TILES.items() if key[0] == n]
         strips_of["A6"] = lambda n: [t.strip for key, t in sw._LAUNCH_TILES.items()
                                      if key[:2] == ("A6", n)]
+    if which in ("all", "e3e5"):
+        thresholds += [(hx, "E3_ONE_PASS_MAX_N"), (hx, "E5_ONE_PASS_MAX_N")]
+        for leg in ("E3", "E5"):
+            for (bim, dform), (L, ckpt) in itertools.product(((False, False), (True, True)),
+                                                             ((1, cs.HNET_L1), (3, cs.HNET_L3))):
+                legs[f"{leg}_{'bim_dform' if bim else 'hom'}_L{L}"] = \
+                    lambda n, leg=leg, bim=bim, dform=dform, ckpt=ckpt: cs.check_hrelax(
+                        n, bim, dform, ckpt, [leg])[0]
+            strips_of[leg] = lambda n, leg=leg: [t.strip for key, t in hx._ASCENT_TILES.items()
+                                                 if key[:2] == (leg, n)]
     if which in ("all", "c1e2"):
         thresholds += [(ss, "C1_ONE_PASS_MAX_N"), (hx, "E2_ONE_PASS_MAX_N")]
         for bim in (False, True):
@@ -279,7 +315,7 @@ def crossover(which: str) -> list:
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
-        for n in CROSS_LEVELS:
+        for n in (SMALL_LEVELS if which == "e3e5" else ()) + CROSS_LEVELS:
             ms = {leg: {"tile": [], "stream": []} for leg in legs}
             for design in ("tile", "stream", "stream", "tile"):
                 limit = n if design == "tile" else -1
@@ -312,6 +348,11 @@ def crossover(which: str) -> list:
         for bim, dform, L in itertools.product((0, 1), (0, 1), (1, 3)):
             blocks[f"E2_bim{bim}_dform{dform}_L{L}"] = hx.occupancy("mg_hswrr_occupancy", bim,
                                                                     dform, L)
+    if which in ("all", "e3e5"):
+        for sym, leg in (("mg_phrelax_occupancy", "E3"), ("mg_zphrelax_occupancy", "E5")):
+            for bim, dform, L, strip in itertools.product((0, 1), (0, 1), (1, 3), (8, 32, 128)):
+                blocks[f"{leg}_bim{bim}_dform{dform}_L{L}_strip{strip}"] = hx.occupancy(
+                    sym, bim, dform, L, strip)
     return out + [dict(summary=summary, blocks_per_sm=blocks)]
 
 
@@ -319,9 +360,9 @@ LEVEL_SIZES = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 
 
 def levels(which: str) -> list:
-    """The multi-level kernels (and E2, at its one size) at each level size
-    of their paths, all of them or (``which`` "c1e2") the C and E rows; one
-    record per kernel and size."""
+    """The multi-level kernels (and E2 and E3, at their one size) at each
+    level size of their paths, all of them or (``which`` "c1e2" or "e3e5")
+    the C and E rows; one record per kernel and size."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -338,11 +379,11 @@ def levels(which: str) -> list:
         out += [row(r, "poisson_4097_r1")
                 for r in cs.check_stencil(n, False, ["C1_sweep", "C1_residual", "C2_k2"])]
     for n in LEVEL_SIZES:
-        legs = ["E2"] if n == LEVEL_SIZES[0] else ["E4", "E5"]
+        legs = ["E2", "E3"] if n == LEVEL_SIZES[0] else ["E4", "E5"]
         out += [row(r, "hmg_4097") for r in cs.check_hrelax(n, False, False, cs.HNET_L1, legs)]
         out += [row(r, "hmg_interface_4097") for r in cs.check_hrelax(n, True, True, cs.HNET_L1,
                                                                       legs)]
-    if which == "c1e2":
+    if which in ("c1e2", "e3e5"):
         for r in out:
             print(json.dumps(r), flush=True)
         return out
@@ -361,6 +402,38 @@ def levels(which: str) -> list:
 
 SCAN_STRIPS = {n: (2, 4, 6, 8) if n <= 512 else (4, 6, 8, 12, 16, 20, 24, 28, 32, 48)
                for n in A34_LEVELS}
+
+
+SCAN_STRIPS_E3E5 = (16, 22, 30, 40, 48, 62, 80, 108, 128)
+
+
+def strip_scan_e3e5() -> list:
+    """E3 at 4097^2 and E5 at 2049^2 (L = 1 and 3, bi-material difference
+    form and homogeneous plain form) at each strip of SCAN_STRIPS_E3E5 and
+    at the strip ``row_strip`` picks; one record per leg and form."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    dev = torch.cuda.current_device()
+    out = []
+    for leg, n, tiles_of in (("E3", cs.N_MAIN, hx.e3_tiles), ("E5", cs.N_MAIN // 2, hx.e5_tiles)):
+        for (bim, dform), (L, ckpt) in itertools.product(((True, True), (False, False)),
+                                                         ((1, cs.HNET_L1), (3, cs.HNET_L3))):
+            picked = cs.check_hrelax(n, bim, dform, ckpt, [leg])[0]["ms"]
+            key = (leg, n, L, bim, dform, dev)
+            chosen = hx._ASCENT_TILES[key]
+            by_strip = {}
+            for strip in SCAN_STRIPS_E3E5:
+                hx._ASCENT_TILES[key] = tiles_of(n, L, strip)
+                by_strip[strip] = cs.check_hrelax(n, bim, dform, ckpt, [leg])[0]["ms"]
+            hx._ASCENT_TILES[key] = chosen
+            out.append(dict(leg=leg, n=n, L=L, bim=bim, dform=dform, chosen=chosen.strip,
+                            chosen_ms=picked, ms=by_strip))
+            print(json.dumps(out[-1]), flush=True)
+    return out
 
 
 def strip_scan() -> list:
@@ -464,7 +537,7 @@ def sass_report(parent: Path) -> dict:
     same = {k: mine.get(k) == ins for k, ins in theirs.items() if not hit[k]}
     kept = {" ".join(k): renamed.get(k, mine.get(k)) == ins for k, ins in theirs.items()
             if hit[k]}
-    new = sorted(" ".join(k) for k in mine if hit[k] and k not in theirs
+    new = sorted(" ".join(k) for k in mine if k not in theirs
                  and not any(r in k[1] for r in RENAMED))
     legs = {k: v for k, v in same.items() if k[0] == "sweep" and "<" in k[1]}
     a34 = {}
@@ -504,7 +577,7 @@ def _key(rec) -> str:
         return rec["name"]
     form = "mass" if rec.get("mass") else "dform" if rec.get("dform") else "plain"
     key = f"{rec['name']}_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_{form}"
-    if rec["name"] in ("E1", "E2"):
+    if rec["name"] in ("E1", "E2", "E3", "E4", "E5"):
         key += f"_L{rec['L']}" + ("" if rec.get("bc") is None else f"_bc{rec['bc']}")
     if rec.get("dtype"):
         key += f"_{rec['dtype']}"
@@ -530,7 +603,8 @@ def a6_against_split(times: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "pbc"),
+    ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
+                                       "pbc"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -553,7 +627,8 @@ def main() -> int:
         name = ("sweep_strip_scan.json" if args.strip_scan else
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
-        lines = [dict(card=smi)] + (strip_scan() if args.strip_scan else
+        scan = strip_scan_e3e5 if args.legs == "e3e5" else strip_scan
+        lines = [dict(card=smi)] + (scan() if args.strip_scan else
                                     levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:
             print(json.dumps(lines[-1]), flush=True)
