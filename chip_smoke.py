@@ -35,11 +35,18 @@ Phases, in order; any failure exits non-zero:
    ``ops.general.TOL``, on the real operator from phase 4, in bf16 and f32
    planes: D2 and D3 on the bi-material level 0 at 4097^2; D4, D5 and D1
    (sweep and residual) on level 1 at 2049^2; D2 and D3 on the planes of
-   the n = 512 level.  Timed as in phase 2.
+   the n = 512 level.  Timed as in phase 2.  Then D2 at n = 2, 126, each
+   side of ``ops.general.D2_ONE_PASS_MAX_N``, 1000 and 4096 in each design
+   the size takes (the one-pass tile up to the threshold, where the
+   row-streaming kernel is held too), on the bi-material and the zero phase
+   and a general 9-plane operator, f32 and bf16 planes, two launches
+   bitwise equal.
 6. The BoxMG path of ``solvers/boxmg.py``, ``boxmg_4097``: the same problem
    and u0 as ``interface_4097``, the phase-4 setup, bf16 coefficient
    planes, at most 60 cycles; it must converge, leave a true residual below
-   2 eps, repeat its history, and launch each of D2-D5.  Then a 129^2 BoxMG
+   2 eps, repeat its history, launch each of D2-D5 and no separate norm
+   pass (``rsq_reduce``: D2 finishes its norm in its last block).  Then a
+   129^2 BoxMG
    V(2,1) solve (bc 0.7) on the card against the CPU's plain path, with the
    card's and the CPU's setup compared; it must launch D1.
 7. Hold each kernel of ``ops/hrelax.py`` (E2-E5) against its plain version,
@@ -71,6 +78,10 @@ Phases, in order; any failure exits non-zero:
    plane-stress operator of ``Plane_Stress_modify.m`` (E = 212e3, nu =
    0.288, coefficients (1, 20)): at 2049^2 bi-material (circle) and
    homogeneous, at 1025^2 (level 1) and at n = 128.  Timed as in phase 2.
+   Then G2 at n = 2, 126, each side of each
+   ``ops.elastic.G2_ONE_PASS_MAX_N`` threshold, 1000 and 2048 in each
+   design the size takes, bi-material and homogeneous, two launches
+   bitwise equal.
 10. The elastic path of ``solvers/elastic.py`` at 2049^2 (circle r = 0.5,
    9 levels, kernel threshold 16, direct coarse solve at n = 8, f = 0,
    u0 standard normal from rng 1, eps 0): ``elastic_2049``, V(2,2) for 4,
@@ -79,10 +90,14 @@ Phases, in order; any failure exits non-zero:
    MG-preconditioned flexible CG for 16 iterations (contraction, drop,
    history against the true residual); ``elastic_v11_2049``, V(1,1) for 12
    cycles.  Each must launch its kernels the expected number of times,
-   stay finite and repeat its history over 3 runs.  Then ``elastic_2049``
-   once more with the bench's kernel threshold of 512.
+   stay finite and repeat its history over 3 runs, and launch no norm pass
+   (``rsq_reduce``) but G1's (G2 finishes its norm in its last block).
+   Then ``elastic_2049`` once more with the bench's kernel threshold of
+   512.
 11. Three 129^2 bi-material elastic solves on the card against the CPU's
-   plain path: V(2,2), V(1,1) and the PCG, to eps 1e-2.  Then hold C1, C2
+   plain path on the f = 0 decay protocol: V(2,2) and V(1,1) for 20
+   cycles and the PCG for 10 iterations, every cycle's residual within 1%
+   of the CPU's.  Then hold C1, C2
    (k = 2, 4, 8; also against k chained C1 launches), A5 and A6 against
    their plain versions at 4097^2 and 512^2; C1 at n = 2, 126, each side of
    ``ops.stencil_sweep.C1_ONE_PASS_MAX_N``, 1000 and 4096 in each design the
@@ -354,14 +369,17 @@ def stencil_flops(sweeps: int, pid) -> float:
 def general_bytes(leg: str, n: int, bim: bool, coef_bytes: int) -> int:
     """Bytes a kernel of ``ops/general.py`` must move: each input read once,
     each output written once (f32 fields, int8 phase or 9 coefficient
-    planes, 4 weight planes of ``coef_bytes`` each, f32 coarse fields)."""
-    H2, Hc2 = (n + 1) ** 2, (n // 2 + 1) ** 2
+    planes, 4 weight planes of ``coef_bytes`` each, f32 coarse fields).
+    D2's restriction reads only the weights P^T uses: w00 at every fine
+    node, w01 at odd columns, w10 at odd rows, w11 at both (2.25 planes)."""
+    H, H2, Hc2, odd = n + 1, (n + 1) ** 2, (n // 2 + 1) ** 2, n // 2
     op = n * n if bim else 9 * coef_bytes * H2
     w4 = 4 * coef_bytes * H2
+    w4_restrict = coef_bytes * (H2 + 2 * H * odd + odd * odd)
     return {
         "D1_sweep": 4 * H2 * 3 + op,
         "D1_residual": 4 * H2 * 3 + op,
-        "D2": 4 * H2 * 3 + op + w4 + 4 * Hc2,
+        "D2": 4 * H2 * 3 + op + w4_restrict + 4 * Hc2,
         "D3": 4 * H2 * 3 + op + w4 + 4 * Hc2,
         "D4": 4 * H2 + op + w4 + 4 * Hc2,
         "D5": 4 * H2 * 2 + op + w4 + 4 * Hc2,
@@ -868,9 +886,10 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
 
 # profiler kernel names -> summary labels (e1_h_relax also names E1's
 # one-pass tile, e1_h_relax_tile; c1_stencil_relax, e2_h_descent,
-# e3_h_ascent and e5_h_zascent, the one-pass tiles, also name the
-# row-streaming c1_stencil_relax_rows, e2_h_descent_rows, e3_h_ascent_rows
-# and e5_h_zascent_rows); no name is a substring of another label's
+# e3_h_ascent, e5_h_zascent, d2_gen_descent and g2_el_descent, the one-pass
+# tiles, also name the row-streaming c1_stencil_relax_rows,
+# e2_h_descent_rows, e3_h_ascent_rows, e5_h_zascent_rows,
+# d2_gen_descent_rows and g2_el_descent_rows); no name is a substring of another label's
 # name except sweep_kernel, which is tested after zpsweep_kernel, and
 # swrr_kernel, whose zero-guess instances (A3: third template argument true,
 # then the storage type) A3_NAME tells apart first
@@ -989,6 +1008,17 @@ def boxmg_setup_on_card():
         peak_gb=peak / 1e9, held_gb=held / 1e9,
         coarse_n=[int(Sc.shape[0]) - 1 for _, Sc in setup]))), flush=True)
     return prob, hier, setup
+
+
+def run_boxmg_cell(prob, hier, setup) -> dict:
+    """``boxmg_4097``: the BoxMG V(1,1) decay solve on the phase-4 setup with
+    bf16 coefficient planes, at most 60 cycles."""
+    import torch
+    from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
+
+    return run_solve("boxmg_4097", lambda: BoxMGHierarchy(
+        prob, num_levels=9, kernel_threshold=32, direct_coarse=True, hier=hier, setup=setup,
+        coef_dtype=torch.bfloat16, device=DEVICE), ("D2", "D3", "D4", "D5"), 60)
 
 
 def check_boxmg_small_against_cpu():
@@ -1191,19 +1221,35 @@ def run_elastic_cells() -> dict:
     return out
 
 
+# the 129^2 elastic checks: the V-cycles and PCG iterations of the f = 0
+# decay protocol, and the largest departure of the card's history from the
+# CPU's, cycle by cycle, relative to the CPU's
+ELASTIC_SMALL_CYCLES, ELASTIC_SMALL_ITERS, ELASTIC_SMALL_HIST_REL = 20, 10, 1e-2
+
+
 def check_elastic_small_against_cpu() -> dict:
     """Three 129^2 bi-material elastic solves (V(2,2), V(1,1), PCG; 4
     levels, the direct solve at n = 16) on the card against the CPU's
-    plain path; returns each variant's launches on the card."""
+    plain path, on the f = 0 decay protocol (u0 standard normal, rng 8;
+    eps 0, ELASTIC_SMALL_CYCLES cycles or ELASTIC_SMALL_ITERS iterations):
+    with f = 0 no f32 residual floor stops them, so the histories are
+    compared over every cycle, each within ELASTIC_SMALL_HIST_REL of the
+    CPU's, besides ``same_solve``'s checks; each must fall below 1e-2 of its
+    start.  Returns each variant's launches on the card."""
+    import torch
+
     rng = np.random.default_rng(8)
     geo = np.zeros((N_SMALL + 1, N_SMALL + 1), np.float32)
     geo[1:-1, 1:-1] = 1.0
-    f = (rng.standard_normal((2, N_SMALL + 1, N_SMALL + 1)) * geo).astype(np.float32)
+    u0 = (rng.standard_normal((2, N_SMALL + 1, N_SMALL + 1)) * geo).astype(np.float32)
+    f = np.zeros_like(u0)
+    m, it = ELASTIC_SMALL_CYCLES, ELASTIC_SMALL_ITERS
     variants = {  # label: (run, kernels to launch)
-        "elastic_small_v22": (lambda hv: hv.solve(f, eps=1e-2, max_cycles=100), ("G1", "G2", "G3")),
-        "elastic_small_v11": (lambda hv: hv.solve(f, nu1=1, nu2=1, eps=1e-2, max_cycles=100),
+        "elastic_small_v22": (lambda hv: hv.solve(f, u0=u0, eps=0.0, max_cycles=m),
+                              ("G1", "G2", "G3")),
+        "elastic_small_v11": (lambda hv: hv.solve(f, u0=u0, nu1=1, nu2=1, eps=0.0, max_cycles=m),
                               ("G2", "G3", "G4", "G5")),
-        "elastic_small_pcg": (lambda hv: hv.solve_pcg(f, eps=1e-2, max_iters=60),
+        "elastic_small_pcg": (lambda hv: hv.solve_pcg(f, u0=u0, eps=0.0, max_iters=it),
                               ("G1", "G2", "G3")),
     }
     out = {}
@@ -1216,8 +1262,20 @@ def check_elastic_small_against_cpu() -> dict:
                 out[label] = launches
                 if not all(launches.get(key) for key in expect):
                     fail(f"{label}: a kernel of the path never launched: {launches}")
+            if not torch.isfinite(u).all():
+                fail(f"{label}: non-finite solution on {dev}")
             runs[dev] = (u.cpu().numpy(), h)
         same_solve(label, runs)
+        (_, hg), (_, hc) = runs[DEVICE], runs["cpu"]
+        if len(hg) != len(hc):
+            fail(f"{label}: {len(hg)} cycles on the card, {len(hc)} on the CPU")
+        dev_rel = float(np.max(np.abs(hg / hc - 1)))
+        drop = float(hc[-1] / hc[0])
+        print(json.dumps({label: dict(cycles=len(hc), hist_rel_dev=dev_rel, drop=drop)}),
+              flush=True)
+        if not dev_rel <= ELASTIC_SMALL_HIST_REL or not drop < 1e-2:
+            fail(f"{label}: the card's decay history departs from the CPU's by {dev_rel} "
+                 f"(drop {drop})")
     print(json.dumps({"elastic_small_launches": out}), flush=True)
     return out
 
@@ -1791,7 +1849,7 @@ def check_h1_variants() -> list:
 
 
 def ragged_sizes(*thresholds) -> tuple:
-    """F1's, A6's, C1's, E2's, E3's and E5's ragged sizes: n = 2 (one
+    """F1's, A6's, C1's, E2's, E3's, E5's and D2's ragged sizes: n = 2 (one
     block), 126 (one band, ragged strips), each side of each one-pass
     threshold, 1000 (ragged bands and strips) and 4096 (17 bands, a ragged
     last band and strip)."""
@@ -1970,6 +2028,82 @@ def check_e3_variants() -> list:
 def check_e5_variants() -> list:
     """E5 at its ragged sizes in both designs (``check_ascent_variants``)."""
     return check_ascent_variants("E5")
+
+
+def check_d2_variants() -> list:
+    """D2 against its plain version at n = 2, 126, each side of
+    ``ops.general.D2_ONE_PASS_MAX_N``, 1000 and 4096, in each design the
+    size takes (``designs``), on the bi-material phase, the zero phase
+    (homogeneous) and a general 9-plane operator (the homogeneous Q1
+    stencil, each plane scaled per node by 1 + U(-0.1, 0.1)), with W4
+    planes U(0, 1), in f32 and bf16 planes; u of the main path's scale
+    (boundary ring 0.3), f standard normal; two launches bitwise equal.  One
+    record per case."""
+    import torch
+    from multigrid_feanet_torch.ops import general as gen
+
+    q1 = np.array([-1, -1, -1, -1, 8, -1, -1, -1, -1], np.float32) / 3.0
+    recs = []
+    for n in ragged_sizes(gen.D2_ONE_PASS_MAX_N):
+        H = n + 1
+        u, f, _, ph = level_inputs(n, True, 18, ring=0.3)
+        rng = np.random.default_rng(19)
+        s9 = (q1[:, None, None] * (1.0 + 0.1 * rng.uniform(-1, 1, (9, H, H)))).astype(np.float32)
+        w4 = rng.uniform(0, 1, (4, H, H)).astype(np.float32)
+        s9, w4 = (torch.as_tensor(x, device=DEVICE) for x in (s9, w4))
+        ops = {"bim": (ph, 19.0), "hom": (torch.zeros_like(ph), 0.0)}
+        for forced in designs(gen, "D2_ONE_PASS_MAX_N", n):
+            tile = not forced and n <= gen.D2_ONE_PASS_MAX_N
+            for dt in (torch.float32, torch.bfloat16):
+                w = w4.to(dt)
+                cases = dict(ops, general=(s9.to(dt), 0.0))
+                for form, (op, da) in cases.items():
+                    cfg = dict(a0=1.0, da=da, omega=2.0 / 3.0)
+                    ws = {}
+                    label = (f"D2 {'one-pass' if tile else 'row-streaming'} n={n} {form} "
+                             f"{str(dt).removeprefix('torch.')}")
+                    recs.append(hold_twice(
+                        label, lambda: gen.gswrr_cuda(u, f, op, w, workspace=ws, **cfg),
+                        lambda: gen.gswrr_plain(u, f, op, w, **cfg), gen.TOL))
+    return recs
+
+
+def check_g2_variants() -> list:
+    """G2 against its plain version at n = 2, 126, each side of each
+    ``ops.elastic.G2_ONE_PASS_MAX_N`` threshold, 1000 and 2048 (the elastic
+    cells' level 0), in each design the size takes (``designs``), bi-material and
+    homogeneous, on the plane-stress operator of the elastic cells; u, f
+    standard normal with two different components; two launches bitwise
+    equal.  One record per case."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops.elasticity import elastic_factor_constants
+
+    consts = elastic_factor_constants(E_EL, NU_EL)
+    recs = []
+    limits = eg.G2_ONE_PASS_MAX_N.values()
+    sizes = tuple(sorted({2, N_ODD, 1000, N_EL, *limits, *(t + 2 for t in limits)}))
+    for n in sizes:
+        rng = np.random.default_rng(20)
+        H = n + 1
+        geo = np.zeros((H, H), np.float32)
+        geo[1:-1, 1:-1] = 1.0
+        u = torch.as_tensor(rng.standard_normal((2, H, H)).astype(np.float32) * geo,
+                            device=DEVICE)
+        f = torch.as_tensor(rng.standard_normal((2, H, H)).astype(np.float32), device=DEVICE)
+        phases = {"bim": torch.as_tensor(circle_phase(2.0, n), device=DEVICE), "hom": None}
+        for forced in designs(eg, "G2_ONE_PASS_MAX_N", n):
+            for form, ph in phases.items():
+                tile = not forced and n <= eg.G2_ONE_PASS_MAX_N[ph is not None]
+                cfg = dict(a0=1.0, da=19.0 if ph is not None else 0.0, omega=2.0 / 3.0,
+                           consts=consts)
+                ws = {}
+                label = f"G2 {'one-pass' if tile else 'row-streaming'} n={n} {form}"
+                recs.append(hold_twice(
+                    label, lambda: eg.el_swrr_cuda(u, f, ph, workspace=ws, **cfg),
+                    lambda: eg.el_swrr_plain(u, f, ph, **cfg), eg.TOL))
+    return recs
 
 
 def check_f1(n: int, q_dtype, seed: int = 14):
@@ -2875,11 +3009,10 @@ def main() -> int:
         gchecks += check_general(3, False, ["D2", "D3"], setup, dt)
     print(json.dumps({"general_kernel_checks": gchecks}), flush=True)
 
-    from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
-
-    boxmg = run_solve("boxmg_4097", lambda: BoxMGHierarchy(
-        prob, num_levels=9, kernel_threshold=32, direct_coarse=True, hier=hier, setup=setup,
-        coef_dtype=torch.bfloat16, device=DEVICE), ("D2", "D3", "D4", "D5"), 60)
+    print(json.dumps({"d2_variants": check_d2_variants()}), flush=True)
+    boxmg = run_boxmg_cell(prob, hier, setup)
+    # D2 adds its norm in its last block; D3-D5 have none
+    norm_passes("boxmg_4097", boxmg, 0)
     del hier, setup
     small_launches = check_boxmg_small_against_cpu()
 
@@ -2912,7 +3045,13 @@ def main() -> int:
                    (N_SMALL, False)):
         echecks += check_elastic(n, bim, g_all)
     print(json.dumps({"elastic_kernel_checks": echecks}), flush=True)
+    print(json.dumps({"g2_variants": check_g2_variants()}), flush=True)
     cells = run_elastic_cells()
+    # G2 adds its norm in its last block: the only norm passes of each
+    # profiled solve are its G1 launches'
+    for label in ("elastic_2049", "elastic_pcg_2049", "elastic_v11_2049"):
+        prof = cells[label]["profile"].get("by_kernel", {})
+        norm_passes(label, cells[label], prof.get("G1", {}).get("launches", 0))
     check_elastic_small_against_cpu()
 
     schecks = []

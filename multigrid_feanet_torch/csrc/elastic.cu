@@ -30,7 +30,9 @@
 // 118-225 operations (98 per operator apply of both components, 14 per
 // block update), which the card does in 24-42% of the byte time.
 //
-// Design common to all five: one 256-thread block per OY x OX = 16 x 32
+// G2 above G2_ONE_PASS_MAX_N (ops/elastic.py) streams rows
+// (g2_el_descent_rows, below).  The one-pass design of the others, and of
+// G2 at and below that size: one 256-thread block per OY x OX = 16 x 32
 // tile of fine nodes (common.cuh's Tile; the descent legs' coarse output is
 // the CY x CX coarse tile above it), so every leg runs on coarse_grid(n).
 // Each block stages its inputs over the tile plus a halo of h nodes in
@@ -41,8 +43,9 @@
 // on one another.  The prolonged correction is computed only at interior
 // fine nodes, so no read falls past the coarse field.  G1's and G2's
 // interior residual norm^2 of the incoming iterate (both components) is
-// summed per block in a fixed order and then by reduce_kernel (no atomics:
-// sums repeat run to run).
+// summed per block in a fixed order and then by reduce_kernel (G1) or by
+// G2's last block to finish (finish_sums): no float atomics, so sums repeat
+// run to run.
 
 #include "common.cuh"
 
@@ -124,13 +127,19 @@ __device__ __forceinline__ void apply_el(const float* X, const float* Y, int s, 
   dxy = k.be * C4s;
 }
 
+// u += w D~ r with w = omega / det: the damped 2x2 block-Jacobi update
+// (_block_update) after its division.
+__device__ __forceinline__ void bj_apply(float& ux, float& uy, float rx, float ry, float dxx,
+                                         float dxy, float w) {
+  ux = ux + w * (dxx * rx - dxy * ry);
+  uy = uy + w * (dxx * ry - dxy * rx);
+}
+
 // u += (omega / det) D~ r: the damped 2x2 block-Jacobi update (_block_update).
 __device__ __forceinline__ void bj_update(float& ux, float& uy, float rx, float ry, float dxx,
                                           float dxy, float omega) {
   const float det = dxx * dxx - dxy * dxy;
-  const float w = omega / det;
-  ux = ux + w * (dxx * rx - dxy * ry);
-  uy = uy + w * (dxx * ry - dxy * rx);
+  bj_apply(ux, uy, rx, ry, dxx, dxy, omega / det);
 }
 
 // The zero-guess iterate omega D^-1 f of an interior node.
@@ -282,19 +291,23 @@ g1_el_relax(const float* __restrict__ u, const float* __restrict__ f,
 // and the interior ||f - A u0||^2 of the incoming iterate.
 // Replaces multigrid_feanet_tpu/ops/pallas_elastic.py:391 _el_swrr_kernel.
 // Bound: bytes, 27 B per fine node (u0, f in, u1 out: 24 B; phase 1 B; a
-// quarter node of the two f_c planes out: 2 B).  Halo 3: u1 is needed on
-// ring 2 for the residual that the restriction reads on ring 1.
+// quarter node of the two f_c planes out: 2 B).
+//
+// One-pass tile, for levels of up to G2_ONE_PASS_MAX_N (ops/elastic.py):
+// halo 3 (u1 is needed on ring 2 for the residual that the restriction
+// reads on ring 1); the norm's partials are added by the last block to
+// finish (finish_sums), so one launch.
 // ---------------------------------------------------------------------------
 template <bool BIM>
 __global__ void __launch_bounds__(NT)
 g2_el_descent(const float* __restrict__ u, const float* __restrict__ f,
               const int8_t* __restrict__ ph, float* __restrict__ u1_out,
-              float* __restrict__ fc, float* __restrict__ partial, ElCoef k) {
+              float* __restrict__ fc, float* __restrict__ partial, unsigned* __restrict__ done,
+              float* __restrict__ rsq, ElCoef k) {
   constexpr int h = 3;
   using T = Tile<h>;
   __shared__ float xs[T::N], ys[T::N], fxs[T::N], fys[T::N], x1[T::N], y1[T::N];
   __shared__ float qs[BIM ? T::NQ : 1];
-  __shared__ float red[NT / 32];
   const int H = k.n + 1;
   const size_t plane = (size_t)H * H;
   const int oy = OY * blockIdx.y - h, ox = OX * blockIdx.x - h;
@@ -324,8 +337,242 @@ g2_el_descent(const float* __restrict__ u, const float* __restrict__ f,
   });
   __syncthreads();
   residual_restrict<h, BIM>(x1, y1, fxs, fys, qs, fc, oy, ox, k);
-  rr = block_sum(rr, red);
-  if (threadIdx.x == 0) partial[blockIdx.y * gridDim.x + blockIdx.x] = rr;
+  float sums[1] = {rr};
+  float* const outs[1] = {rsq};
+  finish_sums<NT, 1>(sums, partial, done, outs);
+}
+
+// ---------------------------------------------------------------------------
+// G2 as a row-streaming chain, for levels above G2_ONE_PASS_MAX_N; the same
+// contract as the tile above.
+// Design: sweep.cu's A2 chain (u1 and r1 computed once per node, the coarse
+// row's (1, 2, 1) sums finished a step later) with two components a row, in
+// one barrier per step, on common.cuh's helpers (E2's chain without its
+// conv wavefront).  A block owns fine columns [x0, x0 + BW), BW = RB - 4,
+// and rows [y0, y0 + strip) (x0 and y0 even), so the coarse nodes
+// [x0/2, (x0 + BW)/2) x [y0/2, (y0 + strip)/2); thread t works on columns
+// c0 + e, e < RC, c0 = x0 - 2 + RC t: the block diagonal update and the
+// residual each eat a column of halo on each side and the restriction's
+// column sums one, so 2 columns on each side are computed beyond the band
+// and the staged u0 window starts one further out.  Step s stages both
+// components of u0 row R = y0 - 3 + s into a ring of RNS slots, and both
+// components of f and the phase row R - 1 into a ring of G2_NF slots (the
+// residual reads them 2 rows later; 6 slots hold the stages s - 3 .. s +
+// RD), RD steps ahead (stage_plane: the y planes need not start on a
+// 16-byte boundary); then, from the bottom of the chain up, a thread
+//   1. finishes the coarse row whose column sums completed at step s - 1
+//      (common.cuh restrict_finish, per component);
+//   2. computes r1 = f - A u1 at row rho = R - 3 from its window of u1 rows
+//      rho - 1 .. rho + 1 (row rho + 1 from the shared u1 row of step s - 1)
+//      and adds it to its columns' (1, 2, 1) row sums (restrict_rows);
+//   3. computes u1 = BJ(u0) at row i = R - 1 from its u0 window of rows
+//      i - 1 .. i + 1, stores it at the owned nodes, passes it on through a
+//      shared u1 row and sums the owned (f - A u0)^2.
+// Each stage reads rows that the stage before finished at an earlier step,
+// so one barrier per step orders them, and neither u1's halo nor r1 goes to
+// device memory.  Per node the block computes RB / BW of the owned work
+// (1.6%) plus the strip's 6 halo steps.  The rings, the u1 row and the
+// restriction's row parity turn whole every G2_UNR steps (the main loop's
+// unroll), so every slot is a constant; the element rows the residual reads
+// (rho - 1, rho) are those the sweep read two steps before, kept in a
+// 4-row register ring.  apply_el and _block_update run as the tile runs
+// them, term by term, on 3 x 3 register windows, the division omega / det
+// by div_normal (the quotient `/` gives, without its slow-path branch);
+// every mask is a select.  The norm is summed over the owned nodes in a fixed order and the
+// last block to finish adds the blocks' partials (finish_sums).
+// ---------------------------------------------------------------------------
+constexpr int G2_UNR = 6;  // steps per trip of the main loop
+constexpr int G2_NF = 6;   // f / phase ring slots: the stages s - 3 .. s + RD
+static_assert(G2_UNR % RNS == 0 && G2_UNR % G2_NF == 0 && G2_UNR % 2 == 0,
+              "G2_UNR: whole ring turns");
+static_assert(G2_NF >= RD + 4, "G2_NF: the f / phase ring");
+// resident blocks per SM asked for: caps the registers at 128
+constexpr int G2_MINB = 4;
+
+// A u of both components and the block diagonal at the centre of the 3 x 3
+// register windows xw, yw (rows i - 1 .. i + 1, columns e .. e + 2) with the
+// element coefficients qs (row i - 1) and qn (row i) at columns e, e + 1.
+template <bool BIM, int N>
+__device__ __forceinline__ void apply_el_window(const float (&xw)[3][N], const float (&yw)[3][N],
+                                                int e, const float* qs, const float* qn,
+                                                const ElCoef& k, float& ax, float& ay,
+                                                float& dxx, float& dxy) {
+  const float X[9] = {xw[0][e], xw[0][e + 1], xw[0][e + 2], xw[1][e], xw[1][e + 1],
+                      xw[1][e + 2], xw[2][e], xw[2][e + 1], xw[2][e + 2]};
+  const float Y[9] = {yw[0][e], yw[0][e + 1], yw[0][e + 2], yw[1][e], yw[1][e + 1],
+                      yw[1][e + 2], yw[2][e], yw[2][e + 1], yw[2][e + 2]};
+  const float q[4] = {qs[e], qs[e + 1], qn[e], qn[e + 1]};
+  apply_el<BIM>(X + 4, Y + 4, 3, q + 3, 2, k, ax, ay, dxx, dxy);
+}
+
+template <bool BIM>
+__global__ void __launch_bounds__(RT, G2_MINB)
+g2_el_descent_rows(const float* __restrict__ u, const float* __restrict__ f,
+                   const int8_t* __restrict__ ph, float* __restrict__ u1_out,
+                   float* __restrict__ fc, float* __restrict__ partial,
+                   unsigned* __restrict__ done, float* __restrict__ rsq, int strip, ElCoef k) {
+  constexpr int BW = RB - 4;  // owned columns of a band
+  constexpr int NF = G2_NF;
+  constexpr int XS = RB + 4;  // u1 rows: column p at entry p + 2
+  __shared__ __align__(16) float us[2][RNS][RSLOT];  // u0 rows: component, slot
+  __shared__ __align__(16) float fs[2][NF][RSLOT];   // f rows: component, slot
+  __shared__ __align__(16) int8_t qs[BIM ? NF : 1][RSLOTQ];
+  __shared__ __align__(16) float u1r[2][2][XS];  // u1: component, the row of step s in s mod 2
+  __shared__ __align__(16) float wrow[2][2][RB];  // (1, 2, 1) sums completed at step s
+  const int n = k.n, H = n + 1, Hc = n / 2 + 1, t = threadIdx.x;
+  const size_t plane = (size_t)H * H, cplane = (size_t)Hc * Hc;
+  const int x0 = blockIdx.x * BW, y0 = blockIdx.y * strip;
+  const int c0 = x0 - 2 + RC * t, col = x0 - 3, base = y0 - 3;
+  const int rows_out = min(strip, H + 1 - y0);  // fine rows this strip restricts
+  const int staged = rows_out + 5, steps = rows_out + 6;
+
+  for (int e = t; e < 2 * 2 * XS; e += RT) (&u1r[0][0][0])[e] = 0.f;
+  const unsigned ud = smem_addr(us), fd = smem_addr(fs), qd = smem_addr(qs);
+  // stages step s (J = s mod G2_UNR): both components of u row base + s into
+  // u slot J mod RNS, of f and the phase row base + s - 1 into f / phase
+  // slot J mod NF; always commits
+  auto stage = [&](int s, auto S) {
+    constexpr int SJ = decltype(S)::value;
+    const bool live = s < staged;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      stage_plane<4, RW>(ud + 4 * RSLOT * (c * RNS + SJ % RNS), u, c, base + s, H, H, col, live);
+      stage_plane<4, RW>(fd + 4 * RSLOT * (c * NF + SJ % NF), f, c, base + s - 1, H, H, col,
+                         live);
+    }
+    if (BIM) stage_window<1, RWQ>(qd + RSLOTQ * (SJ % NF), ph, base + s - 1, n, n, col, live);
+    cp_commit();
+  };
+  static_for<RD>([&](auto S) { stage(decltype(S)::value, S); });
+
+  // columns c0 - 1 .. c0 + RC interior; columns c0 .. c0 + RC - 1 owned by
+  // the block, and the coarse column centred on each (-1: none)
+  bool col_in[RC + 2], col_own[RC];
+  int J[RC];
+#pragma unroll
+  for (int e = 0; e < RC + 2; ++e) col_in[e] = c0 - 1 + e >= 1 && c0 - 1 + e <= H - 2;
+#pragma unroll
+  for (int e = 0; e < RC; ++e) {
+    const int c = c0 + e, p = RC * t + e;
+    col_own[e] = p >= 2 && p < 2 + BW && c < H;
+    J[e] = (c & 1) || !col_own[e] ? -1 : c / 2;
+  }
+
+  float xw[3][RC + 2] = {}, yw[3][RC + 2] = {};  // u0 rows i - 1 .. i + 1
+  float qe[4][RC + 1] = {};  // element rows i - 4 .. i - 1 (rolled to i - 3 .. i at step s)
+  float vx[3][RC + 2] = {}, vy[3][RC + 2] = {};  // u1 rows rho - 1 .. rho + 1
+  float u1x[RC] = {}, u1y[RC] = {};              // u1's own columns of the last step
+  float accx[RC] = {}, accy[RC] = {};            // (1, 2, 1) sums of the coarse row in progress
+  float rr = 0.f;
+  bool pending = false;  // a coarse row completed at the previous step
+  // step s (u slot s mod RNS, f / phase slot s mod NF, u1 and wrow slot
+  // s mod 2)
+  auto step = [&](int s, auto S) {
+    constexpr int I = decltype(S)::value;
+    constexpr int slot = I % RNS, xb = I % 2, xp = (I + 1) % 2;
+    // f / phase slots of rows i and rho (staged 2 steps earlier)
+    constexpr int fnow = I % NF, frho = (I + NF - 2) % NF;
+    constexpr bool odd = (I & 1) != 0;  // rho = y0 - 6 + s (y0 and G2_UNR even)
+    if (s >= steps) return;
+    cp_wait<RD - 1>();
+    __syncthreads();
+    const int R = base + s, i = R - 1, rho = i - 2;
+
+    if (pending) {  // 1. coarse row (rho - 2) / 2 from the sums of step s - 1
+      restrict_finish(fc, (rho - 2) >> 1, Hc, wrow[0][xp] + RC * t, J);
+      restrict_finish(fc + cplane, (rho - 2) >> 1, Hc, wrow[1][xp] + RC * t, J);
+    }
+    pending = odd && s >= 6;  // completes coarse row (rho - 1) / 2 (rho > y0)
+
+    {  // 2. r1 at row rho from u1 rows rho - 1 .. rho + 1 (zero off the interior)
+      float nx[RC + 2], ny[RC + 2];
+      nx[0] = u1r[0][xp][RC * t + 1];
+      nx[RC + 1] = u1r[0][xp][RC * t + RC + 2];
+      ny[0] = u1r[1][xp][RC * t + 1];
+      ny[RC + 1] = u1r[1][xp][RC * t + RC + 2];
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        nx[e + 1] = u1x[e];
+        ny[e + 1] = u1y[e];
+      }
+      roll<RC + 2>(vx, nx);
+      roll<RC + 2>(vy, ny);
+      float fx[RC], fy[RC], rx[RC], ry[RC];
+      read_row<RC>(fx, fs[0][frho], rho, H, col, RC * t + 1);
+      read_row<RC>(fy, fs[1][frho], H + rho, H, col, RC * t + 1);
+      const bool r_in = rho >= 1 && rho <= H - 2;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        float ax, ay, dxx, dxy;  // element rows rho - 1 = i - 3, rho
+        apply_el_window<BIM>(vx, vy, e, qe[1], qe[2], k, ax, ay, dxx, dxy);
+        const bool in = r_in && col_in[e + 1];
+        rx[e] = in ? fx[e] - ax : 0.f;
+        ry[e] = in ? fy[e] - ay : 0.f;
+      }
+      restrict_rows<odd>(accx, rx, wrow[0][xb] + RC * t, pending);
+      restrict_rows<odd>(accy, ry, wrow[1][xb] + RC * t, pending);
+    }
+
+    {  // 3. u1 = BJ(u0) at row i from u0 rows i - 1 .. i + 1
+      float nx[RC + 2], ny[RC + 2];
+      read_row<RC + 2>(nx, us[0][slot], R, H, col, RC * t);
+      read_row<RC + 2>(ny, us[1][slot], H + R, H, col, RC * t);
+      roll<RC + 2>(xw, nx);
+      roll<RC + 2>(yw, ny);
+      if constexpr (BIM) {  // the element rows roll to i - 3 .. i
+        const int8_t* pq = qs[fnow] + win_off<int8_t>(i, n, col) + RC * t;
+#pragma unroll
+        for (int e = 0; e <= RC; ++e) {
+          qe[0][e] = qe[1][e];
+          qe[1][e] = qe[2][e];
+          qe[2][e] = qe[3][e];
+          qe[3][e] = (float)pq[e] * k.da + k.a0;
+        }
+      }
+      float fx[RC], fy[RC];
+      read_row<RC>(fx, fs[0][fnow], i, H, col, RC * t + 1);
+      read_row<RC>(fy, fs[1][fnow], H + i, H, col, RC * t + 1);
+      const bool i_in = i >= 1 && i <= H - 2, i_own = i >= y0 && i < y0 + strip && i < H;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        float ax, ay, dxx, dxy;
+        apply_el_window<BIM>(xw, yw, e, qe[2], qe[3], k, ax, ay, dxx, dxy);
+        const bool in = i_in && col_in[e + 1];
+        const float rx = in ? fx[e] - ax : 0.f, ry = in ? fy[e] - ay : 0.f;
+        float vxe = xw[1][e + 1], vye = yw[1][e + 1];
+        bj_apply(vxe, vye, rx, ry, dxx, dxy, div_normal(k.omega, dxx * dxx - dxy * dxy));
+        u1x[e] = in ? vxe : xw[1][e + 1];
+        u1y[e] = in ? vye : yw[1][e + 1];
+        rr += i_own && col_own[e] ? rx * rx + ry * ry : 0.f;
+      }
+      *reinterpret_cast<float2*>(&u1r[0][xb][RC * t + 2]) = make_float2(u1x[0], u1x[1]);
+      *reinterpret_cast<float2*>(&u1r[1][xb][RC * t + 2]) = make_float2(u1y[0], u1y[1]);
+      if (i_own) {
+        float* orow = u1_out + (size_t)i * H + c0;
+#pragma unroll
+        for (int e = 0; e < RC; ++e) {
+          if (col_own[e]) {
+            orow[e] = u1x[e];
+            orow[plane + e] = u1y[e];
+          }
+        }
+      }
+    }
+    // step s + RD reuses the u slot of step s - 1 and the f / phase slot of
+    // step s - 4, whose last readers ran at step s - 1
+    stage(s + RD, std::integral_constant<int, (I + RD) % G2_UNR>{});
+  };
+  for (int s0 = 0; s0 < steps; s0 += G2_UNR)
+    static_for<G2_UNR>([&](auto S) { step(s0 + decltype(S)::value, S); });
+  __syncthreads();
+  if (pending) {  // the strip's last coarse row, completed at its last step
+    const int Ic = (base + steps - 5) >> 1, xl = (steps - 1) & 1;
+    restrict_finish(fc, Ic, Hc, wrow[0][xl] + RC * t, J);
+    restrict_finish(fc + cplane, Ic, Hc, wrow[1][xl] + RC * t, J);
+  }
+  float sums[1] = {rr};
+  float* const outs[1] = {rsq};
+  finish_sums<RT, 1>(sums, partial, done, outs);
 }
 
 // ---------------------------------------------------------------------------
@@ -449,17 +696,42 @@ int mg_el_sweep(const float* u, const float* f, const int8_t* ph, float* out, fl
   return (int)cudaGetLastError();
 }
 
-// G2.  u1 = BJ(u), fc = 4 FW(f - A u1), rsq[0] = interior ||f - A u||^2.
+// G2.  u1 = BJ(u), fc = 4 FW(f - A u1), rsq[0] = interior ||f - A u||^2;
+// the launch geometry of ops/elastic.py::g2_launch_tiles: one-pass tiles
+// when one_pass, else row-streaming strips of `strip` rows, on gx x gy
+// blocks; scratch of gx gy partial sums and a zeroed counter that the last
+// block resets.  cudaErrorInvalidValue for a geometry G2 does not take.
 int mg_el_swrr(const float* u, const float* f, const int8_t* ph, float* u1, float* fc,
-               float* partial, float* rsq, int n, double a0, double da, double omega, double al,
-               double be, double ga, double ep, double de, double ze, int bim, void* stream) {
+               float* partial, unsigned* done, float* rsq, int n, double a0, double da,
+               double omega, double al, double be, double ga, double ep, double de, double ze,
+               int bim, int one_pass, int strip, int gx, int gy, void* stream) {
+  // the grid of ops/elastic.py::g2_launch_tiles: E2's chain without conv layers
+  if (!descent_grid_ok(n, 0, one_pass != 0, strip, gx, gy)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const ElCoef k = make_el_coef(n, a0, da, omega, al, be, ga, ep, de, ze);
-  const dim3 g = coarse_grid(n);
-  if (bim) g2_el_descent<true><<<g, NT, 0, st>>>(u, f, ph, u1, fc, partial, k);
-  else g2_el_descent<false><<<g, NT, 0, st>>>(u, f, ph, u1, fc, partial, k);
-  reduce_kernel<<<1, NT, 0, st>>>(partial, (int)(g.x * g.y), rsq);
+  const dim3 g(gx, gy);
+  if (one_pass) {
+    if (bim) g2_el_descent<true><<<g, NT, 0, st>>>(u, f, ph, u1, fc, partial, done, rsq, k);
+    else g2_el_descent<false><<<g, NT, 0, st>>>(u, f, ph, u1, fc, partial, done, rsq, k);
+  } else {
+    if (bim)
+      g2_el_descent_rows<true><<<g, RT, 0, st>>>(u, f, ph, u1, fc, partial, done, rsq, strip, k);
+    else
+      g2_el_descent_rows<false><<<g, RT, 0, st>>>(u, f, ph, u1, fc, partial, done, rsq, strip,
+                                                  k);
+  }
   return (int)cudaGetLastError();
+}
+
+// Blocks of the row-streaming G2 in one form that one SM holds at once: what
+// ops/elastic.py balances the strip height against.  Negative on a CUDA
+// error.
+int mg_el_swrr_occupancy(int bim) {
+  const void* kern = bim ? (const void*)g2_el_descent_rows<true>
+                         : (const void*)g2_el_descent_rows<false>;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, RT, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // G3.  out = BJ(u1 + P(uc)).

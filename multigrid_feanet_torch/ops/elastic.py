@@ -32,6 +32,14 @@ nodes are updated, boundary nodes keep their value, residuals and the
 prolonged correction are zero on the boundary, the coarse output is zero on
 the coarse boundary ring, and ``rsq`` is the interior squared residual norm
 of the INCOMING iterate summed over both components.
+
+G2 streams rows (``csrc/elastic.cu g2_el_descent_rows``) above
+``G2_ONE_PASS_MAX_N[bim]``: its wrapper launches it on the bands and
+strips of :func:`g2_tiles`, with the strip height
+``ops/hrelax.py::row_strip`` picks for the level's size and the card's
+occupancy, and smaller levels on the one-pass tile
+(:func:`g2_launch_tiles`); both designs finish the norm in their last
+block.  Its u, f and the phase must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.ops import hrelax as hx
 from multigrid_feanet_torch.ops import sweep as sw
 from multigrid_feanet_torch.ops.elasticity import elastic_factor_constants
 
@@ -189,7 +198,7 @@ _TAIL = [_I] + [_D] * 9 + [_I]  # n, a0, da, omega, al, be, ga, ep, de, ze, bim
 KERNELS = {
     "G1": sw.CudaKernel("G1_el_sweep", "mg_el_sweep", [_P] * 6 + _TAIL + [_I, _P],
                         _REPLACES + "91", _SOURCE),
-    "G2": sw.CudaKernel("G2_el_swrr", "mg_el_swrr", [_P] * 7 + _TAIL + [_P],
+    "G2": sw.CudaKernel("G2_el_swrr", "mg_el_swrr", [_P] * 8 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "391", _SOURCE),
     "G3": sw.CudaKernel("G3_el_psweep", "mg_el_psweep", [_P] * 5 + _TAIL + [_P],
                         _REPLACES + "457", _SOURCE),
@@ -210,6 +219,49 @@ def _tail(n, ph, a0, da, omega, consts):
     return (n, a0, da, omega, *consts, int(ph is not None))
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry of G2: row-streaming bands and strips in common.cuh's block
+# shape, each block restricting to the coarse nodes under its band and
+# strip.
+# ---------------------------------------------------------------------------
+
+# levels of up to this many elements per side, bi-material (True) or
+# homogeneous (False), run G2 on its one-pass tiles (csrc/elastic.cu
+# g2_el_descent, 16 x 32 fine tiles of the coarse grid): one wave of the
+# tile holds a level there, while a strip's 6 halo steps are a large share
+# of its rows.  The largest level at which the tile was the faster on the
+# H100 (``sweep_vs_parent.py --crossover --legs g2d2``, PERF.md)
+G2_ONE_PASS_MAX_N = {True: 1024, False: 512}
+
+
+def g2_tiles(n: int, strip: int = 32) -> sw.Tiles:
+    """G2: E2's descent chain without conv layers (``ops/hrelax.py``
+    ``descent_tiles`` with L = 0): bands of ``A12_THREADS A12_COLUMNS - 4``
+    owned columns, each block restricting to the coarse nodes under it."""
+    return hx.descent_tiles("G2", n, 0, strip)
+
+
+def g2_one_pass_tiles(n: int) -> sw.Tiles:
+    """G2 on one-pass tiles (``ops/hrelax.py::coarse_tiles``)."""
+    return hx.coarse_tiles("G2_tile", n)
+
+
+_G2_TILES = {}
+
+
+def g2_launch_tiles(n: int, bim: bool, device) -> sw.Tiles:
+    """The geometry G2 launches with on ``device``: one-pass tiles up to
+    ``G2_ONE_PASS_MAX_N[bim]``, else row-streaming strips of ``row_strip``'s
+    height (the chain's halo steps ``e2_halo_steps(0)``) for the occupancy
+    the card reports for the instance launched (``ops/hrelax.py``
+    ``launch_tiles``)."""
+    if n <= G2_ONE_PASS_MAX_N[bool(bim)]:
+        return g2_one_pass_tiles(n)
+    return hx.launch_tiles(_G2_TILES, (n, bool(bim), device.index), device,
+                           lambda s: g2_tiles(n, s), hx.e2_halo_steps(0),
+                           "mg_el_swrr_occupancy", int(bim))
+
+
 def el_sweep_cuda(u, f, ph=None, *, a0, da, omega, consts, mode="sweep", out=None, rsq=None,
                   workspace=None):
     """G1 on the card; same contract as :func:`el_sweep_plain`."""
@@ -228,15 +280,21 @@ def el_sweep_cuda(u, f, ph=None, *, a0, da, omega, consts, mode="sweep", out=Non
 
 def el_swrr_cuda(u, f, ph=None, *, a0, da, omega, consts, out=None, fc_out=None, rsq=None,
                  workspace=None):
-    """G2 on the card; same contract as :func:`el_swrr_plain`."""
+    """G2 on the card; same contract as :func:`el_swrr_plain`, and u, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     n, dev = u.shape[-1] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)], ph)
     out = sw._output(out, "out", (2, n + 1, n + 1), dev, (u, f))
     fc_out = sw._output(fc_out, "fc_out", (2, n // 2 + 1, n // 2 + 1), dev, (u, f, out))
     rsq = sw._scalar_out(rsq, dev)
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph))
+    tiles = g2_launch_tiles(n, ph is not None, dev)
+    partial, done = hx.row_scratch(tiles, 1, dev, workspace)
     KERNELS["G2"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), out.data_ptr(), fc_out.data_ptr(),
-                  sw._partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(),
-                  *_tail(n, ph, a0, da, omega, consts), sw._stream(dev))
+                  partial.data_ptr(), done.data_ptr(), rsq.data_ptr(),
+                  *_tail(n, ph, a0, da, omega, consts), int(tiles.leg == "G2_tile"),
+                  tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out, fc_out, rsq
 
 

@@ -42,6 +42,15 @@ residuals and the prolonged correction are zero on the boundary, the
 coarse output is zero on the coarse boundary ring, the Jacobi diagonal of
 a general level is its centre coefficient with 0 mapped to 1, and ``rsq``
 is the interior squared residual norm of the INCOMING iterate (D1, D2).
+
+D2 streams rows (``csrc/general.cu d2_gen_descent_rows``) above
+``D2_ONE_PASS_MAX_N``, in both operator forms and plane types: its wrapper
+launches it on the bands and strips of :func:`d2_tiles`, with the strip
+height ``ops/hrelax.py::row_strip`` picks for the level's size and the
+card's occupancy, and smaller levels on the one-pass tile
+(:func:`d2_launch_tiles`); both designs finish the norm in their last
+block.  Its u, f, the operator and the W4 planes must start on a 16-byte
+boundary.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import ctypes
 import torch
 
 from multigrid_feanet_torch.core.device import resolve_device
+from multigrid_feanet_torch.ops import hrelax as hx
 from multigrid_feanet_torch.ops import sweep as sw
 from multigrid_feanet_torch.ops.boxmg import prolong_planes, restrict_planes
 
@@ -169,7 +179,7 @@ KERNELS = {
                         [_P, _P, _P, _P, _P, _P, _I, _D, _I, _I, _P],
                         _REPLACES + "163", _SOURCE),
     "D2": sw.CudaKernel("D2_gswrr", "mg_gswrr",
-                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                        [_P] * 10 + [_I, _D, _D, _D] + [_I] * 6 + [_P],
                         _REPLACES + "202", _SOURCE),
     "D3": sw.CudaKernel("D3_gpsweep", "mg_gpsweep",
                         [_P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
@@ -202,6 +212,49 @@ def _operator(op, w4, n, device):
     return None, op.data_ptr(), 0, bf16
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry of D2: row-streaming bands and strips in common.cuh's block
+# shape, each block restricting to the coarse nodes under its band and
+# strip.
+# ---------------------------------------------------------------------------
+
+# levels of up to this many elements per side run D2 on its one-pass tiles
+# (csrc/general.cu d2_gen_descent, 16 x 32 fine tiles of the coarse grid):
+# one wave of the tile holds a level there, while a strip's 6 halo steps
+# are a large share of its rows.  The largest level at which the tile was
+# the faster on the H100 (the general form; the bi-material one ties there)
+# (``sweep_vs_parent.py --crossover --legs g2d2``, PERF.md)
+D2_ONE_PASS_MAX_N = 1024
+
+
+def d2_tiles(n: int, strip: int = 32) -> sw.Tiles:
+    """D2: E2's descent chain without conv layers (``ops/hrelax.py``
+    ``descent_tiles`` with L = 0): bands of ``A12_THREADS A12_COLUMNS - 4``
+    owned columns, each block restricting to the coarse nodes under it."""
+    return hx.descent_tiles("D2", n, 0, strip)
+
+
+def d2_one_pass_tiles(n: int) -> sw.Tiles:
+    """D2 on one-pass tiles (``ops/hrelax.py::coarse_tiles``)."""
+    return hx.coarse_tiles("D2_tile", n)
+
+
+_D2_TILES = {}
+
+
+def d2_launch_tiles(n: int, bim: bool, bf16: bool, device) -> sw.Tiles:
+    """The geometry D2 launches with on ``device``: one-pass tiles up to
+    ``D2_ONE_PASS_MAX_N``, else row-streaming strips of ``row_strip``'s
+    height (the chain's halo steps ``e2_halo_steps(0)``) for the occupancy
+    the card reports for the instance launched (``ops/hrelax.py``
+    ``launch_tiles``)."""
+    if n <= D2_ONE_PASS_MAX_N:
+        return d2_one_pass_tiles(n)
+    return hx.launch_tiles(_D2_TILES, (n, bool(bim), bool(bf16), device.index), device,
+                           lambda s: d2_tiles(n, s), hx.e2_halo_steps(0),
+                           "mg_gswrr_occupancy", int(bim), int(bf16))
+
+
 def gsweep_cuda(u, f, s9, *, omega, mode="sweep", out=None, rsq=None, workspace=None):
     """D1 on the card; same contract as :func:`gsweep_plain`."""
     sw._check_mode(mode, None)
@@ -218,16 +271,22 @@ def gsweep_cuda(u, f, s9, *, omega, mode="sweep", out=None, rsq=None, workspace=
 
 def gswrr_cuda(u, f, op, w4, *, a0, da, omega, out=None, fc_out=None, rsq=None,
                workspace=None):
-    """D2 on the card; same contract as :func:`gswrr_plain`."""
+    """D2 on the card; same contract as :func:`gswrr_plain`, and u, f, the
+    operator and ``w4`` must start on a 16-byte boundary (whole tensors do;
+    an offset view may not, and raises ValueError)."""
     n, dev = u.shape[0] - 1, u.device
     sw._operands(n, dev, [("u", u), ("f", f)])
     ph, s9, bim, bf16 = _operator(op, w4, n, dev)
     out = sw._output(out, "out", (n + 1, n + 1), dev, (u, f))
     fc_out = sw._output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f, out))
     rsq = sw._scalar_out(rsq, dev)
+    sw._check_aligned(("u", u), ("f", f), ("operator", op), ("w4", w4))
+    tiles = d2_launch_tiles(n, bim, bf16, dev)
+    partial, done = hx.row_scratch(tiles, 1, dev, workspace)
     KERNELS["D2"](u.data_ptr(), f.data_ptr(), ph, s9, w4.data_ptr(), out.data_ptr(),
-                  fc_out.data_ptr(), sw._partials(1, n, dev, workspace).data_ptr(),
-                  rsq.data_ptr(), n, a0, da, omega, bim, bf16, sw._stream(dev))
+                  fc_out.data_ptr(), partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0,
+                  da, omega, bim, bf16, int(tiles.leg == "D2_tile"), tiles.strip, tiles.gx,
+                  tiles.gy, sw._stream(dev))
     return out, fc_out, rsq
 
 

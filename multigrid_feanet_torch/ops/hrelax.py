@@ -254,11 +254,18 @@ def e1_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
     return sw.Tiles("E1", n, band, strip, -(-H // band), -(-H // strip))
 
 
+def coarse_tiles(leg: str, n: int) -> sw.Tiles:
+    """One-pass tiles on the coarse grid (E1, E2, G2, D2): one block per
+    CY x CX coarse tile of csrc/common.cuh, whose fine tile is 16 x 32
+    nodes."""
+    Hc = n // 2 + 1
+    return sw.Tiles(leg, n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+
+
 def e1_one_pass_tiles(n: int) -> sw.Tiles:
     """E1 on one-pass tiles: one block per 16 x 32 tile of fine nodes, the
     fine tiles of csrc/common.cuh's CY x CX coarse tiles (E2's grid)."""
-    Hc = n // 2 + 1
-    return sw.Tiles("E1_tile", n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+    return coarse_tiles("E1_tile", n)
 
 
 def e1_halo_steps(L: int) -> int:
@@ -301,6 +308,21 @@ def occupancy(symbol: str, *args) -> int:
     return blocks
 
 
+def launch_tiles(cache: dict, key: tuple, device, tiles_of, halo: int, symbol: str,
+                 *args) -> sw.Tiles:
+    """A row-streaming leg's geometry on ``device``: ``tiles_of(strip)`` at
+    :func:`row_strip`'s height for the blocks per SM the library's
+    ``symbol(*args)`` reports for the instance launched, kept in ``cache``
+    under ``key`` (computed once per level shape)."""
+    tiles = cache.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * occupancy(symbol, *args)
+        tiles = tiles_of(row_strip(tiles_of, halo, slots, sms))
+        cache[key] = tiles
+    return tiles
+
+
 def row_scratch(tiles: sw.Tiles, sums: int, device, workspace) -> tuple:
     """(partials, counter) of one launch that finishes its norms in its last
     block (E1, E2, C1: ``sums`` 1; H1: 2): ``sums`` partial sums per block
@@ -327,15 +349,9 @@ def e1_launch_tiles(n: int, L: int, bim: bool, dform: bool, bcmode: int, device)
     (computed once per level shape)."""
     if n <= E1_ONE_PASS_MAX_N[L]:
         return e1_one_pass_tiles(n)
-    key = (n, L, bool(bim), bool(dform), bcmode, device.index)
-    tiles = _E1_TILES.get(key)
-    if tiles is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        slots = sms * occupancy("mg_hrelax_occupancy", int(bim), int(dform), L, bcmode)
-        tiles = e1_tiles(n, L, row_strip(lambda s: e1_tiles(n, L, s), e1_halo_steps(L), slots,
-                                         sms))
-        _E1_TILES[key] = tiles
-    return tiles
+    return launch_tiles(_E1_TILES, (n, L, bool(bim), bool(dform), bcmode, device.index), device,
+                        lambda s: e1_tiles(n, L, s), e1_halo_steps(L), "mg_hrelax_occupancy",
+                        int(bim), int(dform), L, bcmode)
 
 
 # Launch geometry of E2: row-streaming bands and strips in E1's block shape,
@@ -350,29 +366,34 @@ def e1_launch_tiles(n: int, L: int, bim: bool, dform: bool, bcmode: int, device)
 E2_ONE_PASS_MAX_N = {1: 512, 3: 512}
 
 
-def e2_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
-    """E2 with chain depth L: a block computes ``A12_THREADS A12_COLUMNS``
+def descent_tiles(leg: str, n: int, L: int, strip: int) -> sw.Tiles:
+    """A descent chain with L conv layers (E2; G2 and D2 run the chain
+    without them, L = 0): a block computes ``A12_THREADS A12_COLUMNS``
     columns and owns ``A12_THREADS A12_COLUMNS - 2L - 4`` of them (the
     Jacobi stage, each conv layer and the residual eat a column of halo on
     each side, the restriction one more, and the band is even) and the
     coarse nodes under its band and strip."""
     sw._check_strip(strip)
     Hc, band = n // 2 + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2 * L - 4
-    return sw.Tiles("E2", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
+    return sw.Tiles(leg, n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
+
+
+def e2_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
+    """E2 with chain depth L (:func:`descent_tiles`)."""
+    return descent_tiles("E2", n, L, strip)
 
 
 def e2_one_pass_tiles(n: int) -> sw.Tiles:
-    """E2 on one-pass tiles: one block per CY x CX coarse tile
-    (csrc/common.cuh), whose fine tile is 16 x 32 nodes."""
-    Hc = n // 2 + 1
-    return sw.Tiles("E2_tile", n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+    """E2 on one-pass tiles (:func:`coarse_tiles`)."""
+    return coarse_tiles("E2_tile", n)
 
 
 def e2_halo_steps(L: int) -> int:
-    """Steps an E2 block takes beyond the fine rows its strip restricts:
-    the u rows of the chain's halo above (L + 3) and below (L + 2), the
-    wavefront's lag (L: each conv layer reads rows its input layer finished
-    a step earlier) and the residual's (1)."""
+    """Steps a descent chain's block (E2; G2 and D2 with L = 0) takes
+    beyond the fine rows its strip restricts: the u rows of the chain's
+    halo above (L + 3) and below (L + 2), the wavefront's lag (L: each conv
+    layer reads rows its input layer finished a step earlier) and the
+    residual's (1)."""
     return 3 * L + 6
 
 
@@ -386,15 +407,9 @@ def e2_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
     (computed once per level shape)."""
     if n <= E2_ONE_PASS_MAX_N[L]:
         return e2_one_pass_tiles(n)
-    key = (n, L, bool(bim), bool(dform), device.index)
-    tiles = _E2_TILES.get(key)
-    if tiles is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        slots = sms * occupancy("mg_hswrr_occupancy", int(bim), int(dform), L)
-        tiles = e2_tiles(n, L, row_strip(lambda s: e2_tiles(n, L, s), e2_halo_steps(L), slots,
-                                         sms))
-        _E2_TILES[key] = tiles
-    return tiles
+    return launch_tiles(_E2_TILES, (n, L, bool(bim), bool(dform), device.index), device,
+                        lambda s: e2_tiles(n, L, s), e2_halo_steps(L), "mg_hswrr_occupancy",
+                        int(bim), int(dform), L)
 
 
 # Launch geometry of E3 and E5: row-streaming bands and strips in E1's block

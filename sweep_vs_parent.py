@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
-``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1)
-and ``csrc/stencil.cu`` (C1) of this checkout against those of an earlier
-checkout of the port on one GPU, in turns.
+``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1),
+``csrc/stencil.cu`` (C1), ``csrc/elastic.cu`` (G2) and ``csrc/general.cu`` (D2)
+of this checkout against those of an earlier checkout of the port on one
+GPU, in turns.
 
-    python3 sweep_vs_parent.py --parent DIR [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|pbc]
-                               [--out FILE]
-    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5] [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5] [--out FILE]
-    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5] [--out FILE]
+    python3 sweep_vs_parent.py --parent DIR
+        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|pbc|g2d2_cells] [--out FILE]
+    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2] [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2] [--out FILE]
+    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -57,11 +58,22 @@ median of 3).  The turns run parent, this, this, parent.
   (``hmg_interface_4097``'s) and homogeneous in plain form
   (``hmg_4097``'s); and both legs in those four forms at n = 64 ... 512,
   where this checkout runs its one-pass tiles up to its thresholds.
+- ``g2d2``: ``el_swrr_cuda`` (G2) at 2049^2 and 1025^2, bi-material
+  (``elastic_2049``'s) and homogeneous, and bi-material at n = 64 ... 512
+  (the one-pass tile's sizes); ``gswrr_cuda`` (D2) on the 4097^2 BoxMG
+  setup: bi-material at level 0 in bf16 (``boxmg_4097``'s) and f32 planes,
+  bi-material at n = 64 ... 512 in bf16 planes, and the general 9-plane
+  form at 512^2 in bf16 and f32.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
   ``pbc_mg_4096``: of every H1 launch and its norm pass (``H1`` plus
   ``rsq_reduce``, one-pass tiles included) and of the whole device.
+- ``g2d2_cells`` (not part of ``all``): ``chip_smoke.run_boxmg_cell`` on the
+  4097^2 BoxMG setup and ``chip_smoke.run_elastic_cells`` in each turn, and
+  from their torch.profiler profiles each cell's device ms per cycle (per
+  iteration for the PCG), that of G2 or D2 and of the norm passes
+  (``rsq_reduce``), with the cycles and q.
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -75,6 +87,9 @@ set by hand instead of ``ops/sweep.py::balanced_strip``), beside the height
 With ``--legs e3e5``: E3 at 4097^2 and E5 at 2049^2 instead, with the L = 1
 and L = 3 nets, bi-material difference form and homogeneous plain form,
 over SCAN_STRIPS_E3E5 beside the height ``ops/hrelax.py::row_strip`` picks.
+With ``--legs g2d2``: G2 at 2049^2 (bi-material and homogeneous) and D2 at
+4097^2 (bi-material, bf16 and f32 planes) over SCAN_STRIPS_G2D2, beside the
+height ``row_strip`` picks.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
 ``--crossover`` times this checkout's kernels that have a one-pass tile
@@ -97,7 +112,11 @@ difference form with both nets (``ops/stencil_sweep.py::C1_ONE_PASS_MAX_N``,
 ``--legs e3e5`` (or ``all``): E3 and E5 in those four forms
 (``ops/hrelax.py::E3_ONE_PASS_MAX_N``, ``E5_ONE_PASS_MAX_N``; ``e3e5`` alone
 also at n = 8, 16 and 32), with the row-streaming kernels' blocks per SM at
-strips of 8, 32 and 128 rows.  Writes
+strips of 8, 32 and 128 rows.  With ``--legs g2d2`` (or ``all``): G2
+bi-material and homogeneous and D2 bi-material in bf16 and f32 planes and
+general in bf16 on the levels of the 4097^2 BoxMG setup
+(``ops/elastic.py::G2_ONE_PASS_MAX_N``, ``ops/general.py::D2_ONE_PASS_MAX_N``),
+with their blocks per SM.  Writes
 ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
@@ -107,9 +126,10 @@ launches on, each beside its byte bound: C1 (sweep and residual) and C2
 4096 and E4 and E5 at 2048 ... 32 with the L = 1 net (``hmg_4097``
 homogeneous and ``hmg_interface_4097`` bi-material in difference form), D4
 and D5 at 2048 ... 32 on the 4097^2 BoxMG setup's bf16 planes
-(``boxmg_4097``), and G1-G5 at 2048 ... 16 (the elastic cells,
-bi-material); with ``--legs c1e2`` or ``e3e5`` only the C and E rows, which
-also time E3 at 4096 beside E2.  Writes
+(``boxmg_4097``), D2 and D3 at its level 0, and G1-G5 at 2048 ... 16 (the
+elastic cells, bi-material); with ``--legs c1e2`` or ``e3e5`` only the C
+and E rows, which also time E3 at 4096 beside E2, with ``--legs g2d2``
+only the D and G rows.  Writes
 ``chiprun_out/sweep_levels.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
@@ -118,13 +138,14 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3, A4 and the row-streaming F1, A6, C1, E2, E3 and E5 in
-all and per step of their row loop (between two barriers; ``loop_step`` the
-median of the six longest gaps, the unrolled loop's steps), with the
-registers, spills and shared memory ``ptxas`` gave the row-streaming
-kernels.  The parent's kernels named in CHANGED (none: E3's and E5's
-one-pass tiles keep their code) would be compared apart; the kernels new in
-this checkout are listed; fails unless every other kernel matches.  Writes
+instructions of A3, A4 and the row-streaming F1, A6, C1, E2, E3, E5, G2
+and D2 in all and per step of their row loop (between two barriers;
+``loop_step`` the median of the six longest gaps, the unrolled loop's
+steps), with the registers, spills and shared memory ``ptxas`` gave the
+row-streaming kernels.  The parent's kernels named in CHANGED (G2's and
+D2's one-pass tiles, which now finish their norm in their last block) are
+compared apart and reported; the kernels new in this checkout are listed;
+fails unless every other kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
 """
 
@@ -148,12 +169,14 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): none, the one-pass E3 and E5 stay as they were
-CHANGED = ()
+# them apart): the one-pass G2 and D2, whose norm is now finished in their
+# last block
+CHANGED = ("g2_el_descent", "d2_gen_descent")
 # the row-streaming kernels whose instructions per step and registers --sass
 # reports
 ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
-               "e2_h_descent_rows", "e3_h_ascent_rows", "e5_h_zascent_rows")
+               "e2_h_descent_rows", "e3_h_ascent_rows", "e5_h_zascent_rows",
+               "g2_el_descent_rows", "d2_gen_descent_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -224,6 +247,21 @@ def child(checkout: Path, legs: str) -> int:
                 # the one-pass tiles at and below this checkout's thresholds
                 for m in TILE_LEVELS:
                     recs += cs.check_hrelax(m, bim, dform, ckpt, ["E3", "E5"])
+    if legs in ("all", "g2d2"):
+        for n in (cs.N_EL, cs.N_EL // 2):
+            for bim in (True, False):
+                recs += cs.check_elastic(n, bim, ["G2"])
+        for m in TILE_LEVELS:
+            recs += cs.check_elastic(m, True, ["G2"])
+        _, _, setup = cs.boxmg_setup_on_card()
+        for dt in (torch.bfloat16, torch.float32):
+            recs += cs.check_general(0, True, ["D2"], setup, dt)
+            recs += cs.check_general(3, False, ["D2"], setup, dt)
+        for m in TILE_LEVELS:
+            recs += cs.check_general(LEVEL_OF[m], True, ["D2"], setup, torch.bfloat16)
+        del setup
+    if legs == "g2d2_cells":
+        recs += descent_cells(cs)
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -241,7 +279,33 @@ def child(checkout: Path, legs: str) -> int:
     return 0
 
 
+def descent_cells(cs) -> list:
+    """``boxmg_4097`` and the elastic cells of ``cs`` (chip_smoke), run on
+    the imported checkout: one record per cell with its profiled device ms
+    per cycle (per iteration for the PCG), those of G2 / D2 and of the norm
+    passes, and its cycles and q."""
+    prob, hier, setup = cs.boxmg_setup_on_card()
+    cells = {"boxmg_4097": cs.run_boxmg_cell(prob, hier, setup)}
+    del hier, setup
+    cells.update(cs.run_elastic_cells())
+    out = []
+    for name, rec in cells.items():
+        prof = rec.get("profile", {})
+        by = prof.get("by_kernel", {})
+        leg = "D2" if name.startswith("boxmg") else "G2"
+        q = {k: rec[k] for k in ("tail_q", "q_last6", "tail_q12", "q_asym60", "contraction")
+             if k in rec}
+        out.append(dict(name=f"{name}_device", ms=prof.get("busy_ms_per_cycle", 0.0),
+                        cycles=rec.get("cycles", rec.get("iterations")), **q))
+        for k in (leg, "rsq_reduce"):
+            r = by.get(k, dict(ms_per_cycle=0.0, launches=0))
+            out.append(dict(name=f"{name}_{k}", ms=r["ms_per_cycle"], launches=r["launches"]))
+    return [dict(r, bytes=0, max_rel_err=0.0) for r in out]
+
+
 CROSS_LEVELS = (64, 128, 256, 512, 1024)
+# the level of the 4097^2 BoxMG setup at each size of CROSS_LEVELS
+LEVEL_OF = {4096 >> level: level for level in range(7)}
 # the smaller sizes e3e5 also times: E3 with L = 1 streamed faster than its
 # tile at 64^2 already
 SMALL_LEVELS = (8, 16, 32)
@@ -312,6 +376,21 @@ def crossover(which: str) -> list:
                     n, bim, dform, ckpt, ["E2"])[0]
         strips_of["C1"] = lambda n: [t.strip for key, t in ss._C1_TILES.items() if key[0] == n]
         strips_of["E2"] = lambda n: [t.strip for key, t in hx._E2_TILES.items() if key[0] == n]
+    if which in ("all", "g2d2"):
+        from multigrid_feanet_torch.ops import elastic as eg
+        from multigrid_feanet_torch.ops import general as gen
+
+        thresholds += [(eg, "G2_ONE_PASS_MAX_N"), (gen, "D2_ONE_PASS_MAX_N")]
+        _, _, setup = cs.boxmg_setup_on_card()
+        for bim in (True, False):
+            legs[f"G2_{'bim' if bim else 'hom'}"] = \
+                lambda n, bim=bim: cs.check_elastic(n, bim, ["G2"])[0]
+        for bim, dt in ((True, torch.bfloat16), (True, torch.float32), (False, torch.bfloat16)):
+            legs[f"D2_{'bim' if bim else 'general'}_{str(dt).removeprefix('torch.')}"] = \
+                lambda n, bim=bim, dt=dt: cs.check_general(LEVEL_OF[n], bim, ["D2"], setup,
+                                                           dt)[0]
+        strips_of["G2"] = lambda n: [t.strip for key, t in eg._G2_TILES.items() if key[0] == n]
+        strips_of["D2"] = lambda n: [t.strip for key, t in gen._D2_TILES.items() if key[0] == n]
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
@@ -348,6 +427,11 @@ def crossover(which: str) -> list:
         for bim, dform, L in itertools.product((0, 1), (0, 1), (1, 3)):
             blocks[f"E2_bim{bim}_dform{dform}_L{L}"] = hx.occupancy("mg_hswrr_occupancy", bim,
                                                                     dform, L)
+    if which in ("all", "g2d2"):
+        for bim in (0, 1):
+            blocks[f"G2_bim{bim}"] = hx.occupancy("mg_el_swrr_occupancy", bim)
+            for bf16 in (0, 1):
+                blocks[f"D2_bim{bim}_bf16{bf16}"] = hx.occupancy("mg_gswrr_occupancy", bim, bf16)
     if which in ("all", "e3e5"):
         for sym, leg in (("mg_phrelax_occupancy", "E3"), ("mg_zphrelax_occupancy", "E5")):
             for bim, dform, L, strip in itertools.product((0, 1), (0, 1), (1, 3), (8, 32, 128)):
@@ -375,19 +459,23 @@ def levels(which: str) -> list:
                     **{k: rec[k] for k in ("bim", "dform", "coef_dtype") if k in rec})
 
     out = []
-    for n in LEVEL_SIZES:
-        out += [row(r, "poisson_4097_r1")
-                for r in cs.check_stencil(n, False, ["C1_sweep", "C1_residual", "C2_k2"])]
-    for n in LEVEL_SIZES:
-        legs = ["E2", "E3"] if n == LEVEL_SIZES[0] else ["E4", "E5"]
-        out += [row(r, "hmg_4097") for r in cs.check_hrelax(n, False, False, cs.HNET_L1, legs)]
-        out += [row(r, "hmg_interface_4097") for r in cs.check_hrelax(n, True, True, cs.HNET_L1,
-                                                                      legs)]
+    if which != "g2d2":
+        for n in LEVEL_SIZES:
+            out += [row(r, "poisson_4097_r1")
+                    for r in cs.check_stencil(n, False, ["C1_sweep", "C1_residual", "C2_k2"])]
+        for n in LEVEL_SIZES:
+            legs = ["E2", "E3"] if n == LEVEL_SIZES[0] else ["E4", "E5"]
+            out += [row(r, "hmg_4097")
+                    for r in cs.check_hrelax(n, False, False, cs.HNET_L1, legs)]
+            out += [row(r, "hmg_interface_4097")
+                    for r in cs.check_hrelax(n, True, True, cs.HNET_L1, legs)]
     if which in ("c1e2", "e3e5"):
         for r in out:
             print(json.dumps(r), flush=True)
         return out
     _, _, setup = cs.boxmg_setup_on_card()
+    out += [row(r, "boxmg_4097") for r in cs.check_general(0, True, ["D2", "D3"], setup,
+                                                           torch.bfloat16)]
     for level in range(1, len(LEVEL_SIZES)):
         out += [row(r, "boxmg_4097") for r in cs.check_general(level, False, ["D4", "D5"], setup,
                                                                torch.bfloat16)]
@@ -436,6 +524,44 @@ def strip_scan_e3e5() -> list:
     return out
 
 
+SCAN_STRIPS_G2D2 = (8, 16, 22, 30, 40, 48, 62, 80, 108, 128)
+
+
+def strip_scan_g2d2() -> list:
+    """G2 at 2049^2 (bi-material and homogeneous) and D2 at 4097^2
+    (bi-material, bf16 and f32 planes) at each strip of SCAN_STRIPS_G2D2
+    and at the strip ``row_strip`` picks; one record per leg and form."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops import general as gen
+
+    dev = torch.cuda.current_device()
+    _, _, setup = cs.boxmg_setup_on_card()
+    cases = [("G2", cs.N_EL, bim, None, eg._G2_TILES, (cs.N_EL, bim, dev), eg.g2_tiles,
+              lambda bim=bim: cs.check_elastic(cs.N_EL, bim, ["G2"])[0]["ms"])
+             for bim in (True, False)]
+    cases += [("D2", cs.N_MAIN, True, str(dt).removeprefix("torch."), gen._D2_TILES,
+               (cs.N_MAIN, True, dt == torch.bfloat16, dev), gen.d2_tiles,
+               lambda dt=dt: cs.check_general(0, True, ["D2"], setup, dt)[0]["ms"])
+              for dt in (torch.bfloat16, torch.float32)]
+    out = []
+    for leg, n, bim, dtype, cache, key, tiles_of, run in cases:
+        picked = run()
+        chosen = cache[key]
+        by_strip = {}
+        for strip in SCAN_STRIPS_G2D2:
+            cache[key] = tiles_of(n, strip)
+            by_strip[strip] = run()
+        cache[key] = chosen
+        out.append(dict(leg=leg, n=n, bim=bim, coef_dtype=dtype, chosen=chosen.strip,
+                        chosen_ms=picked, ms=by_strip))
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def strip_scan() -> list:
     """A3/A4 (bi-material plain form) at each level size and strip of
     SCAN_STRIPS, and at the strip the wrappers pick; one record per level."""
@@ -479,6 +605,10 @@ STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restr
                     r"(f|13__nv_bfloat16)?E")
 
 
+# the counts and cell results a turn's line keeps beside each record's ms
+CELL_KEYS = ("launches", "cycles", "tail_q", "q_last6", "tail_q12", "q_asym60", "contraction")
+
+
 # kernels this checkout keeps under a new name (new name: parent's name)
 RENAMED = {}
 
@@ -516,7 +646,7 @@ def _functions(lib: Path) -> dict:
         key = (src, f"{m.group(1)}<{m.group(2)}>" if m else name,
                "bf16" if m and m.group(3) and m.group(3) != "f" else "f32")
         ins = [" ".join(re.sub(r"/\*[^*]*\*/", " ", line).split())
-               for line in fn.split("\n") if re.search(r"/\*[0-9a-f]{4}\*/", line)]
+               for line in fn.split("\n") if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
         out[key] = [i for i in ins if i]
     return out
 
@@ -581,6 +711,8 @@ def _key(rec) -> str:
         key += f"_L{rec['L']}" + ("" if rec.get("bc") is None else f"_bc{rec['bc']}")
     if rec.get("dtype"):
         key += f"_{rec['dtype']}"
+    if rec.get("coef_dtype"):
+        key += f"_{rec['coef_dtype']}"
     return key
 
 
@@ -604,7 +736,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
-                                       "pbc"),
+                                       "g2d2", "pbc", "g2d2_cells"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -627,7 +759,7 @@ def main() -> int:
         name = ("sweep_strip_scan.json" if args.strip_scan else
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
-        scan = strip_scan_e3e5 if args.legs == "e3e5" else strip_scan
+        scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2}.get(args.legs, strip_scan)
         lines = [dict(card=smi)] + (scan() if args.strip_scan else
                                     levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:
@@ -662,7 +794,7 @@ def main() -> int:
             return 1
         recs = json.loads(done.stdout.strip().splitlines()[-1])
         turn = {_key(r): dict(ms=r["ms"], max_rel_err=r["max_rel_err"],
-                              **({"launches": r["launches"]} if "launches" in r else {}))
+                              **{k: r[k] for k in CELL_KEYS if k in r})
                 for r in recs}
         for r in recs:
             times.setdefault(_key(r), {}).setdefault(label, []).append(r["ms"])
@@ -670,12 +802,17 @@ def main() -> int:
         lines.append(dict(turn=label, legs=turn))
         print(json.dumps(lines[-1]), flush=True)
     summary = {}
+
+    def ratio(a, b):
+        return a / b if b else None
+
     for key, by in times.items():
         (parent, p_spread), (this, t_spread) = (
-            (sum(by[k]) / len(by[k]), (max(by[k]) - min(by[k])) / (sum(by[k]) / len(by[k])))
+            (statistics.mean(by[k]), ratio(max(by[k]) - min(by[k]), statistics.mean(by[k])))
             for k in ("parent", "this"))
         summary[key] = dict(parent_ms=parent, this_ms=this, bound_ms=bounds[key],
-                            parent_over_this=parent / this, this_of_bound=bounds[key] / this,
+                            parent_over_this=ratio(parent, this),
+                            this_of_bound=ratio(bounds[key], this),
                             parent_spread=p_spread, this_spread=t_spread)
     lines.append(dict(summary=summary))
     print(json.dumps(lines[-1]), flush=True)

@@ -111,6 +111,40 @@ def test_plain_solve_matches_jax_f64():
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=0, atol=1e-9 * np.abs(uj).max())
 
 
+@pytest.mark.parametrize("n", [64, 128])
+def test_plain_solve_long_window_matches_jax_f64(n):
+    """60 plain V(2,2) cycles in f64 at n = 64 and 128, the window of the
+    asymptotic q (the last 8 ratios): the port's history against the JAX
+    package's.  While the residual stays above 1e-4 of its start the two
+    agree to rtol 1e-9, as at n = 32; below that both histories carry the
+    f64 rounding of their residuals, ~1e-14 of the first one (measured:
+    5e-15 at n = 64, 1e-14 at 128), which the falling residual amplifies to
+    a few 1e-9 relative by cycle 60, so the whole history is held to 1e-13
+    of its start.  The last-8 q agree to 1e-8 and lie in the reference's
+    long-window band."""
+    jl = jes.build_elastic_hierarchy(n, E, NU, inclusion=CIRCLE, coefficients=COEF,
+                                     dtype=jnp.float64)
+    tl = tes.build_elastic_hierarchy(n, E, NU, inclusion=CIRCLE, coefficients=COEF,
+                                     dtype=torch.float64, device="cpu")
+    f = rhs(n, seed=1).astype(np.float64)
+    _, hj = jes.solve(jl, jnp.asarray(f), nu1=2, nu2=2, eps=0.0, max_cycles=60, chunk=4)
+    _, ht = tes.solve(tl, f, nu1=2, nu2=2, eps=0.0, max_cycles=60, chunk=4)
+    hj, ht = np.asarray(hj), np.asarray(ht)
+    assert len(ht) == len(hj) == 60
+    early = hj >= 1e-4 * hj[0]
+    assert early.sum() >= 20
+    np.testing.assert_allclose(ht[early], hj[early], rtol=1e-9)
+    np.testing.assert_allclose(ht, hj, rtol=0, atol=1e-13 * hj[0])
+
+    def q8(h):
+        return float(np.exp(np.mean(np.diff(np.log(h))[-8:])))
+
+    qt, qj = q8(ht), q8(hj)
+    print(f"elastic f64 V(2,2) n={n}: last-8 q port {qt!r}, JAX {qj!r}")
+    assert abs(qt - qj) <= 1e-8 * qj
+    assert 0.8 < qj < 0.85
+
+
 def test_v22_matches_pallas(no_direct):
     """V(2,2) with the plain subtree down to n = 2 (no direct solve)."""
     jm, th = no_direct

@@ -291,6 +291,9 @@ def test_block_shape_matches_the_kernel():
     assert "col_own[e] = p >= L + 2 && p < L + 2 + BW && c < H;" in body
     grid = src[src.index("inline bool e2_grid_ok("):]
     grid = grid[:grid.index("\n}\n")]
+    assert "return descent_grid_ok(n, L, one_pass, strip, gx, gy);" in grid
+    grid = common[common.index("inline bool descent_grid_ok("):]
+    grid = grid[:grid.index("\n}\n")]
     assert "bw = (RB - 2 * L - 4) / 2" in grid and "gx == (Hc + bw - 1) / bw" in grid
     assert "coarse_grid(n)" in grid
     entry = src[src.index("int mg_hswrr("):]
