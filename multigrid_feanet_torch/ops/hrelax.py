@@ -37,15 +37,14 @@ JAX package's arithmetic.  The level-facing functions :func:`hrelax`,
 plain version, CUDA tensors launch the kernel or raise.  Kernels and plain
 versions agree to ``TOL`` as those of ``ops/sweep.py`` do.
 
-E1, E2, E3 and E5 stream rows (``csrc/hrelax.cu``): their wrappers launch
-them on the bands and strips of :func:`e1_tiles`, :func:`e2_tiles`,
-:func:`e3_tiles` and :func:`e5_tiles`, with the strip height
-:func:`row_strip` picks for the level's size and the card's occupancy, and
-levels of up to ``E1_ONE_PASS_MAX_N[L]``, ``E2_ONE_PASS_MAX_N[L]``,
-``E3_ONE_PASS_MAX_N[L]`` and ``E5_ONE_PASS_MAX_N[L]`` on one-pass tiles
-(:func:`e1_launch_tiles` .. :func:`e5_launch_tiles`); E1 and E2 finish
-their norms in their last block.  Their u, f, the phase, a boundary field
-and uc must start on a 16-byte boundary.  The kernels are built for chain depths
+All five stream rows (``csrc/hrelax.cu``): their wrappers launch them on
+the bands and strips of :func:`e1_tiles` .. :func:`e5_tiles`, with the
+strip height :func:`row_strip` picks for the level's size and the card's
+occupancy, and levels of up to ``E1_ONE_PASS_MAX_N[L]`` ..
+``E5_ONE_PASS_MAX_N[L]`` on one-pass tiles (:func:`e1_launch_tiles` ..
+:func:`e5_launch_tiles`); E1 and E2 finish their norms in their last
+block.  Their u, f, the phase, a boundary field and uc must start on a
+16-byte boundary.  The kernels are built for chain depths
 ``SUPPORTED_DEPTHS``; the wrappers raise ValueError for any other.  The
 prolongation-fused legs (E3, E5) need an odd depth, as the TPU wrappers
 assert; the plain versions take any depth otherwise.
@@ -179,7 +178,7 @@ def zphrelax_plain(f, ph, uc, params, *, a0, da, omega, dform, out=None):
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SOURCE = "multigrid_feanet_torch/csrc/hrelax.cu"
 _REPLACES = "multigrid_feanet_tpu/ops/pallas_hrelax.py:"
-_TAIL = [_I, _D, _D, _D, _I, _I, _I, _P]  # n, a0, da, omega, bim, dform, L, stream
+_TAIL = [_I, _D, _D, _D, _I, _I, _I]  # n, a0, da, omega, bim, dform, L
 
 KERNELS = {
     # u f ph params bcf out partial done rsq; bcs bcmode; n a0 da omega; bim dform L
@@ -191,11 +190,13 @@ KERNELS = {
     "E2": sw.CudaKernel("E2_hswrr", "mg_hswrr", [_P] * 9 + [_I, _D, _D, _D] + [_I] * 7 + [_P],
                         _REPLACES + "287", _SOURCE),
     # u1 f ph uc params out; n a0 da omega; bim dform L; one_pass strip gx gy; stream
-    "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL[:-1] + [_I] * 4 + [_P],
+    "E3": sw.CudaKernel("E3_phrelax", "mg_phrelax", [_P] * 6 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "361", _SOURCE),
-    "E4": sw.CudaKernel("E4_zhswrr", "mg_zhswrr", [_P] * 4 + _TAIL, _REPLACES + "420", _SOURCE),
+    # f ph params fc; n a0 da omega; bim dform L; one_pass strip gx gy; stream
+    "E4": sw.CudaKernel("E4_zhswrr", "mg_zhswrr", [_P] * 4 + _TAIL + [_I] * 4 + [_P],
+                        _REPLACES + "420", _SOURCE),
     # f ph uc params out; n a0 da omega; bim dform L; one_pass strip gx gy; stream
-    "E5": sw.CudaKernel("E5_zphrelax", "mg_zphrelax", [_P] * 5 + _TAIL[:-1] + [_I] * 4 + [_P],
+    "E5": sw.CudaKernel("E5_zphrelax", "mg_zphrelax", [_P] * 5 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "460", _SOURCE),
 }
 
@@ -211,8 +212,8 @@ def _kernel_depth(params, odd: bool = False) -> int:
     return L
 
 
-def _tail(n, L, ph, a0, da, omega, dform, dev):
-    return (n, a0, da, omega, int(ph is not None), int(dform), L, sw._stream(dev))
+def _tail(n, L, ph, a0, da, omega, dform):
+    return (n, a0, da, omega, int(ph is not None), int(dform), L)
 
 
 def _bc_operand(bc, n, dev):
@@ -255,7 +256,7 @@ def e1_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
 
 
 def coarse_tiles(leg: str, n: int) -> sw.Tiles:
-    """One-pass tiles on the coarse grid (E1, E2, G2, D2): one block per
+    """One-pass tiles on the coarse grid (E1, E2, E4, G2, D2): one block per
     CY x CX coarse tile of csrc/common.cuh, whose fine tile is 16 x 32
     nodes."""
     Hc = n // 2 + 1
@@ -367,12 +368,13 @@ E2_ONE_PASS_MAX_N = {1: 512, 3: 512}
 
 
 def descent_tiles(leg: str, n: int, L: int, strip: int) -> sw.Tiles:
-    """A descent chain with L conv layers (E2; G2 and D2 run the chain
-    without them, L = 0): a block computes ``A12_THREADS A12_COLUMNS``
-    columns and owns ``A12_THREADS A12_COLUMNS - 2L - 4`` of them (the
-    Jacobi stage, each conv layer and the residual eat a column of halo on
-    each side, the restriction one more, and the band is even) and the
-    coarse nodes under its band and strip."""
+    """A descent chain with L conv layers (E2 and E4; G2 and D2 run the
+    chain without them, L = 0): a block computes ``A12_THREADS
+    A12_COLUMNS`` columns and owns ``A12_THREADS A12_COLUMNS - 2L - 4`` of
+    them (E2's Jacobi stage reads a u window one column wider, E4's g0 needs
+    none; each conv layer and the residual eat a column of halo on each
+    side, the restriction one more, and the band is even) and the coarse
+    nodes under its band and strip."""
     sw._check_strip(strip)
     Hc, band = n // 2 + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2 * L - 4
     return sw.Tiles(leg, n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
@@ -409,6 +411,49 @@ def e2_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
         return e2_one_pass_tiles(n)
     return launch_tiles(_E2_TILES, (n, L, bool(bim), bool(dform), device.index), device,
                         lambda s: e2_tiles(n, L, s), e2_halo_steps(L), "mg_hswrr_occupancy",
+                        int(bim), int(dform), L)
+
+
+# Launch geometry of E4: E2's bands and strips (descent_tiles), its chain
+# started from g0 instead of a Jacobi stage.
+
+# levels of up to this many elements per side, by chain depth, run E4 on
+# one-pass tiles (csrc/hrelax.cu e4_h_zdescent, 16 x 32 fine tiles of the
+# coarse grid): the largest level at which the tile was the faster on the
+# H100 (``sweep_vs_parent.py --crossover --legs e4c2``, PERF.md)
+E4_ONE_PASS_MAX_N = {1: 512, 3: 512}
+
+
+def e4_tiles(n: int, L: int, strip: int = 32) -> sw.Tiles:
+    """E4 with chain depth L (:func:`descent_tiles`)."""
+    return descent_tiles("E4", n, L, strip)
+
+
+def e4_one_pass_tiles(n: int) -> sw.Tiles:
+    """E4 on one-pass tiles (:func:`coarse_tiles`)."""
+    return coarse_tiles("E4_tile", n)
+
+
+def e4_halo_steps(L: int) -> int:
+    """Steps an E4 block takes beyond the fine rows its strip restricts:
+    the g0 rows of the chain's halo above (L + 2) and the element row over
+    them (1), and the residual's lag behind g0 (2L + 2: each conv layer two
+    rows, the residual two), during which the halo below is staged."""
+    return 3 * L + 5
+
+
+_E4_TILES = {}
+
+
+def e4_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
+    """The geometry E4 launches with on ``device``: one-pass tiles up to
+    ``E4_ONE_PASS_MAX_N[L]``, else row-streaming strips of :func:`row_strip`'s
+    height for the occupancy the card reports for the instance launched
+    (computed once per level shape)."""
+    if n <= E4_ONE_PASS_MAX_N[L]:
+        return e4_one_pass_tiles(n)
+    return launch_tiles(_E4_TILES, (n, L, bool(bim), bool(dform), device.index), device,
+                        lambda s: e4_tiles(n, L, s), e4_halo_steps(L), "mg_zhswrr_occupancy",
                         int(bim), int(dform), L)
 
 
@@ -575,20 +620,25 @@ def phrelax_cuda(u, f, ph, uc, params, *, a0, da, omega, dform, out=None):
     sw._check_aligned(("u", u), ("f", f), ("phase", ph), ("uc", uc))
     tiles = e3_launch_tiles(n, L, ph is not None, dform, dev)
     KERNELS["E3"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), uc.data_ptr(), params.data_ptr(),
-                  out.data_ptr(), *_tail(n, L, ph, a0, da, omega, dform, dev)[:-1],
+                  out.data_ptr(), *_tail(n, L, ph, a0, da, omega, dform),
                   int(tiles.leg == "E3_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out
 
 
 def zhswrr_cuda(f, ph, params, *, a0, da, omega, dform, out=None):
-    """E4 on the card; same contract as :func:`zhswrr_plain`."""
+    """E4 on the card; same contract as :func:`zhswrr_plain`, and f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     L = _kernel_depth(params)
     n, dev = f.shape[0] - 1, f.device
     sw._operands(n, dev, [("f", f)], ph)
     sw._check(params, "params", (L, 3, 3), torch.float32, dev)
     out = sw._output(out, "out", (n // 2 + 1, n // 2 + 1), dev, (f,))
+    sw._check_aligned(("f", f), ("phase", ph))
+    tiles = e4_launch_tiles(n, L, ph is not None, dform, dev)
     KERNELS["E4"](f.data_ptr(), sw._ptr(ph), params.data_ptr(), out.data_ptr(),
-                  *_tail(n, L, ph, a0, da, omega, dform, dev))
+                  *_tail(n, L, ph, a0, da, omega, dform),
+                  int(tiles.leg == "E4_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out
 
 
@@ -604,7 +654,7 @@ def zphrelax_cuda(f, ph, uc, params, *, a0, da, omega, dform, out=None):
     sw._check_aligned(("f", f), ("phase", ph), ("uc", uc))
     tiles = e5_launch_tiles(n, L, ph is not None, dform, dev)
     KERNELS["E5"](f.data_ptr(), sw._ptr(ph), uc.data_ptr(), params.data_ptr(), out.data_ptr(),
-                  *_tail(n, L, ph, a0, da, omega, dform, dev)[:-1],
+                  *_tail(n, L, ph, a0, da, omega, dform),
                   int(tiles.leg == "E5_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out
 

@@ -31,15 +31,18 @@ residual norm of the incoming iterate (for ``sweep_k``: of the last sweep's
 input, so it lags k - 1 sweeps behind the returned iterate).  The kernels
 agree with their plain versions to ``ops.sweep.TOL``.
 
-C1 has two designs (``csrc/stencil.cu``), both finishing the norm in their
-last block: above ``C1_ONE_PASS_MAX_N`` its wrapper launches the
+Each has two designs (``csrc/stencil.cu``), all four finishing the norm in
+their last block: above ``C1_ONE_PASS_MAX_N`` C1's wrapper launches the
 row-streaming kernel on the bands and strips of :func:`c1_tiles`, with the
 strip height ``ops.hrelax.row_strip`` picks for the level's size and the
 card's occupancy; at and below it the one-pass tiles of
-:func:`c1_one_pass_tiles` (:func:`c1_launch_tiles` chooses).  u, f and
-``pid`` must start on a 16-byte boundary (whole tensors do; an offset view
-may not, and raises ValueError).  C2 runs one-pass tiles and a second pass
-for its norm.
+:func:`c1_one_pass_tiles` (:func:`c1_launch_tiles` chooses).  C2 streams
+its k sweeps as a wavefront for k up to ``C2_STREAM_MAX_K`` above
+``C2_ONE_PASS_MAX_N[(bim, k)]`` (:func:`c2_tiles`), and runs its one-pass tiles
+(:func:`c2_one_pass_tiles`) at and below it and for every deeper k
+(:func:`c2_launch_tiles` chooses).  u, f and ``pid`` must start on a
+16-byte boundary (whole tensors do; an offset view may not, and raises
+ValueError).
 """
 
 from __future__ import annotations
@@ -51,8 +54,7 @@ from multigrid_feanet_torch.ops.hrelax import occupancy, row_scratch, row_strip
 from multigrid_feanet_torch.ops.stencil import UNIT_S4, UNIT_S9
 from multigrid_feanet_torch.ops.sweep import (
     A12_COLUMNS, A12_THREADS, CudaKernel, Tiles, _I, _D, _P, _check, _check_aligned,
-    _check_strip, _emit, _interior, _operands, _output, _partials, _ptr, _scalar_out, _shifts,
-    _stream)
+    _check_strip, _emit, _interior, _operands, _output, _ptr, _scalar_out, _shifts, _stream)
 
 _SOURCE = "multigrid_feanet_torch/csrc/stencil.cu"
 MAX_FUSED = 8  # sweeps per pass of C2, as the TPU kernel
@@ -128,8 +130,9 @@ KERNELS = {
     "C1": CudaKernel("C1_stencil_relax", "st_relax",
                      [_P] * 7 + [_I, _D, _D, _D] + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_stencil.py:122", _SOURCE),
+    # u f pid out partial done rsq; n a0 da omega; bim k one_pass strip gx gy; stream
     "C2": CudaKernel("C2_stencil_multi", "st_multi",
-                     [_P, _P, _P, _P, _P, _P, _I, _D, _D, _D, _I, _I, _P],
+                     [_P] * 7 + [_I, _D, _D, _D] + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_stencil.py:364", _SOURCE),
 }
 
@@ -179,6 +182,65 @@ def c1_launch_tiles(n: int, bim: bool, mode: int, device) -> Tiles:
     return tiles
 
 
+# the deepest chain of sweeps C2 streams (csrc/stencil.cu C2_STREAM_MAX_K):
+# deeper chains run the one-pass tile at every size
+C2_STREAM_MAX_K = 4
+# levels of up to this many elements per side, by (bi-material, number of
+# sweeps k), run C2 on one-pass tiles (csrc/stencil.cu c2_stencil_multi, 32
+# x 32 nodes a block): the largest level at which the tile was the faster on
+# the H100 (``sweep_vs_parent.py --crossover --legs e4c2``, PERF.md).  The
+# bi-material sweeps' S4 taps lengthen a streamed step, so the two-phase
+# chains stream only from larger levels on
+C2_ONE_PASS_MAX_N = {(False, 1): 256, (False, 2): 256, (False, 3): 256, (False, 4): 512,
+                     (True, 1): 512, (True, 2): 512, (True, 3): 1024, (True, 4): 1024}
+
+
+def c2_halo_steps(k: int) -> int:
+    """Steps a row-streaming C2 block takes beyond its strip's rows: the k
+    u rows above and below it and the wavefront's lag of 2(k - 1) rows
+    (each sweep reads rows the one before finished a step earlier)."""
+    return 3 * k - 1
+
+
+def c2_tiles(n: int, k: int, strip: int = 32) -> Tiles:
+    """C2 with k chained sweeps: a block computes the ``A12_THREADS
+    A12_COLUMNS`` columns its threads cover and owns ``A12_THREADS
+    A12_COLUMNS - 2(k - 1)`` of them (every sweep after the first eats a
+    column of halo on each side), and a strip of the (n+1) rows."""
+    _check_strip(strip)
+    H, band = n + 1, A12_THREADS * A12_COLUMNS - 2 * (k - 1)
+    return Tiles("C2", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def c2_one_pass_tiles(n: int) -> Tiles:
+    """C2 on one-pass tiles: one 256-thread block per 32 x 32 tile of nodes
+    (csrc/common.cuh's MX x MY)."""
+    H = n + 1
+    return Tiles("C2_tile", n, 32, 32, -(-H // 32), -(-H // 32))
+
+
+_C2_TILES = {}
+
+
+def c2_launch_tiles(n: int, k: int, bim: bool, device) -> Tiles:
+    """The geometry C2 launches with on ``device``: one-pass tiles up to
+    ``C2_ONE_PASS_MAX_N[(bim, k)]`` and for every k above ``C2_STREAM_MAX_K``, else
+    row-streaming strips of ``row_strip``'s height for the occupancy the
+    card reports for the instance launched (computed once per level
+    shape)."""
+    if k > C2_STREAM_MAX_K or n <= C2_ONE_PASS_MAX_N[(bool(bim), k)]:
+        return c2_one_pass_tiles(n)
+    key = (n, k, bool(bim), device.index)
+    tiles = _C2_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * occupancy("st_multi_occupancy", int(bim), k)
+        tiles = c2_tiles(n, k, row_strip(lambda s: c2_tiles(n, k, s), c2_halo_steps(k), slots,
+                                         sms))
+        _C2_TILES[key] = tiles
+    return tiles
+
+
 def _operands_c(u, f, pid, out, rsq):
     """Check one C1 or C2 launch's operands; (n, device, out, rsq)."""
     n, dev = u.shape[0] - 1, u.device
@@ -206,12 +268,20 @@ def relax_cuda(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None, rsq=Non
 
 
 def multi_cuda(u, f, pid=None, *, k, a0, da, omega, out=None, rsq=None, workspace=None):
-    """C2 on the card; same contract as :func:`multi_plain`."""
+    """C2 on the card; same contract as :func:`multi_plain`, and u, f and
+    ``pid`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError).  k up to ``C2_STREAM_MAX_K``
+    streams above ``C2_ONE_PASS_MAX_N[(bim, k)]``; deeper k runs the
+    one-pass tile at every size."""
     _check_k(k)
     n, dev, out, rsq = _operands_c(u, f, pid, out, rsq)
-    KERNELS["C2"](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(),
-                  _partials(2, n, dev, workspace).data_ptr(), rsq.data_ptr(), n, a0, da, omega,
-                  int(pid is not None), int(k), _stream(dev))
+    _check_aligned(("u", u), ("f", f), ("pid", pid))
+    tiles = c2_launch_tiles(n, k, pid is not None, dev)
+    partial, done = row_scratch(tiles, 1, dev, workspace)
+    KERNELS["C2"](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(), partial.data_ptr(),
+                  done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, int(pid is not None),
+                  int(k), int(tiles.leg == "C2_tile"), tiles.strip, tiles.gx, tiles.gy,
+                  _stream(dev))
     return out, rsq
 
 

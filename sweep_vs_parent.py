@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
 ``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1),
-``csrc/stencil.cu`` (C1), ``csrc/elastic.cu`` (G2) and ``csrc/general.cu`` (D2)
-of this checkout against those of an earlier checkout of the port on one
+``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G2), ``csrc/general.cu`` (D2)
+and ``csrc/hrelax.cu``'s E4 of this checkout against those of an earlier checkout of the port on one
 GPU, in turns.
 
     python3 sweep_vs_parent.py --parent DIR
-        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|pbc|g2d2_cells] [--out FILE]
-    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2] [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2] [--out FILE]
-    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2] [--out FILE]
+        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|pbc|g2d2_cells|e4c2_cells]
+        [--out FILE]
+    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2] [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2]
+        [--out FILE]
+    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -64,6 +66,13 @@ median of 3).  The turns run parent, this, this, parent.
   setup: bi-material at level 0 in bf16 (``boxmg_4097``'s) and f32 planes,
   bi-material at n = 64 ... 512 in bf16 planes, and the general 9-plane
   form at 512^2 in bf16 and f32.
+- ``e4c2``: ``zhswrr_cuda`` (E4) at 2049^2 and 1025^2 with the L = 1 net,
+  bi-material in difference form (``hmg_interface_4097``'s) and homogeneous
+  in plain form (``hmg_4097``'s), and homogeneous with the L = 3 net; its
+  one-pass tile at n = 64 ... 512 in the two L = 1 forms; ``multi_cuda``
+  (C2) at 4097^2 and 2049^2 with k = 2, 4 and 8 (homogeneous, the
+  ``_v22`` cell's, and bi-material), and k = 2 on its one-pass tile at
+  n = 32 ... 256.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -74,6 +83,12 @@ median of 3).  The turns run parent, this, this, parent.
   from their torch.profiler profiles each cell's device ms per cycle (per
   iteration for the PCG), that of G2 or D2 and of the norm passes
   (``rsq_reduce``), with the cycles and q.
+- ``e4c2_cells`` (not part of ``all``): ``chip_smoke.run_hmg_cells`` and
+  ``chip_smoke.run_r1_cells`` in each turn (``hmg_4097``,
+  ``hmg_interface_4097``, ``poisson_4097_r1``, ``poisson_4097_r1_v22``), and
+  from their torch.profiler profiles each cell's device ms per cycle, that
+  of E4 or C2 and of the norm passes (``rsq_reduce``), with the cycles, the
+  tail q and the wall per cycle.
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -89,7 +104,9 @@ and L = 3 nets, bi-material difference form and homogeneous plain form,
 over SCAN_STRIPS_E3E5 beside the height ``ops/hrelax.py::row_strip`` picks.
 With ``--legs g2d2``: G2 at 2049^2 (bi-material and homogeneous) and D2 at
 4097^2 (bi-material, bf16 and f32 planes) over SCAN_STRIPS_G2D2, beside the
-height ``row_strip`` picks.
+height ``row_strip`` picks.  With ``--legs e4c2``: E4 at 2049^2 (L = 1,
+bi-material difference form and homogeneous) and C2 at 4097^2 (k = 2,
+homogeneous and bi-material) over SCAN_STRIPS_G2D2.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
 ``--crossover`` times this checkout's kernels that have a one-pass tile
@@ -116,8 +133,13 @@ strips of 8, 32 and 128 rows.  With ``--legs g2d2`` (or ``all``): G2
 bi-material and homogeneous and D2 bi-material in bf16 and f32 planes and
 general in bf16 on the levels of the 4097^2 BoxMG setup
 (``ops/elastic.py::G2_ONE_PASS_MAX_N``, ``ops/general.py::D2_ONE_PASS_MAX_N``),
-with their blocks per SM.  Writes
-``chiprun_out/sweep_crossover.json`` by default.
+with their blocks per SM.  With ``--legs e4c2`` (or ``all``): E4
+homogeneous and bi-material in difference form with the L = 1 and L = 3
+nets and C2 homogeneous and bi-material with k = 1 ... 4
+(``ops/hrelax.py::E4_ONE_PASS_MAX_N``,
+``ops/stencil_sweep.py::C2_ONE_PASS_MAX_N``; ``e4c2`` alone also at n = 8,
+16 and 32), with their blocks per SM.
+Writes ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
 size at every size of the path PERF.md's kernel table counts their
@@ -127,8 +149,8 @@ launches on, each beside its byte bound: C1 (sweep and residual) and C2
 homogeneous and ``hmg_interface_4097`` bi-material in difference form), D4
 and D5 at 2048 ... 32 on the 4097^2 BoxMG setup's bf16 planes
 (``boxmg_4097``), D2 and D3 at its level 0, and G1-G5 at 2048 ... 16 (the
-elastic cells, bi-material); with ``--legs c1e2`` or ``e3e5`` only the C
-and E rows, which also time E3 at 4096 beside E2, with ``--legs g2d2``
+elastic cells, bi-material); with ``--legs c1e2``, ``e3e5`` or ``e4c2``
+only the C and E rows, which also time E3 at 4096 beside E2, with ``--legs g2d2``
 only the D and G rows.  Writes
 ``chiprun_out/sweep_levels.json`` by default.
 
@@ -138,14 +160,16 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3, A4 and the row-streaming F1, A6, C1, E2, E3, E5, G2
-and D2 in all and per step of their row loop (between two barriers;
+instructions of A3, A4 and the row-streaming F1, A6, C1, C2, E2, E3, E4,
+E5, G2 and D2 in all and per step of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
-row-streaming kernels.  The parent's kernels named in CHANGED (G2's and
-D2's one-pass tiles, which now finish their norm in their last block) are
-compared apart and reported; the kernels new in this checkout are listed;
-fails unless every other kernel matches.  Writes
+row-streaming kernels.  The parent's kernels named in CHANGED (C2's
+one-pass tiles, which now finish their norm in their last block) are
+compared apart and reported, those in REMOVED (stencil.cu's reduce_kernel,
+which no C2 launch needs now) are listed if this checkout no longer builds
+them; the kernels new in this checkout are listed; fails unless every other
+kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
 """
 
@@ -169,14 +193,17 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): the one-pass G2 and D2, whose norm is now finished in their
-# last block
-CHANGED = ("g2_el_descent", "d2_gen_descent")
+# them apart): the one-pass C2, whose norm is now finished in its last block
+CHANGED = ("c2_stencil_multi",)
+# the parent's kernels this checkout may no longer build, by (source, name):
+# stencil.cu's second norm pass, which no launch there needs now
+REMOVED = (("stencil", "reduce_kernel"),)
 # the row-streaming kernels whose instructions per step and registers --sass
 # reports
 ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
-               "e2_h_descent_rows", "e3_h_ascent_rows", "e5_h_zascent_rows",
-               "g2_el_descent_rows", "d2_gen_descent_rows")
+               "c2_stencil_multi_rows", "e2_h_descent_rows", "e3_h_ascent_rows",
+               "e4_h_zdescent_rows", "e5_h_zascent_rows", "g2_el_descent_rows",
+               "d2_gen_descent_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -260,8 +287,23 @@ def child(checkout: Path, legs: str) -> int:
         for m in TILE_LEVELS:
             recs += cs.check_general(LEVEL_OF[m], True, ["D2"], setup, torch.bfloat16)
         del setup
+    if legs in ("all", "e4c2"):
+        for n in (cs.N_MAIN // 2, cs.N_MAIN // 4):
+            for bim, dform, ckpt in ((True, True, cs.HNET_L1), (False, False, cs.HNET_L1),
+                                     (False, False, cs.HNET_L3)):
+                recs += cs.check_hrelax(n, bim, dform, ckpt, ["E4"])
+        for m in TILE_LEVELS:
+            for bim, dform in ((True, True), (False, False)):
+                recs += cs.check_hrelax(m, bim, dform, cs.HNET_L1, ["E4"])
+        for n in (cs.N_MAIN, cs.N_MAIN // 2):
+            for bim in (False, True):
+                recs += cs.check_stencil(n, bim, ["C2_k2", "C2_k4", "C2_k8"])
+        for m in (32,) + TILE_LEVELS[:3]:
+            recs += cs.check_stencil(m, False, ["C2_k2"])
     if legs == "g2d2_cells":
         recs += descent_cells(cs)
+    if legs == "e4c2_cells":
+        recs += zdescent_multi_cells(cs)
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -279,34 +321,51 @@ def child(checkout: Path, legs: str) -> int:
     return 0
 
 
-def descent_cells(cs) -> list:
-    """``boxmg_4097`` and the elastic cells of ``cs`` (chip_smoke), run on
-    the imported checkout: one record per cell with its profiled device ms
-    per cycle (per iteration for the PCG), those of G2 / D2 and of the norm
-    passes, and its cycles and q."""
-    prob, hier, setup = cs.boxmg_setup_on_card()
-    cells = {"boxmg_4097": cs.run_boxmg_cell(prob, hier, setup)}
-    del hier, setup
-    cells.update(cs.run_elastic_cells())
+def cell_records(cells: dict, leg_of) -> list:
+    """One record per cell of ``cells`` (chip_smoke's cell records): its
+    profiled device ms per cycle (per iteration for the PCG) with its cycles
+    and q, its wall ms per cycle where it has one, and those of its leg
+    ``leg_of(name)`` and of the norm passes (``rsq_reduce``) with their
+    launches."""
     out = []
     for name, rec in cells.items():
         prof = rec.get("profile", {})
         by = prof.get("by_kernel", {})
-        leg = "D2" if name.startswith("boxmg") else "G2"
         q = {k: rec[k] for k in ("tail_q", "q_last6", "tail_q12", "q_asym60", "contraction")
              if k in rec}
         out.append(dict(name=f"{name}_device", ms=prof.get("busy_ms_per_cycle", 0.0),
                         cycles=rec.get("cycles", rec.get("iterations")), **q))
-        for k in (leg, "rsq_reduce"):
+        if "ms_per_cycle" in rec:
+            out.append(dict(name=f"{name}_wall", ms=rec["ms_per_cycle"]))
+        for k in (leg_of(name), "rsq_reduce"):
             r = by.get(k, dict(ms_per_cycle=0.0, launches=0))
             out.append(dict(name=f"{name}_{k}", ms=r["ms_per_cycle"], launches=r["launches"]))
     return [dict(r, bytes=0, max_rel_err=0.0) for r in out]
 
 
+def descent_cells(cs) -> list:
+    """``boxmg_4097`` and the elastic cells of ``cs`` (chip_smoke), run on
+    the imported checkout (``cell_records``: G2 / D2)."""
+    prob, hier, setup = cs.boxmg_setup_on_card()
+    cells = {"boxmg_4097": cs.run_boxmg_cell(prob, hier, setup)}
+    del hier, setup
+    cells.update(cs.run_elastic_cells())
+    return cell_records(cells, lambda name: "D2" if name.startswith("boxmg") else "G2")
+
+
+def zdescent_multi_cells(cs) -> list:
+    """The H-MG and round-1 cells of ``cs`` (chip_smoke), run on the
+    imported checkout (``cell_records``: E4 / C2, C1 on the V(1,1) cell)."""
+    cells = cs.run_hmg_cells()
+    cells.update(cs.run_r1_cells())
+    return cell_records(cells, lambda name: "E4" if name.startswith("hmg")
+                        else "C2" if name.endswith("v22") else "C1")
+
+
 CROSS_LEVELS = (64, 128, 256, 512, 1024)
 # the level of the 4097^2 BoxMG setup at each size of CROSS_LEVELS
 LEVEL_OF = {4096 >> level: level for level in range(7)}
-# the smaller sizes e3e5 also times: E3 with L = 1 streamed faster than its
+# the smaller sizes e3e5 and e4c2 also time: E3 with L = 1 streamed faster than its
 # tile at 64^2 already
 SMALL_LEVELS = (8, 16, 32)
 # c1e2: the sizes at which C1 (up to 256) and E2 (up to 512) run one-pass
@@ -391,10 +450,22 @@ def crossover(which: str) -> list:
                                                            dt)[0]
         strips_of["G2"] = lambda n: [t.strip for key, t in eg._G2_TILES.items() if key[0] == n]
         strips_of["D2"] = lambda n: [t.strip for key, t in gen._D2_TILES.items() if key[0] == n]
+    if which in ("all", "e4c2"):
+        thresholds += [(hx, "E4_ONE_PASS_MAX_N"), (ss, "C2_ONE_PASS_MAX_N")]
+        for (bim, dform), (L, ckpt) in itertools.product(((False, False), (True, True)),
+                                                         ((1, cs.HNET_L1), (3, cs.HNET_L3))):
+            legs[f"E4_{'bim_dform' if bim else 'hom'}_L{L}"] = \
+                lambda n, bim=bim, dform=dform, ckpt=ckpt: cs.check_hrelax(
+                    n, bim, dform, ckpt, ["E4"])[0]
+        for bim, k in itertools.product((False, True), range(1, ss.C2_STREAM_MAX_K + 1)):
+            legs[f"C2_{'bim' if bim else 'hom'}_k{k}"] = \
+                lambda n, bim=bim, k=k: cs.check_stencil(n, bim, [f"C2_k{k}"])[0]
+        strips_of["E4"] = lambda n: [t.strip for key, t in hx._E4_TILES.items() if key[0] == n]
+        strips_of["C2"] = lambda n: [t.strip for key, t in ss._C2_TILES.items() if key[0] == n]
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
-        for n in (SMALL_LEVELS if which == "e3e5" else ()) + CROSS_LEVELS:
+        for n in (SMALL_LEVELS if which in ("e3e5", "e4c2") else ()) + CROSS_LEVELS:
             ms = {leg: {"tile": [], "stream": []} for leg in legs}
             for design in ("tile", "stream", "stream", "tile"):
                 limit = n if design == "tile" else -1
@@ -432,6 +503,12 @@ def crossover(which: str) -> list:
             blocks[f"G2_bim{bim}"] = hx.occupancy("mg_el_swrr_occupancy", bim)
             for bf16 in (0, 1):
                 blocks[f"D2_bim{bim}_bf16{bf16}"] = hx.occupancy("mg_gswrr_occupancy", bim, bf16)
+    if which in ("all", "e4c2"):
+        for bim, dform, L in itertools.product((0, 1), (0, 1), (1, 3)):
+            blocks[f"E4_bim{bim}_dform{dform}_L{L}"] = hx.occupancy("mg_zhswrr_occupancy", bim,
+                                                                    dform, L)
+        for bim, k in itertools.product((0, 1), range(1, ss.C2_STREAM_MAX_K + 1)):
+            blocks[f"C2_bim{bim}_k{k}"] = hx.occupancy("st_multi_occupancy", bim, k)
     if which in ("all", "e3e5"):
         for sym, leg in (("mg_phrelax_occupancy", "E3"), ("mg_zphrelax_occupancy", "E5")):
             for bim, dform, L, strip in itertools.product((0, 1), (0, 1), (1, 3), (8, 32, 128)):
@@ -469,7 +546,7 @@ def levels(which: str) -> list:
                     for r in cs.check_hrelax(n, False, False, cs.HNET_L1, legs)]
             out += [row(r, "hmg_interface_4097")
                     for r in cs.check_hrelax(n, True, True, cs.HNET_L1, legs)]
-    if which in ("c1e2", "e3e5"):
+    if which in ("c1e2", "e3e5", "e4c2"):
         for r in out:
             print(json.dumps(r), flush=True)
         return out
@@ -527,6 +604,26 @@ def strip_scan_e3e5() -> list:
 SCAN_STRIPS_G2D2 = (8, 16, 22, 30, 40, 48, 62, 80, 108, 128)
 
 
+def scan_cases(cases) -> list:
+    """Each (leg, n, bim, tags, cache, key, tiles_of, run) of ``cases`` at the
+    strip ``row_strip`` picked (``cache[key]``, after a first ``run()``) and
+    at each strip of SCAN_STRIPS_G2D2 (``tiles_of(strip)`` set in its
+    place); one record each."""
+    out = []
+    for leg, n, bim, tags, cache, key, tiles_of, run in cases:
+        picked = run()
+        chosen = cache[key]
+        by_strip = {}
+        for strip in SCAN_STRIPS_G2D2:
+            cache[key] = tiles_of(strip)
+            by_strip[strip] = run()
+        cache[key] = chosen
+        out.append(dict(leg=leg, n=n, bim=bim, **tags, chosen=chosen.strip, chosen_ms=picked,
+                        ms=by_strip))
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def strip_scan_g2d2() -> list:
     """G2 at 2049^2 (bi-material and homogeneous) and D2 at 4097^2
     (bi-material, bf16 and f32 planes) at each strip of SCAN_STRIPS_G2D2
@@ -540,26 +637,41 @@ def strip_scan_g2d2() -> list:
 
     dev = torch.cuda.current_device()
     _, _, setup = cs.boxmg_setup_on_card()
-    cases = [("G2", cs.N_EL, bim, None, eg._G2_TILES, (cs.N_EL, bim, dev), eg.g2_tiles,
+    cases = [("G2", cs.N_EL, bim, dict(coef_dtype=None), eg._G2_TILES, (cs.N_EL, bim, dev),
+              lambda s: eg.g2_tiles(cs.N_EL, s),
               lambda bim=bim: cs.check_elastic(cs.N_EL, bim, ["G2"])[0]["ms"])
              for bim in (True, False)]
-    cases += [("D2", cs.N_MAIN, True, str(dt).removeprefix("torch."), gen._D2_TILES,
-               (cs.N_MAIN, True, dt == torch.bfloat16, dev), gen.d2_tiles,
+    cases += [("D2", cs.N_MAIN, True, dict(coef_dtype=str(dt).removeprefix("torch.")),
+               gen._D2_TILES, (cs.N_MAIN, True, dt == torch.bfloat16, dev),
+               lambda s: gen.d2_tiles(cs.N_MAIN, s),
                lambda dt=dt: cs.check_general(0, True, ["D2"], setup, dt)[0]["ms"])
               for dt in (torch.bfloat16, torch.float32)]
-    out = []
-    for leg, n, bim, dtype, cache, key, tiles_of, run in cases:
-        picked = run()
-        chosen = cache[key]
-        by_strip = {}
-        for strip in SCAN_STRIPS_G2D2:
-            cache[key] = tiles_of(n, strip)
-            by_strip[strip] = run()
-        cache[key] = chosen
-        out.append(dict(leg=leg, n=n, bim=bim, coef_dtype=dtype, chosen=chosen.strip,
-                        chosen_ms=picked, ms=by_strip))
-        print(json.dumps(out[-1]), flush=True)
-    return out
+    return scan_cases(cases)
+
+
+def strip_scan_e4c2() -> list:
+    """E4 at 2049^2 (L = 1, bi-material difference form and homogeneous)
+    and C2 at 4097^2 (k = 2, homogeneous and bi-material) at each strip of
+    SCAN_STRIPS_G2D2 and at the strip ``row_strip`` picks; one record per
+    leg and form."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import hrelax as hx
+    from multigrid_feanet_torch.ops import stencil_sweep as ss
+
+    dev = torch.cuda.current_device()
+    n4, n2 = cs.N_MAIN // 2, cs.N_MAIN
+    cases = [("E4", n4, bim, dict(L=1), hx._E4_TILES, (n4, 1, bim, bim, dev),
+              lambda s: hx.e4_tiles(n4, 1, s),
+              lambda bim=bim: cs.check_hrelax(n4, bim, bim, cs.HNET_L1, ["E4"])[0]["ms"])
+             for bim in (True, False)]
+    cases += [("C2", n2, bim, dict(k=2), ss._C2_TILES, (n2, 2, bim, dev),
+               lambda s: ss.c2_tiles(n2, 2, s),
+               lambda bim=bim: cs.check_stencil(n2, bim, ["C2_k2"])[0]["ms"])
+              for bim in (False, True)]
+    return scan_cases(cases)
 
 
 def strip_scan() -> list:
@@ -664,7 +776,10 @@ def sass_report(parent: Path) -> dict:
             if new in name:
                 renamed[(src, name.replace(new, old), storage)] = ins
     hit = {k: any(c in k[1] for c in CHANGED) for k in {*mine, *theirs}}
-    same = {k: mine.get(k) == ins for k, ins in theirs.items() if not hit[k]}
+    removed = sorted(" ".join(k) for k in theirs if k not in mine
+                     and any(k[0] == src and name in k[1] for src, name in REMOVED))
+    same = {k: mine.get(k) == ins for k, ins in theirs.items()
+            if not hit[k] and " ".join(k) not in removed}
     kept = {" ".join(k): renamed.get(k, mine.get(k)) == ins for k, ins in theirs.items()
             if hit[k]}
     new = sorted(" ".join(k) for k in mine if k not in theirs
@@ -695,6 +810,7 @@ def sass_report(parent: Path) -> dict:
                 differ=[" ".join(k) for k, v in same.items() if not v],
                 changed_kept_same=sum(kept.values()), changed_kept_total=len(kept),
                 changed_differ=[k for k, v in kept.items() if not v], new=new,
+                removed=removed,
                 bf16_instances=sum(1 for k in mine if k[2] == "bf16"), per_step=a34)
 
 
@@ -736,7 +852,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
-                                       "g2d2", "pbc", "g2d2_cells"),
+                                       "g2d2", "e4c2", "pbc", "g2d2_cells", "e4c2_cells"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -759,7 +875,8 @@ def main() -> int:
         name = ("sweep_strip_scan.json" if args.strip_scan else
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
-        scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2}.get(args.legs, strip_scan)
+        scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2,
+                "e4c2": strip_scan_e4c2}.get(args.legs, strip_scan)
         lines = [dict(card=smi)] + (scan() if args.strip_scan else
                                     levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:
