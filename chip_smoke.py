@@ -81,7 +81,9 @@ Phases, in order; any failure exits non-zero:
    Then G2 at n = 2, 126, each side of each
    ``ops.elastic.G2_ONE_PASS_MAX_N`` threshold, 1000 and 2048 in each
    design the size takes, bi-material and homogeneous, two launches
-   bitwise equal.
+   bitwise equal; G1 (sweep and residual mode) and G5 the same at n = 2,
+   126, each side of each ``G1_ONE_PASS_MAX_N`` / ``G5_ONE_PASS_MAX_N``
+   threshold, 1000, 2048 and 4096 (u with a nonzero boundary ring).
 10. The elastic path of ``solvers/elastic.py`` at 2049^2 (circle r = 0.5,
    9 levels, kernel threshold 16, direct coarse solve at n = 8, f = 0,
    u0 standard normal from rng 1, eps 0): ``elastic_2049``, V(2,2) for 4,
@@ -91,9 +93,12 @@ Phases, in order; any failure exits non-zero:
    history against the true residual); ``elastic_v11_2049``, V(1,1) for 12
    cycles.  Each must launch its kernels the expected number of times,
    stay finite and repeat its history over 3 runs, and launch no norm pass
-   (``rsq_reduce``) but G1's (G2 finishes its norm in its last block).
+   (``rsq_reduce``: G1 and G2 finish their norms in their last block).
    Then ``elastic_2049`` once more with the bench's kernel threshold of
-   512.
+   512.  Each cell's history (and so its cycles) and q must lie near the
+   parent commit's (``PARENT_ELASTIC``: the 12-cycle V-cycles within 1e-6
+   relative, the 60-cycle q and the PCG within bounds about ten times what
+   was measured), its device ms per cycle printed beside the parent's.
 11. Three 129^2 bi-material elastic solves on the card against the CPU's
    plain path on the f = 0 decay protocol: V(2,2) and V(1,1) for 20
    cycles and the PCG for 10 iterations, every cycle's residual within 1%
@@ -1207,7 +1212,8 @@ def run_elastic_cells() -> dict:
     tb12 = min(timed_runs("elastic_2049_t512", vcycles(hb, 12), hb12, 2))
     out["elastic_2049_t512"] = dict(
         solve="elastic_2049_t512", K=hb.K, ms_per_cycle=1e3 * (tb12 - tb4) / 8, t4_s=tb4,
-        t12_s=tb12, max_hist_ratio_dev=float(np.max(np.abs(ratio - 1))), launches=lb)
+        t12_s=tb12, max_hist_ratio_dev=float(np.max(np.abs(ratio - 1))), launches=lb,
+        hist12=hb12.tolist())
     print(json.dumps(out["elastic_2049_t512"]), flush=True)
     del hb
     if not np.all((ratio >= 0.99) & (ratio <= 1.01)):
@@ -1366,6 +1372,63 @@ def parent_cell(rec: dict) -> None:
     if rec["cycles"] != par["cycles"] or q_rel > par["tail_q_rel"]:
         fail(f"{rec['solve']}: {rec['cycles']} cycles, tail q {rec['tail_q']}; the parent's "
              f"{par['cycles']}, {par['tail_q']} (within {par['tail_q_rel']})")
+
+
+# The parent commit's (9824d85) elastic cells on an H100 (its chip_smoke.py
+# run, PERF.md): the histories (cycles run: their lengths), q and
+# device ms per cycle.  ``parent_elastic`` holds this run's histories and q
+# to them, relative: G1's two designs differ from the parent's tile by about
+# an ulp per node and sum its norm in another order, which the 12-cycle
+# V-cycles keep within 1e-6 (5.4e-7 measured) and ``_t512`` too (held to the
+# parent's threshold-16 history, which the parent's ``_t512`` matched to
+# 1.2e-7).  The 60-cycle q and the PCG carry the differences further: 60
+# cycles of them (q_asym60 6.7e-6 measured) and a Krylov recurrence, whose
+# coefficients amplify them (history 8.7e-4, contraction 9.4e-5; its first
+# norm alone 2.0e-6): those are held to about ten times what was measured,
+# as PARENT_CELLS holds ``_v22``, whose norm C2 sums in another order, to
+# 1e-3.
+PARENT_ELASTIC = {
+    "elastic_2049": dict(
+        hist=[408615648.0, 70815640.0, 17310630.0, 4596228.0, 1282540.625, 400748.34375,
+              143097.90625, 68970.1953125, 33988.453125, 20411.759765625, 10829.947265625],
+        hist_rel=1e-6, q=dict(tail_q12=(0.5245033502578735, 1e-6),
+                              q_asym60=(0.6741819977760315, 1e-4)), device_ms=0.5530826),
+    "elastic_pcg_2049": dict(
+        hist=[380812672.0, 45690636.0, 4613402.0, 1403538.25, 289556.96875, 111283.8203125,
+              34410.8984375, 12056.3798828125, 4971.63671875, 1577.7276611328125,
+              476.36944580078125, 155.3730010986328, 61.83803176879883, 21.318628311157227,
+              8.726057052612305, 3.2098472118377686],
+        hist_rel=1e-2, q=dict(contraction=(0.355966180562973, 1e-3)), device_ms=0.9552122),
+    "elastic_v11_2049": dict(
+        hist=[1498467968.0, 399846912.0, 149096960.0, 67033024.0, 32527904.0, 16589824.0,
+              8746776.0, 4873142.5, 2855171.0, 1804417.75, 1199019.125],
+        hist_rel=1e-6, q=dict(tail_q12=(0.6084774732589722, 1e-6)), device_ms=0.2786485),
+}
+
+
+def parent_elastic(cells: dict) -> None:
+    """Hold the elastic cells' histories (their cycle counts with them) and q
+    to the parent's (PARENT_ELASTIC) within each one's relative bound; print
+    each cell's device ms per cycle beside the parent's."""
+    hists = {"elastic_2049": cells["elastic_2049"]["hist12"],
+             "elastic_pcg_2049": cells["elastic_pcg_2049"]["hist"],
+             "elastic_v11_2049": cells["elastic_v11_2049"]["hist12"],
+             "elastic_2049_t512": cells["elastic_2049_t512"]["hist12"]}
+    for label, hist in hists.items():
+        par = PARENT_ELASTIC[label.removesuffix("_t512")]
+        rec = cells[label]
+        q = {k: dict(got=rec[k], parent=v, rel=abs(rec[k] / v - 1.0), bound=bound)
+             for k, (v, bound) in par["q"].items() if label in PARENT_ELASTIC}
+        dev = (abs(np.asarray(hist) / np.asarray(par["hist"]) - 1.0).max()
+               if len(hist) == len(par["hist"]) else float("inf"))
+        print(json.dumps({f"{label}_against_parent": dict(
+            history_len=[len(hist), len(par["hist"])], max_hist_rel=float(dev),
+            hist_bound=par["hist_rel"], q=q,
+            device_ms_per_cycle=[rec.get("profile", {}).get("busy_ms_per_cycle"),
+                                 par["device_ms"]])}), flush=True)
+        if not dev <= par["hist_rel"] or any(v["rel"] > v["bound"] for v in q.values()):
+            fail(f"{label}: history or q departs from the parent's: {dev} "
+                 f"(at most {par['hist_rel']}), {q}")
 
 
 def run_r1_cells() -> dict:
@@ -2252,6 +2315,84 @@ def check_g2_variants() -> list:
                 recs.append(hold_twice(
                     label, lambda: eg.el_swrr_cuda(u, f, ph, workspace=ws, **cfg),
                     lambda: eg.el_swrr_plain(u, f, ph, **cfg), eg.TOL))
+    return recs
+
+
+def el_variant_inputs(n: int, seed: int):
+    """The G1 and G5 variant checks' inputs at size n: u standard normal
+    with two different components and a nonzero boundary ring (0.7 and
+    -0.3, the values a sweep keeps), f and uc standard normal, the circle's
+    phase map; on the card."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+
+    rng = np.random.default_rng(seed)
+    H, Hc = n + 1, n // 2 + 1
+    geo = np.zeros((H, H), np.float32)
+    geo[1:-1, 1:-1] = 1.0
+    u = rng.standard_normal((2, H, H)).astype(np.float32) * geo
+    u[0] += np.float32(0.7) * (1 - geo)
+    u[1] -= np.float32(0.3) * (1 - geo)
+    f = rng.standard_normal((2, H, H)).astype(np.float32)
+    uc = rng.standard_normal((2, Hc, Hc)).astype(np.float32)
+    return (*(torch.as_tensor(x, device=DEVICE) for x in (u, f, uc)),
+            torch.as_tensor(circle_phase(2.0, n), device=DEVICE))
+
+
+def el_variant_sizes(limits) -> tuple:
+    """G1's and G5's sizes: n = 2, 126, each side of each one-pass threshold,
+    1000, 2048 (the elastic cells' level 0) and 4096."""
+    return tuple(sorted({2, N_ODD, 1000, N_EL, N_MAIN, *limits, *(t + 2 for t in limits)}))
+
+
+def check_g1_variants() -> list:
+    """G1 against its plain version in sweep and residual mode at each size
+    of ``el_variant_sizes``, in each design the size takes (``designs``),
+    bi-material and homogeneous, on the plane-stress operator of the elastic
+    cells (``el_variant_inputs``); two launches bitwise equal.  One record
+    per case."""
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops.elasticity import elastic_factor_constants
+
+    consts = elastic_factor_constants(E_EL, NU_EL)
+    recs = []
+    for n in el_variant_sizes(eg.G1_ONE_PASS_MAX_N.values()):
+        u, f, _, ph_bim = el_variant_inputs(n, 21)
+        for forced in designs(eg, "G1_ONE_PASS_MAX_N", n):
+            for form, ph in (("bim", ph_bim), ("hom", None)):
+                tile = not forced and n <= eg.G1_ONE_PASS_MAX_N[ph is not None]
+                for mode in ("sweep", "residual"):
+                    cfg = dict(a0=1.0, da=19.0 if ph is not None else 0.0, omega=2.0 / 3.0,
+                               consts=consts, mode=mode)
+                    ws = {}
+                    label = f"G1 {'one-pass' if tile else 'row-streaming'} n={n} {form} {mode}"
+                    recs.append(hold_twice(
+                        label, lambda: eg.el_sweep_cuda(u, f, ph, workspace=ws, **cfg),
+                        lambda: eg.el_sweep_plain(u, f, ph, **cfg), eg.TOL))
+    return recs
+
+
+def check_g5_variants() -> list:
+    """G5 against its plain version at each size of ``el_variant_sizes``, in
+    each design the size takes (``designs``), bi-material and homogeneous
+    (``el_variant_inputs``' f and uc); two launches bitwise equal.  One
+    record per case."""
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops.elasticity import elastic_factor_constants
+
+    consts = elastic_factor_constants(E_EL, NU_EL)
+    recs = []
+    for n in el_variant_sizes(eg.G5_ONE_PASS_MAX_N.values()):
+        _, f, uc, ph_bim = el_variant_inputs(n, 22)
+        for forced in designs(eg, "G5_ONE_PASS_MAX_N", n):
+            for form, ph in (("bim", ph_bim), ("hom", None)):
+                tile = not forced and n <= eg.G5_ONE_PASS_MAX_N[ph is not None]
+                cfg = dict(a0=1.0, da=19.0 if ph is not None else 0.0, omega=2.0 / 3.0,
+                           consts=consts)
+                label = f"G5 {'one-pass' if tile else 'row-streaming'} n={n} {form}"
+                recs.append(hold_twice(
+                    label, lambda: (eg.el_zpsweep_cuda(f, ph, uc, **cfg),),
+                    lambda: (eg.el_zpsweep_plain(f, ph, uc, **cfg),), eg.TOL))
     return recs
 
 
@@ -3189,11 +3330,14 @@ def main() -> int:
         echecks += check_elastic(n, bim, g_all)
     print(json.dumps({"elastic_kernel_checks": echecks}), flush=True)
     print(json.dumps({"g2_variants": check_g2_variants()}), flush=True)
+    print(json.dumps({"g1_variants": check_g1_variants()}), flush=True)
+    print(json.dumps({"g5_variants": check_g5_variants()}), flush=True)
     cells = run_elastic_cells()
-    # G2 adds its norm in its last block: the only norm passes of each
-    # solve are its G1 launches', as the wrappers counted them
+    # G1 and G2 add their norms in their last block: no elastic solve
+    # launches a norm pass
     for label in ("elastic_2049", "elastic_pcg_2049", "elastic_v11_2049"):
-        norm_passes(label, cells[label], cells[label]["launches"].get("G1", 0))
+        norm_passes(label, cells[label], 0)
+    parent_elastic(cells)
     check_elastic_small_against_cpu()
 
     schecks = []

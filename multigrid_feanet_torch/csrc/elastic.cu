@@ -30,10 +30,12 @@
 // 118-225 operations (98 per operator apply of both components, 14 per
 // block update), which the card does in 24-42% of the byte time.
 //
-// G2 above G2_ONE_PASS_MAX_N (ops/elastic.py) streams rows
-// (g2_el_descent_rows, below).  The one-pass design of the others, and of
-// G2 at and below that size: one 256-thread block per OY x OX = 16 x 32
-// tile of fine nodes (common.cuh's Tile; the descent legs' coarse output is
+// G1, G2 and G5 above G1_ONE_PASS_MAX_N, G2_ONE_PASS_MAX_N and
+// G5_ONE_PASS_MAX_N (ops/elastic.py) stream rows (g1_el_relax_rows,
+// g2_el_descent_rows, g5_el_zascent_rows, below), on one sweep stage
+// (el_sweep_row).  The one-pass design of G3 and G4, and of G1, G2 and G5 at
+// and below those sizes: one 256-thread block per OY x OX = 16 x 32 tile of
+// fine nodes (common.cuh's Tile; the descent legs' coarse output is
 // the CY x CX coarse tile above it), so every leg runs on coarse_grid(n).
 // Each block stages its inputs over the tile plus a halo of h nodes in
 // shared memory, both components and the element coefficients, once; each
@@ -43,9 +45,9 @@
 // on one another.  The prolonged correction is computed only at interior
 // fine nodes, so no read falls past the coarse field.  G1's and G2's
 // interior residual norm^2 of the incoming iterate (both components) is
-// summed per block in a fixed order and then by reduce_kernel (G1) or by
-// G2's last block to finish (finish_sums): no float atomics, so sums repeat
-// run to run.
+// summed per block in a fixed order and then by the last block to finish
+// (finish_sums), in both designs: no float atomics, so sums repeat run to
+// run, and no second launch.
 
 #include "common.cuh"
 
@@ -265,25 +267,28 @@ __device__ __forceinline__ void residual_restrict(const float* x1, const float* 
 // and the interior ||f - A u||^2 of the incoming iterate.
 // Replaces multigrid_feanet_tpu/ops/pallas_elastic.py:91 _el_sweep_kernel.
 // Bound: bytes, 25 B per node bi-material (u, f in, out: 24 B; phase 1 B),
-// 24 homogeneous.  Halo 1.
+// 24 homogeneous.
+//
+// One-pass tile, for levels of up to G1_ONE_PASS_MAX_N (ops/elastic.py):
+// halo 1; the norm's partials are added by the last block to finish
+// (finish_sums), so one launch.
 // ---------------------------------------------------------------------------
 template <bool BIM, int MODE>
 __global__ void __launch_bounds__(NT)
 g1_el_relax(const float* __restrict__ u, const float* __restrict__ f,
             const int8_t* __restrict__ ph, float* __restrict__ out, float* __restrict__ partial,
-            ElCoef k) {
+            unsigned* __restrict__ done, float* __restrict__ rsq, ElCoef k) {
   constexpr int h = 1;
   using T = Tile<h>;
   __shared__ float xs[T::N], ys[T::N];
   __shared__ float qs[BIM ? T::NQ : 1];
-  __shared__ float red[NT / 32];
   const int oy = OY * blockIdx.y - h, ox = OX * blockIdx.x - h;
 
   stage<h, BIM>(xs, ys, u, nullptr, qs, ph, oy, ox, k);
   __syncthreads();
-  float rr = relax_tile<h, BIM, MODE>(xs, ys, qs, f, out, oy, ox, k);
-  rr = block_sum(rr, red);
-  if (threadIdx.x == 0) partial[blockIdx.y * gridDim.x + blockIdx.x] = rr;
+  float sums[1] = {relax_tile<h, BIM, MODE>(xs, ys, qs, f, out, oy, ox, k)};
+  float* const outs[1] = {rsq};
+  finish_sums<NT, 1>(sums, partial, done, outs);
 }
 
 // ---------------------------------------------------------------------------
@@ -378,8 +383,9 @@ g2_el_descent(const float* __restrict__ u, const float* __restrict__ f,
 // 4-row register ring.  apply_el and _block_update run as the tile runs
 // them, term by term, on 3 x 3 register windows, the division omega / det
 // by div_normal (the quotient `/` gives, without its slow-path branch);
-// every mask is a select.  The norm is summed over the owned nodes in a fixed order and the
-// last block to finish adds the blocks' partials (finish_sums).
+// every mask is a select (el_sweep_row, which G1 and G5 share).  The norm is
+// summed over the owned nodes in a fixed order and the last block to finish
+// adds the blocks' partials (finish_sums).
 // ---------------------------------------------------------------------------
 constexpr int G2_UNR = 6;  // steps per trip of the main loop
 constexpr int G2_NF = 6;   // f / phase ring slots: the stages s - 3 .. s + RD
@@ -403,6 +409,40 @@ __device__ __forceinline__ void apply_el_window(const float (&xw)[3][N], const f
                       yw[1][e + 2], yw[2][e], yw[2][e + 1], yw[2][e + 2]};
   const float q[4] = {qs[e], qs[e + 1], qn[e], qn[e + 1]};
   apply_el<BIM>(X + 4, Y + 4, 3, q + 3, 2, k, ax, ay, dxx, dxy);
+}
+
+// The sweep stage of the row-streaming G1, G2 and G5: at node row i
+// (interior when i_in) and a thread's RC columns, from its 3 x (RC + 2)
+// windows xw, yw of both components (rows i - 1 .. i + 1, columns from one
+// left of its first), the element rows qs (i - 1) and qn (i) at its
+// columns' elements (col_in: which of the window's columns are interior)
+// and f of row i: r = f - A u at the interior nodes (0 elsewhere, every
+// mask a select) and u's damped block-Jacobi update there (u elsewhere),
+// apply_el and _block_update term by term, omega / det by div_normal (the
+// quotient `/` gives, without its slow-path branch).  Adds the owned nodes'
+// (i_own and own[e]) r^2 of both components to rr.
+template <bool BIM>
+__device__ __forceinline__ void el_sweep_row(const float (&xw)[3][RC + 2],
+                                             const float (&yw)[3][RC + 2], const float* qs,
+                                             const float* qn, const float (&fx)[RC],
+                                             const float (&fy)[RC], bool i_in,
+                                             const bool (&col_in)[RC + 2], bool i_own,
+                                             const bool (&own)[RC], const ElCoef& k,
+                                             float (&ux)[RC], float (&uy)[RC], float (&rx)[RC],
+                                             float (&ry)[RC], float& rr) {
+#pragma unroll
+  for (int e = 0; e < RC; ++e) {
+    float ax, ay, dxx, dxy;
+    apply_el_window<BIM>(xw, yw, e, qs, qn, k, ax, ay, dxx, dxy);
+    const bool in = i_in && col_in[e + 1];
+    rx[e] = in ? fx[e] - ax : 0.f;
+    ry[e] = in ? fy[e] - ay : 0.f;
+    float vxe = xw[1][e + 1], vye = yw[1][e + 1];
+    bj_apply(vxe, vye, rx[e], ry[e], dxx, dxy, div_normal(k.omega, dxx * dxx - dxy * dxy));
+    ux[e] = in ? vxe : xw[1][e + 1];
+    uy[e] = in ? vye : yw[1][e + 1];
+    rr += i_own && own[e] ? rx[e] * rx[e] + ry[e] * ry[e] : 0.f;
+  }
 }
 
 template <bool BIM>
@@ -529,22 +569,12 @@ g2_el_descent_rows(const float* __restrict__ u, const float* __restrict__ f,
           qe[3][e] = (float)pq[e] * k.da + k.a0;
         }
       }
-      float fx[RC], fy[RC];
+      float fx[RC], fy[RC], rx[RC], ry[RC];
       read_row<RC>(fx, fs[0][fnow], i, H, col, RC * t + 1);
       read_row<RC>(fy, fs[1][fnow], H + i, H, col, RC * t + 1);
       const bool i_in = i >= 1 && i <= H - 2, i_own = i >= y0 && i < y0 + strip && i < H;
-#pragma unroll
-      for (int e = 0; e < RC; ++e) {
-        float ax, ay, dxx, dxy;
-        apply_el_window<BIM>(xw, yw, e, qe[2], qe[3], k, ax, ay, dxx, dxy);
-        const bool in = i_in && col_in[e + 1];
-        const float rx = in ? fx[e] - ax : 0.f, ry = in ? fy[e] - ay : 0.f;
-        float vxe = xw[1][e + 1], vye = yw[1][e + 1];
-        bj_apply(vxe, vye, rx, ry, dxx, dxy, div_normal(k.omega, dxx * dxx - dxy * dxy));
-        u1x[e] = in ? vxe : xw[1][e + 1];
-        u1y[e] = in ? vye : yw[1][e + 1];
-        rr += i_own && col_own[e] ? rx * rx + ry * ry : 0.f;
-      }
+      el_sweep_row<BIM>(xw, yw, qe[2], qe[3], fx, fy, i_in, col_in, i_own, col_own, k, u1x, u1y,
+                        rx, ry, rr);
       *reinterpret_cast<float2*>(&u1r[0][xb][RC * t + 2]) = make_float2(u1x[0], u1x[1]);
       *reinterpret_cast<float2*>(&u1r[1][xb][RC * t + 2]) = make_float2(u1y[0], u1y[1]);
       if (i_own) {
@@ -570,6 +600,114 @@ g2_el_descent_rows(const float* __restrict__ u, const float* __restrict__ f,
     restrict_finish(fc, Ic, Hc, wrow[0][xl] + RC * t, J);
     restrict_finish(fc + cplane, Ic, Hc, wrow[1][xl] + RC * t, J);
   }
+  float sums[1] = {rr};
+  float* const outs[1] = {rsq};
+  finish_sums<RT, 1>(sums, partial, done, outs);
+}
+
+// ---------------------------------------------------------------------------
+// G1 as a row-streaming kernel, for levels above G1_ONE_PASS_MAX_N; the same
+// contract as the tile above.
+// Design: C1's and H1's single-sweep row streaming (common.cuh) with two
+// components a row.  A block of RT threads of RC adjacent columns owns a
+// band of RB columns [x0, x0 + RB) and marches down a strip of rows [y0,
+// y0 + strip); step s stages both components of u row R = y0 - 1 + s and of
+// f, and the phase row, R - 1 into rings of RNS slots with cp.async, RD
+// steps ahead (stage_plane: the y planes need not start on a 16-byte
+// boundary).  A thread rolls the u row into its 3 x (RC + 2) windows of both
+// components and the element row R - 1 into a 2-row register ring, and from
+// step 2 on computes row i = R - 1 with G2's sweep stage (el_sweep_row),
+// writing u's block-Jacobi update (MODE 0) or the masked residual (MODE 1).
+// Each staged value is read from shared memory once and the y-halo is paid
+// once per strip (2 steps, g1_halo_steps).  The norm is summed over the
+// owned nodes in a fixed order and the last block to finish adds the
+// blocks' partials (finish_sums), as the tile's do: one launch.
+// ---------------------------------------------------------------------------
+constexpr int G1_UNR = 6;  // steps per trip of the main loop: whole turns of the slots
+static_assert(G1_UNR % RNS == 0, "G1_UNR: whole ring turns");
+// resident blocks per SM asked for: caps the registers at 102
+constexpr int G1_MINB = 5;
+
+template <bool BIM, int MODE>
+__global__ void __launch_bounds__(RT, G1_MINB)
+g1_el_relax_rows(const float* __restrict__ u, const float* __restrict__ f,
+                 const int8_t* __restrict__ ph, float* __restrict__ out,
+                 float* __restrict__ partial, unsigned* __restrict__ done,
+                 float* __restrict__ rsq, int strip, ElCoef k) {
+  __shared__ __align__(16) float us[2][RNS][RSLOT];  // u rows: component, slot
+  __shared__ __align__(16) float fs[2][RNS][RSLOT];  // f rows: component, slot
+  __shared__ __align__(16) int8_t qs[BIM ? RNS : 1][RSLOTQ];
+  const int n = k.n, H = n + 1, t = threadIdx.x;
+  const size_t plane = (size_t)H * H;
+  const int x0 = blockIdx.x * RB, y0 = blockIdx.y * strip, c0 = x0 + RC * t;
+  const int col = x0 - 1, base = y0 - 1;
+  const int steps = min(strip, H - y0) + 2;
+  const unsigned ud = smem_addr(us), fd = smem_addr(fs), qd = smem_addr(qs);
+  // stages step s into ring slot `slot`: both components of u row base + s,
+  // of f and the phase row base + s - 1; always commits
+  auto stage = [&](int s, int slot) {
+    const bool live = s < steps;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      stage_plane<4, RW>(ud + 4 * RSLOT * (c * RNS + slot), u, c, base + s, H, H, col, live);
+      stage_plane<4, RW>(fd + 4 * RSLOT * (c * RNS + slot), f, c, base + s - 1, H, H, col,
+                         live);
+    }
+    if (BIM) stage_window<1, RWQ>(qd + RSLOTQ * slot, ph, base + s - 1, n, n, col, live);
+    cp_commit();
+  };
+  for (int s = 0; s < RD; ++s) stage(s, s);
+
+  // columns c0 - 1 .. c0 + RC interior; columns c0 .. c0 + RC - 1 inside
+  // the grid (every node a block computes there is its own)
+  bool col_in[RC + 2], col_out[RC];
+#pragma unroll
+  for (int e = 0; e < RC + 2; ++e) col_in[e] = c0 - 1 + e >= 1 && c0 - 1 + e <= H - 2;
+#pragma unroll
+  for (int e = 0; e < RC; ++e) col_out[e] = c0 + e < H;
+  float xw[3][RC + 2] = {}, yw[3][RC + 2] = {};  // u rows i - 1 .. i + 1
+  float qa[RC + 1] = {}, qb[RC + 1] = {};        // element rows i - 1, i
+  float rr = 0.f;
+  // step s (ring slot s mod RNS)
+  auto step = [&](int s, auto S) {
+    constexpr int slot = decltype(S)::value % RNS;
+    if (s >= steps) return;
+    cp_wait<RD - 1>();
+    __syncthreads();
+    const int R = base + s, i = R - 1;
+    float nx[RC + 2], ny[RC + 2];
+    read_row<RC + 2>(nx, us[0][slot], R, H, col, RC * t);
+    read_row<RC + 2>(ny, us[1][slot], H + R, H, col, RC * t);
+    roll<RC + 2>(xw, nx);
+    roll<RC + 2>(yw, ny);
+    if constexpr (BIM) {  // the element rows roll to i - 1, i
+      const int8_t* pq = qs[slot] + win_off<int8_t>(i, n, col) + RC * t;
+#pragma unroll
+      for (int e = 0; e <= RC; ++e) {
+        qa[e] = qb[e];
+        qb[e] = (float)pq[e] * k.da + k.a0;
+      }
+    }
+    if (s >= 2) {
+      float fx[RC], fy[RC], vx[RC], vy[RC], rx[RC], ry[RC];
+      read_row<RC>(fx, fs[0][slot], i, H, col, RC * t + 1);
+      read_row<RC>(fy, fs[1][slot], H + i, H, col, RC * t + 1);
+      el_sweep_row<BIM>(xw, yw, qa, qb, fx, fy, i >= 1 && i <= H - 2, col_in, true, col_out, k,
+                        vx, vy, rx, ry, rr);
+      float* orow = out + (size_t)i * H + c0;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        if (col_out[e]) {
+          orow[e] = MODE == 1 ? rx[e] : vx[e];
+          orow[plane + e] = MODE == 1 ? ry[e] : vy[e];
+        }
+      }
+    }
+    // step s + RD reuses the slot of step s - 1
+    stage(s + RD, (slot + RD) % RNS);
+  };
+  for (int s0 = 0; s0 < steps; s0 += G1_UNR)
+    static_for<G1_UNR>([&](auto S) { step(s0 + decltype(S)::value, S); });
   float sums[1] = {rr};
   float* const outs[1] = {rsq};
   finish_sums<RT, 1>(sums, partial, done, outs);
@@ -667,6 +805,243 @@ g5_el_zascent(const float* __restrict__ f, const int8_t* __restrict__ ph,
   relax_tile<h, BIM, 0>(xs, ys, qs, f, out, oy, ox, k);
 }
 
+// ---------------------------------------------------------------------------
+// G5 as a row-streaming kernel, for levels above G5_ONE_PASS_MAX_N; the same
+// contract as the tile above.
+// Design: E5's (hrelax.cu e5_h_zascent_rows) without its conv chains, with
+// A4's exchange of the zero-guess iterate: no u is staged.  A block covers
+// fine columns [x0 - 1, x0 + RB - 1) and owns [x0, x0 + BW), BW = RB - 2 (x0
+// even), and rows [y0, y0 + strip) (y0 even); thread t works on columns
+// c0 + e, e < RC, c0 = x0 - 1 + RC t (odd).  The block first stages its
+// strip's coarse rows of both uc planes (common.cuh stage_coarse; the y
+// plane need not start on a 16-byte boundary), rows from (y0 - 1) / 2,
+// g5_coarse_rows(strip) of them, columns from c0 / 2 of thread 0.  Step s
+// stages both components of f and the phase row R = y0 - 2 + s into a ring
+// of G5_NF slots (the sweep reads f two steps later; 6 slots hold the
+// stages s - 2 .. s + RD), RD steps ahead; then a thread
+//   1. rolls the element row R into a 4-row register ring (rows R - 3 ..
+//      R) and the u2 row R - 1 built at step s - 1 into its windows (its own
+//      columns from registers, its neighbours' from a shared row);
+//   2. sweeps row i = R - 2 with G2's sweep stage (el_sweep_row) on the u2
+//      windows, f of row i and the element rows i - 1, i, and stores u3 at
+//      the owned nodes;
+//   3. builds u2 = omega D^-1 f + P(uc) at row R and its own columns at the
+//      interior nodes, 0 elsewhere (zero_guess's arithmetic, omega / det by
+//      div_normal; the prolongation by prolong_row from the staged coarse
+//      rows, per component), keeps it and passes it on through a shared row.
+// Each stage reads rows that the stage before finished at an earlier step,
+// so one barrier per step orders them, and each node's u2 is built once.
+// A strip takes 4 steps beyond its rows (g5_halo_steps): the u2 rows above
+// and below it and the sweep's lag of 2 rows, to which the prolongation adds
+// none (its coarse rows are staged before the first step).  The register
+// ring, the f / phase ring and the shared rows turn whole every G5_UNR steps
+// (the main loop's unroll), so every slot is a constant.
+// ---------------------------------------------------------------------------
+constexpr int G5_UNR = 6;  // steps per trip of the main loop
+constexpr int G5_NF = 6;   // f / phase ring slots: the stages s - 2 .. s + RD
+static_assert(G5_UNR % G5_NF == 0 && G5_UNR % 2 == 0, "G5_UNR: whole ring turns");
+static_assert(G5_NF >= RD + 3, "G5_NF: the f / phase ring");
+// resident blocks per SM asked for: caps the registers at 128
+constexpr int G5_MINB = 4;
+
+// The coarse rows a G5 strip of `strip` rows from y0 stages: its u2 rows
+// y0 - 1 .. y0 + strip read coarse rows (y0 - 1) / 2 .. (y0 + strip) / 2,
+// and prolong_row reads a row and the next.
+__host__ __device__ __forceinline__ int g5_coarse_rows(int strip) { return strip / 2 + 3; }
+
+// The zero-guess iterate omega D^-1 f at the node of column e of a thread's
+// register rows of element coefficients qs (south) and qn (north), as
+// zero_guess computes it, omega / det by div_normal.
+template <bool BIM>
+__device__ __forceinline__ void zero_guess_window(float fx, float fy, const float* qs,
+                                                  const float* qn, int e, const ElCoef& k,
+                                                  float& ux, float& uy) {
+  const float q[4] = {qs[e], qs[e + 1], qn[e], qn[e + 1]};
+  float dxx, dxy;
+  block_diag(corners<BIM>(q + 3, 2, k), k, dxx, dxy);
+  const float w = div_normal(k.omega, dxx * dxx - dxy * dxy);
+  ux = w * (dxx * fx - dxy * fy);
+  uy = w * (dxx * fy - dxy * fx);
+}
+
+template <bool BIM>
+__global__ void __launch_bounds__(RT, G5_MINB)
+g5_el_zascent_rows(const float* __restrict__ f, const int8_t* __restrict__ ph,
+                   const float* __restrict__ uc, float* __restrict__ out, int strip, ElCoef k) {
+  constexpr int BW = RB - 2;  // owned columns of a band
+  constexpr int NF = G5_NF;
+  constexpr int XS = RB + 4;  // u2 rows: column position p at entry p + 2
+  __shared__ __align__(16) float fs[2][NF][RSLOT];  // f rows: component, slot
+  __shared__ __align__(16) int8_t qs[BIM ? NF : 1][RSLOTQ];
+  __shared__ __align__(16) float u2r[2][2][XS];  // u2: component, the row of step s in s mod 2
+  extern __shared__ __align__(16) float ucs[];  // coarse rows of uc's planes 0, 1: CR each
+  const int n = k.n, H = n + 1, Hc = n / 2 + 1, t = threadIdx.x;
+  const size_t plane = (size_t)H * H;
+  const int x0 = blockIdx.x * BW, y0 = blockIdx.y * strip;
+  const int c0 = x0 - 1 + RC * t, col = x0 - 2, base = y0 - 2;
+  const int rows_out = min(strip, H - y0);
+  const int staged = rows_out + 3, steps = rows_out + 4;
+  const int ci0 = (y0 - 1) >> 1, CR = g5_coarse_rows(strip), cj0 = (x0 - 1) >> 1;
+
+  for (int e = t; e < 2 * 2 * XS; e += RT) (&u2r[0][0][0])[e] = 0.f;
+  stage_coarse(ucs, uc, Hc, ci0, CR, cj0, 0);
+  stage_coarse(ucs + CR * RCSLOT, uc, Hc, ci0, CR, cj0, 1);
+  cp_commit();
+  const unsigned fd = smem_addr(fs), qd = smem_addr(qs);
+  // stages step s (J = s mod G5_UNR): both components of f and the phase row
+  // base + s into slot J mod NF; always commits
+  auto stage = [&](int s, auto S) {
+    constexpr int SJ = decltype(S)::value % NF;
+    const bool live = s < staged;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      stage_plane<4, RW>(fd + 4 * RSLOT * (c * NF + SJ), f, c, base + s, H, H, col, live);
+    if (BIM) stage_window<1, RWQ>(qd + RSLOTQ * SJ, ph, base + s, n, n, col, live);
+    cp_commit();
+  };
+  static_for<RD>([&](auto S) { stage(decltype(S)::value, S); });
+
+  // columns c0 - 1 .. c0 + RC interior; columns c0 .. c0 + RC - 1 owned by
+  // the block
+  bool col_in[RC + 2], col_own[RC];
+#pragma unroll
+  for (int e = 0; e < RC + 2; ++e) col_in[e] = c0 - 1 + e >= 1 && c0 - 1 + e <= H - 2;
+#pragma unroll
+  for (int e = 0; e < RC; ++e) {
+    const int p = RC * t + e;
+    col_own[e] = p >= 1 && p < 1 + BW && c0 + e < H;
+  }
+
+  float qe[4][RC + 1] = {};  // element rows R - 4 .. R - 1 (rolled to R - 3 .. R at step s)
+  float xw[3][RC + 2] = {}, yw[3][RC + 2] = {};  // u2 rows i - 1 .. i + 1
+  float u2x[RC] = {}, u2y[RC] = {};              // u2's own columns of the last step
+  float rr = 0.f;                                // (no norm: unused)
+  // step s (f / phase slot s mod NF, u2 row slot s mod 2)
+  auto step = [&](int s, auto S) {
+    constexpr int I = decltype(S)::value;
+    constexpr int xb = I % 2, xp = (I + 1) % 2;
+    // f / phase slots of rows R and i (staged 2 steps earlier)
+    constexpr int fnow = I % NF, fi = (I + NF - 2) % NF;
+    constexpr bool odd = (I & 1) != 0;  // R = y0 - 2 + s (y0 and G5_UNR even)
+    if (s >= steps) return;
+    cp_wait<RD - 1>();
+    __syncthreads();
+    const int R = base + s, i = R - 2;
+
+    {  // 1. the element row R and the u2 row R - 1
+      if constexpr (BIM) {
+        const int8_t* pq = qs[fnow] + win_off<int8_t>(R, n, col) + RC * t;
+#pragma unroll
+        for (int e = 0; e <= RC; ++e) {
+          qe[0][e] = qe[1][e];
+          qe[1][e] = qe[2][e];
+          qe[2][e] = qe[3][e];
+          qe[3][e] = (float)pq[e] * k.da + k.a0;
+        }
+      }
+      float nx[RC + 2], ny[RC + 2];
+      nx[0] = u2r[0][xp][RC * t + 1];
+      nx[RC + 1] = u2r[0][xp][RC * t + RC + 2];
+      ny[0] = u2r[1][xp][RC * t + 1];
+      ny[RC + 1] = u2r[1][xp][RC * t + RC + 2];
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        nx[e + 1] = u2x[e];
+        ny[e + 1] = u2y[e];
+      }
+      roll<RC + 2>(xw, nx);
+      roll<RC + 2>(yw, ny);
+    }
+
+    if (s >= 4) {  // 2. u3 at row i = y0 - 4 + s, from u2 rows i - 1 .. i + 1
+      float fx[RC], fy[RC], vx[RC], vy[RC], rx[RC], ry[RC];
+      read_row<RC>(fx, fs[0][fi], i, H, col, RC * t + 1);
+      read_row<RC>(fy, fs[1][fi], H + i, H, col, RC * t + 1);
+      el_sweep_row<BIM>(xw, yw, qe[0], qe[1], fx, fy, i >= 1 && i <= H - 2, col_in, false,
+                        col_own, k, vx, vy, rx, ry, rr);
+      float* orow = out + (size_t)i * H + c0;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        if (col_own[e]) {
+          orow[e] = vx[e];
+          orow[plane + e] = vy[e];
+        }
+      }
+    }
+
+    if (s >= 1 && s < staged) {  // 3. u2 at row R (row y0 - 2 of step 0 brings its phases)
+      float fx[RC], fy[RC], px[RC], py[RC];
+      read_row<RC>(fx, fs[0][fnow], R, H, col, RC * t + 1);
+      read_row<RC>(fy, fs[1][fnow], H + R, H, col, RC * t + 1);
+      prolong_row<RC, true>(px, ucs, R, odd, ci0, CR, Hc, cj0, t, 0);
+      prolong_row<RC, true>(py, ucs + CR * RCSLOT, R, odd, ci0, CR, Hc, cj0, t, 1);
+      const bool r_in = R >= 1 && R <= H - 2;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        float zx, zy;
+        zero_guess_window<BIM>(fx[e], fy[e], qe[2], qe[3], e, k, zx, zy);
+        const bool in = r_in && col_in[e + 1];
+        u2x[e] = in ? zx + px[e] : 0.f;
+        u2y[e] = in ? zy + py[e] : 0.f;
+      }
+      *reinterpret_cast<float2*>(&u2r[0][xb][RC * t + 2]) = make_float2(u2x[0], u2x[1]);
+      *reinterpret_cast<float2*>(&u2r[1][xb][RC * t + 2]) = make_float2(u2y[0], u2y[1]);
+    }
+    // step s + RD takes the f / phase slot of step s - 4, whose last reader
+    // was step s - 2
+    stage(s + RD, std::integral_constant<int, (I + RD) % G5_UNR>{});
+  };
+  for (int s0 = 0; s0 < steps; s0 += G5_UNR)
+    static_for<G5_UNR>([&](auto S) { step(s0 + decltype(S)::value, S); });
+}
+
+// The grids of G1 and G5: on one-pass tiles, coarse_grid; row streaming,
+// bands of `bw` owned columns (G1: RB, G5: RB - 2) and strips of `strip`
+// rows (even, 2 .. RS_STRIP_MAX); as ops/elastic.py::g1_launch_tiles and
+// g5_launch_tiles compute them.
+inline bool el_fine_grid_ok(int n, int bw, bool one_pass, int strip, int gx, int gy) {
+  const int H = n + 1;
+  if (one_pass) return (unsigned)gx == coarse_grid(n).x && (unsigned)gy == coarse_grid(n).y;
+  return strip >= 2 && strip % 2 == 0 && strip <= RS_STRIP_MAX && gx == (H + bw - 1) / bw &&
+         gy == (H + strip - 1) / strip;
+}
+
+template <bool BIM, int MODE>
+void launch_g1(bool one_pass, dim3 g, cudaStream_t st, const float* u, const float* f,
+               const int8_t* ph, float* out, float* partial, unsigned* done, float* rsq,
+               int strip, const ElCoef& k) {
+  if (one_pass)
+    g1_el_relax<BIM, MODE><<<g, NT, 0, st>>>(u, f, ph, out, partial, done, rsq, k);
+  else
+    g1_el_relax_rows<BIM, MODE><<<g, RT, 0, st>>>(u, f, ph, out, partial, done, rsq, strip, k);
+}
+
+// G5 streams with its strip's coarse rows of both planes in dynamic shared
+// memory: opted in to what strips of up to RS_STRIP_MAX rows need (the
+// static rings and rows come on top, ~18 KB).
+inline size_t g5_coarse_smem(int strip) {
+  return sizeof(float) * 2 * RCSLOT * g5_coarse_rows(strip);
+}
+template <bool BIM>
+const void* g5_rows_kernel() {
+  const void* kern = (const void*)g5_el_zascent_rows<BIM>;
+  static const bool opted =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)g5_coarse_smem(RS_STRIP_MAX)) == cudaSuccess;
+  (void)opted;
+  return kern;
+}
+
+template <bool BIM>
+void launch_g5(bool one_pass, dim3 g, cudaStream_t st, const float* f, const int8_t* ph,
+               const float* uc, float* out, int strip, const ElCoef& k) {
+  if (one_pass) {
+    g5_el_zascent<BIM><<<g, NT, 0, st>>>(f, ph, uc, out, k);
+  } else {
+    g5_rows_kernel<BIM>();
+    g5_el_zascent_rows<BIM><<<g, RT, g5_coarse_smem(strip), st>>>(f, ph, uc, out, strip, k);
+  }
+}
 }  // namespace
 
 extern "C" {
@@ -677,23 +1052,43 @@ extern "C" {
 // of its launches (0 on success).
 
 // G1.  mode 0: out = BJ(u); 1: out = masked residual.  rsq[0] = interior
-// ||f - A u||^2 of u (both components); `partial` holds mg_partials(1, n)
-// floats.
+// ||f - A u||^2 of u (both components); the launch geometry of
+// ops/elastic.py::g1_launch_tiles: one-pass tiles when one_pass, else
+// row-streaming strips of `strip` rows, on gx x gy blocks; scratch of gx gy
+// partial sums and a zeroed counter that the last block resets.
+// cudaErrorInvalidValue for a mode or geometry G1 does not take.
 int mg_el_sweep(const float* u, const float* f, const int8_t* ph, float* out, float* partial,
-                float* rsq, int n, double a0, double da, double omega, double al, double be,
-                double ga, double ep, double de, double ze, int bim, int mode, void* stream) {
+                unsigned* done, float* rsq, int n, double a0, double da, double omega,
+                double al, double be, double ga, double ep, double de, double ze, int bim,
+                int mode, int one_pass, int strip, int gx, int gy, void* stream) {
+  if ((mode != 0 && mode != 1) || !el_fine_grid_ok(n, RB, one_pass != 0, strip, gx, gy))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const ElCoef k = make_el_coef(n, a0, da, omega, al, be, ga, ep, de, ze);
-  const dim3 g = coarse_grid(n);
+  const dim3 g(gx, gy);
+  const bool op = one_pass != 0;
   if (bim) {
-    if (mode == 0) g1_el_relax<true, 0><<<g, NT, 0, st>>>(u, f, ph, out, partial, k);
-    else g1_el_relax<true, 1><<<g, NT, 0, st>>>(u, f, ph, out, partial, k);
+    if (mode == 0) launch_g1<true, 0>(op, g, st, u, f, ph, out, partial, done, rsq, strip, k);
+    else launch_g1<true, 1>(op, g, st, u, f, ph, out, partial, done, rsq, strip, k);
   } else {
-    if (mode == 0) g1_el_relax<false, 0><<<g, NT, 0, st>>>(u, f, ph, out, partial, k);
-    else g1_el_relax<false, 1><<<g, NT, 0, st>>>(u, f, ph, out, partial, k);
+    if (mode == 0) launch_g1<false, 0>(op, g, st, u, f, ph, out, partial, done, rsq, strip, k);
+    else launch_g1<false, 1>(op, g, st, u, f, ph, out, partial, done, rsq, strip, k);
   }
-  reduce_kernel<<<1, NT, 0, st>>>(partial, (int)(g.x * g.y), rsq);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the row-streaming G1 in one form and mode that one SM holds at
+// once: what ops/elastic.py balances the strip height against.  Negative on
+// a CUDA error or a mode G1 does not take.
+int mg_el_sweep_occupancy(int bim, int mode) {
+  if (mode != 0 && mode != 1) return -(int)cudaErrorInvalidValue;
+  const void* by_mode[2][2] = {
+      {(const void*)g1_el_relax_rows<false, 0>, (const void*)g1_el_relax_rows<false, 1>},
+      {(const void*)g1_el_relax_rows<true, 0>, (const void*)g1_el_relax_rows<true, 1>}};
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, by_mode[bim != 0][mode], RT, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // G2.  u1 = BJ(u), fc = 4 FW(f - A u1), rsq[0] = interior ||f - A u||^2;
@@ -758,16 +1153,34 @@ int mg_el_zrr(const float* f, const int8_t* ph, float* fc, int n, double a0, dou
   return (int)cudaGetLastError();
 }
 
-// G5.  out = BJ(omega D^-1 f + P(uc)).
+// G5.  out = BJ(omega D^-1 f + P(uc)); the launch geometry of
+// ops/elastic.py::g5_launch_tiles: one-pass tiles when one_pass, else
+// row-streaming strips of `strip` rows, on gx x gy blocks.
+// cudaErrorInvalidValue for a geometry G5 does not take.
 int mg_el_zpsweep(const float* f, const int8_t* ph, const float* uc, float* out, int n,
                   double a0, double da, double omega, double al, double be, double ga,
-                  double ep, double de, double ze, int bim, void* stream) {
+                  double ep, double de, double ze, int bim, int one_pass, int strip, int gx,
+                  int gy, void* stream) {
+  if (!el_fine_grid_ok(n, RB - 2, one_pass != 0, strip, gx, gy)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const ElCoef k = make_el_coef(n, a0, da, omega, al, be, ga, ep, de, ze);
-  const dim3 g = coarse_grid(n);
-  if (bim) g5_el_zascent<true><<<g, NT, 0, st>>>(f, ph, uc, out, k);
-  else g5_el_zascent<false><<<g, NT, 0, st>>>(f, ph, uc, out, k);
+  const dim3 g(gx, gy);
+  if (bim) launch_g5<true>(one_pass != 0, g, st, f, ph, uc, out, strip, k);
+  else launch_g5<false>(one_pass != 0, g, st, f, ph, uc, out, strip, k);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the row-streaming G5 in one form that one SM holds at once with
+// the coarse rows of a strip of `strip` rows: what ops/elastic.py balances
+// the strip height against.  Negative on a CUDA error or a strip G5 does not
+// take.
+int mg_el_zpsweep_occupancy(int bim, int strip) {
+  if (strip < 2 || strip % 2 || strip > RS_STRIP_MAX) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const void* kern = bim ? g5_rows_kernel<true>() : g5_rows_kernel<false>();
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, RT, g5_coarse_smem(strip));
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // extern "C"

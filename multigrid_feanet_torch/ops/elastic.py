@@ -33,13 +33,16 @@ prolonged correction are zero on the boundary, the coarse output is zero on
 the coarse boundary ring, and ``rsq`` is the interior squared residual norm
 of the INCOMING iterate summed over both components.
 
-G2 streams rows (``csrc/elastic.cu g2_el_descent_rows``) above
-``G2_ONE_PASS_MAX_N[bim]``: its wrapper launches it on the bands and
-strips of :func:`g2_tiles`, with the strip height
-``ops/hrelax.py::row_strip`` picks for the level's size and the card's
-occupancy, and smaller levels on the one-pass tile
-(:func:`g2_launch_tiles`); both designs finish the norm in their last
-block.  Its u, f and the phase must start on a 16-byte boundary.
+G1, G2 and G5 stream rows (``csrc/elastic.cu g1_el_relax_rows``,
+``g2_el_descent_rows``, ``g5_el_zascent_rows``) above
+``G1_ONE_PASS_MAX_N[bim]``, ``G2_ONE_PASS_MAX_N[bim]`` and
+``G5_ONE_PASS_MAX_N[bim]``: their wrappers launch them on the bands and
+strips of :func:`g1_tiles`, :func:`g2_tiles` and :func:`g5_tiles`, with the
+strip height ``ops/hrelax.py::row_strip`` picks for the level's size and
+the card's occupancy, and smaller levels on the one-pass tiles
+(:func:`g1_launch_tiles`, :func:`g2_launch_tiles`, :func:`g5_launch_tiles`);
+G1 and G2 finish their norm in their last block in both designs.  Their
+u, f, the phase and uc must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -196,7 +199,8 @@ _REPLACES = "multigrid_feanet_tpu/ops/pallas_elastic.py:"
 _TAIL = [_I] + [_D] * 9 + [_I]  # n, a0, da, omega, al, be, ga, ep, de, ze, bim
 
 KERNELS = {
-    "G1": sw.CudaKernel("G1_el_sweep", "mg_el_sweep", [_P] * 6 + _TAIL + [_I, _P],
+    # u f ph out partial done rsq; _TAIL; mode one_pass strip gx gy; stream
+    "G1": sw.CudaKernel("G1_el_sweep", "mg_el_sweep", [_P] * 7 + _TAIL + [_I] * 5 + [_P],
                         _REPLACES + "91", _SOURCE),
     "G2": sw.CudaKernel("G2_el_swrr", "mg_el_swrr", [_P] * 8 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "391", _SOURCE),
@@ -204,7 +208,8 @@ KERNELS = {
                         _REPLACES + "457", _SOURCE),
     "G4": sw.CudaKernel("G4_el_zrr", "mg_el_zrr", [_P] * 3 + _TAIL + [_P],
                         _REPLACES + "504", _SOURCE),
-    "G5": sw.CudaKernel("G5_el_zpsweep", "mg_el_zpsweep", [_P] * 4 + _TAIL + [_P],
+    # f ph uc out; _TAIL; one_pass strip gx gy; stream
+    "G5": sw.CudaKernel("G5_el_zpsweep", "mg_el_zpsweep", [_P] * 4 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "555", _SOURCE),
 }
 
@@ -220,10 +225,54 @@ def _tail(n, ph, a0, da, omega, consts):
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of G2: row-streaming bands and strips in common.cuh's block
-# shape, each block restricting to the coarse nodes under its band and
-# strip.
+# Launch geometry of G1, G2 and G5: row-streaming bands and strips in
+# common.cuh's block shape (G2's blocks each restricting to the coarse nodes
+# under its band and strip), and the one-pass tiles on the coarse grid below
+# a size threshold each.
 # ---------------------------------------------------------------------------
+
+# levels of up to this many elements per side, bi-material (True) or
+# homogeneous (False), run G1 on its one-pass tiles (csrc/elastic.cu
+# g1_el_relax, 16 x 32 fine tiles of the coarse grid): where the tile was
+# the faster on the H100 (``sweep_vs_parent.py --crossover --legs g1g5``,
+# PERF.md; bi-material streaming won by 4-14% from 33^2 to 257^2 and lost
+# by 1% at 513^2, which one threshold leaves to the stream)
+G1_ONE_PASS_MAX_N = {True: 16, False: 512}
+
+
+def g1_tiles(n: int, strip: int = 32) -> sw.Tiles:
+    """G1: C1's single-sweep streaming; a block owns the ``A12_THREADS
+    A12_COLUMNS`` columns its threads cover and a strip of the (n+1) rows."""
+    sw._check_strip(strip)
+    H, band = n + 1, sw.A12_THREADS * sw.A12_COLUMNS
+    return sw.Tiles("G1", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def g1_one_pass_tiles(n: int) -> sw.Tiles:
+    """G1 on one-pass tiles (``ops/hrelax.py::coarse_tiles``)."""
+    return hx.coarse_tiles("G1_tile", n)
+
+
+def g1_halo_steps() -> int:
+    """Steps a G1 block takes beyond its strip's rows: the u rows above and
+    below it."""
+    return 2
+
+
+_G1_TILES = {}
+
+
+def g1_launch_tiles(n: int, bim: bool, mode: int, device) -> sw.Tiles:
+    """The geometry G1 launches with on ``device``: one-pass tiles up to
+    ``G1_ONE_PASS_MAX_N[bim]``, else row-streaming strips of ``row_strip``'s
+    height for the occupancy the card reports for the instance launched
+    (``ops/hrelax.py::launch_tiles``)."""
+    if n <= G1_ONE_PASS_MAX_N[bool(bim)]:
+        return g1_one_pass_tiles(n)
+    return hx.launch_tiles(_G1_TILES, (n, bool(bim), mode, device.index), device,
+                           lambda s: g1_tiles(n, s), g1_halo_steps(), "mg_el_sweep_occupancy",
+                           int(bim), mode)
+
 
 # levels of up to this many elements per side, bi-material (True) or
 # homogeneous (False), run G2 on its one-pass tiles (csrc/elastic.cu
@@ -262,19 +311,70 @@ def g2_launch_tiles(n: int, bim: bool, device) -> sw.Tiles:
                            "mg_el_swrr_occupancy", int(bim))
 
 
+# levels of up to this many elements per side, bi-material (True) or
+# homogeneous (False), run G5 on its one-pass tiles (csrc/elastic.cu
+# g5_el_zascent): the largest level at which the tile was the faster on the
+# H100 (``sweep_vs_parent.py --crossover --legs g1g5``, PERF.md)
+G5_ONE_PASS_MAX_N = {True: 16, False: 8}
+
+
+def g5_tiles(n: int, strip: int = 32) -> sw.Tiles:
+    """G5: A4's zero-guess ascent streaming; a block builds u2 over the
+    ``A12_THREADS A12_COLUMNS`` columns its threads cover and owns the
+    middle ``A12_THREADS A12_COLUMNS - 2`` (the sweep eats a column of halo
+    on each side; the band is even, so that the threads' columns start on
+    an odd column and each column's prolongation is fixed)."""
+    sw._check_strip(strip)
+    H, band = n + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2
+    return sw.Tiles("G5", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def g5_one_pass_tiles(n: int) -> sw.Tiles:
+    """G5 on one-pass tiles (``ops/hrelax.py::coarse_tiles``)."""
+    return hx.coarse_tiles("G5_tile", n)
+
+
+def g5_halo_steps() -> int:
+    """Steps a G5 block takes beyond its strip's rows: the u2 rows above and
+    below it and the sweep's lag of two rows behind u2 (it reads u2 rows
+    built at earlier steps), to which the prolongation adds none (its
+    coarse rows are staged before the first step)."""
+    return 4
+
+
+_G5_TILES = {}
+
+
+def g5_launch_tiles(n: int, bim: bool, device) -> sw.Tiles:
+    """The geometry G5 launches with on ``device``: one-pass tiles up to
+    ``G5_ONE_PASS_MAX_N[bim]``, else row-streaming strips of ``row_strip``'s
+    height for the occupancy the card reports at each height (the strip's
+    coarse rows lie in dynamic shared memory)."""
+    if n <= G5_ONE_PASS_MAX_N[bool(bim)]:
+        return g5_one_pass_tiles(n)
+    return hx.launch_tiles(_G5_TILES, (n, bool(bim), device.index), device,
+                           lambda s: g5_tiles(n, s), g5_halo_steps(), "mg_el_zpsweep_occupancy",
+                           int(bim), by_strip=True)
+
+
 def el_sweep_cuda(u, f, ph=None, *, a0, da, omega, consts, mode="sweep", out=None, rsq=None,
                   workspace=None):
-    """G1 on the card; same contract as :func:`el_sweep_plain`."""
+    """G1 on the card; same contract as :func:`el_sweep_plain`, and u, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     if mode not in ("sweep", "residual"):
         raise ValueError(f"mode must be 'sweep' or 'residual', not {mode!r}")
     n, dev = u.shape[-1] - 1, u.device
     _operands(n, dev, [("u", u), ("f", f)], ph)
     out = sw._output(out, "out", (2, n + 1, n + 1), dev, (u, f))
     rsq = sw._scalar_out(rsq, dev)
-    KERNELS["G1"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), out.data_ptr(),
-                  sw._partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(),
-                  *_tail(n, ph, a0, da, omega, consts), 0 if mode == "sweep" else 1,
-                  sw._stream(dev))
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph))
+    which = 0 if mode == "sweep" else 1
+    tiles = g1_launch_tiles(n, ph is not None, which, dev)
+    partial, done = hx.row_scratch(tiles, 1, dev, workspace)
+    KERNELS["G1"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), out.data_ptr(), partial.data_ptr(),
+                  done.data_ptr(), rsq.data_ptr(), *_tail(n, ph, a0, da, omega, consts), which,
+                  int(tiles.leg == "G1_tile"), tiles.strip, tiles.gx, tiles.gy, sw._stream(dev))
     return out, rsq
 
 
@@ -319,12 +419,17 @@ def el_zrr_cuda(f, ph=None, *, a0, da, omega, consts, out=None):
 
 
 def el_zpsweep_cuda(f, ph, uc, *, a0, da, omega, consts, out=None):
-    """G5 on the card; same contract as :func:`el_zpsweep_plain`."""
+    """G5 on the card; same contract as :func:`el_zpsweep_plain`, and f,
+    ``ph`` and uc must start on a 16-byte boundary (whole tensors do; an
+    offset view may not, and raises ValueError)."""
     n, dev = f.shape[-1] - 1, f.device
     _operands(n, dev, [("f", f)], ph, [("uc", uc)])
     out = sw._output(out, "out", (2, n + 1, n + 1), dev, (f, uc))
+    sw._check_aligned(("f", f), ("phase", ph), ("uc", uc))
+    tiles = g5_launch_tiles(n, ph is not None, dev)
     KERNELS["G5"](f.data_ptr(), sw._ptr(ph), uc.data_ptr(), out.data_ptr(),
-                  *_tail(n, ph, a0, da, omega, consts), sw._stream(dev))
+                  *_tail(n, ph, a0, da, omega, consts), int(tiles.leg == "G5_tile"), tiles.strip,
+                  tiles.gx, tiles.gy, sw._stream(dev))
     return out
 
 

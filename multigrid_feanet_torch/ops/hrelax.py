@@ -310,15 +310,21 @@ def occupancy(symbol: str, *args) -> int:
 
 
 def launch_tiles(cache: dict, key: tuple, device, tiles_of, halo: int, symbol: str,
-                 *args) -> sw.Tiles:
+                 *args, by_strip: bool = False) -> sw.Tiles:
     """A row-streaming leg's geometry on ``device``: ``tiles_of(strip)`` at
     :func:`row_strip`'s height for the blocks per SM the library's
-    ``symbol(*args)`` reports for the instance launched, kept in ``cache``
-    under ``key`` (computed once per level shape)."""
+    ``symbol(*args)`` reports for the instance launched (``symbol(*args,
+    strip)`` at each height when ``by_strip``: E3, E5 and G5, whose shared
+    memory grows with the strip), kept in ``cache`` under ``key`` (computed
+    once per level shape)."""
     tiles = cache.get(key)
     if tiles is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        slots = sms * occupancy(symbol, *args)
+        if by_strip:
+            def slots(strip):
+                return sms * occupancy(symbol, *args, strip)
+        else:
+            slots = sms * occupancy(symbol, *args)
         tiles = tiles_of(row_strip(tiles_of, halo, slots, sms))
         cache[key] = tiles
     return tiles
@@ -541,17 +547,9 @@ def _ascent_launch_tiles(leg: str, n: int, L: int, bim: bool, dform: bool, devic
                "mg_zphrelax_occupancy")}[leg]
     if n <= limit[L]:
         return one_pass(n)
-    key = (leg, n, L, bool(bim), bool(dform), device.index)
-    tiles = _ASCENT_TILES.get(key)
-    if tiles is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-
-        def slots(strip):
-            return sms * occupancy(symbol, int(bim), int(dform), L, strip)
-
-        tiles = tiles_of(n, L, row_strip(lambda s: tiles_of(n, L, s), halo(L), slots, sms))
-        _ASCENT_TILES[key] = tiles
-    return tiles
+    return launch_tiles(_ASCENT_TILES, (leg, n, L, bool(bim), bool(dform), device.index), device,
+                        lambda s: tiles_of(n, L, s), halo(L), symbol, int(bim), int(dform), L,
+                        by_strip=True)
 
 
 def e3_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:

@@ -435,7 +435,7 @@ def _partials_key(which: int, n: int) -> tuple:
 
 def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
     """Scratch for the per-block partial sums of the kernels of grid
-    ``which`` (0: D1, 1: A5, the A6 tile and G1, 2: C2), kept in
+    ``which`` (0: D1, 1: A5 and the A6 tile, 2: C2), kept in
     ``workspace`` when one is given."""
     key = _partials_key(which, n)
     buf = None if workspace is None else workspace.get(key)

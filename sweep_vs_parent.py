@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
 ``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1),
-``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G2), ``csrc/general.cu`` (D2)
+``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G1, G2, G5), ``csrc/general.cu`` (D2)
 and ``csrc/hrelax.cu``'s E4 of this checkout against those of an earlier checkout of the port on one
 GPU, in turns.
 
     python3 sweep_vs_parent.py --parent DIR
-        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|pbc|g2d2_cells|e4c2_cells]
+        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|pbc|g2d2_cells|e4c2_cells
+                |g1g5_cells]
         [--out FILE]
-    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2] [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2]
+    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5] [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5]
         [--out FILE]
-    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2] [--out FILE]
+    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2|g1g5] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -73,6 +74,12 @@ median of 3).  The turns run parent, this, this, parent.
   (C2) at 4097^2 and 2049^2 with k = 2, 4 and 8 (homogeneous, the
   ``_v22`` cell's, and bi-material), and k = 2 on its one-pass tile at
   n = 32 ... 256.
+- ``g1g5``: ``el_sweep_cuda`` (G1) in sweep and residual mode and
+  ``el_swrr_cuda`` (G2, whose sweep stage G1 and G5 share) at 2049^2,
+  bi-material (``elastic_2049``'s) and homogeneous, and ``el_zpsweep_cuda``
+  (G5) with G1's sweep at 1025^2 in both forms; both bi-material at every
+  other level size of the elastic cells (n = 512 ... 16), where this
+  checkout runs its one-pass tiles up to its thresholds.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -89,6 +96,11 @@ median of 3).  The turns run parent, this, this, parent.
   from their torch.profiler profiles each cell's device ms per cycle, that
   of E4 or C2 and of the norm passes (``rsq_reduce``), with the cycles, the
   tail q and the wall per cycle.
+- ``g1g5_cells`` (not part of ``all``): ``chip_smoke.run_elastic_cells`` in
+  each turn (``elastic_2049``, ``_t512``, ``_pcg``, ``_v11``), and from their
+  torch.profiler profiles each cell's device ms per cycle (per iteration
+  for the PCG), that of G1 (G5 on ``_v11``) and of the norm passes
+  (``rsq_reduce``), with the cycles, the q and the wall per cycle.
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -106,7 +118,9 @@ With ``--legs g2d2``: G2 at 2049^2 (bi-material and homogeneous) and D2 at
 4097^2 (bi-material, bf16 and f32 planes) over SCAN_STRIPS_G2D2, beside the
 height ``row_strip`` picks.  With ``--legs e4c2``: E4 at 2049^2 (L = 1,
 bi-material difference form and homogeneous) and C2 at 4097^2 (k = 2,
-homogeneous and bi-material) over SCAN_STRIPS_G2D2.
+homogeneous and bi-material) over SCAN_STRIPS_G2D2.  With ``--legs g1g5``:
+G1 at 2049^2 and G5 at 1025^2, bi-material and homogeneous, over
+SCAN_STRIPS_G2D2.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
 ``--crossover`` times this checkout's kernels that have a one-pass tile
@@ -138,7 +152,11 @@ homogeneous and bi-material in difference form with the L = 1 and L = 3
 nets and C2 homogeneous and bi-material with k = 1 ... 4
 (``ops/hrelax.py::E4_ONE_PASS_MAX_N``,
 ``ops/stencil_sweep.py::C2_ONE_PASS_MAX_N``; ``e4c2`` alone also at n = 8,
-16 and 32), with their blocks per SM.
+16 and 32), with their blocks per SM.  With ``--legs g1g5`` (or ``all``): G1
+(sweep mode) and G5, bi-material and homogeneous
+(``ops/elastic.py::G1_ONE_PASS_MAX_N``, ``G5_ONE_PASS_MAX_N``; ``g1g5``
+alone also at n = 8, 16, 32 and 2048), with G1's blocks per SM and G5's at
+strips of 8, 32 and 128 rows.
 Writes ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
@@ -151,7 +169,7 @@ and D5 at 2048 ... 32 on the 4097^2 BoxMG setup's bf16 planes
 (``boxmg_4097``), D2 and D3 at its level 0, and G1-G5 at 2048 ... 16 (the
 elastic cells, bi-material); with ``--legs c1e2``, ``e3e5`` or ``e4c2``
 only the C and E rows, which also time E3 at 4096 beside E2, with ``--legs g2d2``
-only the D and G rows.  Writes
+only the D and G rows, with ``--legs g1g5`` only the G rows.  Writes
 ``chiprun_out/sweep_levels.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
@@ -161,13 +179,14 @@ same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
 instructions of A3, A4 and the row-streaming F1, A6, C1, C2, E2, E3, E4,
-E5, G2 and D2 in all and per step of their row loop (between two barriers;
+E5, G1, G2, G5 and D2 in all and per step of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
-row-streaming kernels.  The parent's kernels named in CHANGED (C2's
-one-pass tiles, which now finish their norm in their last block) are
-compared apart and reported, those in REMOVED (stencil.cu's reduce_kernel,
-which no C2 launch needs now) are listed if this checkout no longer builds
+row-streaming kernels.  The parent's kernels named in CHANGED (G1's
+one-pass tiles, which now finish their norm in their last block, and G2's
+row-streaming kernels, whose sweep stage G1 and G5 share) are compared
+apart and reported, those in REMOVED (elastic.cu's reduce_kernel,
+which no G1 launch needs now) are listed if this checkout no longer builds
 them; the kernels new in this checkout are listed; fails unless every other
 kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
@@ -193,17 +212,18 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): the one-pass C2, whose norm is now finished in its last block
-CHANGED = ("c2_stencil_multi",)
+# them apart): the one-pass G1, whose norm is now finished in its last block,
+# and the row-streaming G2, whose sweep stage G1 and G5 now share
+CHANGED = ("g1_el_relax", "g2_el_descent_rows")
 # the parent's kernels this checkout may no longer build, by (source, name):
-# stencil.cu's second norm pass, which no launch there needs now
-REMOVED = (("stencil", "reduce_kernel"),)
+# elastic.cu's second norm pass, which no launch there needs now
+REMOVED = (("elastic", "reduce_kernel"),)
 # the row-streaming kernels whose instructions per step and registers --sass
 # reports
 ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
                "c2_stencil_multi_rows", "e2_h_descent_rows", "e3_h_ascent_rows",
-               "e4_h_zdescent_rows", "e5_h_zascent_rows", "g2_el_descent_rows",
-               "d2_gen_descent_rows")
+               "e4_h_zdescent_rows", "e5_h_zascent_rows", "g1_el_relax_rows",
+               "g2_el_descent_rows", "g5_el_zascent_rows", "d2_gen_descent_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -300,6 +320,15 @@ def child(checkout: Path, legs: str) -> int:
                 recs += cs.check_stencil(n, bim, ["C2_k2", "C2_k4", "C2_k8"])
         for m in (32,) + TILE_LEVELS[:3]:
             recs += cs.check_stencil(m, False, ["C2_k2"])
+    if legs in ("all", "g1g5"):
+        for bim in (True, False):
+            recs += cs.check_elastic(cs.N_EL, bim, ["G1_sweep", "G1_residual", "G2"])
+            recs += cs.check_elastic(cs.N_EL // 2, bim, ["G1_sweep", "G5"])
+        for m in EL_LEVELS[2:]:
+            recs += cs.check_elastic(m, True, ["G1_sweep", "G5"])
+    if legs == "g1g5_cells":
+        cells = cs.run_elastic_cells()
+        recs += cell_records(cells, lambda name: "G5" if name.endswith("v11_2049") else "G1")
     if legs == "g2d2_cells":
         recs += descent_cells(cs)
     if legs == "e4c2_cells":
@@ -363,6 +392,8 @@ def zdescent_multi_cells(cs) -> list:
 
 
 CROSS_LEVELS = (64, 128, 256, 512, 1024)
+# the level sizes of the elastic cells (G1 runs at all of them, G5 from 1024)
+EL_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16)
 # the level of the 4097^2 BoxMG setup at each size of CROSS_LEVELS
 LEVEL_OF = {4096 >> level: level for level in range(7)}
 # the smaller sizes e3e5 and e4c2 also time: E3 with L = 1 streamed faster than its
@@ -450,6 +481,16 @@ def crossover(which: str) -> list:
                                                            dt)[0]
         strips_of["G2"] = lambda n: [t.strip for key, t in eg._G2_TILES.items() if key[0] == n]
         strips_of["D2"] = lambda n: [t.strip for key, t in gen._D2_TILES.items() if key[0] == n]
+    if which in ("all", "g1g5"):
+        from multigrid_feanet_torch.ops import elastic as eg
+
+        thresholds += [(eg, "G1_ONE_PASS_MAX_N"), (eg, "G5_ONE_PASS_MAX_N")]
+        for bim in (True, False):
+            form = "bim" if bim else "hom"
+            legs[f"G1_{form}"] = lambda n, bim=bim: cs.check_elastic(n, bim, ["G1_sweep"])[0]
+            legs[f"G5_{form}"] = lambda n, bim=bim: cs.check_elastic(n, bim, ["G5"])[0]
+        strips_of["G1"] = lambda n: [t.strip for key, t in eg._G1_TILES.items() if key[0] == n]
+        strips_of["G5"] = lambda n: [t.strip for key, t in eg._G5_TILES.items() if key[0] == n]
     if which in ("all", "e4c2"):
         thresholds += [(hx, "E4_ONE_PASS_MAX_N"), (ss, "C2_ONE_PASS_MAX_N")]
         for (bim, dform), (L, ckpt) in itertools.product(((False, False), (True, True)),
@@ -465,7 +506,8 @@ def crossover(which: str) -> list:
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
-        for n in (SMALL_LEVELS if which in ("e3e5", "e4c2") else ()) + CROSS_LEVELS:
+        sizes = (SMALL_LEVELS if which in ("e3e5", "e4c2", "g1g5") else ()) + CROSS_LEVELS
+        for n in sizes + ((2048,) if which == "g1g5" else ()):
             ms = {leg: {"tile": [], "stream": []} for leg in legs}
             for design in ("tile", "stream", "stream", "tile"):
                 limit = n if design == "tile" else -1
@@ -509,6 +551,12 @@ def crossover(which: str) -> list:
                                                                     dform, L)
         for bim, k in itertools.product((0, 1), range(1, ss.C2_STREAM_MAX_K + 1)):
             blocks[f"C2_bim{bim}_k{k}"] = hx.occupancy("st_multi_occupancy", bim, k)
+    if which in ("all", "g1g5"):
+        for bim in (0, 1):
+            blocks[f"G1_bim{bim}"] = hx.occupancy("mg_el_sweep_occupancy", bim, 0)
+            for strip in (8, 32, 128):
+                blocks[f"G5_bim{bim}_strip{strip}"] = hx.occupancy("mg_el_zpsweep_occupancy", bim,
+                                                                   strip)
     if which in ("all", "e3e5"):
         for sym, leg in (("mg_phrelax_occupancy", "E3"), ("mg_zphrelax_occupancy", "E5")):
             for bim, dform, L, strip in itertools.product((0, 1), (0, 1), (1, 3), (8, 32, 128)):
@@ -536,7 +584,7 @@ def levels(which: str) -> list:
                     **{k: rec[k] for k in ("bim", "dform", "coef_dtype") if k in rec})
 
     out = []
-    if which != "g2d2":
+    if which not in ("g2d2", "g1g5"):
         for n in LEVEL_SIZES:
             out += [row(r, "poisson_4097_r1")
                     for r in cs.check_stencil(n, False, ["C1_sweep", "C1_residual", "C2_k2"])]
@@ -550,16 +598,17 @@ def levels(which: str) -> list:
         for r in out:
             print(json.dumps(r), flush=True)
         return out
-    _, _, setup = cs.boxmg_setup_on_card()
-    out += [row(r, "boxmg_4097") for r in cs.check_general(0, True, ["D2", "D3"], setup,
-                                                           torch.bfloat16)]
-    for level in range(1, len(LEVEL_SIZES)):
-        out += [row(r, "boxmg_4097") for r in cs.check_general(level, False, ["D4", "D5"], setup,
+    if which != "g1g5":
+        _, _, setup = cs.boxmg_setup_on_card()
+        out += [row(r, "boxmg_4097") for r in cs.check_general(0, True, ["D2", "D3"], setup,
                                                                torch.bfloat16)]
-    del setup
+        for level in range(1, len(LEVEL_SIZES)):
+            out += [row(r, "boxmg_4097") for r in cs.check_general(level, False, ["D4", "D5"],
+                                                                   setup, torch.bfloat16)]
+        del setup
+    g_legs = ["G1_sweep", "G5"] if which == "g1g5" else ["G1_sweep", "G2", "G3", "G4", "G5"]
     for n in LEVEL_SIZES[1:] + (16,):
-        out += [row(r, "elastic_2049") for r in cs.check_elastic(
-            n, True, ["G1_sweep", "G2", "G3", "G4", "G5"])]
+        out += [row(r, "elastic_2049") for r in cs.check_elastic(n, True, g_legs)]
     for r in out:
         print(json.dumps(r), flush=True)
     return out
@@ -671,6 +720,28 @@ def strip_scan_e4c2() -> list:
                lambda s: ss.c2_tiles(n2, 2, s),
                lambda bim=bim: cs.check_stencil(n2, bim, ["C2_k2"])[0]["ms"])
               for bim in (False, True)]
+    return scan_cases(cases)
+
+
+def strip_scan_g1g5() -> list:
+    """G1 at 2049^2 and G5 at 1025^2 (bi-material and homogeneous) at each
+    strip of SCAN_STRIPS_G2D2 and at the strip ``row_strip`` picks; one
+    record per leg and form."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import elastic as eg
+
+    dev = torch.cuda.current_device()
+    n1, n5 = cs.N_EL, cs.N_EL // 2
+    cases = [("G1", n1, bim, dict(mode="sweep"), eg._G1_TILES, (n1, bim, 0, dev),
+              lambda s: eg.g1_tiles(n1, s),
+              lambda bim=bim: cs.check_elastic(n1, bim, ["G1_sweep"])[0]["ms"])
+             for bim in (True, False)]
+    cases += [("G5", n5, bim, {}, eg._G5_TILES, (n5, bim, dev), lambda s: eg.g5_tiles(n5, s),
+               lambda bim=bim: cs.check_elastic(n5, bim, ["G5"])[0]["ms"])
+              for bim in (True, False)]
     return scan_cases(cases)
 
 
@@ -852,7 +923,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
-                                       "g2d2", "e4c2", "pbc", "g2d2_cells", "e4c2_cells"),
+                                       "g2d2", "e4c2", "g1g5", "pbc", "g2d2_cells", "e4c2_cells",
+                                       "g1g5_cells"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -875,8 +947,8 @@ def main() -> int:
         name = ("sweep_strip_scan.json" if args.strip_scan else
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
-        scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2,
-                "e4c2": strip_scan_e4c2}.get(args.legs, strip_scan)
+        scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2, "e4c2": strip_scan_e4c2,
+                "g1g5": strip_scan_g1g5}.get(args.legs, strip_scan)
         lines = [dict(card=smi)] + (scan() if args.strip_scan else
                                     levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:

@@ -177,7 +177,7 @@ def test_plain_versions_fill_out_buffers():
     assert tl.zsweep_restrict(tf, out=fc) is fc
 
 
-def test_cuda_wrappers_check_operands():
+def test_cuda_wrappers_check_operands(monkeypatch):
     """The kernel wrappers refuse what the kernels do not take, before any
     build or launch."""
     tl = ElasticSweepLevel(16, E, NU, device="cpu")
@@ -195,6 +195,22 @@ def test_cuda_wrappers_check_operands():
         eg.el_zpsweep_cuda(u, None, uc, **cfg)
     with pytest.raises(ValueError, match="mode"):
         eg.el_sweep_plain(u, u, None, mode="psweep", **cfg)
+    # G1 and G5 stage u, f, the phase and uc in 16-byte chunks counted from
+    # the fields' base pointers: views that start 4 bytes past a boundary
+    # are refused before any launch (the device check set aside)
+    monkeypatch.setattr(eg, "_operands", lambda *args, **kw: None)
+    off = torch.zeros(2 * 17 * 17 + 1)[1:].view(2, 17, 17)
+    off_c = torch.zeros(2 * 9 * 9 + 1)[1:].view(2, 9, 9)
+    ph = torch.zeros(16, 16, dtype=torch.int8)
+    off_ph = torch.zeros(16 * 16 + 1, dtype=torch.int8)[1:].view(16, 16)
+    for name, call in (("u", lambda: eg.el_sweep_cuda(off, u, ph, **cfg)),
+                       ("f", lambda: eg.el_sweep_cuda(u, off, ph, mode="residual", **cfg)),
+                       ("phase", lambda: eg.el_sweep_cuda(u, u, off_ph, **cfg)),
+                       ("f", lambda: eg.el_zpsweep_cuda(off, ph, uc, **cfg)),
+                       ("phase", lambda: eg.el_zpsweep_cuda(u, off_ph, uc, **cfg)),
+                       ("uc", lambda: eg.el_zpsweep_cuda(u, None, off_c, **cfg))):
+        with pytest.raises(ValueError, match=f"^{name} must start on a 16-byte boundary"):
+            call()
 
 
 def test_kernel_table():
