@@ -81,9 +81,11 @@ Phases, in order; any failure exits non-zero:
    Then G2 at n = 2, 126, each side of each
    ``ops.elastic.G2_ONE_PASS_MAX_N`` threshold, 1000 and 2048 in each
    design the size takes, bi-material and homogeneous, two launches
-   bitwise equal; G1 (sweep and residual mode) and G5 the same at n = 2,
-   126, each side of each ``G1_ONE_PASS_MAX_N`` / ``G5_ONE_PASS_MAX_N``
-   threshold, 1000, 2048 and 4096 (u with a nonzero boundary ring).
+   bitwise equal; G1 (sweep and residual mode), G5 and G4 the same at n =
+   2, 126, each side of each ``G1_ONE_PASS_MAX_N`` / ``G5_ONE_PASS_MAX_N``
+   / ``G4_ONE_PASS_MAX_N`` threshold, 1000, 2048 and 4096 (G4 also at
+   1024, its largest level on the elastic path; u with a nonzero boundary
+   ring).
 10. The elastic path of ``solvers/elastic.py`` at 2049^2 (circle r = 0.5,
    9 levels, kernel threshold 16, direct coarse solve at n = 8, f = 0,
    u0 standard normal from rng 1, eps 0): ``elastic_2049``, V(2,2) for 4,
@@ -111,7 +113,9 @@ Phases, in order; any failure exits non-zero:
    ``ops.sweep.A6_ONE_PASS_MAX_N``, 1000 and 4096 in each design the size
    takes (the one-pass tile up to the threshold, where the row-streaming
    kernel is held too), bi-material and homogeneous, in plain, difference
-   and mass form, f32 and bf16 storage, two launches bitwise equal; then
+   and mass form, f32 and bf16 storage, two launches bitwise equal; A5 the
+   same at n = 2, 16, 126, each side of each ``ops.sweep.A5_ONE_PASS_MAX_N``
+   threshold, 1000, 1024, 2048 and 4096; then
    the round-1 cells (whose only norm passes, ``rsq_reduce``, are C2's:
    C1 finishes its norm in its last block) and ``pswrr_interface_4097`` (A6
    at level 0, held to
@@ -184,8 +188,9 @@ Phases, in order; any failure exits non-zero:
    bounds and this run's f32 times (``bf16_times``), the kernel summary
    line (one row per kernel and path, with the path's launch counts; the
    bf16 rows suffixed ``_bf16``; each row's byte bound also at the
-   measured copy and triad rates), then the device line as the last
-   line.
+   measured copy and triad rates; the rows of G4 and A5 also name both
+   designs' device kernels, ``symbols``, and the one the timed launch ran,
+   ``design``), then the device line as the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -1374,35 +1379,36 @@ def parent_cell(rec: dict) -> None:
              f"{par['cycles']}, {par['tail_q']} (within {par['tail_q_rel']})")
 
 
-# The parent commit's (9824d85) elastic cells on an H100 (its chip_smoke.py
-# run, PERF.md): the histories (cycles run: their lengths), q and
-# device ms per cycle.  ``parent_elastic`` holds this run's histories and q
-# to them, relative: G1's two designs differ from the parent's tile by about
-# an ulp per node and sum its norm in another order, which the 12-cycle
-# V-cycles keep within 1e-6 (5.4e-7 measured) and ``_t512`` too (held to the
-# parent's threshold-16 history, which the parent's ``_t512`` matched to
-# 1.2e-7).  The 60-cycle q and the PCG carry the differences further: 60
-# cycles of them (q_asym60 6.7e-6 measured) and a Krylov recurrence, whose
-# coefficients amplify them (history 8.7e-4, contraction 9.4e-5; its first
-# norm alone 2.0e-6): those are held to about ten times what was measured,
-# as PARENT_CELLS holds ``_v22``, whose norm C2 sums in another order, to
-# 1e-3.
+# The parent commit's (42e95f5) elastic cells on an H100 (its own
+# chip_smoke.py run, PERF.md): the histories (cycles run: their lengths), q
+# and device ms per cycle.  ``parent_elastic`` holds this run's histories
+# and q to them, relative: the 12-cycle V-cycles within 1e-6 (a kernel's two
+# designs differ by about an ulp per node where the compiler contracts other
+# multiply-adds: 5.4e-7 was measured when G1 first streamed) and ``_t512``
+# too (held to the parent's threshold-16 history, which the parent's
+# ``_t512`` matched to 1.2e-7).  The 60-cycle q and the PCG carry such
+# differences further: 60 cycles of them (q_asym60 6.7e-6 then) and a Krylov
+# recurrence, whose coefficients amplify them (history 8.7e-4, contraction
+# 9.4e-5): those are held to about ten times what was measured, as
+# PARENT_CELLS holds ``_v22``, whose norm C2 sums in another order, to 1e-3.
 PARENT_ELASTIC = {
     "elastic_2049": dict(
-        hist=[408615648.0, 70815640.0, 17310630.0, 4596228.0, 1282540.625, 400748.34375,
-              143097.90625, 68970.1953125, 33988.453125, 20411.759765625, 10829.947265625],
+        hist=[408615648.0, 70815640.0, 17310630.0, 4596228.0, 1282540.625, 400748.375,
+              143097.9375, 68970.203125, 33988.46484375, 20411.765625, 10829.9521484375],
         hist_rel=1e-6, q=dict(tail_q12=(0.5245033502578735, 1e-6),
-                              q_asym60=(0.6741819977760315, 1e-4)), device_ms=0.5530826),
+                              q_asym60=(0.6741865277290344, 1e-4)), device_ms=0.519373666666666),
     "elastic_pcg_2049": dict(
-        hist=[380812672.0, 45690636.0, 4613402.0, 1403538.25, 289556.96875, 111283.8203125,
-              34410.8984375, 12056.3798828125, 4971.63671875, 1577.7276611328125,
-              476.36944580078125, 155.3730010986328, 61.83803176879883, 21.318628311157227,
-              8.726057052612305, 3.2098472118377686],
-        hist_rel=1e-2, q=dict(contraction=(0.355966180562973, 1e-3)), device_ms=0.9552122),
+        hist=[380811904.0, 45690884.0, 4613383.5, 1403544.625, 289555.28125, 111284.3515625,
+              34411.078125, 12056.537109375, 4971.82568359375, 1577.7896728515625,
+              476.4461975097656, 155.4217987060547, 61.86849594116211, 21.33721160888672,
+              8.732805252075195, 3.211780309677124],
+        hist_rel=1e-2, q=dict(contraction=(0.35599955916404724, 1e-3)),
+        device_ms=0.8886240625000037),
     "elastic_v11_2049": dict(
         hist=[1498467968.0, 399846912.0, 149096960.0, 67033024.0, 32527904.0, 16589824.0,
-              8746776.0, 4873142.5, 2855171.0, 1804417.75, 1199019.125],
-        hist_rel=1e-6, q=dict(tail_q12=(0.6084774732589722, 1e-6)), device_ms=0.2786485),
+              8746776.0, 4873143.0, 2855171.5, 1804418.125, 1199019.5],
+        hist_rel=1e-6, q=dict(tail_q12=(0.6084775924682617, 1e-6)),
+        device_ms=0.27929324999999827),
 }
 
 
@@ -2396,6 +2402,74 @@ def check_g5_variants() -> list:
     return recs
 
 
+def check_g4_variants() -> list:
+    """G4 against its plain version at each size of ``el_variant_sizes`` and
+    at 1024 (its largest level on the elastic path), in each design the
+    size takes (``designs``), bi-material and homogeneous
+    (``el_variant_inputs``' f, whose boundary ring G4 reads for u1's
+    neighbours' residuals); two launches bitwise equal.  One record per
+    case."""
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops.elasticity import elastic_factor_constants
+
+    consts = elastic_factor_constants(E_EL, NU_EL)
+    recs = []
+    for n in sorted({N_EL // 2, *el_variant_sizes(eg.G4_ONE_PASS_MAX_N.values())}):
+        _, f, _, ph_bim = el_variant_inputs(n, 23)
+        for forced in designs(eg, "G4_ONE_PASS_MAX_N", n):
+            for form, ph in (("bim", ph_bim), ("hom", None)):
+                tile = not forced and n <= eg.G4_ONE_PASS_MAX_N[ph is not None]
+                cfg = dict(a0=1.0, da=19.0 if ph is not None else 0.0, omega=2.0 / 3.0,
+                           consts=consts)
+                label = f"G4 {'one-pass' if tile else 'row-streaming'} n={n} {form}"
+                recs.append(hold_twice(
+                    label, lambda: (eg.el_zrr_cuda(f, ph, **cfg),),
+                    lambda: (eg.el_zrr_plain(f, ph, **cfg),), eg.TOL))
+    return recs
+
+
+def check_a5_variants() -> list:
+    """A5 against its plain version (f_c and the norm) on standard normal u
+    (boundary ring 0.7) and f at each size of ``ragged_sizes``, 16, 1024 and
+    2048, in each design the size takes (``designs``): bi-material and
+    homogeneous, plain (FORM 0), difference (1) and mass form (2: the heat
+    level's operands), f32 and bf16 storage; two launches bitwise equal.
+    One record per case."""
+    import torch
+    from multigrid_feanet_torch.core.geometry import circle_phase
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    heat = (HEAT_THETA * HEAT_DT, 20.0 * HEAT_THETA * HEAT_DT)
+    recs = []
+    sizes = {16, N_MAIN // 4, N_MAIN // 2, *ragged_sizes(*sw.A5_ONE_PASS_MAX_N.values())}
+    for n in sorted(sizes):
+        rng = np.random.default_rng(n + 5)
+        H = n + 1
+        u = rng.standard_normal((H, H)).astype(np.float32)
+        u[[0, -1], :] = u[:, [0, -1]] = 0.7
+        fields = {torch.float32: [torch.as_tensor(x, device=DEVICE) for x in (
+            u, rng.standard_normal((H, H)).astype(np.float32))]}
+        fields[torch.bfloat16] = [x.to(torch.bfloat16) for x in fields[torch.float32]]
+        ph = torch.as_tensor(circle_phase(2.0, n), device=DEVICE)
+        mass = level_mass(n)
+        for forced in designs(sw, "A5_ONE_PASS_MAX_N", n):
+            for dt, (uu, f) in fields.items():
+                for bim in (False, True):
+                    tile = not forced and n <= sw.A5_ONE_PASS_MAX_N[bim]
+                    design = "one-pass" if tile else "row-streaming"
+                    for form in (0, 1, 2):
+                        coef = heat if form == 2 else (1.0, 20.0)
+                        cfg = dict(a0=coef[0], da=coef[1] - coef[0] if bim else 0.0,
+                                   dform=form == 1, mass=mass if form == 2 else None)
+                        p, ws = ph if bim else None, {}
+                        recs.append(hold_twice(
+                            f"A5 {design} n={n} {'bim' if bim else 'hom'} form={form} "
+                            f"{str(dt).removeprefix('torch.')}",
+                            lambda: sw.rr_cuda(uu, f, p, workspace=ws, **cfg),
+                            lambda: sw.rr_plain(uu, f, p, **cfg), sw.TOL))
+    return recs
+
+
 def check_f1(n: int, q_dtype, seed: int = 14):
     """Hold F1 against its plain version on the circle's (1, 20) Q stream
     in ``q_dtype``; also its largest difference from A1's plain-form sweep
@@ -3209,12 +3283,32 @@ def bound(key: str, rec: dict):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the device kernels of the two-design legs G4 and A5: (row-streaming,
+# one-pass tile), and the module and threshold that choose between them
+DESIGNS = {"G4": ("g4_el_zdescent_rows", "g4_el_zdescent", "elastic", "G4_ONE_PASS_MAX_N"),
+           "A5": ("a5_resid_restrict_rows", "a5_resid_restrict", "sweep", "A5_ONE_PASS_MAX_N")}
+
+
+def design_of(key: str, rec: dict) -> dict:
+    """``symbols`` (both designs' device kernels) and ``design`` (the one
+    the record's launches ran) of a row of DESIGNS' legs; {} for the rest."""
+    import importlib
+
+    if key not in DESIGNS:
+        return {}
+    rows, tile, module, name = DESIGNS[key]
+    limit = getattr(importlib.import_module(f"multigrid_feanet_torch.ops.{module}"), name)
+    limit = limit[bool(rec.get("bim"))] if isinstance(limit, dict) else limit
+    return dict(symbols=[rows, tile], design=tile if rec["n"] <= limit else rows)
+
+
 def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
     """One row of the kernel line from a check record and a path's count."""
     n = rec["n"]
     bound_ms, bound_by = bound(key, rec)
     k = all_kernels()[key]
-    return dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
+    return dict(name=k.name, **design_of(key, rec), route="cuda", source=k.source,
+                replaces=k.replaces,
                 launches=launches, max_abs_err=rec["max_abs_err"],
                 max_rel_err=rec["max_rel_err"], rsq_rel_err=rec["rsq_rel_err"],
                 ms=rec["ms"], warm_ms=rec["warm_ms"], plain_ms=rec["plain_ms"],
@@ -3332,6 +3426,7 @@ def main() -> int:
     print(json.dumps({"g2_variants": check_g2_variants()}), flush=True)
     print(json.dumps({"g1_variants": check_g1_variants()}), flush=True)
     print(json.dumps({"g5_variants": check_g5_variants()}), flush=True)
+    print(json.dumps({"g4_variants": check_g4_variants()}), flush=True)
     cells = run_elastic_cells()
     # G1 and G2 add their norms in their last block: no elastic solve
     # launches a norm pass
@@ -3350,6 +3445,7 @@ def main() -> int:
     print(json.dumps({"c1_variants": check_c1_variants()}), flush=True)
     print(json.dumps({"c2_variants": check_c2_variants()}), flush=True)
     print(json.dumps({"a6_variants": check_a6_variants()}), flush=True)
+    print(json.dumps({"a5_variants": check_a5_variants()}), flush=True)
     r1 = run_r1_cells()
     for label, rec in r1.items():  # C1 and C2 add their norms in their last block
         norm_passes(label, rec, 0)

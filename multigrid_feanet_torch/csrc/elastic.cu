@@ -30,10 +30,11 @@
 // 118-225 operations (98 per operator apply of both components, 14 per
 // block update), which the card does in 24-42% of the byte time.
 //
-// G1, G2 and G5 above G1_ONE_PASS_MAX_N, G2_ONE_PASS_MAX_N and
-// G5_ONE_PASS_MAX_N (ops/elastic.py) stream rows (g1_el_relax_rows,
-// g2_el_descent_rows, g5_el_zascent_rows, below), on one sweep stage
-// (el_sweep_row).  The one-pass design of G3 and G4, and of G1, G2 and G5 at
+// G1, G2, G4 and G5 above G1_ONE_PASS_MAX_N, G2_ONE_PASS_MAX_N,
+// G4_ONE_PASS_MAX_N and G5_ONE_PASS_MAX_N (ops/elastic.py) stream rows
+// (g1_el_relax_rows, g2_el_descent_rows, g4_el_zdescent_rows,
+// g5_el_zascent_rows, below), G1, G2 and G5 on one sweep stage
+// (el_sweep_row).  The one-pass design of G3, and of G1, G2, G4 and G5 at
 // and below those sizes: one 256-thread block per OY x OX = 16 x 32 tile of
 // fine nodes (common.cuh's Tile; the descent legs' coarse output is
 // the CY x CX coarse tile above it), so every leg runs on coarse_grid(n).
@@ -769,6 +770,222 @@ g4_el_zdescent(const float* __restrict__ f, const int8_t* __restrict__ ph,
   residual_restrict<h, BIM>(x1, y1, fxs, fys, qs, fc, oy, ox, k);
 }
 
+// The zero-guess iterate omega D^-1 f at the node of column e of a thread's
+// register rows of element coefficients qs (south) and qn (north), as
+// zero_guess computes it, omega / det by div_normal.
+template <bool BIM>
+__device__ __forceinline__ void zero_guess_window(float fx, float fy, const float* qs,
+                                                  const float* qn, int e, const ElCoef& k,
+                                                  float& ux, float& uy) {
+  const float q[4] = {qs[e], qs[e + 1], qn[e], qn[e + 1]};
+  float dxx, dxy;
+  block_diag(corners<BIM>(q + 3, 2, k), k, dxx, dxy);
+  const float w = div_normal(k.omega, dxx * dxx - dxy * dxy);
+  ux = w * (dxx * fx - dxy * fy);
+  uy = w * (dxx * fy - dxy * fx);
+}
+
+// apply_el_window on windows whose rows are held apart: xs, xm, xn (ys, ym,
+// yn) the rows i - 1, i, i + 1 of both components, read at columns e .. e +
+// 2, so that register rings indexed by the step need no moves.
+template <bool BIM>
+__device__ __forceinline__ void apply_el_rows(const float* xs, const float* xm, const float* xn,
+                                              const float* ys, const float* ym, const float* yn,
+                                              int e, const float* qs, const float* qn,
+                                              const ElCoef& k, float& ax, float& ay, float& dxx,
+                                              float& dxy) {
+  const float X[9] = {xs[e], xs[e + 1], xs[e + 2], xm[e], xm[e + 1],
+                      xm[e + 2], xn[e], xn[e + 1], xn[e + 2]};
+  const float Y[9] = {ys[e], ys[e + 1], ys[e + 2], ym[e], ym[e + 1],
+                      ym[e + 2], yn[e], yn[e + 1], yn[e + 2]};
+  const float q[4] = {qs[e], qs[e + 1], qn[e], qn[e + 1]};
+  apply_el<BIM>(X + 4, Y + 4, 3, q + 3, 2, k, ax, ay, dxx, dxy);
+}
+
+// ---------------------------------------------------------------------------
+// G4 as a row-streaming chain, for levels above G4_ONE_PASS_MAX_N; the same
+// contract as the tile above.
+// Design: G2's chain (u1, then r1, the coarse row's (1, 2, 1) sums finished
+// a step later) with A3's zero guess as its first stage: no u is staged, and
+// u1 = omega D^-1 f is pointwise.  So each thread builds u1 at its own
+// columns and at one beside them on each side from the f and element rows
+// it reads (two zero guesses of the four are also its neighbours'), and no
+// row passes between threads but the restriction's sums.  The tile's cost
+// was latency: three stages over a 20 x 36 node tile behind barriers, the
+// last run by half the block, for 11 B of traffic per node.  A block owns
+// fine columns [x0, x0 + BW), BW = RB - 2, and rows [y0, y0 + strip) (x0 and
+// y0 even), so the coarse nodes [x0/2, (x0 + BW)/2) x [y0/2, (y0 + strip)/2);
+// thread t works on columns c0 + e, e < RC, c0 = x0 - 1 + RC t (odd): r1 on
+// them, u1 from one column left of c0 to one right of its last, so the
+// band's u1 reaches 2 columns past it on each side (G4's halo of 2).  Step s
+// stages both components of f and the element row R = y0 - 3 + s into rings
+// of RNS slots, RD steps ahead (stage_plane: the y plane need not start on a
+// 16-byte boundary; the element window starts one column left of f's); then
+// a thread
+//   1. finishes the coarse row whose column sums completed at step s - 1
+//      (common.cuh restrict_finish, per component);
+//   2. reads the element row R and f of row R into register rings, builds
+//      u1 at row R (zero_guess's arithmetic, omega / det by div_normal; 0
+//      off the interior) into its ring of u1 rows R - 2 .. R (from step 1:
+//      row y0 - 3 brings only its elements);
+//   3. computes r1 = f - A u1 at row rho = R - 1 from those rows, the
+//      element rows rho - 1, rho and f of row rho (its own columns, read at
+//      step s - 1), and adds it to its columns' (1, 2, 1) row sums
+//      (restrict_rows; from step 3, rho = y0 - 1, the first row the
+//      restriction reads).
+// One barrier per step orders the staged rows and the sums; neither u1 nor
+// r1 goes to device memory.  A strip takes 4 steps beyond the fine rows it
+// restricts (g4_halo_steps): the element row under its first u1 row, the u1
+// rows of its halo (2 above, 1 below) and none for r1, which follows u1 in
+// the same step; the first steps skip what no output reads, and a warp
+// whose columns all lie past the grid computes nothing.  The register
+// rings, the staging rings and the restriction's row parity turn whole every
+// G4_UNR steps (the main loop's unroll), so every slot is a constant and no
+// row is moved between registers.
+// apply_el runs as the tile runs it, term by term, on 3 x 3 register windows,
+// and the restriction's sums in restrict4's order (rows first, then
+// columns); every mask is a select.  No norm: G4 has none.
+// ---------------------------------------------------------------------------
+constexpr int G4_UNR = 6;  // steps per trip of the main loop
+static_assert(G4_UNR % RNS == 0 && G4_UNR % 3 == 0 && G4_UNR % 2 == 0,
+              "G4_UNR: whole ring turns");
+// resident blocks per SM asked for: caps the registers at 102
+constexpr int G4_MINB = 5;
+// the staged element window: columns x0 - 3 .. x0 + RB - 1 (a thread's zero
+// guesses read elements c0 - 2 .. c0 + RC)
+constexpr int G4_RWQ = RB + 3;
+constexpr int G4_SLOTQ = (G4_RWQ + 15 + 15) / 16 * 16;  // bytes per element slot
+
+template <bool BIM>
+__global__ void __launch_bounds__(RT, G4_MINB)
+g4_el_zdescent_rows(const float* __restrict__ f, const int8_t* __restrict__ ph,
+                    float* __restrict__ fc, int strip, ElCoef k) {
+  constexpr int BW = RB - 2;  // owned columns of a band
+  __shared__ __align__(16) float fs[2][RNS][RSLOT];  // f rows: component, slot
+  __shared__ __align__(16) int8_t qs[BIM ? RNS : 1][G4_SLOTQ];
+  __shared__ __align__(16) float wrow[2][2][RB];  // (1, 2, 1) sums completed at step s
+  const int n = k.n, H = n + 1, Hc = n / 2 + 1, t = threadIdx.x;
+  const size_t cplane = (size_t)Hc * Hc;
+  const int x0 = blockIdx.x * BW, y0 = blockIdx.y * strip;
+  const int c0 = x0 - 1 + RC * t, col = x0 - 2, qcol = x0 - 3, base = y0 - 3;
+  const int rows_out = min(strip, H + 1 - y0);  // fine rows this strip restricts
+  const int steps = rows_out + 4;
+
+  const unsigned fd = smem_addr(fs), qd = smem_addr(qs);
+  // stages step s into ring slot `slot`: both components of f and the
+  // element row base + s; always commits
+  auto stage = [&](int s, int slot) {
+    const bool live = s < steps;
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      stage_plane<4, RW>(fd + 4 * RSLOT * (c * RNS + slot), f, c, base + s, H, H, col, live);
+    if (BIM) stage_window<1, G4_RWQ>(qd + G4_SLOTQ * slot, ph, base + s, n, n, qcol, live);
+    cp_commit();
+  };
+  for (int s = 0; s < RD; ++s) stage(s, s);
+
+  // columns c0 - 1 .. c0 + RC interior; columns c0 .. c0 + RC - 1 owned by
+  // the block, and the coarse column centred on each (-1: none)
+  bool col_in[RC + 2], col_own[RC];
+  int J[RC];
+#pragma unroll
+  for (int e = 0; e < RC + 2; ++e) col_in[e] = c0 - 1 + e >= 1 && c0 - 1 + e <= H - 2;
+#pragma unroll
+  for (int e = 0; e < RC; ++e) {
+    const int c = c0 + e, p = RC * t + e;
+    col_own[e] = p >= 1 && p < 1 + BW && c < H;
+    J[e] = (c & 1) || !col_own[e] ? -1 : c / 2;
+  }
+
+  // rings of the rows of the last steps, slot s mod 3 (s mod 2: f) holding
+  // row R of step s
+  float qe[3][RC + 3] = {};  // element coefficients, columns c0 - 2 .. c0 + RC
+  float vx[3][RC + 2] = {}, vy[3][RC + 2] = {};  // u1, columns c0 - 1 .. c0 + RC
+  float fox[2][RC] = {}, foy[2][RC] = {};        // f at the own columns
+  float accx[RC] = {}, accy[RC] = {};            // (1, 2, 1) sums of the coarse row in progress
+  // the warp computes only where its residual columns reach into the grid (a
+  // level's last band is ragged: at 1025^2 three of its four warps lie past
+  // the grid, and no other warp reads what they would compute)
+  const bool busy = x0 - 1 + RC * (t & ~31) < H;
+  bool pending = false;  // a coarse row completed at the previous step
+  // step s (ring slot s mod RNS, wrow slot s mod 2)
+  auto step = [&](int s, auto S) {
+    constexpr int I = decltype(S)::value;
+    constexpr int slot = I % RNS, xb = I % 2, xp = (I + 1) % 2;
+    constexpr int r0 = I % 3, r1 = (I + 2) % 3, r2 = (I + 1) % 3;  // rows R, R - 1, R - 2
+    constexpr bool odd = (I & 1) != 0;  // rho = y0 - 4 + s (y0 and G4_UNR even)
+    if (s >= steps) return;
+    cp_wait<RD - 1>();
+    __syncthreads();
+    const int R = base + s, rho = R - 1;
+
+    if (pending) {  // 1. coarse row (rho - 2) / 2 from the sums of step s - 1
+      restrict_finish(fc, (rho - 2) >> 1, Hc, wrow[0][xp] + RC * t, J);
+      restrict_finish(fc + cplane, (rho - 2) >> 1, Hc, wrow[1][xp] + RC * t, J);
+    }
+    pending = odd && s >= 5;  // completes coarse row (rho - 1) / 2 (rho > y0)
+
+    // 2. the element row R, f of row R and u1 = omega D^-1 f at row R,
+    // columns c0 - 1 .. c0 + RC: the first u1 row a residual reads is
+    // R = y0 - 2 (step 1)
+    if constexpr (BIM) {
+      const int8_t* pq = qs[slot] + win_off<int8_t>(R, n, qcol) + RC * t;
+#pragma unroll
+      for (int e = 0; e < RC + 3; ++e) qe[r0][e] = (float)pq[e] * k.da + k.a0;
+    }
+    float fx[RC + 2], fy[RC + 2];
+    read_row<RC + 2>(fx, fs[0][slot], R, H, col, RC * t);
+    read_row<RC + 2>(fy, fs[1][slot], H + R, H, col, RC * t);
+#pragma unroll
+    for (int e = 0; e < RC; ++e) {
+      fox[xb][e] = fx[e + 1];
+      foy[xb][e] = fy[e + 1];
+    }
+#pragma unroll
+    for (int e = 0; e < RC + 2; ++e) vx[r0][e] = vy[r0][e] = 0.f;
+    if (s >= 1 && busy) {
+      const bool r_in = R >= 1 && R <= H - 2;
+#pragma unroll
+      for (int e = 0; e < RC + 2; ++e) {
+        float zx, zy;
+        zero_guess_window<BIM>(fx[e], fy[e], qe[r1], qe[r0], e, k, zx, zy);
+        const bool in = r_in && col_in[e];
+        vx[r0][e] = in ? zx : 0.f;
+        vy[r0][e] = in ? zy : 0.f;
+      }
+    }
+
+    // 3. r1 at row rho from u1 rows rho - 1 .. rho + 1 (zero off the
+    // interior): the first row the restriction reads is rho = y0 - 1 (step 3)
+    if (s >= 3 && busy) {
+      const bool p_in = rho >= 1 && rho <= H - 2;
+      float rx[RC], ry[RC];
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        float ax, ay, dxx, dxy;  // element rows rho - 1 = R - 2, rho; columns from c0 - 1
+        apply_el_rows<BIM>(vx[r2], vx[r1], vx[r0], vy[r2], vy[r1], vy[r0], e, qe[r2] + 1,
+                           qe[r1] + 1, k, ax, ay, dxx, dxy);
+        const bool in = p_in && col_in[e + 1];
+        rx[e] = in ? fox[xp][e] - ax : 0.f;
+        ry[e] = in ? foy[xp][e] - ay : 0.f;
+      }
+      restrict_rows<odd>(accx, rx, wrow[0][xb] + RC * t, pending);
+      restrict_rows<odd>(accy, ry, wrow[1][xb] + RC * t, pending);
+    }
+    // step s + RD reuses the slots of step s - 1, whose last readers ran at
+    // step s - 1
+    stage(s + RD, (slot + RD) % RNS);
+  };
+  for (int s0 = 0; s0 < steps; s0 += G4_UNR)
+    static_for<G4_UNR>([&](auto S) { step(s0 + decltype(S)::value, S); });
+  __syncthreads();
+  if (pending) {  // the strip's last coarse row, completed at its last step
+    const int Ic = (y0 + rows_out - 2) >> 1, xl = (steps - 1) & 1;
+    restrict_finish(fc, Ic, Hc, wrow[0][xl] + RC * t, J);
+    restrict_finish(fc + cplane, Ic, Hc, wrow[1][xl] + RC * t, J);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // G5: zero-guess elastic ascent leg: u3 = BJ(omega D^-1 f + P(uc)); the
 // level's pre-smoothed iterate is recomputed in shared memory, never stored.
@@ -848,21 +1065,6 @@ constexpr int G5_MINB = 4;
 // y0 - 1 .. y0 + strip read coarse rows (y0 - 1) / 2 .. (y0 + strip) / 2,
 // and prolong_row reads a row and the next.
 __host__ __device__ __forceinline__ int g5_coarse_rows(int strip) { return strip / 2 + 3; }
-
-// The zero-guess iterate omega D^-1 f at the node of column e of a thread's
-// register rows of element coefficients qs (south) and qn (north), as
-// zero_guess computes it, omega / det by div_normal.
-template <bool BIM>
-__device__ __forceinline__ void zero_guess_window(float fx, float fy, const float* qs,
-                                                  const float* qn, int e, const ElCoef& k,
-                                                  float& ux, float& uy) {
-  const float q[4] = {qs[e], qs[e + 1], qn[e], qn[e + 1]};
-  float dxx, dxy;
-  block_diag(corners<BIM>(q + 3, 2, k), k, dxx, dxy);
-  const float w = div_normal(k.omega, dxx * dxx - dxy * dxy);
-  ux = w * (dxx * fx - dxy * fy);
-  uy = w * (dxx * fy - dxy * fx);
-}
 
 template <bool BIM>
 __global__ void __launch_bounds__(RT, G5_MINB)
@@ -1006,6 +1208,17 @@ inline bool el_fine_grid_ok(int n, int bw, bool one_pass, int strip, int gx, int
          gy == (H + strip - 1) / strip;
 }
 
+// The grid of G4: on one-pass tiles, coarse_grid; row streaming, bands of
+// RB - 2 owned columns and strips of `strip` rows (even, 2 .. RS_STRIP_MAX),
+// each restricting to the coarse nodes under it, as
+// ops/elastic.py::g4_launch_tiles computes them.
+inline bool g4_grid_ok(int n, bool one_pass, int strip, int gx, int gy) {
+  const int Hc = n / 2 + 1, bw = (RB - 2) / 2, sh = strip / 2;
+  if (one_pass) return (unsigned)gx == coarse_grid(n).x && (unsigned)gy == coarse_grid(n).y;
+  return strip >= 2 && strip % 2 == 0 && strip <= RS_STRIP_MAX && gx == (Hc + bw - 1) / bw &&
+         gy == (Hc + sh - 1) / sh;
+}
+
 template <bool BIM, int MODE>
 void launch_g1(bool one_pass, dim3 g, cudaStream_t st, const float* u, const float* f,
                const int8_t* ph, float* out, float* partial, unsigned* done, float* rsq,
@@ -1141,16 +1354,36 @@ int mg_el_psweep(const float* u1, const float* f, const int8_t* ph, const float*
   return (int)cudaGetLastError();
 }
 
-// G4.  fc = 4 FW(f - A u1), u1 = omega D^-1 f.
+// G4.  fc = 4 FW(f - A u1), u1 = omega D^-1 f; the launch geometry of
+// ops/elastic.py::g4_launch_tiles: one-pass tiles when one_pass, else
+// row-streaming strips of `strip` rows, on gx x gy blocks.
+// cudaErrorInvalidValue for a geometry G4 does not take.
 int mg_el_zrr(const float* f, const int8_t* ph, float* fc, int n, double a0, double da,
               double omega, double al, double be, double ga, double ep, double de, double ze,
-              int bim, void* stream) {
+              int bim, int one_pass, int strip, int gx, int gy, void* stream) {
+  if (!g4_grid_ok(n, one_pass != 0, strip, gx, gy)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const ElCoef k = make_el_coef(n, a0, da, omega, al, be, ga, ep, de, ze);
-  const dim3 g = coarse_grid(n);
-  if (bim) g4_el_zdescent<true><<<g, NT, 0, st>>>(f, ph, fc, k);
-  else g4_el_zdescent<false><<<g, NT, 0, st>>>(f, ph, fc, k);
+  const dim3 g(gx, gy);
+  if (one_pass) {
+    if (bim) g4_el_zdescent<true><<<g, NT, 0, st>>>(f, ph, fc, k);
+    else g4_el_zdescent<false><<<g, NT, 0, st>>>(f, ph, fc, k);
+  } else {
+    if (bim) g4_el_zdescent_rows<true><<<g, RT, 0, st>>>(f, ph, fc, strip, k);
+    else g4_el_zdescent_rows<false><<<g, RT, 0, st>>>(f, ph, fc, strip, k);
+  }
   return (int)cudaGetLastError();
+}
+
+// Blocks of the row-streaming G4 in one form that one SM holds at once: what
+// ops/elastic.py balances the strip height against.  Negative on a CUDA
+// error.
+int mg_el_zrr_occupancy(int bim) {
+  const void* kern = bim ? (const void*)g4_el_zdescent_rows<true>
+                         : (const void*)g4_el_zdescent_rows<false>;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, RT, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // G5.  out = BJ(omega D^-1 f + P(uc)); the launch geometry of

@@ -33,16 +33,18 @@ prolonged correction are zero on the boundary, the coarse output is zero on
 the coarse boundary ring, and ``rsq`` is the interior squared residual norm
 of the INCOMING iterate summed over both components.
 
-G1, G2 and G5 stream rows (``csrc/elastic.cu g1_el_relax_rows``,
-``g2_el_descent_rows``, ``g5_el_zascent_rows``) above
-``G1_ONE_PASS_MAX_N[bim]``, ``G2_ONE_PASS_MAX_N[bim]`` and
-``G5_ONE_PASS_MAX_N[bim]``: their wrappers launch them on the bands and
-strips of :func:`g1_tiles`, :func:`g2_tiles` and :func:`g5_tiles`, with the
-strip height ``ops/hrelax.py::row_strip`` picks for the level's size and
-the card's occupancy, and smaller levels on the one-pass tiles
-(:func:`g1_launch_tiles`, :func:`g2_launch_tiles`, :func:`g5_launch_tiles`);
-G1 and G2 finish their norm in their last block in both designs.  Their
-u, f, the phase and uc must start on a 16-byte boundary.
+G1, G2, G4 and G5 stream rows (``csrc/elastic.cu g1_el_relax_rows``,
+``g2_el_descent_rows``, ``g4_el_zdescent_rows``, ``g5_el_zascent_rows``)
+above ``G1_ONE_PASS_MAX_N[bim]``, ``G2_ONE_PASS_MAX_N[bim]``,
+``G4_ONE_PASS_MAX_N[bim]`` and ``G5_ONE_PASS_MAX_N[bim]``: their wrappers
+launch them on the bands and strips of :func:`g1_tiles`, :func:`g2_tiles`,
+:func:`g4_tiles` and :func:`g5_tiles`, with the strip height
+``ops/hrelax.py::row_strip`` picks for the level's size and the card's
+occupancy, and smaller levels on the one-pass tiles
+(:func:`g1_launch_tiles`, :func:`g2_launch_tiles`, :func:`g4_launch_tiles`,
+:func:`g5_launch_tiles`); G1 and G2 finish their norm in their last block
+in both designs.  Their u, f, the phase and uc must start on a 16-byte
+boundary.
 """
 
 from __future__ import annotations
@@ -206,7 +208,8 @@ KERNELS = {
                         _REPLACES + "391", _SOURCE),
     "G3": sw.CudaKernel("G3_el_psweep", "mg_el_psweep", [_P] * 5 + _TAIL + [_P],
                         _REPLACES + "457", _SOURCE),
-    "G4": sw.CudaKernel("G4_el_zrr", "mg_el_zrr", [_P] * 3 + _TAIL + [_P],
+    # f ph out; _TAIL; one_pass strip gx gy; stream
+    "G4": sw.CudaKernel("G4_el_zrr", "mg_el_zrr", [_P] * 3 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "504", _SOURCE),
     # f ph uc out; _TAIL; one_pass strip gx gy; stream
     "G5": sw.CudaKernel("G5_el_zpsweep", "mg_el_zpsweep", [_P] * 4 + _TAIL + [_I] * 4 + [_P],
@@ -225,10 +228,10 @@ def _tail(n, ph, a0, da, omega, consts):
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of G1, G2 and G5: row-streaming bands and strips in
-# common.cuh's block shape (G2's blocks each restricting to the coarse nodes
-# under its band and strip), and the one-pass tiles on the coarse grid below
-# a size threshold each.
+# Launch geometry of G1, G2, G4 and G5: row-streaming bands and strips in
+# common.cuh's block shape (G2's and G4's blocks each restricting to the
+# coarse nodes under their band and strip), and the one-pass tiles on the
+# coarse grid below a size threshold each.
 # ---------------------------------------------------------------------------
 
 # levels of up to this many elements per side, bi-material (True) or
@@ -309,6 +312,57 @@ def g2_launch_tiles(n: int, bim: bool, device) -> sw.Tiles:
     return hx.launch_tiles(_G2_TILES, (n, bool(bim), device.index), device,
                            lambda s: g2_tiles(n, s), hx.e2_halo_steps(0),
                            "mg_el_swrr_occupancy", int(bim))
+
+
+# levels of up to this many elements per side, bi-material (True) or
+# homogeneous (False), run G4 on its one-pass tiles (csrc/elastic.cu
+# g4_el_zdescent, 16 x 32 fine tiles of the coarse grid): the largest level
+# at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover --legs g4a5``, PERF.md; bi-material
+# streaming won by 1% at 257^2, 10% at 513^2, 33% at 1025^2)
+G4_ONE_PASS_MAX_N = {True: 128, False: 32}
+
+
+def g4_tiles(n: int, strip: int = 32) -> sw.Tiles:
+    """G4: G2's descent chain with A3's zero guess in front; a block builds
+    u1 over ``A12_THREADS A12_COLUMNS + 2`` columns (each thread a column
+    beside its own on each side: u1 is pointwise), computes r1 over the
+    ``A12_THREADS A12_COLUMNS`` its threads cover and owns the middle
+    ``A12_THREADS A12_COLUMNS - 2`` (the restriction's column sums eat a
+    column on each side; the band is even, so that the threads' columns
+    start on an odd column) and the coarse nodes under its band and
+    strip."""
+    sw._check_strip(strip)
+    Hc, band = n // 2 + 1, sw.A12_THREADS * sw.A12_COLUMNS - 2
+    return sw.Tiles("G4", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
+
+
+def g4_one_pass_tiles(n: int) -> sw.Tiles:
+    """G4 on one-pass tiles (``ops/hrelax.py::coarse_tiles``)."""
+    return hx.coarse_tiles("G4_tile", n)
+
+
+def g4_halo_steps() -> int:
+    """Steps a G4 block takes beyond the fine rows its strip restricts: the
+    element row under its first u1 row (1) and the u1 rows of the chain's
+    halo, 2 above and 1 below; r1 adds none (it follows u1 in the same
+    step, from the thread's own u1 windows)."""
+    return 4
+
+
+_G4_TILES = {}
+
+
+def g4_launch_tiles(n: int, bim: bool, device) -> sw.Tiles:
+    """The geometry G4 launches with on ``device``: one-pass tiles up to
+    ``G4_ONE_PASS_MAX_N[bim]``, else row-streaming strips of ``row_strip``'s
+    height for the occupancy the card reports for the instance launched
+    (``ops/hrelax.py::launch_tiles``)."""
+    if n <= G4_ONE_PASS_MAX_N[bool(bim)]:
+        return g4_one_pass_tiles(n)
+    return hx.launch_tiles(_G4_TILES, (n, bool(bim), device.index), device,
+                           lambda s: g4_tiles(n, s), g4_halo_steps(), "mg_el_zrr_occupancy",
+                           int(bim))
 
 
 # levels of up to this many elements per side, bi-material (True) or
@@ -409,12 +463,17 @@ def el_psweep_cuda(u, f, ph, uc, *, a0, da, omega, consts, out=None):
 
 
 def el_zrr_cuda(f, ph=None, *, a0, da, omega, consts, out=None):
-    """G4 on the card; same contract as :func:`el_zrr_plain`."""
+    """G4 on the card; same contract as :func:`el_zrr_plain`, and f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError)."""
     n, dev = f.shape[-1] - 1, f.device
     _operands(n, dev, [("f", f)], ph)
     out = sw._output(out, "out", (2, n // 2 + 1, n // 2 + 1), dev, (f,))
+    sw._check_aligned(("f", f), ("phase", ph))
+    tiles = g4_launch_tiles(n, ph is not None, dev)
     KERNELS["G4"](f.data_ptr(), sw._ptr(ph), out.data_ptr(),
-                  *_tail(n, ph, a0, da, omega, consts), sw._stream(dev))
+                  *_tail(n, ph, a0, da, omega, consts), int(tiles.leg == "G4_tile"), tiles.strip,
+                  tiles.gx, tiles.gy, sw._stream(dev))
     return out
 
 

@@ -415,7 +415,7 @@ KERNELS = {
     "A4": CudaKernel("A4_zpsweep", "mg_zpsweep", [_P] * 4 + [_I] + [_D] * 6 + [_I] * 6 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
     "A5": CudaKernel("A5_resid_restrict", "mg_rr",
-                     [_P] * 6 + [_I] + [_D] * 5 + [_I] * 3 + [_P],
+                     [_P] * 7 + [_I] + [_D] * 5 + [_I] * 7 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:758", _SOURCE),
     "A6": CudaKernel("A6_cross_cycle", "mg_pswrr",
                      [_P] * 9 + [_I] + [_D] * 6 + [_I] * 7 + [_P],
@@ -435,7 +435,7 @@ def _partials_key(which: int, n: int) -> tuple:
 
 def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
     """Scratch for the per-block partial sums of the kernels of grid
-    ``which`` (0: D1, 1: A5 and the A6 tile, 2: C2), kept in
+    ``which`` (0: D1, 1: the A6 tile, 2: C2), kept in
     ``workspace`` when one is given."""
     key = _partials_key(which, n)
     buf = None if workspace is None else workspace.get(key)
@@ -449,7 +449,7 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of A1-A4 and A6: row-streaming tiles (csrc/sweep.cu).  A
+# Launch geometry of A1-A6: row-streaming tiles (csrc/sweep.cu).  A
 # block of A12_THREADS threads of A12_COLUMNS adjacent columns each owns a
 # band of fine columns and marches down a strip of fine rows; the grid and
 # the strip height are computed here and passed to the kernels, which
@@ -462,7 +462,7 @@ def _partials(which: int, n: int, device, workspace) -> torch.Tensor:
 A12_THREADS, A12_COLUMNS = 128, 2
 A12_STRIP, A12_STRIP_MAX = 32, 128
 # steps a block takes beyond its strip's rows: the staged halo rows
-_HALO_STEPS = {"A1": 2, "A2": 6, "A3": 5, "A4": 4, "A6": 9}
+_HALO_STEPS = {"A1": 2, "A2": 6, "A3": 5, "A4": 4, "A5": 3, "A6": 9}
 # the shortest strip balanced_strip considers: A3 and A4 run on the coarse
 # levels, where one wave holds the whole grid and the strip's step chain
 # is the time
@@ -478,6 +478,13 @@ _LEG_ID = {"A1": 1, "A2": 2, "A3": 3, "A4": 4, "A6": 6}
 # longer.  The largest size at which the tile was the faster on the H100
 # (``sweep_vs_parent.py --crossover``, PERF.md)
 A6_ONE_PASS_MAX_N = 512
+# levels of up to this many elements per side, bi-material (True) or
+# homogeneous (False), run A5 on its one-pass tiles (csrc/sweep.cu
+# a5_resid_restrict, one block per 32 x 16 fine nodes, and its norm pass):
+# the largest size at which the tile was the faster on the H100
+# (``sweep_vs_parent.py --crossover --legs g4a5``, PERF.md; at 9^2 the two
+# bi-material designs tied within 2%)
+A5_ONE_PASS_MAX_N = {True: 8, False: 16}
 
 
 class Tiles(NamedTuple):
@@ -535,6 +542,22 @@ def a4_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
     return Tiles("A4", n, band, strip, -(-H // band), -(-H // strip))
 
 
+def a5_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
+    """A5: a block owns ``A12_THREADS A12_COLUMNS - 2`` columns (its
+    residual reaches one column past each side, for the restriction's
+    column sums) and the coarse nodes under its band and strip."""
+    _check_strip(strip)
+    Hc, band = n // 2 + 1, A12_THREADS * A12_COLUMNS - 2
+    return Tiles("A5", n, band, strip, -(-Hc // (band // 2)), -(-Hc // (strip // 2)))
+
+
+def a5_one_pass_tiles(n: int) -> Tiles:
+    """A5 on one-pass tiles: one block per 32 x 16 tile of fine nodes, the
+    fine tiles of csrc/common.cuh's CY x CX coarse tiles."""
+    Hc = n // 2 + 1
+    return Tiles("A5_tile", n, 32, 16, -(-Hc // 16), -(-Hc // 8))
+
+
 def a6_tiles(n: int, strip: int = A12_STRIP) -> Tiles:
     """A6: a block owns ``A12_THREADS A12_COLUMNS - 6`` columns (its u3, u4
     and r4 eat a column of halo on each side each, the restriction one
@@ -587,7 +610,7 @@ def _tiles_key(tiles: Tiles) -> tuple:
 
 
 def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
-    """(partials, counter) of one A1, A2 or row-streaming A6 launch: one
+    """(partials, counter) of one A1, A2, A5 or row-streaming A6 launch: one
     partial sum per block and the zeroed counter whose last block adds them
     (and resets it), kept in ``workspace`` under their own key when one is
     given."""
@@ -630,7 +653,7 @@ def _launch_tiles(leg: str, n: int, bim: bool, form: int, mode: int, device,
 
 
 def _check_aligned(*named):
-    """A1-A4 and A6 stage u, f and the phases with 16-byte cp.async chunks
+    """A1-A6 stage u, f and the phases with 16-byte cp.async chunks
     counted from the fields' base pointers, which must therefore start on a
     16-byte boundary (whole tensors do, offset views may not); A4's coarse
     correction is held to the same rule."""
@@ -747,17 +770,43 @@ def swrr_cuda(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_ou
     return out, fc_out, rsq
 
 
+_A5_TILES = {}
+
+
+def a5_launch_tiles(n: int, bim: bool, form: int, device, bf16: int) -> Tiles:
+    """The geometry A5 launches with on ``device``: its one-pass tiles up to
+    ``A5_ONE_PASS_MAX_N[bim]``, else row-streaming strips of
+    ``ops/hrelax.py::row_strip``'s height for the occupancy the card
+    reports for the instance launched (``ops/hrelax.py::launch_tiles``;
+    computed once per level shape)."""
+    if n <= A5_ONE_PASS_MAX_N[bool(bim)]:
+        return a5_one_pass_tiles(n)
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    return hx.launch_tiles(_A5_TILES, (n, bool(bim), form, bf16, device.index), device,
+                           lambda s: a5_tiles(n, s), _HALO_STEPS["A5"], "mg_rr_occupancy",
+                           int(bim), form, bf16)
+
+
 def rr_cuda(u, f, ph=None, *, a0, da, dform, mass=None, fc_out=None, rsq=None,
             workspace=None):
-    """A5 on the card; same contract as :func:`rr_plain`."""
+    """A5 on the card; same contract as :func:`rr_plain`, and u, f and
+    ``ph`` must start on a 16-byte boundary (whole tensors do; an offset
+    view may not, and raises ValueError).  The row-streaming design
+    finishes the norm in its last block (one launch); the one-pass tile
+    sums its partials in a second pass."""
     form, m = _form(dform, mass)
     n, dev, bf16 = u.shape[0] - 1, u.device, _storage(u)
     _operands(n, dev, [("u", u), ("f", f)], ph, dtype=u.dtype)
     fc_out = _output(fc_out, "fc_out", (n // 2 + 1, n // 2 + 1), dev, (u, f), u.dtype)
     rsq = _scalar_out(rsq, dev)
-    KERNELS["A5"](u.data_ptr(), f.data_ptr(), _ptr(ph), fc_out.data_ptr(),
-                  _partials(1, n, dev, workspace).data_ptr(), rsq.data_ptr(), n, a0, da,
-                  *m, int(ph is not None), form, bf16, _stream(dev))
+    _check_aligned(("u", u), ("f", f), ("phase", ph))
+    tiles = a5_launch_tiles(n, ph is not None, form, dev, bf16)
+    partial, done = _tile_scratch(tiles, dev, workspace)
+    KERNELS["A5"](u.data_ptr(), f.data_ptr(), _ptr(ph), fc_out.data_ptr(), partial.data_ptr(),
+                  done.data_ptr(), rsq.data_ptr(), n, a0, da, *m, int(ph is not None), form,
+                  bf16, int(tiles.leg == "A5_tile"), tiles.strip, tiles.gx, tiles.gy,
+                  _stream(dev))
     return fc_out, rsq
 
 

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
 ``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1),
-``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G1, G2, G5), ``csrc/general.cu`` (D2)
+``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G1, G2, G4, G5), ``csrc/general.cu`` (D2)
 and ``csrc/hrelax.cu``'s E4 of this checkout against those of an earlier checkout of the port on one
 GPU, in turns.
 
     python3 sweep_vs_parent.py --parent DIR
-        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|pbc|g2d2_cells|e4c2_cells
-                |g1g5_cells]
+        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|pbc|g2d2_cells
+                |e4c2_cells|g1g5_cells|g4a5_cells]
         [--out FILE]
-    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5] [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5]
+    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
+    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5]
         [--out FILE]
-    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2|g1g5] [--out FILE]
+    python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
 DIR holds an earlier commit's ``multigrid_feanet_torch`` (for example
@@ -80,6 +80,13 @@ median of 3).  The turns run parent, this, this, parent.
   (G5) with G1's sweep at 1025^2 in both forms; both bi-material at every
   other level size of the elastic cells (n = 512 ... 16), where this
   checkout runs its one-pass tiles up to its thresholds.
+- ``g4a5``: ``el_zrr_cuda`` (G4) at 1025^2, bi-material
+  (``elastic_v11_2049``'s level 1) and homogeneous, and bi-material at every
+  other level size it runs on there (n = 512 ... 16); ``rr_cuda`` (A5) at
+  4097^2 in the bi-material and homogeneous difference form and the
+  bi-material mass form, in f32 and bf16 storage, bi-material in difference
+  form at n = 8, 16 and every size of CROSS_LEVELS, and homogeneous at n =
+  8 and 16 (where this checkout runs A5's one-pass tiles).
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -101,6 +108,8 @@ median of 3).  The turns run parent, this, this, parent.
   torch.profiler profiles each cell's device ms per cycle (per iteration
   for the PCG), that of G1 (G5 on ``_v11``) and of the norm passes
   (``rsq_reduce``), with the cycles, the q and the wall per cycle.
+- ``g4a5_cells`` (not part of ``all``): as ``g1g5_cells``, with G4 on
+  ``_v11`` (A5 runs on no cell).
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -120,7 +129,9 @@ height ``row_strip`` picks.  With ``--legs e4c2``: E4 at 2049^2 (L = 1,
 bi-material difference form and homogeneous) and C2 at 4097^2 (k = 2,
 homogeneous and bi-material) over SCAN_STRIPS_G2D2.  With ``--legs g1g5``:
 G1 at 2049^2 and G5 at 1025^2, bi-material and homogeneous, over
-SCAN_STRIPS_G2D2.
+SCAN_STRIPS_G2D2.  With ``--legs g4a5``: G4 at 1025^2 (bi-material and
+homogeneous) and A5 at 4097^2 (bi-material difference form, f32 and bf16)
+over SCAN_STRIPS_G2D2.
 Writes ``chiprun_out/sweep_strip_scan.json`` by default.
 
 ``--crossover`` times this checkout's kernels that have a one-pass tile
@@ -156,7 +167,12 @@ nets and C2 homogeneous and bi-material with k = 1 ... 4
 (sweep mode) and G5, bi-material and homogeneous
 (``ops/elastic.py::G1_ONE_PASS_MAX_N``, ``G5_ONE_PASS_MAX_N``; ``g1g5``
 alone also at n = 8, 16, 32 and 2048), with G1's blocks per SM and G5's at
-strips of 8, 32 and 128 rows.
+strips of 8, 32 and 128 rows.  With ``--legs g4a5`` (or ``all``): G4
+bi-material and homogeneous and A5 bi-material and homogeneous in
+difference form, bi-material in mass form and bi-material in difference
+form in bf16 storage (``ops/elastic.py::G4_ONE_PASS_MAX_N``,
+``ops/sweep.py::A5_ONE_PASS_MAX_N``; ``g4a5`` alone also at n = 8, 16, 32
+and 2048), with their blocks per SM.
 Writes ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
@@ -169,7 +185,9 @@ and D5 at 2048 ... 32 on the 4097^2 BoxMG setup's bf16 planes
 (``boxmg_4097``), D2 and D3 at its level 0, and G1-G5 at 2048 ... 16 (the
 elastic cells, bi-material); with ``--legs c1e2``, ``e3e5`` or ``e4c2``
 only the C and E rows, which also time E3 at 4096 beside E2, with ``--legs g2d2``
-only the D and G rows, with ``--legs g1g5`` only the G rows.  Writes
+only the D and G rows, with ``--legs g1g5`` only the G rows, with ``--legs
+g4a5`` G4 at 1024 ... 16 (``elastic_v11_2049``, bi-material) and A5 at
+4096 ... 32 (bi-material difference form; on no path).  Writes
 ``chiprun_out/sweep_levels.json`` by default.
 
 ``--sass`` builds both checkouts' libraries and reads their machine code
@@ -178,17 +196,14 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3, A4 and the row-streaming F1, A6, C1, C2, E2, E3, E4,
-E5, G1, G2, G5 and D2 in all and per step of their row loop (between two barriers;
+instructions of A3, A4 and the row-streaming F1, A5, A6, C1, C2, E2, E3,
+E4, E5, G1, G2, G4, G5 and D2 in all and per step of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
-row-streaming kernels.  The parent's kernels named in CHANGED (G1's
-one-pass tiles, which now finish their norm in their last block, and G2's
-row-streaming kernels, whose sweep stage G1 and G5 share) are compared
-apart and reported, those in REMOVED (elastic.cu's reduce_kernel,
-which no G1 launch needs now) are listed if this checkout no longer builds
-them; the kernels new in this checkout are listed; fails unless every other
-kernel matches.  Writes
+row-streaming kernels.  The parent's kernels named in CHANGED (none in
+this checkout) are compared apart and reported, those in REMOVED (none
+either) are listed if this checkout no longer builds them; the kernels new
+in this checkout are listed; fails unless every other kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
 """
 
@@ -212,18 +227,17 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): the one-pass G1, whose norm is now finished in its last block,
-# and the row-streaming G2, whose sweep stage G1 and G5 now share
-CHANGED = ("g1_el_relax", "g2_el_descent_rows")
-# the parent's kernels this checkout may no longer build, by (source, name):
-# elastic.cu's second norm pass, which no launch there needs now
-REMOVED = (("elastic", "reduce_kernel"),)
+# them apart): none
+CHANGED = ()
+# the parent's kernels this checkout may no longer build, by (source, name)
+REMOVED = ()
 # the row-streaming kernels whose instructions per step and registers --sass
 # reports
 ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
                "c2_stencil_multi_rows", "e2_h_descent_rows", "e3_h_ascent_rows",
                "e4_h_zdescent_rows", "e5_h_zascent_rows", "g1_el_relax_rows",
-               "g2_el_descent_rows", "g5_el_zascent_rows", "d2_gen_descent_rows")
+               "g2_el_descent_rows", "g4_el_zdescent_rows", "g5_el_zascent_rows",
+               "d2_gen_descent_rows", "a5_resid_restrict_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -326,9 +340,27 @@ def child(checkout: Path, legs: str) -> int:
             recs += cs.check_elastic(cs.N_EL // 2, bim, ["G1_sweep", "G5"])
         for m in EL_LEVELS[2:]:
             recs += cs.check_elastic(m, True, ["G1_sweep", "G5"])
+    if legs in ("all", "g4a5"):
+        for bim in (True, False):
+            recs += cs.check_elastic(cs.N_EL // 2, bim, ["G4"])
+        for m in EL_LEVELS[2:]:
+            recs += cs.check_elastic(m, True, ["G4"])
+        n = cs.N_MAIN
+        for dt in (None, torch.bfloat16):
+            recs += (cs.check_kernels(n, True, True, ["A5"], dtype=dt)
+                     + cs.check_kernels(n, False, True, ["A5"], dtype=dt)
+                     + cs.check_kernels(n, True, False, ["A5"], coef=heat, mass=cs.level_mass(n),
+                                        dtype=dt))
+        for m in SMALL_LEVELS[:2] + CROSS_LEVELS:
+            recs += cs.check_kernels(m, True, True, ["A5"])
+        for m in SMALL_LEVELS[:2]:
+            recs += cs.check_kernels(m, False, True, ["A5"])
     if legs == "g1g5_cells":
         cells = cs.run_elastic_cells()
         recs += cell_records(cells, lambda name: "G5" if name.endswith("v11_2049") else "G1")
+    if legs == "g4a5_cells":
+        cells = cs.run_elastic_cells()
+        recs += cell_records(cells, lambda name: "G4" if name.endswith("v11_2049") else "G1")
     if legs == "g2d2_cells":
         recs += descent_cells(cs)
     if legs == "e4c2_cells":
@@ -491,6 +523,23 @@ def crossover(which: str) -> list:
             legs[f"G5_{form}"] = lambda n, bim=bim: cs.check_elastic(n, bim, ["G5"])[0]
         strips_of["G1"] = lambda n: [t.strip for key, t in eg._G1_TILES.items() if key[0] == n]
         strips_of["G5"] = lambda n: [t.strip for key, t in eg._G5_TILES.items() if key[0] == n]
+    if which in ("all", "g4a5"):
+        from multigrid_feanet_torch.ops import elastic as eg
+
+        thresholds += [(eg, "G4_ONE_PASS_MAX_N"), (sw, "A5_ONE_PASS_MAX_N")]
+        for bim in (True, False):
+            legs[f"G4_{'bim' if bim else 'hom'}"] = \
+                lambda n, bim=bim: cs.check_elastic(n, bim, ["G4"])[0]
+        heat = (cs.HEAT_THETA * cs.HEAT_DT, 20.0 * cs.HEAT_THETA * cs.HEAT_DT)
+        legs.update({
+            "A5_bim_dform": lambda n: cs.check_kernels(n, True, True, ["A5"])[0],
+            "A5_hom_dform": lambda n: cs.check_kernels(n, False, True, ["A5"])[0],
+            "A5_bim_mass": lambda n: cs.check_kernels(n, True, False, ["A5"], coef=heat,
+                                                      mass=cs.level_mass(n))[0],
+            "A5_bim_dform_bf16": lambda n: cs.check_kernels(n, True, True, ["A5"],
+                                                            dtype=torch.bfloat16)[0]})
+        strips_of["G4"] = lambda n: [t.strip for key, t in eg._G4_TILES.items() if key[0] == n]
+        strips_of["A5"] = lambda n: [t.strip for key, t in sw._A5_TILES.items() if key[0] == n]
     if which in ("all", "e4c2"):
         thresholds += [(hx, "E4_ONE_PASS_MAX_N"), (ss, "C2_ONE_PASS_MAX_N")]
         for (bim, dform), (L, ckpt) in itertools.product(((False, False), (True, True)),
@@ -506,8 +555,8 @@ def crossover(which: str) -> list:
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
-        sizes = (SMALL_LEVELS if which in ("e3e5", "e4c2", "g1g5") else ()) + CROSS_LEVELS
-        for n in sizes + ((2048,) if which == "g1g5" else ()):
+        sizes = (SMALL_LEVELS if which in ("e3e5", "e4c2", "g1g5", "g4a5") else ()) + CROSS_LEVELS
+        for n in sizes + ((2048,) if which in ("g1g5", "g4a5") else ()):
             ms = {leg: {"tile": [], "stream": []} for leg in legs}
             for design in ("tile", "stream", "stream", "tile"):
                 limit = n if design == "tile" else -1
@@ -557,6 +606,12 @@ def crossover(which: str) -> list:
             for strip in (8, 32, 128):
                 blocks[f"G5_bim{bim}_strip{strip}"] = hx.occupancy("mg_el_zpsweep_occupancy", bim,
                                                                    strip)
+    if which in ("all", "g4a5"):
+        for bim in (0, 1):
+            blocks[f"G4_bim{bim}"] = hx.occupancy("mg_el_zrr_occupancy", bim)
+        for bim, form, bf16 in ((1, 1, 0), (0, 1, 0), (1, 2, 0), (1, 1, 1), (0, 1, 1), (1, 2, 1)):
+            blocks[f"A5_bim{bim}_form{form}_bf16{bf16}"] = hx.occupancy("mg_rr_occupancy", bim,
+                                                                        form, bf16)
     if which in ("all", "e3e5"):
         for sym, leg in (("mg_phrelax_occupancy", "E3"), ("mg_zphrelax_occupancy", "E5")):
             for bim, dform, L, strip in itertools.product((0, 1), (0, 1), (1, 3), (8, 32, 128)):
@@ -584,6 +639,14 @@ def levels(which: str) -> list:
                     **{k: rec[k] for k in ("bim", "dform", "coef_dtype") if k in rec})
 
     out = []
+    if which == "g4a5":
+        for n in LEVEL_SIZES[2:] + (16,):
+            out += [row(r, "elastic_v11_2049") for r in cs.check_elastic(n, True, ["G4"])]
+        for n in LEVEL_SIZES:
+            out += [row(r, "no path") for r in cs.check_kernels(n, True, True, ["A5"])]
+        for r in out:
+            print(json.dumps(r), flush=True)
+        return out
     if which not in ("g2d2", "g1g5"):
         for n in LEVEL_SIZES:
             out += [row(r, "poisson_4097_r1")
@@ -745,6 +808,30 @@ def strip_scan_g1g5() -> list:
     return scan_cases(cases)
 
 
+def strip_scan_g4a5() -> list:
+    """G4 at 1025^2 (bi-material and homogeneous) and A5 at 4097^2
+    (bi-material difference form, f32 and bf16) at each strip of
+    SCAN_STRIPS_G2D2 and at the strip ``row_strip`` picks; one record per
+    leg and form."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import elastic as eg
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    dev = torch.cuda.current_device()
+    n4, n5 = cs.N_EL // 2, cs.N_MAIN
+    cases = [("G4", n4, bim, {}, eg._G4_TILES, (n4, bim, dev), lambda s: eg.g4_tiles(n4, s),
+              lambda bim=bim: cs.check_elastic(n4, bim, ["G4"])[0]["ms"])
+             for bim in (True, False)]
+    cases += [("A5", n5, True, dict(dtype=str(dt).removeprefix("torch.")), sw._A5_TILES,
+               (n5, True, 1, int(dt == torch.bfloat16), dev), lambda s: sw.a5_tiles(n5, s),
+               lambda dt=dt: cs.check_kernels(n5, True, True, ["A5"], dtype=dt)[0]["ms"])
+              for dt in (torch.float32, torch.bfloat16)]
+    return scan_cases(cases)
+
+
 def strip_scan() -> list:
     """A3/A4 (bi-material plain form) at each level size and strip of
     SCAN_STRIPS, and at the strip the wrappers pick; one record per level."""
@@ -783,7 +870,8 @@ def _library(tree: Path) -> Path:
 
 # sweep.cu's kernels take their storage type as a last template argument
 # (float: "f", bf16: "13__nv_bfloat16"); an earlier checkout's have none
-STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restrict|"
+STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restrict_rows|"
+                    r"a5_resid_restrict|"
                     r"a6_cross_cycle|a6_cross_cycle_rows)I((?:L[bi]\d+E)+)"
                     r"(f|13__nv_bfloat16)?E")
 
@@ -923,8 +1011,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
-                                       "g2d2", "e4c2", "g1g5", "pbc", "g2d2_cells", "e4c2_cells",
-                                       "g1g5_cells"),
+                                       "g2d2", "e4c2", "g1g5", "g4a5", "pbc", "g2d2_cells",
+                                       "e4c2_cells", "g1g5_cells", "g4a5_cells"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -948,7 +1036,7 @@ def main() -> int:
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
         scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2, "e4c2": strip_scan_e4c2,
-                "g1g5": strip_scan_g1g5}.get(args.legs, strip_scan)
+                "g1g5": strip_scan_g1g5, "g4a5": strip_scan_g4a5}.get(args.legs, strip_scan)
         lines = [dict(card=smi)] + (scan() if args.strip_scan else
                                     levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:

@@ -221,3 +221,16 @@ def test_entry_points_need_cuda_by_default():
         tes.build_elastic_hierarchy(32, E, NU)
     with pytest.raises(RuntimeError, match="CUDA"):
         elastic_hierarchy_from_arrays([])
+
+
+def test_default_kernel_threshold_fuses_down_to_16():
+    """``ElasticHierarchy``'s default kernel_threshold is 16, the value every
+    elastic cell runs (``PallasElasticMG``'s 512 is the TPU's): the fused
+    legs take every level down to n = 16, the plain subtree the rest."""
+    import inspect
+
+    assert inspect.signature(ElasticHierarchy).parameters["kernel_threshold"].default == 16
+    th = ElasticHierarchy(128, E, NU, inclusion=CIRCLE, coefficients=COEF, num_levels=5,
+                          device="cpu")
+    assert th.K == 4 and [lv.n for lv in th.sweep_levels] == [128, 64, 32, 16]
+    assert [lv.n for lv in th.levels[th.K:]] == [8]
