@@ -182,7 +182,21 @@ Phases, in order; any failure exits non-zero:
    block-Jacobi sweeps at 2049^2 beside 32 plain ones; 4 sweeps at 129^2
    against the CPU); and one profiled periodic training step, which like
    every slice-11 profile must run no TF32 kernel.
-16. Print A1's and A2's 4097^2 times in every form held, each beside its
+16. The research solvers in torch ops, which launch no kernel of the
+   port (every count zeroed before each run, required zero after):
+   ``elastic_boxmg_1025`` (``solvers/elastic_boxmg.py``: the 1025^2
+   bi-material plane-stress problem in f64, 10 levels, block-BoxMG setup
+   and direct coarse solve, f = 0 and a standard normal start; 30 W(2,2)
+   cycles with tail q < 0.5, then the homogeneous problem's 20 V(2,2) with
+   q < 0.33), ``adaptive_boxmg_513`` (``ops/adaptive_transfer.py``'s BoxMG
+   on the 513^2 interface problem in f32, 20 V(1,1) cycles beside 20 of the
+   linear ``solvers/multigrid.py`` cycle: q_adaptive <= 0.37 and below
+   q_linear - 0.12) and ``boxmg_research_32`` (both solvers at n = 32 in
+   f64 on the card and the CPU, 8 cycles each, every residual within 1e-9
+   relative).  Each prints its setup seconds and peak GB, ms per cycle, the
+   device operations of one cycle from torch.profiler, and its tail q; every
+   tensor of each solver's state must lie on the card.
+17. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
    interface solve (``a34_levels``), the bf16 times beside their bf16 byte
    bounds and this run's f32 times (``bf16_times``), the kernel summary
@@ -3274,6 +3288,203 @@ def run_slice11() -> dict:
     return {rec["solve"]: rec for rec in (ig_train, learned, el_train, h_el, pbc_f32)}
 
 
+def decay_q(hist, k: int) -> float:
+    """Tail contraction factor: the geometric mean of the last ``k``
+    residual ratios."""
+    return float(np.exp(np.mean(np.diff(np.log(np.asarray(hist) + 1e-300))[-k:])))
+
+
+def state_on_card(label: str, solver) -> None:
+    """Fail unless every tensor reachable from ``solver`` lies on the card."""
+    import torch
+
+    seen, todo, off = set(), [solver], []
+    while todo:
+        obj = todo.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            if not obj.is_cuda:
+                off.append(tuple(obj.shape))
+        elif isinstance(obj, dict):
+            todo += list(obj.values())
+        elif isinstance(obj, (list, tuple)):
+            todo += list(obj)
+        elif hasattr(obj, "__dict__"):
+            todo += list(vars(obj).values())
+    if off:
+        fail(f"{label}: solver state off the card: {off[:8]}")
+
+
+def research_cycle_profile(label: str, cycle, wall_per_cycle: float) -> dict:
+    """One ``cycle()`` under torch.profiler: the device operations it
+    launched (every CUDA kernel, memset and copy the profiler recorded; it
+    may lose a few) and its device time; fails if any of the port's CUDA
+    kernels launched."""
+    prof = no_launches(label, lambda: profile_solve(cycle, 1, wall_per_cycle))
+    by_kernel = prof.pop("by_kernel", {})
+    # no kernel of the port ran: what KERNEL_TAGS files under rsq_reduce is
+    # torch's own reduce_kernel (the sums)
+    if "rsq_reduce" in by_kernel:
+        by_kernel["torch:reduce_kernel"] = by_kernel.pop("rsq_reduce")
+    prof["launches_per_cycle"] = sum(r["launches"] for r in by_kernel.values())
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms_per_cycle"])
+    prof["top_ops"] = dict(ranked[:5])
+    return prof
+
+
+def setup_timed(build):
+    """``build()`` on the card -> (result, seconds, peak GB allocated above
+    what was held before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    out = build()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def run_elastic_boxmg_cell(n: int = 1024) -> dict:
+    """``elastic_boxmg_1025``: experiments/elastic_boxmg_study.py's large-n
+    run on the card in f64: plane stress (E = 212e3, nu = 0.288), circle r
+    = 0.5 with coefficients (1, 20), the 10 levels of
+    build_elastic_hierarchy(1024), the block-BoxMG setup and the direct
+    coarse solve; f = 0, u0 standard normal from rng 3 on the interior.
+    W(2,2) for 30 cycles (tail q over the last 6 ratios < 0.5,
+    tests/test_boxmg_elastic.py:95), then the homogeneous problem's V(2,2)
+    for 20 cycles (q < 0.33, :112).  Prints each run's setup seconds, peak
+    GB, ms per cycle (host clock over the solve, synchronised) and the
+    device operations and time of one cycle from torch.profiler."""
+    import torch
+    from multigrid_feanet_torch.solvers import elastic
+    from multigrid_feanet_torch.solvers.elastic_boxmg import ElasticBoxMG
+
+    label = "elastic_boxmg_1025"
+    rec = dict(solve=label, n=n, dtype="float64", launches={})
+    for name, inc, gamma, cycles, q_max in (("bim_w22", CIRCLE, 2, 30, 0.5),
+                                             ("hom_v22", None, 1, 20, 0.33)):
+        levels = elastic.build_elastic_hierarchy(n, E_EL, NU_EL, inclusion=inc,
+                                                 coefficients=(1.0, 20.0), dtype=torch.float64,
+                                                 device=DEVICE)
+        bm, setup_s, peak_gb = setup_timed(lambda: no_launches(label, lambda: ElasticBoxMG(levels)))
+        state_on_card(label, bm)
+        u0 = torch.as_tensor(np.random.default_rng(3).standard_normal((2, n + 1, n + 1)),
+                             device=DEVICE) * levels[0].geo
+        f = torch.zeros_like(u0)
+        t0 = time.time()
+        u, hist = no_launches(label, lambda: bm.solve(f, u0=u0, eps=0.0, max_cycles=cycles,
+                                                      gamma=gamma))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        prof = research_cycle_profile(label, lambda: bm.v_cycle(u, f, gamma=gamma),
+                                      wall / cycles)
+        q = decay_q(hist, 6)
+        rec[name] = dict(levels=bm.L, gamma=gamma, cycles=len(hist), setup_s=setup_s,
+                         peak_gb=peak_gb, ms_per_cycle=1e3 * wall / cycles, q_tail6=q,
+                         q_max=q_max, history_head=hist[:3].tolist(),
+                         history_tail=hist[-3:].tolist(), profile=prof)
+        if not (len(hist) == cycles and np.all(np.isfinite(hist)) and q < q_max):
+            fail(f"{label} {name}: q {q} (bound {q_max}) or history: {rec[name]}")
+        del bm, levels, u
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_adaptive_boxmg_cell(n: int = 512) -> dict:
+    """``adaptive_boxmg_513``: experiments/adaptive_transfer_study.py's
+    largest size on the card in f32: the n = 512 interface problem (circle,
+    (1, 20), 9 levels), the adaptive BoxMG setup (host weights, Galerkin
+    probes on the card, direct coarse solve); f = 0, u0 standard normal
+    from rng 0 on the interior.  BoxMG V(1,1) and the linear V(1,1) of
+    solvers/multigrid.py for 20 cycles each; tail q over 5 ratios, held to
+    q_adaptive <= 0.37 and q_adaptive < q_linear - 0.12
+    (tests/test_adaptive_transfer.py:147-148)."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.ops.adaptive_transfer import BoxMG
+    from multigrid_feanet_torch.solvers import multigrid
+
+    label, cycles = "adaptive_boxmg_513", 20
+    hier = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), device=DEVICE)
+    bm, setup_s, peak_gb = setup_timed(lambda: no_launches(label, lambda: BoxMG(hier)))
+    state_on_card(label, bm)
+    u0 = torch.as_tensor(np.random.default_rng(0).standard_normal((n + 1, n + 1)),
+                         dtype=torch.float32, device=DEVICE) * hier.finest.geo
+    f = torch.zeros_like(u0)
+    runs = {}
+    for name, solve in (("adaptive", lambda: bm.solve(f, u0=u0, eps=0.0, max_cycles=cycles)),
+                        ("linear", lambda: multigrid.solve(hier, f, u0=u0, nu1=1, nu2=1,
+                                                           eps=None, max_cycles=cycles))):
+        t0 = time.time()
+        u, hist = no_launches(label, solve)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        runs[name] = dict(cycles=len(hist), ms_per_cycle=1e3 * wall / cycles,
+                          q_tail5=decay_q(hist, 5), history_tail=hist[-3:].tolist())
+        if not (len(hist) == cycles and np.all(np.isfinite(hist))):
+            fail(f"{label} {name}: history {hist}")
+    runs["adaptive"]["profile"] = research_cycle_profile(
+        label, lambda: bm.v_cycle(u0, f), runs["adaptive"]["ms_per_cycle"] / 1e3)
+    q_ad, q_lin = runs["adaptive"]["q_tail5"], runs["linear"]["q_tail5"]
+    rec = dict(solve=label, n=n, dtype="float32", levels=bm.num_levels, setup_s=setup_s,
+               peak_gb=peak_gb, q_adaptive=q_ad, q_linear=q_lin, launches={}, **runs)
+    print(json.dumps(rec), flush=True)
+    if not (q_ad <= 0.37 and q_ad < q_lin - 0.12):
+        fail(f"{label}: q_adaptive {q_ad} against q_linear {q_lin}")
+    return rec
+
+
+def check_boxmg_research_small_against_cpu() -> dict:
+    """The two research solvers at n = 32 in f64 on the card and on the
+    CPU, 8 cycles each from the f = 0 decay start: the elastic W(2,2)
+    (bi-material, rng 3) and the adaptive V(1,1) (interface problem, rng
+    0); every history entry within 1e-9 relative."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.ops.adaptive_transfer import BoxMG
+    from multigrid_feanet_torch.solvers import elastic
+    from multigrid_feanet_torch.solvers.elastic_boxmg import ElasticBoxMG
+
+    label, n, cycles = "boxmg_research_32", 32, 8
+    hists = {}
+    for dev in (DEVICE, "cpu"):
+        levels = elastic.build_elastic_hierarchy(n, E_EL, NU_EL, inclusion=CIRCLE,
+                                                 coefficients=(1.0, 20.0), dtype=torch.float64,
+                                                 device=dev)
+        u0 = torch.as_tensor(np.random.default_rng(3).standard_normal((2, n + 1, n + 1)),
+                             device=dev) * levels[0].geo
+        _, h_el = no_launches(label, lambda: ElasticBoxMG(levels).solve(
+            torch.zeros_like(u0), u0=u0, eps=0.0, max_cycles=cycles, gamma=2))
+        hier = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE, dtype=torch.float64),
+                                    device=dev)
+        v0 = torch.as_tensor(np.random.default_rng(0).standard_normal((n + 1, n + 1)),
+                             device=dev) * hier.finest.geo
+        _, h_ad = no_launches(label, lambda: BoxMG(hier).solve(torch.zeros_like(v0), u0=v0,
+                                                                eps=0.0, max_cycles=cycles))
+        hists[dev] = dict(elastic_w22=h_el, adaptive_v11=h_ad)
+    rec = dict(solve=label, n=n, cycles=cycles, launches={})
+    for key in ("elastic_w22", "adaptive_v11"):
+        card, cpu = hists[DEVICE][key], hists["cpu"][key]
+        rel = float(np.max(np.abs(card / cpu - 1.0))) if len(card) == len(cpu) else float("inf")
+        rec[key] = dict(max_rel_dev_cpu=rel, last=[float(card[-1]), float(cpu[-1])])
+        if not rel <= 1e-9:
+            fail(f"{label} {key}: the card's history departs from the CPU's: {rec}")
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_research_solvers() -> dict:
+    """The research solvers' phases, in order; they launch no kernel of the
+    port."""
+    cells = (run_elastic_boxmg_cell(), run_adaptive_boxmg_cell(),
+             check_boxmg_research_small_against_cpu())
+    return {rec["solve"]: rec for rec in cells}
+
+
 def bound(key: str, rec: dict):
     """(bound ms, "bytes" or "operations") of a check record: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
@@ -3510,6 +3721,10 @@ def main() -> int:
     # slice 11: the learned inter-grid operators and the elastic H-Net, which
     # launch no kernel
     run_slice11()
+
+    # the research solvers: the block-BoxMG elastic and adaptive scalar
+    # BoxMG solvers in torch ops, which launch no kernel of the port
+    run_research_solvers()
 
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must

@@ -6,8 +6,9 @@ of each level and the learned H-Net's kernels.
 per-level numpy fields (for example those of a JAX ``GridHierarchy``),
 :func:`elastic_hierarchy_from_arrays` the elastic levels (those of a JAX
 ``build_elastic_hierarchy``) in the same container,
-:func:`boxmg_setup_from_arrays` the BoxMG transfers and Galerkin operators,
-so that both sides run on the identical operator,
+:func:`boxmg_setup_from_arrays` the BoxMG transfers and Galerkin operators
+and :func:`elastic_boxmg_setup_from_arrays` the block-BoxMG ones, so that
+both sides run on the identical operator,
 :func:`hnet_params_from_arrays` the H-Net's (L, 3, 3) kernels (for example
 a JAX parameter array, or a leaf of a ``.npz`` checkpoint read by
 ``utils/checkpoint.py``), :func:`hnet_elastic_params_from_arrays` the
@@ -103,6 +104,15 @@ def boxmg_setup_from_arrays(setup: Sequence, device=None, dtype=None) -> list:
     device = resolve_device(device)
     return [tuple(torch.tensor(np.asarray(x), dtype=dtype, device=device) for x in pair)
             for pair in setup]
+
+
+def elastic_boxmg_setup_from_arrays(setup: Sequence, device=None, dtype=None) -> list:
+    """The block-BoxMG setup ``[(W4E_0, Sc_1), (W4E_1, Sc_2), ...]`` (for
+    example the JAX ``boxmg_elastic_setup`` output as numpy arrays: W4E
+    (H, W, 2, 2, 2, 2), Sc (m, m, 3, 3, 2, 2)) as the port's tensors on
+    ``device``, in ``dtype`` (default: each array's own), for
+    ``ElasticBoxMG(levels, setup=...)``.  ``device=None`` means CUDA."""
+    return boxmg_setup_from_arrays(setup, device, dtype)
 
 
 def _kernels(params, tail: tuple, what: str, device) -> torch.Tensor:

@@ -23,6 +23,12 @@ def reset_boundary(u: torch.Tensor, geo: torch.Tensor, bc_value=0.0) -> torch.Te
     return u * geo + bc_value * (1.0 - geo)
 
 
+def node_coords(size: float, n_elems: int) -> tuple[np.ndarray, np.ndarray]:
+    """Node coordinate grids (y[i], x[j]) on [-size/2, size/2], both ascending."""
+    c = np.linspace(-size / 2.0, size / 2.0, n_elems + 1)
+    return np.meshgrid(c, c, indexing="ij")
+
+
 def element_centroids(size: float, n_elems: int) -> tuple[np.ndarray, np.ndarray]:
     """Element centroid coordinate grids (y[r], x[c]), ascending."""
     h = size / n_elems

@@ -117,43 +117,39 @@ def transfer_weights(S: torch.Tensor, geo_f, geo_c) -> torch.Tensor:
          (0, 1): torch.where(Fx, wxE, torch.where(Fc, fc01, zero)),
          (1, 0): torch.where(Fy, wyS, torch.where(Fc, fc10, zero)),
          (1, 1): torch.where(Fc, fc11, zero)}
+    gc = None if geo_c is None else up_sample(geo_c.to(S.dtype))
     for (a, b), x in w.items():
         if geo_f is not None:
             x = x * geo_f.to(S.dtype)
-        if geo_c is not None:
-            x = x * _up_sample(geo_c.to(S.dtype), a, b)
+        if gc is not None:
+            x = x * gc[a, b]
         w[a, b] = x
     return torch.stack([torch.stack([w[0, 0], w[0, 1]], dim=-1),
                         torch.stack([w[1, 0], w[1, 1]], dim=-1)], dim=-2)
 
 
-def _up_rows(x, a):
-    """(m, W) -> (2m-1, W): out[i] = x[i//2 + a] (zero past the edge)."""
-    m = x.shape[0]
-    if a == 1:
-        x = torch.cat([x[1:], torch.zeros_like(x[:1])], dim=0)
-    return torch.stack([x, x], dim=1).reshape(2 * m, *x.shape[1:])[: 2 * m - 1]
-
-
-def _up_cols(x, b):
-    """(H, m) -> (H, 2m-1): out[., j] = x[., j//2 + b]."""
-    m = x.shape[1]
-    if b == 1:
-        x = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
-    return torch.stack([x, x], dim=2).reshape(x.shape[0], 2 * m)[:, : 2 * m - 1]
-
-
-def _up_sample(xc, a, b):
-    """(m, m) coarse plane -> (H, H) fine plane sampled at (i//2+a, j//2+b)."""
-    return _up_cols(_up_rows(xc, a), b)
+def up_sample(xc: torch.Tensor) -> torch.Tensor:
+    """(..., m, m) coarse planes -> a (..., 2, 2, 2m-1, 2m-1) view whose
+    [a, b] entry samples ``xc`` at (i//2 + a, j//2 + b), zero past the edge:
+    one padded, twice-repeated copy of ``xc`` read at row offset 2a and
+    column offset 2b."""
+    m = xc.shape[-1]
+    lead = xc.shape[:-2]
+    xp = F.pad(xc, (0, 1, 0, 1))
+    rep = xp[..., :, None, :, None].expand(*lead, m + 1, 2, m + 1, 2).reshape(
+        *lead, 2 * m + 2, 2 * m + 2)
+    sr, sc = rep.stride(-2), rep.stride(-1)
+    return rep.as_strided((*lead, 2, 2, 2 * m - 1, 2 * m - 1),
+                          (*rep.stride()[:-2], 2 * sr, 2 * sc, sr, sc))
 
 
 def prolong_planes(uc, w00, w01, w10, w11):
     """Prolongation with the four W4 planes given separately (each (H, W));
     the sum runs over (a, b) = (0,0), (0,1), (1,0), (1,1) in that order."""
+    U = up_sample(uc)
     out = None
     for w, (a, b) in zip((w00, w01, w10, w11), ((0, 0), (0, 1), (1, 0), (1, 1))):
-        t = w * _up_sample(uc, a, b)
+        t = w * U[..., a, b, :, :]
         out = t if out is None else out + t
     return out
 
@@ -164,27 +160,26 @@ def prolong_w4(uc: torch.Tensor, W4: torch.Tensor) -> torch.Tensor:
     return prolong_planes(uc, W4[..., 0, 0], W4[..., 0, 1], W4[..., 1, 0], W4[..., 1, 1])
 
 
+def restrict_stage(t0, t1, dim: int):
+    """One axis of the W4 restriction, along ``dim`` (-2: rows, -1:
+    columns; any leading dims): ``out[I] = t1[2I-1] + t0[2I] + t0[2I+1]``
+    (zero past the edges), where ``t0`` carries the a = 0 (b = 0) weights
+    and ``t1`` the a = 1 (b = 1) ones."""
+    def at(x, sl):
+        return x[(..., sl) if dim == -1 else (..., sl, slice(None))]
+
+    front, back = ((1, 0), (0, 1)) if dim == -1 else ((0, 0, 1, 0), (0, 0, 0, 1))
+    up = F.pad(at(t1, slice(1, None, 2)), front)  # t1[2I-1], I >= 1
+    dn = F.pad(at(t0, slice(1, None, 2)), back)  # t0[2I+1], I <= m-2
+    return up + at(t0, slice(0, None, 2)) + dn
+
+
 def restrict_planes(r, w00, w01, w10, w11):
     """Restriction with the four W4 planes given separately; see
-    :func:`restrict_w4`."""
-
-    def row_stage(t0, t1):
-        # rows_b[I] = t1[2I-1] + t0[2I] + t0[2I+1]
-        even = t0[0::2]  # (m, W)
-        odd0 = t0[1::2]  # rows 2I+1, I = 0..m-2
-        odd1 = t1[1::2]  # rows 2I+1 -> shift to 2I-1 for I+1
-        up = torch.cat([torch.zeros_like(odd1[:1]), odd1], dim=0)
-        dn = torch.cat([odd0, torch.zeros_like(odd0[:1])], dim=0)
-        return up + even + dn  # (m, W)
-
-    rows_0 = row_stage(w00 * r, w10 * r)
-    rows_1 = row_stage(w01 * r, w11 * r)
-    even = rows_0[:, 0::2]
-    odd0 = rows_0[:, 1::2]
-    odd1 = rows_1[:, 1::2]
-    up = torch.cat([torch.zeros_like(odd1[:, :1]), odd1], dim=1)
-    dn = torch.cat([odd0, torch.zeros_like(odd0[:, :1])], dim=1)
-    return up + even + dn
+    :func:`restrict_w4`.  Fields and planes may carry leading dims."""
+    rows_0 = restrict_stage(w00 * r, w10 * r, -2)
+    rows_1 = restrict_stage(w01 * r, w11 * r, -2)
+    return restrict_stage(rows_0, rows_1, -1)
 
 
 def restrict_w4(r: torch.Tensor, W4: torch.Tensor) -> torch.Tensor:

@@ -219,6 +219,41 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         sweep_cuda(u, u, None, None, a0=1.0, da=0.0, omega=2 / 3, dform=True)
 
 
+def _tensors(obj, seen=None):
+    """Every tensor reachable from ``obj`` through attributes, lists,
+    tuples and dicts."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in _tensors(x, seen)]
+    if hasattr(obj, "__dict__"):
+        return _tensors(list(vars(obj).values()), seen)
+    return []
+
+
+def test_research_boxmg_state_lies_on_the_levels_device():
+    """ElasticBoxMG and BoxMG keep every tensor of their state (setup,
+    layouts, transfers, Galerkin levels, coarse inverse) on the levels'
+    device; chip_smoke.py checks the same on the card."""
+    from multigrid_feanet_torch.ops.adaptive_transfer import BoxMG
+    from multigrid_feanet_torch.solvers.elastic import build_elastic_hierarchy
+    from multigrid_feanet_torch.solvers.elastic_boxmg import ElasticBoxMG
+
+    levels = build_elastic_hierarchy(8, 212e3, 0.288, inclusion=INCLUSIONS["circle"],
+                                     coefficients=(1.0, 20.0), device="cpu")
+    hier = GridHierarchy.create(Problem(n=8, inclusion=INCLUSIONS["circle"]), device="cpu")
+    for solver, dev in ((ElasticBoxMG(levels), levels[0].device), (BoxMG(hier), hier.device)):
+        tensors = _tensors(solver)
+        assert len(tensors) > 10
+        assert {t.device for t in tensors} == {dev}
+
+
 def _port_sources():
     files = sorted((ROOT / "multigrid_feanet_torch").rglob("*.py"))
     names = {p.relative_to(ROOT / "multigrid_feanet_torch").as_posix() for p in files}
@@ -227,7 +262,8 @@ def _port_sources():
             "models/hnet.py", "utils/checkpoint.py", "solvers/hmg.py", "ops/stencil_sweep.py",
             "solvers/mg.py", "solvers/multigrid.py", "learn/train_hnet.py", "data/fem.py",
             "data/rhs.py", "data/datasets.py", "oracle/__init__.py", "ops/qsweep.py",
-            "ops/membench.py"} <= names
+            "ops/membench.py", "ops/boxmg_elastic.py", "solvers/elastic_boxmg.py",
+            "utils/profiling.py", "utils/plot.py", "utils/vtk.py"} <= names
     return files + [ROOT / "chip_smoke.py"]
 
 
