@@ -196,7 +196,23 @@ Phases, in order; any failure exits non-zero:
    relative).  Each prints its setup seconds and peak GB, ms per cycle, the
    device operations of one cycle from torch.profiler, and its tail q; every
    tensor of each solver's state must lie on the card.
-17. Print A1's and A2's 4097^2 times in every form held, each beside its
+17. The slab forms of A1-A4 and the sharded solvers (``parallel/``):
+   every fused level of ``interface_4097`` (4096 ... 32), bi-material and
+   homogeneous in difference form, cut into 4 row slabs with 4 ghost rows
+   copied from the whole field; A1 (sweep, psweep), A2, A3 and A4 in slab
+   form on each slab, held bitwise against the whole-field kernel on the
+   slab's own rows (the 4 partial norms' sum within 1e-6) and against the
+   slab form's plain version at ``ops.sweep.TOL``; at 4097^2 the 4 slab
+   launches timed beside the one whole-field launch (``slab_legs``).
+   Then ``sharded_interface_4097``: ``ShardedHierarchyV2`` in a world of 1
+   on NCCL runs ``interface_4097`` and must take the split ``HierarchyV2``
+   path's cycles and tail q with its iterate bitwise; the slab forms are
+   timed at its shapes.  Then ``distributed_1025``: a world-1
+   ``DistributedHierarchy`` solve of the 1025^2 interface problem (f = 0
+   decay to 1e-2, 3 sharded levels) against ``solvers/multigrid.py::solve``
+   (the same cycles, u within 1e-3 / 1e-5), and the data-parallel H-Net
+   step against ``train_step`` (parameters within 1e-6).
+18. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
    interface solve (``a34_levels``), the bf16 times beside their bf16 byte
    bounds and this run's f32 times (``bf16_times``), the kernel summary
@@ -3485,6 +3501,342 @@ def run_research_solvers() -> dict:
     return {rec["solve"]: rec for rec in cells}
 
 
+# ---- slice 21: the slab forms of A1-A4 and the sharded solvers ----
+
+SLAB_LEGS = ("A1_sweep", "A1_psweep", "A2", "A3", "A4")
+N_SLABS, GHOST = 4, 4
+
+
+def slab_calls(sw, dform: bool, cfg: dict) -> dict:
+    """leg -> (whole-field call, slab call(fn, slab inputs, slab), the slab
+    form's CUDA and plain functions); inputs are (u, f, uc, ph)."""
+    return {
+        "A1_sweep": (lambda x: sw.sweep_cuda(x[0], x[1], x[3], None, dform=dform, **cfg),
+                     lambda fn, x, sl: fn(x[0], x[1], x[3], None, dform=dform, slab=sl, **cfg),
+                     sw.sweep_slab_cuda, sw.sweep_plain),
+        "A1_psweep": (lambda x: sw.sweep_cuda(x[0], x[1], x[3], x[2], dform=dform, **cfg),
+                      lambda fn, x, sl: fn(x[0], x[1], x[3], x[2], dform=dform, slab=sl, **cfg),
+                      sw.sweep_slab_cuda, sw.sweep_plain),
+        "A2": (lambda x: sw.swrr_cuda(x[0], x[1], x[3], dform=dform, **cfg),
+               lambda fn, x, sl: fn(x[0], x[1], x[3], dform=dform, slab=sl, **cfg),
+               sw.swrr_slab_cuda, sw.swrr_plain),
+        "A3": (lambda x: (sw.zrr_cuda(x[1], x[3], **cfg),),
+               lambda fn, x, sl: (fn(x[1], x[3], slab=sl, **cfg),),
+               sw.zrr_slab_cuda, sw.zrr_plain),
+        "A4": (lambda x: (sw.zpsweep_cuda(x[1], x[3], x[2], **cfg),),
+               lambda fn, x, sl: (fn(x[1], x[3], x[2], slab=sl, **cfg),),
+               sw.zpsweep_slab_cuda, sw.zpsweep_plain),
+    }
+
+
+def slab_inputs(x, n: int, Hloc: int, r: int):
+    """Rank r's slab of the level inputs ``x`` = (u, f, uc, ph) and its
+    ``Slab`` (own rows [r Hloc, (r + 1) Hloc), GHOST rows each side)."""
+    from multigrid_feanet_torch.parallel.shard import cut_rows, slab_for, slab_window
+
+    sl = slab_for(r, Hloc, Hloc // 2)
+    fine, coarse = slab_window(sl), slab_window(sl, coarse=True)
+    u, f, uc, ph = x
+    xs = (cut_rows(u, *fine), cut_rows(f, *fine), cut_rows(uc, *coarse),
+          None if ph is None else cut_rows(ph, *fine))
+    return xs, sl
+
+
+def check_slab_level(n: int, bim: bool, dform: bool, seed: int = 21) -> list:
+    """A1 (sweep, psweep), A2, A3 and A4 in slab form on N_SLABS slabs of
+    one level: each slab's own rows bitwise the whole-field kernel's, the
+    partial norms' sum within 1e-6 of its norm, each slab held to its plain
+    slab form at TOL; at N_MAIN in the difference form the slabs' launches
+    timed beside the whole field's.  One record per leg; without ``dform``
+    A1 and A2 only (A3 and A4 have no difference form)."""
+    import torch
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    H, Hc = n + 1, n // 2 + 1
+    Hloc = -(-H // N_SLABS)
+    Hloc += Hloc % 2
+    x = level_inputs(n, bim, seed)
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0)
+    slabs = [slab_inputs(x, n, Hloc, r) for r in range(N_SLABS)]
+    recs = []
+    for leg, (whole, call, cuda_fn, plain_fn) in slab_calls(sw, dform, cfg).items():
+        if not dform and leg in ("A3", "A4"):
+            continue
+        want = whole(x)
+        got = [call(cuda_fn, xs, sl) for xs, sl in slabs]
+        plain = [call(plain_fn, xs, sl) for xs, sl in slabs]
+        torch.cuda.synchronize()
+        rel, abs_err, same = 0.0, 0.0, True
+        rsq_parts, plain_rel = 0.0, 0.0
+        for r, (g, p) in enumerate(zip(got, plain)):
+            for gt, pt, wt in zip(g, p, want):
+                if gt.dim() == 0:
+                    rsq_parts += float(gt)
+                    plain_rel = max(plain_rel, abs(float(gt) - float(pt)) / max(abs(float(pt)), 1e-30))
+                    continue
+                coarse = gt.shape[1] == Hc
+                Hl, tot = (Hloc // 2, Hc) if coarse else (Hloc, H)
+                own = min(Hl, tot - r * Hl)
+                if own <= 0:
+                    continue
+                go, po = gt[GHOST : GHOST + own], pt[GHOST : GHOST + own]
+                same = same and torch.equal(go, wt[r * Hl : r * Hl + own])
+                err = float((go - po).abs().max())
+                abs_err = max(abs_err, err)
+                rel = max(rel, err / max(1.0, float(po.abs().max())))
+        rec = dict(name=f"{leg}_slab", n=n, bim=bim, dform=dform if leg[:2] in ("A1", "A2") else False,
+                   slabs=N_SLABS, Hloc=Hloc, bitwise_whole=same, max_abs_err=abs_err,
+                   max_rel_err=rel, rsq_plain_rel_err=plain_rel)
+        if want[-1].dim() == 0:
+            rec["rsq_parts_rel_err"] = abs(rsq_parts - float(want[-1])) / float(want[-1])
+        if n == N_MAIN and dform:
+            rec["whole_ms"] = kernel_ms([lambda: whole(x)])
+            rec["slabs_ms"] = kernel_ms([lambda: [call(cuda_fn, xs, sl) for xs, sl in slabs]])
+        recs.append(rec)
+        if not same or rel > sw.TOL or plain_rel > sw.TOL or rec.get("rsq_parts_rel_err", 0) > 1e-6:
+            fail(f"slab form disagrees: {rec}")
+    return recs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def slab_bytes(leg: str, n: int, rows: int, bim: bool) -> int:
+    """Bytes a slab form must move on a slab of ``rows`` rows of level n:
+    its node fields read and written once, its phases, the rows / 2 coarse
+    rows it writes (A2, A3) or the rows / 2 + 1 it prolongs (A1 psweep,
+    A4)."""
+    node, ph, coarse = 4 * rows * (n + 1), rows * n if bim else 0, 4 * (n // 2 + 1)
+    return {"A1_sweep": 3 * node + ph, "A1_psweep": 3 * node + ph + coarse * (rows // 2 + 1),
+            "A2": 3 * node + ph + coarse * rows // 2, "A3": node + ph + coarse * rows // 2,
+            "A4": 2 * node + ph + coarse * (rows // 2 + 1)}[leg]
+
+
+def slab_occupancy(leg: str, n: int, form: int, mode: int, tiles, slab: bool) -> dict:
+    """The blocks one SM holds of a bi-material A1-A4 launch (the
+    whole-field instance's, or the slab instance's) at its strip, and the
+    waves its grid takes on this card."""
+    import ctypes
+
+    import torch
+    from multigrid_feanet_torch import _build
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    lib = _build.load()
+    if slab:
+        fn, args = lib.mg_slab_occupancy, (sw._LEG_ID[leg], 1, form, mode, tiles.strip)
+    else:
+        fn, args = lib.mg_a12_occupancy, (sw._LEG_ID[leg], 1, form, mode, 0, tiles.strip)
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+    per_sm = fn(*args)
+    if per_sm <= 0:
+        fail(f"{fn.__name__}: CUDA error {-per_sm}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(strip=tiles.strip, gx=tiles.gx, gy=tiles.gy, blocks=tiles.blocks,
+                blocks_per_sm=per_sm, waves=tiles.blocks / (per_sm * sms))
+
+
+def slab_times(sh) -> dict:
+    """The slab forms at the shapes the world-1 sharded interface solve
+    gives them (A1 psweep and A2 at level 0, A3 and A4 at level 1), each
+    held to its plain slab form at TOL (fields and norm): the kernel's and
+    the plain form's time and the byte bound; beside them the whole-field
+    kernel's time on the same level, a slab with the fewest rows (own rows
+    n + 2) and each launch's grid, blocks per SM and waves."""
+    import torch
+    from multigrid_feanet_torch.ops import sweep as sw
+
+    out = {}
+    cfg = dict(a0=1.0, da=19.0, omega=2.0 / 3.0)
+    for leg, level in (("A1_psweep", 0), ("A2", 0), ("A3", 1), ("A4", 1)):
+        n = sh.base.hier.levels[level].n
+        key = leg[:2]
+        form, mode = (1, 2 if key == "A1" else 0) if key in ("A1", "A2") else (0, 0)
+        x = level_inputs(n, True, 22)
+        xs, sl = slab_inputs(x, n, sh.Hloc[level], 0)
+        tight, tight_sl = slab_inputs(x, n, n + 2, 0)
+        whole, call, cuda_fn, plain_fn = slab_calls(sw, True, cfg)[leg]
+        got, want = call(cuda_fn, xs, sl), call(plain_fn, xs, sl)
+        torch.cuda.synchronize()
+
+        def own(t):  # the rank's own grid rows of a slab or of its coarse slab
+            fine = t.shape[1] == n + 1
+            return t[GHOST : GHOST + min(sh.Hloc[level] // (1 if fine else 2),
+                                         (n if fine else n // 2) + 1)]
+
+        err, rel, rsq_rel = 0.0, 0.0, 0.0
+        for g, w in zip(got, want):
+            if g.dim() == 0:
+                rsq_rel = abs(float(g) - float(w)) / max(abs(float(w)), 1e-30)
+                continue
+            e = float((own(g) - own(w)).abs().max())
+            err, rel = max(err, e), max(rel, e / max(1.0, float(own(w).abs().max())))
+        rows = sl.hi + GHOST
+        nbytes = slab_bytes(leg, n, rows, True)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * FLOPS_PER_NODE[key] * rows * (n + 1) / FP32_FLOP_PER_S
+        dev = x[0].device
+        launches = (("whole", sw._launch_tiles(key, n, True, form, mode, dev, 0)),
+                    ("slab", sw._slab_strip(key, n, True, form, mode, dev, rows, sl.g)),
+                    ("tight", sw._slab_strip(key, n, True, form, mode, dev,
+                                             tight_sl.hi + GHOST, tight_sl.g)))
+        grids = {name: slab_occupancy(key, n, form, mode, tiles, name != "whole")
+                 for name, tiles in launches}
+        out[key] = dict(n=n, rows=rows, max_abs_err=err, max_rel_err=rel, rsq_rel_err=rsq_rel,
+                        ms=kernel_ms([lambda: call(cuda_fn, xs, sl)]),
+                        plain_ms=plain_ms([lambda: call(plain_fn, xs, sl)]),
+                        whole_ms=kernel_ms([lambda: whole(x)]),
+                        tight_rows=tight_sl.hi + GHOST,
+                        tight_ms=kernel_ms([lambda: call(cuda_fn, tight, tight_sl)]),
+                        grids=grids, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if rel > sw.TOL or rsq_rel > sw.TOL:
+            fail(f"{leg} slab form at the sharded solve's shapes disagrees with its plain "
+                 f"form: {out[key]}")
+    return out
+
+
+def run_sharded_solve() -> dict:
+    """``sharded_interface_4097``: ShardedHierarchyV2 in a world of 1 (the
+    group up already) against the split HierarchyV2 path from the same
+    decay start: the same cycles and tail q, the iterate bitwise."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.parallel.shard import ShardedHierarchyV2
+
+    label, eps, max_cycles, chunk = "sharded_interface_4097", 1e-6, 120, 2
+    t0 = time.time()
+    sh = ShardedHierarchyV2(Problem(n=N_MAIN, inclusion=CIRCLE), num_levels=9,
+                            kernel_threshold=32, direct_coarse=True, device=DEVICE)
+    setup_s = time.time() - t0
+    u0, f0 = decay_start(sh.base.hier.finest)
+
+    def run():
+        return sh.solve(f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
+
+    (u, hist), launches = counted(run)
+    if not all(launches.get(k) for k in ("A1_slab", "A2_slab", "A3_slab", "A4_slab")):
+        fail(f"{label}: a slab form never launched: {launches}")
+    split = build_hierarchy(N_MAIN, True, 9, 32, DEVICE)
+    (u_ref, h_ref), split_launches = counted(
+        lambda: split.solve(f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk))
+
+    def tail_q(h):
+        return float(np.exp(np.mean(np.diff(np.log(h[-6:])))))
+
+    walls = timed_runs(label, run, hist)
+    split_walls = timed_runs("interface_4097 (split)", lambda: split.solve(
+        f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk), h_ref)
+    cycles_run = chunk * -(-(len(hist) + 1) // chunk)
+    rec = dict(solve=label, n=N_MAIN, world=sh.world, S=sh.S, Hloc=sh.Hloc, cycles=len(hist),
+               split_cycles=len(h_ref), tail_q=tail_q(hist), split_tail_q=tail_q(h_ref),
+               history_max_rel_diff=float(np.max(np.abs(hist / h_ref - 1)))
+               if len(hist) == len(h_ref) else None,
+               iterate_bitwise=bool(torch.equal(u, u_ref)), final_res=float(hist[-1]),
+               ms_per_cycle=1e3 * min(walls) / cycles_run,
+               split_ms_per_cycle=1e3 * min(split_walls) / cycles_run, setup_s=setup_s,
+               launches=launches, split_launches=split_launches)
+    print(json.dumps(rec), flush=True)
+    if (len(hist) != len(h_ref) or not rec["iterate_bitwise"]
+            or abs(rec["tail_q"] / rec["split_tail_q"] - 1) > 1e-5):
+        fail(f"{label}: differs from the split HierarchyV2 path: {rec}")
+    rec["slab_times"] = slab_times(sh)
+    print(json.dumps({"slab_times": rec["slab_times"]}), flush=True)
+    return rec
+
+
+def run_distributed_cells() -> dict:
+    """``distributed_1025`` and the data-parallel H-Net step on a world-1
+    ("dp", "x", "y") mesh against their single-device twins."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem, build_level
+    from multigrid_feanet_torch.learn import train_hnet
+    from multigrid_feanet_torch.parallel import sharding
+    from multigrid_feanet_torch.solvers import multigrid
+
+    mesh = sharding.make_mesh(device=DEVICE)
+    n, eps = 1024, 1e-2
+    hier = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), device=DEVICE)
+    dh = sharding.DistributedHierarchy(hier, mesh)
+    u0 = torch.as_tensor(np.random.default_rng(2).uniform(size=(n + 1, n + 1)).astype(np.float32),
+                         device=DEVICE) * hier.finest.geo
+    f0 = torch.zeros_like(u0)
+    t0 = time.time()
+    u, cycles, res = dh.solve(f0, u0=u0, eps=eps, max_cycles=100)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    u_ref, h_ref = multigrid.solve(hier, f0, u0=u0, eps=eps, max_cycles=100, chunk=1)
+    close = bool(torch.allclose(u, u_ref, rtol=1e-3, atol=1e-5))
+    rec = dict(solve="distributed_1025", n=n, mesh=list(mesh.mesh.shape), S=dh.S, cycles=cycles,
+               ref_cycles=len(h_ref), res=res, ref_res=float(h_ref[-1]), u_close=close,
+               u_max_abs_diff=float((u - u_ref).abs().max()), wall_s=wall,
+               ms_per_cycle=1e3 * wall / max(cycles, 1))
+    level = build_level(Problem(n=32), 32, device=DEVICE)
+    rng = np.random.default_rng(1)
+    B = 4
+    u_star, f = (torch.as_tensor(rng.standard_normal((B, 33, 33)).astype(np.float32),
+                                 device=DEVICE) for _ in range(2))
+    bc_value, bc_index = torch.zeros_like(u_star), torch.ones_like(u_star)
+    dp_step = sharding.sharded_hnet_train_step(mesh)
+    sa, la = dp_step(level, train_hnet.init_state(level, seed=0), u_star, f, bc_value, bc_index)
+    sb, lb = train_hnet.train_step(level, train_hnet.init_state(level, seed=0), u_star, f,
+                                   bc_value, bc_index)
+    rec["hnet_dp_param_max_diff"] = float((sa.params - sb.params).detach().abs().max())
+    rec["hnet_dp_loss_rel_diff"] = abs(float(la) / float(lb) - 1)
+    print(json.dumps(rec), flush=True)
+    if (cycles != len(h_ref) or not close or rec["hnet_dp_param_max_diff"] > 1e-6
+            or rec["hnet_dp_loss_rel_diff"] > 1e-6):
+        fail(f"distributed_1025 or the dp H-Net step differs from its twin: {rec}")
+    return rec
+
+
+def run_slice21() -> dict:
+    """The slab legs, then, in a world-1 NCCL group, the sharded solvers."""
+    import torch.distributed as dist
+    from multigrid_feanet_torch.parallel.sharding import init_distributed
+
+    recs = []
+    for n in (N_MAIN,) + A34_LEVELS:
+        for bim in (True, False):
+            for dform in (False, True):
+                recs += check_slab_level(n, bim, dform)
+    print(json.dumps({"slab_legs": recs}), flush=True)
+    init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=DEVICE)
+    try:
+        sharded = run_sharded_solve()
+        distributed = run_distributed_cells()
+    finally:
+        dist.destroy_process_group()
+    return dict(slab_legs=recs, sharded=sharded, distributed=distributed)
+
+
+def slab_rows(s21: dict) -> list:
+    """The kernel line's rows of the slab forms: at the world-1 sharded
+    solve's shapes, with its launches, and the 4-slab and whole-field
+    times at 4097^2 beside them."""
+    k = all_kernels()
+    sharded = s21["sharded"]
+    rows = []
+    for key, leg in (("A1", "A1_psweep"), ("A2", "A2"), ("A3", "A3"), ("A4", "A4")):
+        t = sharded["slab_times"][key]
+        at = next(r for r in s21["slab_legs"] if r["name"] == f"{leg}_slab" and r["n"] == N_MAIN
+                  and r["bim"] and "slabs_ms" in r)
+        kern = k[f"{key}_slab"]
+        rows.append(dict(name=kern.name, route="cuda", source=kern.source, replaces=kern.replaces,
+                         launches=sharded["launches"][f"{key}_slab"],
+                         max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                         bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                         path=sharded["solve"], n=t["n"], rows=t["rows"], bytes=t["bytes"],
+                         bim=True, dform=key in ("A1", "A2"), slabs_4097_ms=at["slabs_ms"],
+                         whole_4097_ms=at["whole_ms"]))
+    return rows
+
+
 def bound(key: str, rec: dict):
     """(bound ms, "bytes" or "operations") of a check record: the larger of
     its bytes over the HBM rate and its f32 operations over the f32 rate."""
@@ -3726,6 +4078,9 @@ def main() -> int:
     # BoxMG solvers in torch ops, which launch no kernel of the port
     run_research_solvers()
 
+    # slice 21: the slab forms of A1-A4, the world-1 sharded solvers
+    s21 = run_slice21()
+
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must
     # be 0
@@ -3851,6 +4206,7 @@ def main() -> int:
                       "pswrr_interface_4097_bf16")
     summary.append(dict(row, name=row["name"] + "_bf16"))
     # every row's byte bound also at the measured copy and triad rates
+    summary += slab_rows(s21)
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)

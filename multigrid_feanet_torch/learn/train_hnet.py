@@ -112,18 +112,30 @@ def _normal(gen: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
     return torch.randn(shape, generator=gen).to(device=like.device, dtype=like.dtype)
 
 
+def draw_start(state: TrainState, u_star, k_max: int):
+    """A step's draws from the state's generator: the sweep count k ~
+    U{1..k_max} and the standard normal start u0 of ``u_star``'s shape."""
+    k = int(torch.randint(1, k_max + 1, (), generator=state.generator))
+    return k, _normal(state.generator, u_star.shape, u_star)
+
+
+def batch_loss(level: Level, params, u_star, f, bc_value, u0, k: int, k_max: int):
+    """sum((u_k - u*)^2) of k H-relax sweeps from ``u0`` on the
+    mass-convolved ``f``: the training loss, a sum over the batch."""
+    ff = stencil.apply_mass(f, level.h)
+    u_out = hnet.h_relax_dynamic(level, params, u0, ff, k, k_max, bc_value)
+    return torch.sum((u_out - u_star) ** 2)
+
+
 def train_step(level: Level, state: TrainState, u_star, f, bc_value, bc_index,
                k_max: int = 20):
     """One batch step -> (state, loss as a 0-d tensor).  Batch fields:
     (N, H, W).  ``bc_index`` is the reference's interior mask (1 interior /
     0 boundary); bc enters the sweeps directly, as in the JAX package."""
     del bc_index
-    k = int(torch.randint(1, k_max + 1, (), generator=state.generator))
-    u0 = _normal(state.generator, u_star.shape, u_star)
+    k, u0 = draw_start(state, u_star, k_max)
     state.optimizer.zero_grad()
-    ff = stencil.apply_mass(f, level.h)
-    u_out = hnet.h_relax_dynamic(level, state.params, u0, ff, k, k_max, bc_value)
-    loss = torch.sum((u_out - u_star) ** 2)
+    loss = batch_loss(level, state.params, u_star, f, bc_value, u0, k, k_max)
     loss.backward()
     state.optimizer.step()
     return state, loss.detach()

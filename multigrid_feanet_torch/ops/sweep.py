@@ -38,6 +38,18 @@ fall on neighbouring bf16 values: bf16 fields agree when they differ by at
 most one bf16 ulp, ``TOL_BF16 |plain|``, beyond that same ``TOL`` share of
 ``max(1, max|plain|)`` (:func:`bf16_excess`); the norm is held to ``TOL``.
 
+A1 (sweep and psweep), A2, A3 and A4 also run on a row slab of a level, the
+sharded solver's layout (``parallel/shard.py``; :class:`Slab`): node rows
+[g, g + rows) at full width, element rows [g, g + rows) of the phases, a
+coarse slab whose row ``cro`` lies under fine slab row 0.  Only the globally
+interior nodes are updated (the slab's edge rows are not boundaries), the
+norm sums the slab rows [lo, hi), and rows near the slab's edges, whose
+stencils reach past it, hold values the caller overwrites with its
+neighbours' rows.  The CUDA slab forms are the kernels' slab instances
+(``mg_*_slab``: float32 storage, plain and difference form) and keep their
+own launch counts; on the rows they own they are bitwise the whole-field
+kernels, and so are the plain slab forms the plain whole-field versions.
+
 Every leg takes an optional ``mass`` triple (mp, ms, mo): the plain-form
 operator then gains the pattern-independent per-element term
 sum_e [mp u_p + ms s_e + mo u_opp] and the diagonal 4 (mp + ms).  With the
@@ -201,11 +213,41 @@ def _diag_hom(a0, device="cpu", mass=None):
     return torch.tensor(d, dtype=torch.float32, device=device)
 
 
-def _interior(x):
-    """Boolean mask of the interior nodes of an (H, W) field."""
+class Slab(NamedTuple):
+    """Where a row slab of a level lies (the CUDA ``Slab`` of csrc/sweep.cu):
+    its row 0 is global node row ``g`` (even), the norm sums slab rows
+    [``lo``, ``hi``), and its coarse slab has ``crows`` rows, of which row
+    ``cro`` (>= 1) lies under fine slab row 0.  The slab's own row count and
+    width are its fields' (full width: n + 1 nodes, n elements)."""
+
+    g: int
+    lo: int
+    hi: int
+    crows: int
+    cro: int
+
+
+def _interior(x, slab=None):
+    """Boolean mask of the interior nodes of an (H, W) field, or of a row
+    slab of an (W, W) level: global rows 1 .. W - 2 there."""
     m = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    m[1:-1, 1:-1] = True
+    if slab is None:
+        m[1:-1, 1:-1] = True
+    else:
+        rows = torch.arange(slab.g, slab.g + x.shape[0], device=x.device)
+        m[:, 1:-1] = ((rows >= 1) & (rows <= x.shape[1] - 2))[:, None]
     return m
+
+
+def _slab_q(ph, slab):
+    """The element rows whose coefficients the plain apply takes: a slab's
+    phases carry one row past its last node row's elements."""
+    return ph if ph is None or slab is None else ph[:-1]
+
+
+def _norm(r, slab):
+    """sum r^2 over the field, or over a slab's rows [lo, hi)."""
+    return torch.sum(r * r) if slab is None else torch.sum((r * r)[slab.lo:slab.hi])
 
 
 def _prolong(uc):
@@ -224,6 +266,30 @@ def _restrict4(r1):
     rows = (r1[1:-2:2] + 2.0 * r1[2:-1:2]) + r1[3::2]
     fc = ((2.0 * rows[:, 2:-1:2] + rows[:, 1:-2:2]) + rows[:, 3::2]) * 0.25
     return F.pad(fc, (1, 1, 1, 1))
+
+
+def _prolong_at(uc, slab, rows):
+    """:func:`_prolong` of the whole coarse field, or the ``rows`` fine rows
+    of a slab from its coarse slab."""
+    return _prolong(uc) if slab is None else _prolong(uc[slab.cro:])[:rows]
+
+
+def _restrict_at(r1, slab):
+    """:func:`_restrict4`, or on a slab: the coarse rows under its rows
+    (fine rows past the slab read as zero), zero off the global coarse
+    interior, at rows cro .. of a coarse slab of ``crows`` rows (zero
+    elsewhere), in :func:`_restrict4`'s order of operations."""
+    if slab is None:
+        return _restrict4(r1)
+    rp = F.pad(r1, (0, 0, 1, 1))
+    rows = (rp[0:-2:2] + 2.0 * rp[1:-1:2]) + rp[2::2]
+    fc = F.pad(((2.0 * rows[:, 2:-1:2] + rows[:, 1:-2:2]) + rows[:, 3::2]) * 0.25, (1, 1))
+    Hc = fc.shape[1]
+    gI = torch.arange(slab.g // 2, slab.g // 2 + fc.shape[0], device=fc.device)
+    fc = torch.where(((gI >= 1) & (gI <= Hc - 2))[:, None], fc, 0.0)
+    out = fc.new_zeros((slab.crows, Hc))
+    out[slab.cro : slab.cro + fc.shape[0]] = fc
+    return out
 
 
 def _diag(ph, Qp, a0, like, mass=None):
@@ -263,19 +329,20 @@ def bf16_excess(got, want) -> float:
 
 
 def sweep_plain(u, f, ph=None, uc=None, *, a0, da, omega, dform,
-                mode="sweep", mass=None, out=None, rsq=None):
+                mode="sweep", mass=None, out=None, rsq=None, slab=None):
     """A1: one weighted-Jacobi sweep (``mode="sweep"``) or the masked
     residual (``mode="residual"``) -> (out, rsq).  With a coarse field
-    ``uc`` it first adds its masked bilinear prolongation and sweeps."""
+    ``uc`` it first adds its masked bilinear prolongation and sweeps.
+    ``slab`` (:class:`Slab`): u, f, ph and uc are row slabs."""
     _check_mode(mode, uc)
     _check_form(dform, mass)
     store = u.dtype
     u, f, uc = _widen(u, f, uc)
-    mask = _interior(u)
+    mask = _interior(u, slab)
     if uc is not None:
-        u = u + torch.where(mask, _prolong(uc), 0.0)
+        u = u + torch.where(mask, _prolong_at(uc, slab, u.shape[0]), 0.0)
     bim = ph is not None
-    Qp = element_q(ph, a0, da) if bim else None
+    Qp = element_q(_slab_q(ph, slab), a0, da) if bim else None
     au, C4 = _apply_op(u, Qp, a0, bim, dform, mass)
     r = torch.where(mask, f - au, 0.0)
     if mode == "residual":
@@ -283,42 +350,48 @@ def sweep_plain(u, f, ph=None, uc=None, *, a0, da, omega, dform,
     else:
         d = _diag_bim(C4, mass) if bim else _diag_hom(a0, device=u.device, mass=mass)
         res = u + (omega / d) * r
-    return _emit(res, out, store), _emit(torch.sum(r * r), rsq)
+    return _emit(res, out, store), _emit(_norm(r, slab), rsq)
 
 
 def swrr_plain(u, f, ph=None, *, a0, da, omega, dform, mass=None, out=None, fc_out=None,
-               rsq=None):
+               rsq=None, slab=None):
     """A2: u1 = sweep(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u).
-    The residual is that of the unrounded u1."""
-    cfg = dict(a0=a0, da=da, omega=omega, dform=dform, mass=mass)
+    The residual is that of the unrounded u1.  ``slab``: u, f and ph are
+    row slabs and f_c a coarse slab (:func:`_restrict_at`)."""
+    cfg = dict(a0=a0, da=da, omega=omega, dform=dform, mass=mass, slab=slab)
     store = u.dtype
     u, f = _widen(u, f)
     u1, rsq0 = sweep_plain(u, f, ph, **cfg)
     r1, _ = sweep_plain(u1, f, ph, mode="residual", **cfg)
-    return _emit(u1, out, store), _emit(_restrict4(r1), fc_out, store), _emit(rsq0, rsq)
+    return (_emit(u1, out, store), _emit(_restrict_at(r1, slab), fc_out, store),
+            _emit(rsq0, rsq))
 
 
-def zrr_plain(f, ph=None, *, a0, da, omega, mass=None, out=None):
+def zrr_plain(f, ph=None, *, a0, da, omega, mass=None, out=None, slab=None):
     """A3: f_c = 4 FW(f - A u1) with u1 = (omega/d) f at interior nodes,
-    plain-form apply."""
+    plain-form apply.  ``slab``: f and ph are row slabs, f_c a coarse
+    slab."""
     store = f.dtype
     (f,) = _widen(f)
-    mask = _interior(f)
+    mask = _interior(f, slab)
+    ph = _slab_q(ph, slab)
     Qp = element_q(ph, a0, da) if ph is not None else None
     u1 = torch.where(mask, (omega / _diag(ph, Qp, a0, f, mass)) * f, 0.0)
     au, _ = _apply_op(u1, Qp, a0, ph is not None, False, mass)
-    return _emit(_restrict4(torch.where(mask, f - au, 0.0)), out, store)
+    return _emit(_restrict_at(torch.where(mask, f - au, 0.0), slab), out, store)
 
 
-def zpsweep_plain(f, ph, uc, *, a0, da, omega, mass=None, out=None):
-    """A4: one sweep of u2 = (omega/d) f + P(uc) (interior), plain form."""
+def zpsweep_plain(f, ph, uc, *, a0, da, omega, mass=None, out=None, slab=None):
+    """A4: one sweep of u2 = (omega/d) f + P(uc) (interior), plain form.
+    ``slab``: f, ph and uc are row slabs."""
     store = f.dtype
     f, uc = _widen(f, uc)
-    mask = _interior(f)
+    mask = _interior(f, slab)
+    ph = _slab_q(ph, slab)
     Qp = element_q(ph, a0, da) if ph is not None else None
     d = _diag(ph, Qp, a0, f, mass)
     u2 = (torch.where(mask, (omega / d) * f, 0.0)
-          + torch.where(mask, _prolong(uc), 0.0))
+          + torch.where(mask, _prolong_at(uc, slab, f.shape[0]), 0.0))
     au, _ = _apply_op(u2, Qp, a0, ph is not None, False, mass)
     r = torch.where(mask, f - au, 0.0)
     return _emit(u2 + (omega / d) * r, out, store)
@@ -420,6 +493,20 @@ KERNELS = {
     "A6": CudaKernel("A6_cross_cycle", "mg_pswrr",
                      [_P] * 9 + [_I] + [_D] * 6 + [_I] * 7 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_sweep.py:493", _SOURCE),
+    # the slab instances of A1-A4 (SlabLevel): the TPU kernels' shard
+    # arguments (halo strips, local bounds, own rows; pallas_sweep.py:300-310,
+    # 396-403)
+    "A1_slab": CudaKernel("A1_sweep_slab", "mg_sweep_slab",
+                          [_P] * 8 + [_I] + [_D] * 3 + [_I] * 13 + [_P],
+                          "multigrid_feanet_tpu/ops/pallas_sweep.py:284", _SOURCE),
+    "A2_slab": CudaKernel("A2_swrr_slab", "mg_swrr_slab",
+                          [_P] * 8 + [_I] + [_D] * 3 + [_I] * 12 + [_P],
+                          "multigrid_feanet_tpu/ops/pallas_sweep.py:374", _SOURCE),
+    "A3_slab": CudaKernel("A3_zrr_slab", "mg_zrr_slab", [_P] * 3 + [_I] + [_D] * 3 + [_I] * 9 + [_P],
+                          "multigrid_feanet_tpu/ops/pallas_sweep.py:629", _SOURCE),
+    "A4_slab": CudaKernel("A4_zpsweep_slab", "mg_zpsweep_slab",
+                          [_P] * 4 + [_I] + [_D] * 3 + [_I] * 9 + [_P],
+                          "multigrid_feanet_tpu/ops/pallas_sweep.py:686", _SOURCE),
 }
 
 
@@ -577,6 +664,19 @@ def a6_one_pass_tiles(n: int) -> Tiles:
 TILES = {"A1": a1_tiles, "A2": a2_tiles, "A3": a3_tiles, "A4": a4_tiles, "A6": a6_tiles}
 
 
+def slab_tiles(leg: str, n: int, rows: int, strip: int = A12_STRIP, g: int = 0) -> Tiles:
+    """The grid of the slab form of A1-A4 on a slab of ``rows`` rows of
+    level n whose row 0 is global row g: the whole-field bands, and strips
+    where the whole field's lie (from slab row -(g mod strip)) over the
+    slab's rows (A2 and A3: over the rows / 2 coarse rows under them), so
+    that every row runs at the unrolled step of the kernel's loop that it
+    runs at on the whole field, with the same rounding."""
+    full = TILES[leg](n, strip)
+    coarse = leg in ("A2", "A3")
+    cover = (rows + g % strip) // (2 if coarse else 1)
+    return full._replace(leg=f"{leg}_slab", gy=-(-cover // (strip // 2 if coarse else strip)))
+
+
 def balanced_strip(leg: str, n: int, slots, sms: int = 132) -> int:
     """The even strip height in [``_MIN_STRIP[leg]``, A12_STRIP_MAX] that
     finishes the level soonest on a card of ``sms`` SMs that holds
@@ -606,7 +706,7 @@ def balanced_strip(leg: str, n: int, slots, sms: int = 132) -> int:
 
 
 def _tiles_key(tiles: Tiles) -> tuple:
-    return ("tiles", tiles.leg, tiles.n, tiles.strip)
+    return ("tiles", tiles.leg, tiles.n, tiles.strip, tiles.gy)
 
 
 def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
@@ -876,8 +976,110 @@ def zpsweep_cuda(f, ph, uc, *, a0, da, omega, mass=None, out=None):
     return out
 
 
+def _slab_operands(n, device, fields, phase, coarse, slab: Slab, restricts=False):
+    """Check the float32 row slabs (u, f, outputs: rows x (n + 1)), their
+    int8 phases (rows x n), the coarse slabs (crows x (n/2 + 1)) and the
+    :class:`Slab` of one slab launch; returns the slab's rows."""
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {device} ones")
+    if n < 2 or n % 2:
+        raise ValueError(f"levels must have an even n >= 2, got n={n}")
+    rows = fields[0][1].shape[0]
+    if rows < 2 or rows % 2 or slab.g % 2 or not 0 <= slab.lo <= slab.hi <= rows:
+        raise ValueError(f"a slab has an even number of rows >= 2 from an even global row "
+                         f"and its norm rows inside it, not {rows} rows at {slab}")
+    if slab.cro < 1 or (restricts and slab.cro + rows // 2 > slab.crows):
+        raise ValueError(f"the coarse rows under {rows} slab rows lie outside {slab}")
+    if coarse and slab.crows - slab.cro < rows // 2 + 1:
+        raise ValueError(f"the coarse slab of {slab} does not cover the prolongation of "
+                         f"{rows} rows")
+    for name, t in fields:
+        _check(t, name, (rows, n + 1), torch.float32, device)
+    if phase is not None:
+        _check(phase, "phase", (rows, n), torch.int8, device)
+    for name, t in coarse:
+        _check(t, name, (slab.crows, n // 2 + 1), torch.float32, device)
+    return rows
+
+
+def _slab_strip(leg, n, bim, form, mode, device, rows, g):
+    """The slab form's tiles: the whole-field leg's strip height."""
+    return slab_tiles(leg, n, rows, _launch_tiles(leg, n, bim, form, mode, device, 0).strip, g)
+
+
+def sweep_slab_cuda(u, f, ph=None, uc=None, *, a0, da, omega, dform, slab: Slab, out=None,
+                    rsq=None, workspace=None):
+    """A1's slab form on the card (sweep, or psweep with the coarse slab
+    ``uc``); same contract as :func:`sweep_plain` with ``slab``."""
+    form, _ = _form(dform, None)
+    n, dev = u.shape[1] - 1, u.device
+    rows = _slab_operands(n, dev, [("u", u), ("f", f)], ph, [] if uc is None else [("uc", uc)],
+                          slab)
+    out = _output(out, "out", (rows, n + 1), dev, (u, f, uc))
+    rsq = _scalar_out(rsq, dev)
+    mode_id = 0 if uc is None else 2
+    _check_aligned(("u", u), ("f", f), ("phase", ph))
+    tiles = _slab_strip("A1", n, ph is not None, form, mode_id, dev, rows, slab.g)
+    partial, done = _tile_scratch(tiles, dev, workspace)
+    KERNELS["A1_slab"](u.data_ptr(), f.data_ptr(), _ptr(ph), _ptr(uc), out.data_ptr(),
+                       partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0, da, omega,
+                       int(ph is not None), form, mode_id, tiles.strip, tiles.gx, tiles.gy, rows,
+                       *slab, slab.g % tiles.strip, _stream(dev))
+    return out, rsq
+
+
+def swrr_slab_cuda(u, f, ph=None, *, a0, da, omega, dform, slab: Slab, out=None, fc_out=None,
+                   rsq=None, workspace=None):
+    """A2's slab form on the card; same contract as :func:`swrr_plain` with
+    ``slab``, but ``fc_out`` is written only at the coarse rows under the
+    slab (the plain form zeroes the others)."""
+    form, _ = _form(dform, None)
+    n, dev = u.shape[1] - 1, u.device
+    rows = _slab_operands(n, dev, [("u", u), ("f", f)], ph, [], slab, restricts=True)
+    out = _output(out, "out", (rows, n + 1), dev, (u, f))
+    fc_out = _output(fc_out, "fc_out", (slab.crows, n // 2 + 1), dev, (u, f, out))
+    rsq = _scalar_out(rsq, dev)
+    _check_aligned(("u", u), ("f", f), ("phase", ph))
+    tiles = _slab_strip("A2", n, ph is not None, form, 0, dev, rows, slab.g)
+    partial, done = _tile_scratch(tiles, dev, workspace)
+    KERNELS["A2_slab"](u.data_ptr(), f.data_ptr(), _ptr(ph), out.data_ptr(), fc_out.data_ptr(),
+                       partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n, a0, da, omega,
+                       int(ph is not None), form, tiles.strip, tiles.gx, tiles.gy, rows, *slab,
+                       slab.g % tiles.strip, _stream(dev))
+    return out, fc_out, rsq
+
+
+def zrr_slab_cuda(f, ph=None, *, a0, da, omega, slab: Slab, out=None):
+    """A3's slab form on the card; same contract as :func:`zrr_plain` with
+    ``slab``, but ``out`` is written only at the coarse rows under the
+    slab."""
+    n, dev = f.shape[1] - 1, f.device
+    rows = _slab_operands(n, dev, [("f", f)], ph, [], slab, restricts=True)
+    out = _output(out, "out", (slab.crows, n // 2 + 1), dev, (f,))
+    _check_aligned(("f", f), ("phase", ph))
+    tiles = _slab_strip("A3", n, ph is not None, 0, 0, dev, rows, slab.g)
+    KERNELS["A3_slab"](f.data_ptr(), _ptr(ph), out.data_ptr(), n, a0, da, omega,
+                       int(ph is not None), tiles.strip, tiles.gx, tiles.gy, rows, slab.g,
+                       slab.crows, slab.cro, slab.g % tiles.strip, _stream(dev))
+    return out
+
+
+def zpsweep_slab_cuda(f, ph, uc, *, a0, da, omega, slab: Slab, out=None):
+    """A4's slab form on the card; same contract as :func:`zpsweep_plain`
+    with ``slab``."""
+    n, dev = f.shape[1] - 1, f.device
+    rows = _slab_operands(n, dev, [("f", f)], ph, [("uc", uc)], slab)
+    out = _output(out, "out", (rows, n + 1), dev, (f, uc))
+    _check_aligned(("f", f), ("phase", ph), ("uc", uc))
+    tiles = _slab_strip("A4", n, ph is not None, 0, 0, dev, rows, slab.g)
+    KERNELS["A4_slab"](f.data_ptr(), _ptr(ph), uc.data_ptr(), out.data_ptr(), n, a0, da, omega,
+                       int(ph is not None), tiles.strip, tiles.gx, tiles.gy, rows, slab.g,
+                       slab.crows, slab.cro, slab.g % tiles.strip, _stream(dev))
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Level object.
+# Level objects.
 # ---------------------------------------------------------------------------
 
 
@@ -990,3 +1192,53 @@ class SweepLevel:
         """Zero-initial-guess ascent leg -> u3.  On the card f and ``uc``
         must start on a 16-byte boundary (:func:`zpsweep_cuda`)."""
         return self._call(zpsweep_cuda, zpsweep_plain, f, self.ph, uc, mass=self.mass, out=out)
+
+
+class SlabLevel:
+    """A1 (sweep and psweep), A2, A3 and A4 on one row slab of a level: the
+    slab forms of ``level``'s legs (a float32 :class:`SweepLevel` without
+    mass), bound to the slab's phases (``phase``: rows x n int8, element
+    rows [g, g + rows); None when homogeneous) and its :class:`Slab`.  CPU
+    tensors take the plain slab forms, CUDA ones the kernels' slab
+    instances; every method takes ``out`` buffers as the level's do."""
+
+    def __init__(self, level: SweepLevel, phase, slab: Slab):
+        if level.dtype != torch.float32 or level.mass is not None:
+            raise ValueError("the slab forms run float32 storage without a mass triple")
+        self.level = level
+        self.slab = Slab(*(int(x) for x in slab))
+        self.ph = None if phase is None else torch.as_tensor(
+            phase, dtype=torch.int8, device=level.device).contiguous()
+        self._workspace = {}
+
+    def _call(self, cuda_fn, plain_fn, x, *args, **kw):
+        lv = self.level
+        kw.update(a0=lv.a0, da=lv.da, omega=lv.omega, slab=self.slab)
+        if not x.is_cuda:
+            return plain_fn(x, *args, **kw)
+        if "rsq" in kw:
+            kw["workspace"] = self._workspace
+        return cuda_fn(x, *args, **kw)
+
+    def sweep(self, u, f, out=None, rsq=None):
+        """One weighted-Jacobi sweep -> (u_new, rsq of u's own rows)."""
+        return self._call(sweep_slab_cuda, sweep_plain, u, f, self.ph, None,
+                          dform=self.level.dform, out=out, rsq=rsq)
+
+    def psweep(self, u, f, uc, out=None, rsq=None):
+        """u += masked prolongation of the coarse slab ``uc``; one sweep."""
+        return self._call(sweep_slab_cuda, sweep_plain, u, f, self.ph, uc,
+                          dform=self.level.dform, out=out, rsq=rsq)
+
+    def sweep_restrict(self, u, f, out=None, fc_out=None, rsq=None):
+        """A2 -> (u1, the coarse slab's f_c, rsq of u's own rows)."""
+        return self._call(swrr_slab_cuda, swrr_plain, u, f, self.ph, dform=self.level.dform,
+                          out=out, fc_out=fc_out, rsq=rsq)
+
+    def zsweep_restrict(self, f, out=None):
+        """A3 -> the coarse slab's f_c."""
+        return self._call(zrr_slab_cuda, zrr_plain, f, self.ph, out=out)
+
+    def zpsweep(self, f, uc, out=None):
+        """A4 -> u3 on the slab."""
+        return self._call(zpsweep_slab_cuda, zpsweep_plain, f, self.ph, uc, out=out)

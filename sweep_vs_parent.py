@@ -196,8 +196,9 @@ f32 instances of A1-A6 and every other source's kernels) compiles to the
 same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
-instructions of A3, A4 and the row-streaming F1, A5, A6, C1, C2, E2, E3,
-E4, E5, G1, G2, G4, G5 and D2 in all and per step of their row loop (between two barriers;
+instructions of A1-A4 (whole-field and slab instances) and the row-streaming
+F1, A5, A6, C1, C2, E2, E3, E4, E5, G1, G2, G4, G5 and D2 in all and per step
+of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
 row-streaming kernels.  The parent's kernels named in CHANGED (none in
@@ -237,7 +238,11 @@ ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
                "c2_stencil_multi_rows", "e2_h_descent_rows", "e3_h_ascent_rows",
                "e4_h_zdescent_rows", "e5_h_zascent_rows", "g1_el_relax_rows",
                "g2_el_descent_rows", "g4_el_zdescent_rows", "g5_el_zascent_rows",
-               "d2_gen_descent_rows", "a5_resid_restrict_rows")
+               "d2_gen_descent_rows", "a5_resid_restrict_rows",
+               # A1-A4, whole-field ("sweep_kernel" also names A4's
+               # zpsweep_kernel) and slab instances
+               "sweep_kernel", "swrr_kernel", "sweep_slab_kernel", "swrr_slab_kernel",
+               "zpsweep_slab_kernel")
 
 
 def child(checkout: Path, legs: str) -> int:
