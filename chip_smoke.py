@@ -212,7 +212,24 @@ Phases, in order; any failure exits non-zero:
    decay to 1e-2, 3 sharded levels) against ``solvers/multigrid.py::solve``
    (the same cycles, u within 1e-3 / 1e-5), and the data-parallel H-Net
    step against ``train_step`` (parameters within 1e-6).
-18. Print A1's and A2's 4097^2 times in every form held, each beside its
+18. The slab forms of E2 and E3 and the sharded H-MG: every sharded level
+   of ``sharded_hmg_4097`` (4096 ... 64), bi-material and homogeneous, the
+   plain form with the L = 1 net, on 4 quarter slabs and on the world-1
+   slab; E2 (the one-pass tile up to ``E2_ONE_PASS_MAX_N``, as the whole
+   field) and E3 in slab form on each, held bitwise against the whole-field
+   kernel on the own rows and the coarse rows under them (the partial
+   norms' sum within 1e-7 of the whole field's), and against the slab
+   form's plain version at ``ops.hrelax.TOL``; the world-1 slab's launches
+   timed beside the whole field's with each grid (``hslab_legs``).  Then,
+   in a world of 1 on NCCL, ``sharded_hmg_4097``: ``ShardedHMG`` runs
+   ``hmg_4097``'s configuration (homogeneous, 9 levels, threshold 32, direct
+   coarse, eps 1e-6, at most 40 cycles, chunk 2, the decay start) and must
+   take ``HMGHierarchy(coarse_zero_legs=False)``'s cycles, history and
+   iterate bit for bit, launching E2 and E3 in slab form (at most once per
+   sharded level and cycle each); both solves' ms per cycle and tail q are
+   printed.  Then the bi-material interface at 4097^2 in the plain form, 4
+   cycles at eps 0: the iterate bitwise the whole field's.
+19. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
    interface solve (``a34_levels``), the bf16 times beside their bf16 byte
    bounds and this run's f32 times (``bf16_times``), the kernel summary
@@ -930,7 +947,8 @@ def run_solve(label: str, build, expect, max_cycles: int, solve=None, lagged: bo
 # g2_el_descent, the one-pass tiles, also name the row-streaming
 # c1_stencil_relax_rows, c2_stencil_multi_rows, e2_h_descent_rows,
 # e3_h_ascent_rows, e4_h_zdescent_rows, e5_h_zascent_rows,
-# d2_gen_descent_rows and g2_el_descent_rows); no name is a substring of another label's
+# d2_gen_descent_rows and g2_el_descent_rows; e2_slab_descent, the slab
+# tile, names e2_slab_descent_rows); no name is a substring of another label's
 # name except sweep_kernel, which is tested after zpsweep_kernel, and
 # swrr_kernel, whose zero-guess instances (A3: third template argument true,
 # then the storage type) A3_NAME tells apart first
@@ -938,7 +956,8 @@ A3_NAME = re.compile(r"swrr_kernel(<[^,>]*,[^,>]*,\s*(true|1)\s*[,>]|ILb\dELi\dE
 KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("sweep_kernel", "A1"), ("d1_gen_relax", "D1"), ("d2_gen_descent", "D2"),
                ("d3_gen_ascent", "D3"), ("d4_gen_zdescent", "D4"), ("d5_gen_zascent", "D5"),
-               ("e2_h_descent", "E2"), ("e3_h_ascent", "E3"), ("e4_h_zdescent", "E4"),
+               ("e2_h_descent", "E2"), ("e3_h_ascent", "E3"), ("e2_slab_descent", "E2_slab"),
+               ("e3_slab_ascent", "E3_slab"), ("e4_h_zdescent", "E4"),
                ("e5_h_zascent", "E5"), ("g1_el_relax", "G1"), ("g2_el_descent", "G2"),
                ("g3_el_ascent", "G3"), ("g4_el_zdescent", "G4"), ("g5_el_zascent", "G5"),
                ("c1_stencil_relax", "C1"), ("c2_stencil_multi", "C2"),
@@ -3532,14 +3551,52 @@ def slab_calls(sw, dform: bool, cfg: dict) -> dict:
 def slab_inputs(x, n: int, Hloc: int, r: int):
     """Rank r's slab of the level inputs ``x`` = (u, f, uc, ph) and its
     ``Slab`` (own rows [r Hloc, (r + 1) Hloc), GHOST rows each side)."""
-    from multigrid_feanet_torch.parallel.shard import cut_rows, slab_for, slab_window
+    from multigrid_feanet_torch.parallel.shard import slab_for
 
-    sl = slab_for(r, Hloc, Hloc // 2)
+    return cut_slab(x, slab_for(r, Hloc, Hloc // 2))
+
+
+def cut_slab(x, sl):
+    """The slab ``sl`` of the level inputs ``x`` = (u, f, uc, ph), and ``sl``."""
+    from multigrid_feanet_torch.parallel.shard import cut_rows, slab_window
+
     fine, coarse = slab_window(sl), slab_window(sl, coarse=True)
     u, f, uc, ph = x
     xs = (cut_rows(u, *fine), cut_rows(f, *fine), cut_rows(uc, *coarse),
           None if ph is None else cut_rows(ph, *fine))
     return xs, sl
+
+
+def compare_slabs(got, plain, want, Hloc: int, H: int, Hc: int) -> dict:
+    """Slab r's outputs ``got[r]`` (the kernel's) and ``plain[r]`` (its
+    plain slab form's) against the whole-field kernel's ``want``: the own
+    rows (and the coarse rows under them) bitwise ``want``'s, the fields'
+    largest absolute and relative differences from the plain form, the
+    norm's relative difference from the plain form's, and, when ``want``
+    ends with a norm, the partial norms' sum against it."""
+    import torch
+
+    rel, abs_err, same, rsq_parts, plain_rel = 0.0, 0.0, True, 0.0, 0.0
+    for r, (g, p) in enumerate(zip(got, plain)):
+        for gt, pt, wt in zip(g, p, want):
+            if gt.dim() == 0:
+                rsq_parts += float(gt)
+                plain_rel = max(plain_rel, abs(float(gt) - float(pt)) / max(abs(float(pt)), 1e-30))
+                continue
+            Hl, tot = (Hloc // 2, Hc) if gt.shape[1] == Hc else (Hloc, H)
+            own = min(Hl, tot - r * Hl)
+            if own <= 0:
+                continue
+            go, po = gt[GHOST : GHOST + own], pt[GHOST : GHOST + own]
+            same = same and torch.equal(go, wt[r * Hl : r * Hl + own])
+            err = float((go - po).abs().max())
+            abs_err = max(abs_err, err)
+            rel = max(rel, err / max(1.0, float(po.abs().max())))
+    out = dict(bitwise_whole=same, max_abs_err=abs_err, max_rel_err=rel,
+               rsq_plain_rel_err=plain_rel)
+    if want[-1].dim() == 0:
+        out["rsq_parts_rel_err"] = abs(rsq_parts - float(want[-1])) / float(want[-1])
+    return out
 
 
 def check_slab_level(n: int, bim: bool, dform: bool, seed: int = 21) -> list:
@@ -3566,34 +3623,14 @@ def check_slab_level(n: int, bim: bool, dform: bool, seed: int = 21) -> list:
         got = [call(cuda_fn, xs, sl) for xs, sl in slabs]
         plain = [call(plain_fn, xs, sl) for xs, sl in slabs]
         torch.cuda.synchronize()
-        rel, abs_err, same = 0.0, 0.0, True
-        rsq_parts, plain_rel = 0.0, 0.0
-        for r, (g, p) in enumerate(zip(got, plain)):
-            for gt, pt, wt in zip(g, p, want):
-                if gt.dim() == 0:
-                    rsq_parts += float(gt)
-                    plain_rel = max(plain_rel, abs(float(gt) - float(pt)) / max(abs(float(pt)), 1e-30))
-                    continue
-                coarse = gt.shape[1] == Hc
-                Hl, tot = (Hloc // 2, Hc) if coarse else (Hloc, H)
-                own = min(Hl, tot - r * Hl)
-                if own <= 0:
-                    continue
-                go, po = gt[GHOST : GHOST + own], pt[GHOST : GHOST + own]
-                same = same and torch.equal(go, wt[r * Hl : r * Hl + own])
-                err = float((go - po).abs().max())
-                abs_err = max(abs_err, err)
-                rel = max(rel, err / max(1.0, float(po.abs().max())))
         rec = dict(name=f"{leg}_slab", n=n, bim=bim, dform=dform if leg[:2] in ("A1", "A2") else False,
-                   slabs=N_SLABS, Hloc=Hloc, bitwise_whole=same, max_abs_err=abs_err,
-                   max_rel_err=rel, rsq_plain_rel_err=plain_rel)
-        if want[-1].dim() == 0:
-            rec["rsq_parts_rel_err"] = abs(rsq_parts - float(want[-1])) / float(want[-1])
+                   slabs=N_SLABS, Hloc=Hloc, **compare_slabs(got, plain, want, Hloc, H, Hc))
         if n == N_MAIN and dform:
             rec["whole_ms"] = kernel_ms([lambda: whole(x)])
             rec["slabs_ms"] = kernel_ms([lambda: [call(cuda_fn, xs, sl) for xs, sl in slabs]])
         recs.append(rec)
-        if not same or rel > sw.TOL or plain_rel > sw.TOL or rec.get("rsq_parts_rel_err", 0) > 1e-6:
+        if (not rec["bitwise_whole"] or rec["max_rel_err"] > sw.TOL
+                or rec["rsq_plain_rel_err"] > sw.TOL or rec.get("rsq_parts_rel_err", 0) > 1e-6):
             fail(f"slab form disagrees: {rec}")
     return recs
 
@@ -3606,15 +3643,45 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def slab_bytes(leg: str, n: int, rows: int, bim: bool) -> int:
-    """Bytes a slab form must move on a slab of ``rows`` rows of level n:
-    its node fields read and written once, its phases, the rows / 2 coarse
-    rows it writes (A2, A3) or the rows / 2 + 1 it prolongs (A1 psweep,
-    A4)."""
-    node, ph, coarse = 4 * rows * (n + 1), rows * n if bim else 0, 4 * (n // 2 + 1)
-    return {"A1_sweep": 3 * node + ph, "A1_psweep": 3 * node + ph + coarse * (rows // 2 + 1),
-            "A2": 3 * node + ph + coarse * rows // 2, "A3": node + ph + coarse * rows // 2,
-            "A4": 2 * node + ph + coarse * (rows // 2 + 1)}[leg]
+# the slab legs' node fields read or written, and whether each writes the
+# coarse rows under its rows (restriction) or reads them (prolongation)
+SLAB_FIELDS = {"A1_sweep": (3, None), "A1_psweep": (3, "read"), "A2": (3, "written"),
+               "A3": (1, "written"), "A4": (2, "read"), "E2": (3, "written"), "E3": (3, "read")}
+
+
+def slab_grid_rows(sl, n: int) -> tuple:
+    """[a, b): the global rows of a slab of level n that lie on the grid;
+    the slab's other rows (padding past row n, ghost rows off the grid)
+    hold no node the leg must read or write."""
+    from multigrid_feanet_torch.parallel.shard import slab_window
+
+    g, rows = slab_window(sl)
+    return max(g, 0), min(g + rows, n + 1)
+
+
+def slab_bytes(leg: str, n: int, sl, bim: bool) -> int:
+    """Bytes a slab form must move on the grid rows [a, b) of its slab of
+    level n: its node fields read and written once, the phases of the
+    elements on those rows, the coarse rows under them that it writes
+    (a restriction: rows ceil(a/2) .. floor((b-1)/2)) or reads (a
+    prolongation: floor(a/2) .. ceil((b-1)/2)), and E2's and E3's (1, 3, 3)
+    kernels."""
+    a, b = slab_grid_rows(sl, n)
+    fields, coarse = SLAB_FIELDS[leg]
+    ph = n * (min(b, n) - max(a - 1, 0)) if bim else 0
+    crows = {None: 0, "written": (b - 1) // 2 - (a + 1) // 2 + 1, "read": b // 2 - a // 2 + 1}
+    return (4 * fields * (b - a) * (n + 1) + ph + 4 * (n // 2 + 1) * crows[coarse]
+            + (36 if leg[0] == "E" else 0))
+
+
+def slab_bound(leg: str, n: int, sl, bim: bool, flops_per_node: int) -> dict:
+    """The byte and operation bound of a slab launch on its grid rows."""
+    a, b = slab_grid_rows(sl, n)
+    nbytes = slab_bytes(leg, n, sl, bim)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops_per_node * (b - a) * (n + 1) / FP32_FLOP_PER_S
+    return dict(grid_rows=b - a, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def slab_occupancy(leg: str, n: int, form: int, mode: int, tiles, slab: bool) -> dict:
@@ -3645,9 +3712,10 @@ def slab_times(sh) -> dict:
     """The slab forms at the shapes the world-1 sharded interface solve
     gives them (A1 psweep and A2 at level 0, A3 and A4 at level 1), each
     held to its plain slab form at TOL (fields and norm): the kernel's and
-    the plain form's time and the byte bound; beside them the whole-field
-    kernel's time on the same level, a slab with the fewest rows (own rows
-    n + 2) and each launch's grid, blocks per SM and waves."""
+    the plain form's time and the bound on its grid rows; beside them the
+    whole-field kernel's time on the same level, a slab with the fewest
+    rows (own rows n + 2) and each launch's grid, blocks per SM and
+    waves."""
     import torch
     from multigrid_feanet_torch.ops import sweep as sw
 
@@ -3677,9 +3745,6 @@ def slab_times(sh) -> dict:
             e = float((own(g) - own(w)).abs().max())
             err, rel = max(err, e), max(rel, e / max(1.0, float(own(w).abs().max())))
         rows = sl.hi + GHOST
-        nbytes = slab_bytes(leg, n, rows, True)
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * FLOPS_PER_NODE[key] * rows * (n + 1) / FP32_FLOP_PER_S
         dev = x[0].device
         launches = (("whole", sw._launch_tiles(key, n, True, form, mode, dev, 0)),
                     ("slab", sw._slab_strip(key, n, True, form, mode, dev, rows, sl.g)),
@@ -3693,8 +3758,7 @@ def slab_times(sh) -> dict:
                         whole_ms=kernel_ms([lambda: whole(x)]),
                         tight_rows=tight_sl.hi + GHOST,
                         tight_ms=kernel_ms([lambda: call(cuda_fn, tight, tight_sl)]),
-                        grids=grids, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+                        grids=grids, **slab_bound(leg, n, sl, True, FLOPS_PER_NODE[key]))
         if rel > sw.TOL or rsq_rel > sw.TOL:
             fail(f"{leg} slab form at the sharded solve's shapes disagrees with its plain "
                  f"form: {out[key]}")
@@ -3795,24 +3859,243 @@ def run_distributed_cells() -> dict:
     return rec
 
 
-def run_slice21() -> dict:
-    """The slab legs, then, in a world-1 NCCL group, the sharded solvers."""
+def in_world1(run):
+    """``run()`` in a world-1 NCCL group on ``tcp://localhost:<free port>``,
+    destroyed after it."""
     import torch.distributed as dist
     from multigrid_feanet_torch.parallel.sharding import init_distributed
 
+    init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=DEVICE)
+    try:
+        return run()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_slice21() -> dict:
+    """The slab legs, then, in a world-1 NCCL group, the sharded solvers."""
     recs = []
     for n in (N_MAIN,) + A34_LEVELS:
         for bim in (True, False):
             for dform in (False, True):
                 recs += check_slab_level(n, bim, dform)
     print(json.dumps({"slab_legs": recs}), flush=True)
-    init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=DEVICE)
-    try:
-        sharded = run_sharded_solve()
-        distributed = run_distributed_cells()
-    finally:
-        dist.destroy_process_group()
+    sharded, distributed = in_world1(lambda: (run_sharded_solve(), run_distributed_cells()))
     return dict(slab_legs=recs, sharded=sharded, distributed=distributed)
+
+
+# ---- slice 22: the slab forms of E2 and E3 and the sharded H-MG ----
+
+
+def hslab_calls(hx, params, cfg: dict) -> dict:
+    """leg -> (whole-field call, slab call(fn, slab inputs, slab), the slab
+    form's CUDA and plain functions) of E2 and E3 in the plain form; inputs
+    are (u, f, uc, ph)."""
+    kw = dict(cfg, dform=False)
+    return {
+        "E2": (lambda x: hx.hswrr_cuda(x[0], x[1], x[3], params, **kw),
+               lambda fn, x, sl: fn(x[0], x[1], x[3], params, slab=sl, **kw),
+               hx.hswrr_slab_cuda, hx.hswrr_plain),
+        "E3": (lambda x: (hx.phrelax_cuda(x[0], x[1], x[3], x[2], params, **kw),),
+               lambda fn, x, sl: (fn(x[0], x[1], x[3], x[2], params, slab=sl, **kw),),
+               hx.phrelax_slab_cuda, hx.phrelax_plain),
+    }
+
+
+def hslab_grids(hx, leg: str, n: int, bim: bool, rows: int, g: int) -> dict:
+    """The whole field's and the slab's grids of a launch of E2 or E3 at
+    level n: blocks, blocks per SM and waves (row streaming; the one-pass
+    tile's blocks only)."""
+    import ctypes
+
+    import torch
+    from multigrid_feanet_torch import _build
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.load()
+    if leg == "E2":
+        whole = hx.e2_launch_tiles(n, 1, bim, False, dev)
+        slab = hx.e2_slab_launch_tiles(n, 1, bim, dev, rows, g)
+        queries = ((lib.mg_hswrr_occupancy, (int(bim), 0, 1)),
+                   (lib.mg_hswrr_slab_occupancy, (int(bim),)))
+    else:
+        whole = hx.e3_launch_tiles(n, 1, bim, False, dev)
+        slab = hx.e3_slab_launch_tiles(n, 1, bim, dev, rows, g)
+        queries = ((lib.mg_phrelax_occupancy, (int(bim), 0, 1, whole.strip)),
+                   (lib.mg_phrelax_slab_occupancy, (int(bim), whole.strip)))
+    out = {}
+    for name, tiles, (fn, args) in zip(("whole", "slab"), (whole, slab), queries):
+        rec = dict(design=tiles.leg, strip=tiles.strip, gx=tiles.gx, gy=tiles.gy,
+                   blocks=tiles.blocks)
+        if not tiles.leg.endswith("tile"):
+            fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+            per_sm = fn(*args)
+            if per_sm <= 0:
+                fail(f"{fn.__name__}: CUDA error {-per_sm}")
+            rec.update(blocks_per_sm=per_sm, waves=tiles.blocks / (per_sm * sms))
+        out[name] = rec
+    return out
+
+
+def check_hslab_level(n: int, bim: bool, params, Hloc: int, world1, seed: int = 23) -> list:
+    """E2 and E3 in slab form at level n on N_SLABS quarter slabs and on
+    ``world1``, the world-1 solver's own slab of the level (``Hloc`` own
+    rows): each slab's own rows (E2: and the coarse rows under them)
+    bitwise the whole-field kernel's, the partial norms' sum within 1e-7 of
+    its norm, each slab held to its plain slab form at TOL; the world-1
+    slab's launch
+    and its plain form timed beside the whole field's launch, with the
+    bound on its grid rows and the grids.  One record per leg."""
+    import torch
+    from multigrid_feanet_torch.ops import hrelax as hx
+
+    H, Hc = n + 1, n // 2 + 1
+    quarter = -(-H // N_SLABS)
+    quarter += quarter % 2
+    x = level_inputs(n, bim, seed)
+    cfg = dict(a0=1.0, da=19.0 if bim else 0.0, omega=2.0 / 3.0)
+    layouts = {"quarter": (quarter, [slab_inputs(x, n, quarter, r) for r in range(N_SLABS)]),
+               "world1": (Hloc, [cut_slab(x, world1)])}
+    recs = []
+    for leg, (whole, call, cuda_fn, plain_fn) in hslab_calls(hx, params, cfg).items():
+        want = whole(x)
+        rec = dict(name=f"{leg}_slab", n=n, bim=bim, L=1, dform=False)
+        for layout, (Hloc, slabs) in layouts.items():
+            got = [call(cuda_fn, xs, sl) for xs, sl in slabs]
+            plain = [call(plain_fn, xs, sl) for xs, sl in slabs]
+            torch.cuda.synchronize()
+            res = rec[layout] = dict(slabs=len(slabs), Hloc=Hloc,
+                                     **compare_slabs(got, plain, want, Hloc, H, Hc))
+            if (not res["bitwise_whole"] or res["max_rel_err"] > hx.TOL
+                    or res["rsq_plain_rel_err"] > hx.TOL or res.get("rsq_parts_rel_err", 0.0) > 1e-7):
+                fail(f"{leg} slab form disagrees on the {layout} slabs: {rec}")
+        xs, sl = layouts["world1"][1][0]
+        rows = sl.hi + GHOST
+        rec.update(rows=rows, **slab_bound(leg, n, sl, bim, hrelax_flops(leg, bim, False, 1)),
+                   max_abs_err=rec["world1"]["max_abs_err"],
+                   ms=kernel_ms([lambda: call(cuda_fn, xs, sl)]),
+                   whole_ms=kernel_ms([lambda: whole(x)]),
+                   plain_ms=plain_ms([lambda: call(plain_fn, xs, sl)]),
+                   grids=hslab_grids(hx, leg, n, bim, rows, sl.g))
+        recs.append(rec)
+    return recs
+
+
+def hmg_pair(bim: bool):
+    """ShardedHMG in the group and HMGHierarchy(coarse_zero_legs=False)
+    with hmg_4097's settings (plain form) on the 4097^2 problem."""
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.parallel.shard import ShardedHMG
+    from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
+
+    prob = Problem(n=N_MAIN, inclusion=CIRCLE if bim else None)
+    cfg = dict(num_levels=9, kernel_threshold=32, direct_coarse=True, device=DEVICE)
+    return ShardedHMG(prob, **cfg), HMGHierarchy(prob, coarse_zero_legs=False, **cfg)
+
+
+def run_sharded_hmg(sh, whole, setup_s: float, params) -> dict:
+    """``sharded_hmg_4097``: ``sh``, a ShardedHMG in a world of 1 (the
+    group up already), against ``whole``, HMGHierarchy(coarse_zero_legs=
+    False), from the same decay start: the same cycles, the history and the
+    iterate bitwise, E2 and E3 launched in slab form (at most once per
+    sharded level and cycle each); then the bi-material 4097^2 problem, 4
+    cycles at eps 0, the history and the iterate bitwise."""
+    import torch
+
+    label, eps, max_cycles, chunk = "sharded_hmg_4097", 1e-6, 40, 2
+    u0, f0 = decay_start(sh.base.hier.finest)
+
+    def run(solver):
+        return lambda: solver.solve(params, f0, u0=u0, eps=eps, max_cycles=max_cycles,
+                                    chunk=chunk)
+
+    (u, hist), launches = counted(run(sh))
+    (u_ref, h_ref), whole_launches = counted(run(whole))
+    cycles_run = chunk * -(-(len(hist) + 1) // chunk)
+    most = sh.S * cycles_run
+    if not all(1 <= launches.get(k, 0) <= most for k in ("E2_slab", "E3_slab")):
+        fail(f"{label}: E2 or E3 in slab form launched none or more than {most} times: "
+             f"{launches}")
+
+    def tail_q(h):
+        return float(np.exp(np.mean(np.diff(np.log(h[-6:])))))
+
+    walls = timed_runs(label, run(sh), hist)
+    whole_walls = timed_runs("hmg_4097 (coarse_zero_legs=False)", run(whole), h_ref)
+    rec = dict(solve=label, n=N_MAIN, world=sh.world, S=sh.S, Hloc=sh.Hloc, cycles=len(hist),
+               whole_cycles=len(h_ref), tail_q=tail_q(hist), whole_tail_q=tail_q(h_ref),
+               history_bitwise=bool(np.array_equal(hist, h_ref)),
+               iterate_bitwise=bool(torch.equal(u, u_ref)), final_res=float(hist[-1]),
+               cycles_run=cycles_run, ms_per_cycle=1e3 * min(walls) / cycles_run,
+               whole_ms_per_cycle=1e3 * min(whole_walls) / cycles_run, setup_s=setup_s,
+               launches=launches, whole_launches=whole_launches,
+               profile=profile_solve(run(sh), cycles_run, min(walls)),
+               whole_profile=profile_solve(run(whole), cycles_run, min(whole_walls)))
+    print(json.dumps(rec), flush=True)
+    if (len(hist) >= max_cycles or not hist[-1] <= eps or not rec["history_bitwise"]
+            or not rec["iterate_bitwise"] or len(hist) != len(h_ref)):
+        fail(f"{label}: differs from HMGHierarchy(coarse_zero_legs=False) or did not "
+             f"converge: {rec}")
+    del sh, whole, u, u_ref
+    torch.cuda.empty_cache()
+
+    sh, whole = hmg_pair(True)
+    u0, f0 = decay_start(sh.base.hier.finest)
+    u, hist = sh.solve(params, f0, u0=u0, eps=0.0, max_cycles=4, chunk=2)
+    u_ref, h_ref = whole.solve(params, f0, u0=u0, eps=0.0, max_cycles=4, chunk=2)
+    bim = dict(solve="sharded_hmg_interface_4097_4cycles", cycles=len(hist),
+               iterate_bitwise=bool(torch.equal(u, u_ref)),
+               history_bitwise=bool(np.array_equal(hist, h_ref)),
+               history=[float(h) for h in hist], whole_history=[float(h) for h in h_ref])
+    print(json.dumps(bim), flush=True)
+    if not bim["iterate_bitwise"] or not bim["history_bitwise"] or not torch.isfinite(u).all():
+        fail(f"the bi-material sharded H-MG differs from the whole field's: {bim}")
+    del sh, whole, u, u_ref
+    torch.cuda.empty_cache()
+    return dict(rec, bim=bim)
+
+
+def run_slice22() -> dict:
+    """In a world-1 NCCL group: sharded_hmg_4097's ShardedHMG, the slab
+    legs of E2 and E3 at each of its sharded levels (on quarter slabs and
+    on the solver's own slab), then the sharded H-MG solves."""
+    params = load_params(HNET_L1)
+
+    def run():
+        t0 = time.time()
+        sh, whole = hmg_pair(False)
+        setup_s = time.time() - t0
+        recs = []
+        for level in range(sh.S):
+            for bim in (False, True):
+                recs += check_hslab_level(sh.base.hier.levels[level].n, bim, params,
+                                          sh.Hloc[level], sh.slabs[level].slab)
+        print(json.dumps({"hslab_legs": recs}), flush=True)
+        return dict(hslab_legs=recs, sharded_hmg=run_sharded_hmg(sh, whole, setup_s, params))
+
+    return in_world1(run)
+
+
+def hslab_rows(s22: dict) -> list:
+    """The kernel line's rows of E2's and E3's slab forms: at the world-1
+    slab of sharded_hmg_4097's level 0 (homogeneous), with its launches and
+    the whole field's time beside them."""
+    k = all_kernels()
+    cell = s22["sharded_hmg"]
+    rows = []
+    for key in ("E2_slab", "E3_slab"):
+        t = next(r for r in s22["hslab_legs"] if r["name"] == key and r["n"] == N_MAIN
+                 and not r["bim"])
+        kern = k[key]
+        rows.append(dict(name=kern.name, route="cuda", source=kern.source, replaces=kern.replaces,
+                         launches=cell["launches"][key], max_abs_err=t["max_abs_err"],
+                         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                         bound_by=t["bound_by"], library_ms=None, path=cell["solve"], n=N_MAIN,
+                         rows=t["rows"], grid_rows=t["grid_rows"], bytes=t["bytes"], bim=False,
+                         dform=False, L=1,
+                         whole_4097_ms=t["whole_ms"]))
+    return rows
 
 
 def slab_rows(s21: dict) -> list:
@@ -3831,7 +4114,8 @@ def slab_rows(s21: dict) -> list:
                          launches=sharded["launches"][f"{key}_slab"],
                          max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
                          bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-                         path=sharded["solve"], n=t["n"], rows=t["rows"], bytes=t["bytes"],
+                         path=sharded["solve"], n=t["n"], rows=t["rows"],
+                         grid_rows=t["grid_rows"], bytes=t["bytes"],
                          bim=True, dform=key in ("A1", "A2"), slabs_4097_ms=at["slabs_ms"],
                          whole_4097_ms=at["whole_ms"]))
     return rows
@@ -4080,6 +4364,8 @@ def main() -> int:
 
     # slice 21: the slab forms of A1-A4, the world-1 sharded solvers
     s21 = run_slice21()
+    # slice 22: the slab forms of E2 and E3, the world-1 sharded H-MG
+    s22 = run_slice22()
 
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must
@@ -4206,7 +4492,7 @@ def main() -> int:
                       "pswrr_interface_4097_bf16")
     summary.append(dict(row, name=row["name"] + "_bf16"))
     # every row's byte bound also at the measured copy and triad rates
-    summary += slab_rows(s21)
+    summary += slab_rows(s21) + hslab_rows(s22)
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)

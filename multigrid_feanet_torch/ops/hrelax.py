@@ -48,6 +48,16 @@ block.  Their u, f, the phase, a boundary field and uc must start on a
 ``SUPPORTED_DEPTHS``; the wrappers raise ValueError for any other.  The
 prolongation-fused legs (E3, E5) need an odd depth, as the TPU wrappers
 assert; the plain versions take any depth otherwise.
+
+E2 and E3 also have slab forms, the sharded H-MG's legs
+(``parallel/shard.py::ShardedHMG``; the TPU kernels' shard mode): the
+plain versions take ``slab=`` (``ops/sweep.py::Slab``: u, f and the phases
+are row slabs of a level, uc and f_c coarse slabs), and
+:func:`hswrr_slab_cuda` / :func:`phrelax_slab_cuda` launch the kernels'
+slab instances (``E2_slab``, ``E3_slab``: L = ``SLAB_DEPTH`` = 1, the plain
+form), on the design and strips the whole field of the level launches
+with, laid where the whole field's lie, so that a slab's own rows are the
+whole field's bit for bit.  :class:`HSlabLevel` binds them to one slab.
 """
 
 from __future__ import annotations
@@ -104,32 +114,35 @@ def _hrelax0(f, ph, params, a0, da, omega):
     return g0 + _hchain(g0, params, mask)
 
 
-def hrelax_plain(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None):
+def hrelax_plain(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None,
+                 slab=None):
     """E1: one H-relax step -> (u_new, interior ||f - A u||^2 of u).
 
     ``bc`` (a float or an (n+1)^2 field; None: keep u's ring) first sets
     u's boundary ring to the boundary value, as ``jacobi_step`` resets it,
     and the chain's first layer then reads the ring increment bc - u, as
-    JAX's ``models/hnet.py::h_relax`` feeds jac - u to it unmasked."""
+    JAX's ``models/hnet.py::h_relax`` feeds jac - u to it unmasked.
+    ``slab`` (``ops/sweep.py::Slab``, with ``bc`` None): u, f and ph are row
+    slabs, masked by global rows, the norm over the slab's rows [lo, hi)."""
     _depth(params)
-    mask = sw._interior(u)
+    mask = sw._interior(u, slab)
     u0 = u
     if bc is not None:
         u = torch.where(mask, u, torch.as_tensor(bc, dtype=u.dtype, device=u.device))
     bim = ph is not None
-    Qp = sw.element_q(ph, a0, da) if bim else None
+    Qp = sw.element_q(sw._slab_q(ph, slab), a0, da) if bim else None
     au, C4 = sw._apply_op(u, Qp, a0, bim, dform)
     d = sw._diag_bim(C4) if bim else sw._diag_hom(a0, device=u.device)
     jac = torch.where(mask, u + (omega / d) * (f - au), u)
     x0 = torch.where(mask, jac - u, 0.0) if bc is None else jac - u0
     x = _hchain(x0, params, mask)
     r = torch.where(mask, f - au, 0.0)
-    return sw._emit(jac + x, out), sw._emit(torch.sum(r * r), rsq)
+    return sw._emit(jac + x, out), sw._emit(sw._norm(r, slab), rsq)
 
 
-def _restrict_residual(u1, f, ph, cfg):
-    r1, _ = sw.sweep_plain(u1, f, ph, mode="residual", **cfg)
-    return sw._restrict4(r1)
+def _restrict_residual(u1, f, ph, cfg, slab=None):
+    r1, _ = sw.sweep_plain(u1, f, ph, mode="residual", slab=slab, **cfg)
+    return sw._restrict_at(r1, slab)
 
 
 # ---------------------------------------------------------------------------
@@ -138,19 +151,22 @@ def _restrict_residual(u1, f, ph, cfg):
 
 
 def hswrr_plain(u, f, ph, params, *, a0, da, omega, dform, out=None, fc_out=None,
-                rsq=None):
-    """E2: u1 = hrelax(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u)."""
+                rsq=None, slab=None):
+    """E2: u1 = hrelax(u); f_c = 4 FW(f - A u1) -> (u1, f_c, rsq of u).
+    ``slab``: u, f and ph are row slabs and f_c the coarse slab
+    (``ops/sweep.py::_restrict_at``), the norm over the slab's rows [lo, hi)."""
     cfg = dict(a0=a0, da=da, omega=omega, dform=dform)
-    u1, rsq0 = hrelax_plain(u, f, ph, params, **cfg)
-    fc = _restrict_residual(u1, f, ph, cfg)
+    u1, rsq0 = hrelax_plain(u, f, ph, params, slab=slab, **cfg)
+    fc = _restrict_residual(u1, f, ph, cfg, slab)
     return sw._emit(u1, out), sw._emit(fc, fc_out), sw._emit(rsq0, rsq)
 
 
-def phrelax_plain(u, f, ph, uc, params, *, a0, da, omega, dform, out=None):
-    """E3: u3 = hrelax(u + P(uc)), the correction added at interior nodes."""
+def phrelax_plain(u, f, ph, uc, params, *, a0, da, omega, dform, out=None, slab=None):
+    """E3: u3 = hrelax(u + P(uc)), the correction added at interior nodes.
+    ``slab``: u, f and ph are row slabs, uc their coarse slab."""
     _depth(params, odd=True)
-    u2 = u + torch.where(sw._interior(u), sw._prolong(uc), 0.0)
-    u3, _ = hrelax_plain(u2, f, ph, params, a0=a0, da=da, omega=omega, dform=dform)
+    u2 = u + torch.where(sw._interior(u, slab), sw._prolong_at(uc, slab, u.shape[0]), 0.0)
+    u3, _ = hrelax_plain(u2, f, ph, params, a0=a0, da=da, omega=omega, dform=dform, slab=slab)
     return sw._emit(u3, out)
 
 
@@ -198,6 +214,18 @@ KERNELS = {
     # f ph uc params out; n a0 da omega; bim dform L; one_pass strip gx gy; stream
     "E5": sw.CudaKernel("E5_zphrelax", "mg_zphrelax", [_P] * 5 + _TAIL + [_I] * 4 + [_P],
                         _REPLACES + "460", _SOURCE),
+    # the slab instances of E2 and E3 (HSlabLevel): the TPU kernels' shard
+    # arguments (halo strips, local bounds, own rows; pallas_hrelax.py:510-544,
+    # 582-614).  E2: u f ph params u1 fc partial done rsq; n a0 da omega; bim L
+    # one_pass strip gx gy; rows g lo hi crows cro yoff; stream
+    "E2_slab": sw.CudaKernel("E2_hswrr_slab", "mg_hswrr_slab",
+                             [_P] * 9 + [_I, _D, _D, _D] + [_I] * 13 + [_P], _REPLACES + "287",
+                             _SOURCE),
+    # E3: u1 f ph uc params out; n a0 da omega; bim L strip gx gy; rows g crows
+    # cro yoff; stream
+    "E3_slab": sw.CudaKernel("E3_phrelax_slab", "mg_phrelax_slab",
+                             [_P] * 6 + [_I, _D, _D, _D] + [_I] * 10 + [_P], _REPLACES + "361",
+                             _SOURCE),
 }
 
 
@@ -562,6 +590,61 @@ def e5_launch_tiles(n: int, L: int, bim: bool, dform: bool, device) -> sw.Tiles:
     return _ascent_launch_tiles("E5", n, L, bim, dform, device)
 
 
+# Launch geometry of the slab forms of E2 and E3 (the sharded H-MG's legs,
+# csrc/hrelax.cu mg_hswrr_slab / mg_phrelax_slab): the design, bands and
+# strip height the whole field of the level launches with, the strips laid
+# where the whole field's lie (from slab row -(g mod strip)) over the slab's
+# rows, so that every row runs at the step of the kernel's loop (or in the
+# tile) it runs at on the whole field.  They are built for one chain depth
+# and the plain form, the sharded H-MG's.
+SLAB_DEPTH = 1
+
+
+def e2_slab_tiles(n: int, L: int, rows: int, g: int, strip: int, one_pass: bool) -> sw.Tiles:
+    """E2's slab grid on a slab of ``rows`` rows of level n from global row
+    g: the one-pass tile's (strip: its 2 CY = 16 fine rows) or the
+    row-streaming bands, and strips of ``strip`` rows over the rows / 2
+    coarse rows under the slab's rows."""
+    full = e2_one_pass_tiles(n) if one_pass else e2_tiles(n, L, strip)
+    cover = (rows + g % full.strip) // 2
+    return full._replace(leg="E2_slab_tile" if one_pass else "E2_slab",
+                         gy=-(-cover // (full.strip // 2)))
+
+
+def e3_slab_tiles(n: int, L: int, rows: int, g: int, strip: int) -> sw.Tiles:
+    """E3's slab grid: the row-streaming bands and strips of ``strip`` rows
+    over the slab's rows."""
+    full = e3_tiles(n, L, strip)
+    return full._replace(leg="E3_slab", gy=-(-(rows + g % strip) // strip))
+
+
+def e2_slab_launch_tiles(n: int, L: int, bim: bool, device, rows: int, g: int) -> sw.Tiles:
+    """The slab grid E2 launches with on ``device``: the whole field's design
+    and strip (:func:`e2_launch_tiles`, plain form) over the slab."""
+    whole = e2_launch_tiles(n, L, bim, False, device)
+    return e2_slab_tiles(n, L, rows, g, whole.strip, whole.leg == "E2_tile")
+
+
+def e3_slab_launch_tiles(n: int, L: int, bim: bool, device, rows: int, g: int) -> sw.Tiles:
+    """The slab grid E3 launches with on ``device``: the whole field's strip
+    (:func:`e3_launch_tiles`, plain form) over the slab.  The slab form
+    streams rows only: levels that run E3's one-pass tile raise ValueError."""
+    whole = e3_launch_tiles(n, L, bim, False, device)
+    if whole.leg != "E3":
+        raise ValueError(f"E3's slab form streams rows: n={n} runs the one-pass tile "
+                         f"(E3_ONE_PASS_MAX_N[{L}] = {E3_ONE_PASS_MAX_N[L]})")
+    return e3_slab_tiles(n, L, rows, g, whole.strip)
+
+
+def _slab_depth(params, dform, odd: bool = False) -> int:
+    """The chain depth of a slab form's kernels: SLAB_DEPTH, plain form."""
+    L = _kernel_depth(params, odd)
+    if L != SLAB_DEPTH or dform:
+        raise ValueError(f"the slab forms of E2 and E3 are built for L={SLAB_DEPTH} in the plain "
+                         f"form, not L={L}{' in the difference form' if dform else ''}")
+    return L
+
+
 def hrelax_cuda(u, f, ph, params, *, a0, da, omega, dform, bc=None, out=None, rsq=None,
                 workspace=None):
     """E1 on the card; same contract as :func:`hrelax_plain`, and u, f,
@@ -657,6 +740,46 @@ def zphrelax_cuda(f, ph, uc, params, *, a0, da, omega, dform, out=None):
     return out
 
 
+def hswrr_slab_cuda(u, f, ph, params, *, a0, da, omega, dform, slab: sw.Slab, out=None,
+                    fc_out=None, rsq=None, workspace=None):
+    """E2's slab form on the card; same contract as :func:`hswrr_plain` with
+    ``slab`` (L = 1, the plain form), but ``fc_out`` is written only at the
+    coarse rows under the slab (the plain form zeroes the others)."""
+    L = _slab_depth(params, dform)
+    n, dev = u.shape[1] - 1, u.device
+    rows = sw._slab_operands(n, dev, [("u", u), ("f", f)], ph, [], slab, restricts=True)
+    sw._check(params, "params", (L, 3, 3), torch.float32, dev)
+    out = sw._output(out, "out", (rows, n + 1), dev, (u, f))
+    fc_out = sw._output(fc_out, "fc_out", (slab.crows, n // 2 + 1), dev, (u, f, out))
+    rsq = sw._scalar_out(rsq, dev)
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph))
+    tiles = e2_slab_launch_tiles(n, L, ph is not None, dev, rows, slab.g)
+    partial, done = row_scratch(tiles, 1, dev, workspace)
+    KERNELS["E2_slab"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), params.data_ptr(), out.data_ptr(),
+                       fc_out.data_ptr(), partial.data_ptr(), done.data_ptr(), rsq.data_ptr(), n,
+                       a0, da, omega, int(ph is not None), L, int(tiles.leg == "E2_slab_tile"),
+                       tiles.strip, tiles.gx, tiles.gy, rows, *slab, slab.g % tiles.strip,
+                       sw._stream(dev))
+    return out, fc_out, rsq
+
+
+def phrelax_slab_cuda(u, f, ph, uc, params, *, a0, da, omega, dform, slab: sw.Slab, out=None):
+    """E3's slab form on the card; same contract as :func:`phrelax_plain`
+    with ``slab`` (L = 1, the plain form, levels that stream E3's rows)."""
+    L = _slab_depth(params, dform, odd=True)
+    n, dev = u.shape[1] - 1, u.device
+    rows = sw._slab_operands(n, dev, [("u", u), ("f", f)], ph, [("uc", uc)], slab)
+    sw._check(params, "params", (L, 3, 3), torch.float32, dev)
+    out = sw._output(out, "out", (rows, n + 1), dev, (u, f, uc))
+    sw._check_aligned(("u", u), ("f", f), ("phase", ph), ("uc", uc))
+    tiles = e3_slab_launch_tiles(n, L, ph is not None, dev, rows, slab.g)
+    KERNELS["E3_slab"](u.data_ptr(), f.data_ptr(), sw._ptr(ph), uc.data_ptr(), params.data_ptr(),
+                       out.data_ptr(), n, a0, da, omega, int(ph is not None), L, tiles.strip,
+                       tiles.gx, tiles.gy, rows, slab.g, slab.crows, slab.cro,
+                       slab.g % tiles.strip, sw._stream(dev))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Level-facing legs (the names of the JAX package's PallasLevel functions).
 # ---------------------------------------------------------------------------
@@ -692,3 +815,20 @@ def zphrelax(level: sw.SweepLevel, f, uc, params, out=None, dform: bool = False)
     """Zero-initial-guess H-MG ascent leg -> u3."""
     return level._call(zphrelax_cuda, zphrelax_plain, f, level.ph, uc, params, dform=dform,
                        out=out)
+
+
+class HSlabLevel(sw.SlabLevel):
+    """A :class:`~multigrid_feanet_torch.ops.sweep.SlabLevel` with the slab
+    forms of E2 and E3 (the sharded H-MG's legs: L = 1, the plain form): CPU
+    tensors take the plain slab forms, CUDA ones the kernels' slab
+    instances."""
+
+    def hswrr(self, u, f, params, out=None, fc_out=None, rsq=None):
+        """E2 -> (u1, the coarse slab's f_c, rsq of u's own rows)."""
+        return self._call(hswrr_slab_cuda, hswrr_plain, u, f, self.ph, params, dform=False,
+                          out=out, fc_out=fc_out, rsq=rsq)
+
+    def phrelax(self, u1, f, uc, params, out=None):
+        """E3 -> u3 = hrelax(u1 + P(uc)) on the slab, uc the coarse slab."""
+        return self._call(phrelax_slab_cuda, phrelax_plain, u1, f, self.ph, uc, params,
+                          dform=False, out=out)

@@ -1,17 +1,22 @@
-"""The fused V-cycle distributed over a process group by node rows.
+"""The fused V-cycle and the H-MG cycle distributed over a process group by
+node rows.
 
-Port of ``multigrid_feanet_tpu/parallel/pallas_shard.py``'s
-``ShardedPallasHierarchyV2`` (``ShardedPallasHMG`` is not ported yet).  The
-communication is explicit, as in the JAX module:
+Port of ``multigrid_feanet_tpu/parallel/pallas_shard.py``:
+``ShardedHierarchyV2`` of ``ShardedPallasHierarchyV2`` (A1-A4 in slab form)
+and ``ShardedHMG`` of ``ShardedPallasHMG`` (E2 and E3 in slab form, the
+learned H-Net smoother).  The communication is explicit, as in the JAX
+module:
 
 - **Row slabs.**  Rank r owns node rows [r Hloc_l, (r + 1) Hloc_l) of every
   sharded level l < S, with ``Hloc_0 = ceil(H_0 / world)`` rounded up to a
   multiple of 2^S and ``Hloc_l = Hloc_0 / 2^l``, so every coarse slab lies
   under its fine slab.  A slab tensor holds its own rows plus ``GHOST`` = 4
   rows of each neighbour above and below, at full width: the rows the legs'
-  stencils reach past the slab (A2 reads u 3 rows up, f and the phases 2)
-  land where the slab's ghost rows are, and the row-streaming kernels read
-  one contiguous field (``ops/sweep.py::SlabLevel``).  The JAX module's
+  stencils reach past the slab (A2 reads u 3 rows up, f and the phases 2;
+  E2 with an L = 1 chain u L + 3 = 4 rows up and L + 2 = 3 down) land where
+  the slab's ghost rows are, and the row-streaming kernels read one
+  contiguous field (``ops/sweep.py::SlabLevel``,
+  ``ops/hrelax.py::HSlabLevel``).  The JAX module's
   stride-lane layout and its (8, Wp) halo strips are TPU layout; there is no
   counterpart here.
 - **Exchange.**  Before a leg reads a field's ghost rows, the rank sends its
@@ -24,14 +29,14 @@ communication is explicit, as in the JAX module:
   match the single-device norm up to summation order.
 - **Agglomeration.**  Levels with fewer than ``shard_below`` elements a side
   are not sharded: one ``all_gather`` rebuilds the coarse right-hand side,
-  ``HierarchyV2._coarse_correction`` solves it redundantly on every rank (its
-  fused whole-field levels, the plain subtree, the direct coarse solve), and
-  each rank re-slices its rows with no communication.
+  the base solver's ``_coarse_correction`` solves it redundantly on every
+  rank (its fused whole-field levels, the plain subtree, the direct coarse
+  solve), and each rank re-slices its rows with no communication.
 
-Per V(1,1) cycle: 2 + 2 (S - 1) exchanges, one all_gather, one all_reduce
-(``comm_bytes_per_cycle`` counts their bytes).  On a CUDA device the group
-must be NCCL, on the CPU gloo; nothing falls back to the other or to the
-unsharded solver.
+Per V(1,1) cycle: 2 + 2 (S - 1) exchanges, one all_gather, one all_reduce;
+per H-MG cycle 2 + 3 (S - 1) exchanges (``comm_bytes_per_cycle`` counts
+their bytes).  On a CUDA device the group must be NCCL, on the CPU gloo;
+nothing falls back to the other or to the unsharded solver.
 """
 
 from __future__ import annotations
@@ -44,14 +49,16 @@ import torch.distributed as dist
 
 from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.core.problem import Problem
-from multigrid_feanet_torch.ops.sweep import Slab, SlabLevel
+from multigrid_feanet_torch.ops.hrelax import SLAB_DEPTH, HSlabLevel
+from multigrid_feanet_torch.ops.sweep import Slab
 from multigrid_feanet_torch.solvers.common import start_fields, trim_history
+from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
 
 # ghost rows above and below a slab: A2 reads u rows -3 .. Hloc + 1 and f and
-# the phases rows -2 .. Hloc; an even depth keeps coarse rows under even
-# fine rows
+# the phases rows -2 .. Hloc, E2 with an L = 1 chain u rows -4 .. Hloc + 2;
+# an even depth keeps coarse rows under even fine rows
 GHOST = 4
 
 
@@ -127,20 +134,26 @@ class ShardedHierarchyV2:
     a side (default ``64 * world``), run the slab forms of A1-A4 on each
     rank's rows; the rest is agglomerated.  The fused levels store float32.
     ``device=None`` means CUDA and raises when there is none; the group
-    must be NCCL on CUDA and gloo on the CPU."""
+    must be NCCL on CUDA and gloo on the CPU.  ``base`` injects a prebuilt
+    single-device solver on ``device`` with the V2 layout contract
+    (``.hier``, ``.K``, ``.sweep_levels``, ``._fc``, ``._u``,
+    ``._coarse_correction``; :class:`ShardedHMG` passes its
+    ``HMGHierarchy``); the options that build one are then not used."""
 
     def __init__(self, problem: Problem, num_levels: Optional[int] = None,
                  omega: float = DEFAULT_OMEGA, kernel_threshold: int = 256,
                  direct_coarse: bool = True, shard_below: Optional[int] = None,
-                 dform: Optional[bool] = None, group=None, device=None):
+                 dform: Optional[bool] = None, group=None, device=None, base=None):
         device = resolve_device(device)
         self.group = check_group(group, device)
         self.world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.device = device
-        self.base = HierarchyV2(problem, num_levels=num_levels, omega=omega,
-                                kernel_threshold=kernel_threshold, direct_coarse=direct_coarse,
-                                dform=dform, device=device)
+        self.base = base if base is not None else HierarchyV2(
+            problem, num_levels=num_levels, omega=omega, kernel_threshold=kernel_threshold,
+            direct_coarse=direct_coarse, dform=dform, device=device)
+        if self.base.device != device:
+            raise ValueError(f"base lives on {self.base.device}, not {device}")
         levels = self.base.hier.levels
         if shard_below is None:
             shard_below = 64 * self.world
@@ -164,7 +177,7 @@ class ShardedHierarchyV2:
         for l in range(S):
             slab = slab_for(self.rank, self.Hloc[l], self.Hloc[l + 1])
             phase = problem.phase(levels[l].n)
-            self.slabs.append(SlabLevel(
+            self.slabs.append(HSlabLevel(
                 self.base.sweep_levels[l],
                 None if phase is None else cut_rows(phase, *slab_window(slab)), slab))
         # the slab buffers: the right-hand sides of levels 1 .. S (level S's
@@ -217,32 +230,33 @@ class ShardedHierarchyV2:
         wait_all(self._exchange(buf, l))
         return buf
 
-    def comm_bytes_per_cycle(self, nu1: int = 1, nu2: int = 1) -> int:
-        """Bytes this rank sends in one V(nu1, nu2) cycle: 4-row ghost blocks
-        to each neighbour per exchange, its rows of the agglomerated
-        right-hand side, one norm."""
+    def _comm_bytes(self, exchanges) -> int:
+        """Bytes this rank sends in one cycle that exchanges the ghost rows
+        of level l ``exchanges(l)`` times: 4-row ghost blocks to each
+        neighbour per exchange, its rows of the agglomerated right-hand
+        side, one norm."""
         neighbours = int(self.rank > 0) + int(self.rank < self.world - 1)
         levels = self.base.hier.levels
-
-        def exchanges(l):  # of level l in one cycle
-            if l == 0:
-                return nu1 + nu2
-            return 2 + (nu2 - 1 if nu1 == 1 else nu1 - 1 + nu2)
-
         ghost = sum(exchanges(l) * neighbours * GHOST * levels[l].n_nodes * 4
                     for l in range(self.S))
         return ghost + self.Hloc[self.S] * levels[self.S].n_nodes * 4 + 4
 
+    def comm_bytes_per_cycle(self, nu1: int = 1, nu2: int = 1) -> int:
+        """Bytes this rank sends in one V(nu1, nu2) cycle (:meth:`_comm_bytes`)."""
+        return self._comm_bytes(lambda l: nu1 + nu2 if l == 0
+                                else 2 + (nu2 - 1 if nu1 == 1 else nu1 - 1 + nu2))
+
     # ---- the cycle ----
 
-    def _agglomerate(self, fcb: torch.Tensor, nu1: int, nu2: int) -> torch.Tensor:
+    def _agglomerate(self, fcb: torch.Tensor, solve) -> torch.Tensor:
         """Gather level S's right-hand side, solve its error equation on
-        every rank, return this rank's slab of the correction."""
+        every rank with ``solve(rhs) -> correction`` (the base's subtree),
+        return this rank's slab of the correction."""
         S, G = self.S, GHOST
         HS = self.base.hier.levels[S].n_nodes
         dist.all_gather(list(self._gathered.chunk(self.world)), fcb[G : G + self.Hloc[S]],
                         group=self.group)
-        uc = self.base._coarse_correction(S, self._gathered[:HS], nu1, nu2)
+        uc = solve(self._gathered[:HS])
         return put_rows(self._uc, uc, slab_window(self.slabs[S - 1].slab, coarse=True)[0])
 
     def _coarse_correction(self, l: int, fcb: torch.Tensor, nu1: int, nu2: int):
@@ -250,7 +264,8 @@ class ShardedHierarchyV2:
         correction from a zero guess, on this rank's slab with its ghost
         rows exchanged, for the parent's psweep."""
         if l >= self.S:
-            return self._agglomerate(fcb, nu1, nu2)
+            return self._agglomerate(
+                fcb, lambda rhs: self.base._coarse_correction(self.S, rhs, nu1, nu2))
         p = self.slabs[l]
         cur, spare = self._u[l]
         rsq = self._rsq_scratch
@@ -301,14 +316,11 @@ class ShardedHierarchyV2:
         dist.all_reduce(rsq_pre, group=self.group)
         return cur, spare
 
-    def solve(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
-              eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1):
-        """Distributed V-cycle solve; ``HierarchyV2.solve``'s protocol: every
-        rank passes the whole (n+1)^2 ``f`` (and ``u0``), the history stays
-        on the device with one host sync per ``chunk`` cycles,
-        ``history[j]`` is the residual after cycle j + 1, and ``u`` is one
-        cycle (plus up to ``chunk - 1``) ahead.  Returns ``(u, history)``
-        with the gathered (n+1)^2 ``u`` on every rank."""
+    def _solve(self, cycle, f, u0, bc_value, eps: float, max_cycles: int, chunk: int):
+        """Run ``cycle(u, spare, f, rsq) -> (u, spare)`` on this rank's
+        level-0 slabs (``rsq`` gets the summed residual norm^2 of the
+        incoming u) in ``solvers/common.py::solve_cycles``' protocol; returns
+        the gathered u and the history."""
         finest = self.base.hier.finest
         f, u = start_fields(finest, f, u0, bc_value)
         fb, u = self.to_slab(0, f), self.to_slab(0, u)
@@ -319,11 +331,22 @@ class ShardedHierarchyV2:
         k, res = 0, float("inf")
         while res > eps32 and k < max_cycles:
             for _ in range(chunk):
-                u, sp = self._cycle0(u, sp, fb, nu1, nu2, rsq)
+                u, sp = cycle(u, sp, fb, rsq)
                 torch.sqrt(rsq, out=hist[k])
                 k += 1
             res = float(hist[k - 1])  # the same on every rank: the norms are all-reduced
         return self.gather(u), trim_history(hist.cpu().numpy(), eps)
+
+    def solve(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
+              eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1):
+        """Distributed V-cycle solve; ``HierarchyV2.solve``'s protocol: every
+        rank passes the whole (n+1)^2 ``f`` (and ``u0``), the history stays
+        on the device with one host sync per ``chunk`` cycles,
+        ``history[j]`` is the residual after cycle j + 1, and ``u`` is one
+        cycle (plus up to ``chunk - 1``) ahead.  Returns ``(u, history)``
+        with the gathered (n+1)^2 ``u`` on every rank."""
+        return self._solve(lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
+                           f, u0, bc_value, eps, max_cycles, chunk)
 
     def gather(self, u: torch.Tensor) -> torch.Tensor:
         """The whole (n+1)^2 level-0 field from every rank's own rows."""
@@ -333,3 +356,103 @@ class ShardedHierarchyV2:
         dist.all_gather(list(full.chunk(self.world)), u[GHOST : GHOST + self.Hloc[0]],
                         group=self.group)
         return full[:H].clone()
+
+
+class ShardedHMG(ShardedHierarchyV2):
+    """:class:`HMGHierarchy` (the learned H-Net smoother) distributed over
+    the ranks of ``group`` by node rows (the port of ``ShardedPallasHMG``).
+
+    The base is ``HMGHierarchy(coarse_zero_legs=False)``: per cycle, level 0
+    runs E2 (u1 = hrelax(u), the restricted residual, the norm of u) and E3
+    (u3 = hrelax(u1 + P(uc))); the coarse levels E2 from a zero iterate and
+    E3.  The sharded levels 0 .. S-1 (at least ``shard_below`` elements a
+    side, default ``64 * world``) run their slab forms
+    (``ops/hrelax.py::HSlabLevel``), the rest is agglomerated into
+    ``HMGHierarchy._coarse_correction``.  The slab kernels mask by global
+    interior over every slab row, ghost rows too: the chain at a seam reads
+    the neighbours' increments, so it is computed past the own rows, and
+    the GHOST = 4 ghost rows hold what an L = 1 chain reads there (E2 reads
+    u L + 3 rows above and L + 2 below); only the outermost ghost rows are
+    wrong, and the exchanges overwrite them before any own row reads them.
+    Params of another depth raise ValueError, as the JAX class supports L = 1
+    only.  ``device=None`` means CUDA and raises when there is none; the
+    group must be NCCL on CUDA and gloo on the CPU."""
+
+
+    def __init__(self, problem: Problem, num_levels: Optional[int] = None,
+                 omega: float = DEFAULT_OMEGA, kernel_threshold: int = 256,
+                 direct_coarse: bool = False, shard_below: Optional[int] = None, group=None,
+                 device=None):
+        device = resolve_device(device)
+        check_group(group, device)
+        base = HMGHierarchy(problem, num_levels=num_levels, omega=omega,
+                            kernel_threshold=kernel_threshold, direct_coarse=direct_coarse,
+                            coarse_zero_legs=False, device=device)
+        super().__init__(problem, shard_below=shard_below, group=group, device=device, base=base)
+        # E2 starts the coarse sharded levels from one zero buffer (never
+        # written), viewed at each level's slab shape; the base's whole-field
+        # zero iterates there are released
+        for l in range(1, self.S):
+            del self.base._zero[l]
+        self._zeros = self._slab(1).flatten() if self.S > 1 else None
+
+    def _zero_slab(self, l: int) -> torch.Tensor:
+        W = self.base.hier.levels[l].n_nodes
+        return self._zeros[: self._rows(l) * W].view(self._rows(l), W)
+
+    def comm_bytes_per_cycle(self) -> int:
+        """Bytes this rank sends in one H-MG cycle (:meth:`_comm_bytes`):
+        level 0 exchanges u and u1, every other sharded level its right-hand
+        side, u1 and u3."""
+        return self._comm_bytes(lambda l: 2 if l == 0 else 3)
+
+    def _params(self, params) -> torch.Tensor:
+        p = self.base._params(params)
+        if p.shape[0] != SLAB_DEPTH:
+            raise ValueError(f"the sharded H-MG runs an L = {SLAB_DEPTH} chain (its ghost rows "
+                             f"hold what that chain reads past a slab), not L = {p.shape[0]}")
+        return p
+
+    def _h_coarse_correction(self, l: int, fcb: torch.Tensor, params) -> torch.Tensor:
+        """The distributed ``HMGHierarchy._coarse_correction`` with E2 from a
+        zero iterate and E3: the level-l correction on this rank's slab with
+        its ghost rows exchanged, for the parent's E3."""
+        if l >= self.S:
+            return self._agglomerate(
+                fcb, lambda rhs: self.base._coarse_correction(self.S, rhs, params))
+        p = self.slabs[l]
+        cur, spare = self._u[l]
+        self._exchanged(fcb, l)
+        # the zero iterate's ghost rows are zeros: no u exchange
+        p.hswrr(self._zero_slab(l), fcb, params, out=spare, fc_out=self._fc[l + 1],
+                rsq=self._rsq_scratch)
+        works = self._exchange(spare, l)  # u1's ghost rows ride under the coarse subtree
+        uc = self._h_coarse_correction(l + 1, self._fc[l + 1], params)
+        wait_all(works)
+        p.phrelax(spare, fcb, uc, params, out=cur)
+        return self._exchanged(cur, l)
+
+    def _h_cycle0(self, u, sp, fb, params, rsq_pre):
+        """One H-MG cycle on this rank's level-0 slab -> (u, spare): E2 into
+        ``sp``, E3 back into ``u``'s buffer; ``rsq_pre`` gets the summed
+        residual norm^2 of the incoming u."""
+        p = self.slabs[0]
+        p.hswrr(self._exchanged(u, 0), fb, params, out=sp, fc_out=self._fc[1], rsq=rsq_pre)
+        works = self._exchange(sp, 0)  # rides under the coarse subtree
+        uc = self._h_coarse_correction(1, self._fc[1], params)
+        wait_all(works)
+        p.phrelax(sp, fb, uc, params, out=u)
+        dist.all_reduce(rsq_pre, group=self.group)
+        return u, sp
+
+    def solve(self, params, f, u0=None, bc_value=0.0, eps: float = 5e-5,
+              max_cycles: int = 100, chunk: int = 1):
+        """Distributed H-MG solve with the (1, 3, 3) H-Net kernels ``params``
+        (tensor or array); ``HMGHierarchy.solve``'s protocol: every rank
+        passes the whole (n+1)^2 ``f`` (and ``u0``), ``history[j]`` is the
+        residual after cycle j + 1, ``u`` is one cycle (plus up to ``chunk -
+        1``) ahead, one host sync per ``chunk`` cycles.  Returns ``(u,
+        history)`` with the gathered (n+1)^2 ``u`` on every rank."""
+        params = self._params(params)
+        return self._solve(lambda u, sp, fb, rsq: self._h_cycle0(u, sp, fb, params, rsq),
+                           f, u0, bc_value, eps, max_cycles, chunk)

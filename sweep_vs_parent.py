@@ -197,7 +197,8 @@ same instructions in this checkout (addresses, encodings and the anonymous
 namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
 instructions of A1-A4 (whole-field and slab instances) and the row-streaming
-F1, A5, A6, C1, C2, E2, E3, E4, E5, G1, G2, G4, G5 and D2 in all and per step
+F1, A5, A6, C1, C2, E2, E3 (whole-field and slab instances), E4, E5, G1, G2,
+G4, G5 and D2 in all and per step
 of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
@@ -242,7 +243,9 @@ ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
                # A1-A4, whole-field ("sweep_kernel" also names A4's
                # zpsweep_kernel) and slab instances
                "sweep_kernel", "swrr_kernel", "sweep_slab_kernel", "swrr_slab_kernel",
-               "zpsweep_slab_kernel")
+               "zpsweep_slab_kernel",
+               # the slab instances of the row-streaming E2 and E3
+               "e2_slab_descent_rows", "e3_slab_ascent_rows")
 
 
 def child(checkout: Path, legs: str) -> int:

@@ -399,13 +399,13 @@ def test_block_shape_matches_the_kernel():
     assert "constexpr int RCW = RB / 2 + 2;" in common
     assert "constexpr int RCSLOT = (RCW + 3 + 3) / 4 * 4;" in common
     assert "return strip / 2 + L + 2;" in body("coarse_rows", common)
-    e3 = body("e3_h_ascent_rows")
+    e3 = body("e3_ascent_rows")
     assert "constexpr int BW = RB - 2 * L - 2;" in e3
     assert "c0 = x0 - L - 1 + RC * t, col = x0 - L - 2, base = y0 - L - 1;" in e3
     assert "const int staged = rows_out + 2 * L + 2, steps = staged + L;" in e3
-    assert ("ci0 = (y0 - L - 1) >> 1, CR = coarse_rows(strip, L), cj0 = (x0 - L - 2) >> 1;"
+    assert ("ci0 = ((y0 - L - 1) >> 1) + CRO, CR = coarse_rows(strip, L), cj0 = (x0 - L - 2) >> 1;"
             in e3)
-    assert "prolong_row<RC + 2, true>(pc, ucs, R, odd, ci0, CR, Hc, cj0, t);" in e3
+    assert "prolong_row<RC + 2, true>(pc, ucs, R + 2 * CRO, odd, ci0, CR, Hc, cj0, t);" in e3
     assert "col_own[e] = p >= L + 1 && p < L + 1 + BW && c0 + e < H;" in e3
     e5 = body("e5_h_zascent_rows")
     assert "constexpr int BW = RB - 4 * L - 2;" in e5

@@ -279,12 +279,12 @@ def test_block_shape_matches_the_kernel():
     assert (const("RT", common), const("RC", common), const("RD", common)) == (RT, RC, RD)
     assert const("RS_STRIP_MAX", common) == sw.A12_STRIP_MAX
     assert const("E2_UNR", src) == UNR
-    body = src[src.index("e2_h_descent_rows("):]
+    body = src[src.index("e2_descent_rows("):]
     body = body[:body.index("\n}\n")]
     assert "constexpr int BW = RB - 2 * L - 4;" in body
     assert "constexpr int NF = L == 1 ? 8 : 16;" in body
     assert "c0 = x0 - L - 2 + RC * t, col = x0 - L - 3, base = y0 - L - 3;" in body
-    assert "const int rows_out = min(strip, H + 1 - y0);" in body
+    assert "const int rows_out = SLAB ? min(strip, HR - y0) : min(strip, H + 1 - y0);" in body
     assert "staged = rows_out + 2 * L + 5, steps = rows_out + 3 * L + 6;" in body
     assert "pending = odd && s >= 3 * L + 6;" in body
     assert "constexpr bool odd = ((I + L) & 1) != 0;" in body
