@@ -229,7 +229,25 @@ Phases, in order; any failure exits non-zero:
    sharded level and cycle each); both solves' ms per cycle and tail q are
    printed.  Then the bi-material interface at 4097^2 in the plain form, 4
    cycles at eps 0: the iterate bitwise the whole field's.
-19. Print A1's and A2's 4097^2 times in every form held, each beside its
+19. The one-dispatch solves (``solvers/common.py::ChunkGraphs``): every
+   solve above runs its fused entry point on the card, which replays one
+   CUDA graph per chunk of cycles; here each of ``interface_4097`` (f32
+   and bf16), ``poisson_4097``, ``pswrr_interface_4097``,
+   ``pcg_interface_4097``, ``hmg_4097``, ``hmg_interface_4097``,
+   ``boxmg_4097``, ``poisson_4097_r1``, ``ir_4097``, ``elastic_2049`` and
+   ``elastic_pcg_2049`` runs both ways on a fresh solver (``graph_cell``):
+   the capturing solve and a warm one must equal the eager loop
+   (``graph=False``) bit for bit in history, cycle count and iterate, with
+   the eager loop's launch counts (a replay adds what its capture
+   launched); the warm solve's own wrapper calls must be only those outside
+   the captured chunks (none; A6's peeled descent and closing ascent; the
+   CG start); the solver must hold one capture per key; a re-solve from
+   another u0 (H-MG: with another net) must equal its eager twin and leave
+   the first returned u unchanged; ``interface_4097`` replays bit for bit
+   with TF32 switched on after its capture.  Both paths' walls per cycle
+   (best of three), torch.profiler's device time per cycle and busy share
+   are printed (``graph_cells``).
+20. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
    interface solve (``a34_levels``), the bf16 times beside their bf16 byte
    bounds and this run's f32 times (``bf16_times``), the kernel summary
@@ -4077,6 +4095,226 @@ def run_slice22() -> dict:
     return in_world1(run)
 
 
+# The one-dispatch solves: on the card each fused entry point replays its
+# captured chunks (solvers/common.py::ChunkGraphs); ``graph=False`` runs its
+# eager loop, the twin every replayed solve is held to bit for bit.  Per
+# cell: (solver, solve(solver, graph, alt) -> (u, history), cycles run by a
+# history, the wrapper calls a warm solve makes outside its replays, the
+# captures the solver holds after it).  ``alt`` re-solves from another u0
+# (and, for H-MG, with other H-Net kernels).
+HNET_L1_ALT = "results/learn_iterator/hnet_decay_L1_hl1.npz"
+
+
+def zero_counts() -> dict:
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = k.replayed = 0
+    return kernels
+
+
+def own_calls(run):
+    """``run()`` with every count zeroed just before it: its result, the
+    launches of each kernel (replays included) and the wrapper calls made
+    outside the replays."""
+    import torch
+
+    kernels = zero_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = {key: k.launches for key, k in kernels.items() if k.launches}
+    own = {key: k.launches - k.replayed for key, k in kernels.items() if k.launches - k.replayed}
+    return out, launches, own
+
+
+def same_bits(a, b) -> bool:
+    (ua, ha), (ub, hb) = a, b
+    return (ua.dtype == ub.dtype and bool((ua == ub).all()) and len(ha) == len(hb)
+            and np.array_equal(ha, hb))
+
+
+def graph_cell(label: str, solver, solve, cycles_of, outside: dict, captures: int,
+               tf32_check: bool = False) -> dict:
+    """Hold one cell's replayed solve to its eager loop bit for bit (the
+    first, capturing solve and a warm one), its launch counts to the eager
+    loop's, the warm solve's own wrapper calls to ``outside``, the solver's
+    captures to ``captures``; a re-solve with other inputs both ways, bit
+    for bit, leaving the warm solve's u unchanged.  Then the walls (best of
+    three) and torch.profiler's device time of both paths."""
+    import torch
+
+    before = solver.graphs.captures
+    cold = solve(solver, True, False)
+    eager, launches_e = counted(lambda: solve(solver, False, False))
+    warm, launches_g, own = own_calls(lambda: solve(solver, True, False))
+    kept = warm[0].clone()
+    alt_g, alt_e = solve(solver, True, True), solve(solver, False, True)
+    checks = dict(cold_bitwise=same_bits(cold, eager), warm_bitwise=same_bits(warm, eager),
+                  alt_bitwise=same_bits(alt_g, alt_e), first_u_kept=bool((warm[0] == kept).all()),
+                  launches_equal=launches_g == launches_e, own_calls=own == outside,
+                  captures=solver.graphs.captures == captures and before < captures)
+    if tf32_check:
+        # the graph keeps the TF32 settings in force at its capture
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            checks["tf32_flip_bitwise"] = same_bits(solve(solver, True, False), eager)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    hist = eager[1]
+    cycles = cycles_of(hist)
+    rec = dict(solve=label, cycles=len(hist), cycles_run=cycles, captures=solver.graphs.captures,
+               own_calls=own, launches=launches_g, checks=checks)
+    for path, graph in (("graph", True), ("eager", False)):
+        def run(graph=graph):
+            return solve(solver, graph, False)
+
+        walls = timed_runs(f"{label}_{path}", run, hist)
+        prof = profile_solve(run, cycles, min(walls))
+        rec[path] = dict(ms_per_cycle=1e3 * min(walls) / cycles, walls_s=walls,
+                         busy_ms_per_cycle=prof.get("busy_ms_per_cycle"),
+                         busy_share=prof.get("busy_share_of_wall"),
+                         profiled_launches=sum(r["launches"] for k, r in
+                                               prof.get("by_kernel", {}).items()
+                                               if not k.startswith("torch:")),
+                         tf32_kernels=prof.get("tf32_kernels", []))
+    print(json.dumps({"graph_cell": rec}), flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"{label}: the replayed solve misses {failed}: own calls {own} (expected "
+             f"{outside}), captures {solver.graphs.captures} (expected {captures})")
+    if rec["graph"]["tf32_kernels"]:
+        fail(f"{label}: the replayed solve ran TF32 kernels: {rec['graph']['tf32_kernels']}")
+    return rec
+
+
+def run_graph_cells() -> list:
+    """The replayed solves of the seven entry points against their eager
+    loops (``graph_cell``), on the 4097^2 and 2049^2 cells."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.ops.boxmg import boxmg_setup
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+    from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
+    from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
+    from multigrid_feanet_torch.solvers.mg import solve_ir
+
+    eps, recs, starts = 1e-6, [], {}
+
+    def decay(solver, alt):
+        """The decay start on the solver's finest level, drawn once per
+        solver (drawing takes longer than a solve); ``alt``: another u0,
+        150000 * uniform(rng 1) on the interior."""
+        if starts.get("solver") is not solver:
+            u0, f0 = decay_start(solver.hier.finest)
+            u1 = np.random.default_rng(1).uniform(size=tuple(u0.shape)).astype(np.float32)
+            u1 = 150000.0 * torch.as_tensor(u1, device=DEVICE) * solver.hier.finest.geo
+            starts.update(solver=solver, fields={False: (u0, f0), True: (u1, f0)})
+        return starts["fields"][alt]
+
+    def lagged(chunk):
+        return lambda hist: chunk * -(-(len(hist) + 1) // chunk)
+
+    def v2_solve(**opts):
+        def solve(hv, graph, alt):
+            u0, f0 = decay(hv, alt)
+            return hv.solve(f0, u0=u0, eps=eps, max_cycles=120, chunk=2, graph=graph, **opts)
+        return solve
+
+    v2 = [("interface_4097", True, None, {}), ("interface_4097_bf16", True, torch.bfloat16, {}),
+          ("poisson_4097", False, None, {}), ("pswrr_interface_4097", True, None,
+                                              dict(use_pswrr=True))]
+    for label, bim, dtype, opts in v2:
+        hv = build_hierarchy(N_MAIN, bim, 9, 32, DEVICE, dtype)
+        K = hv.K
+        # outside A6's chunks: the peeled descent (A2 and the coarse
+        # correction's A3/A4 on levels 1..K-1) and the closing ascent (A1)
+        outside = {"A2": 1, "A3": K - 1, "A4": K - 1, "A1": 1} if opts else {}
+        recs.append(graph_cell(label, hv, v2_solve(**opts), lagged(2), outside, 1,
+                               tf32_check=label == "interface_4097"))
+        if label == "interface_4097":
+            def pcg(hv, graph, alt):
+                u0, f0 = decay(hv, alt)
+                return hv.solve_pcg(f0, u0=u0, eps=eps, max_iters=60, graph=graph)
+
+            # outside the iterations: the start's residual (A1) and
+            # preconditioner (A3/A4 on levels 0..K-1)
+            recs.append(graph_cell("pcg_interface_4097", hv, pcg, len,
+                                   {"A1": 1, "A3": K, "A4": K}, 3))
+        del hv
+
+    for label, bim, cap in (("hmg_4097", False, 40), ("hmg_interface_4097", True, 60)):
+        params = {False: load_params(HNET_L1), True: load_params(HNET_L1_ALT)}
+        hm = HMGHierarchy(Problem(n=N_MAIN, inclusion=CIRCLE if bim else None), num_levels=9,
+                          kernel_threshold=32, direct_coarse=True, dform=bim, device=DEVICE)
+
+        def hmg(hm, graph, alt, cap=cap):
+            u0, f0 = decay(hm, alt)
+            return hm.solve(params[alt], f0, u0=u0, eps=eps, max_cycles=cap, chunk=2,
+                            graph=graph)
+
+        recs.append(graph_cell(label, hm, hmg, lagged(2), {}, 1))
+        del hm
+
+    prob = Problem(n=N_MAIN, inclusion=CIRCLE)
+    hier = GridHierarchy.create(prob, 9, device=DEVICE)
+    bm = BoxMGHierarchy(prob, num_levels=9, kernel_threshold=32, direct_coarse=True, hier=hier,
+                        setup=boxmg_setup(hier, 9, dtype=torch.float32),
+                        coef_dtype=torch.bfloat16, device=DEVICE)
+
+    def boxmg(bm, graph, alt):
+        u0, f0 = decay(bm, alt)
+        return bm.solve(f0, u0=u0, eps=eps, max_cycles=60, chunk=2, graph=graph)
+
+    recs.append(graph_cell("boxmg_4097", bm, boxmg, lagged(2), {}, 1))
+    del bm, hier
+
+    r1 = build_r1(N_MAIN, False, 9, 32)
+
+    def r1_solve(h, graph, alt):
+        u0, f0 = decay(h, alt)
+        return h.solve(f0, u0=u0, eps=eps, max_cycles=60, graph=graph)
+
+    recs.append(graph_cell("poisson_4097_r1", r1, r1_solve, len, {}, 1))
+    del r1
+
+    hv = build_hierarchy(N_MAIN, False, 9, 32, DEVICE)
+    f_ir = apply_mass(torch.ones((N_MAIN + 1, N_MAIN + 1), device=DEVICE), hv.hier.finest.h)
+
+    def ir(hv, graph, alt):
+        u0 = decay(hv, True)[0] * 1e-9 if alt else None
+        return solve_ir(hv, f_ir, u0=u0, eps=eps, cycles_per_correction=6, max_outer=12,
+                        graph=graph)
+
+    recs.append(graph_cell("ir_4097", hv, ir, lambda hist: 6 * (len(hist) - 1), {}, 1))
+    del hv
+    starts.clear()
+
+    he = build_elastic(16)
+    rng = {alt: np.random.default_rng(1 + alt).standard_normal((2, N_EL + 1, N_EL + 1))
+           for alt in (False, True)}
+    u0s = {alt: torch.as_tensor(v.astype(np.float32), device=DEVICE) for alt, v in rng.items()}
+    f_el = torch.zeros_like(u0s[False])
+
+    def elastic(he, graph, alt):
+        return he.solve(f_el, u0=u0s[alt], nu1=2, nu2=2, eps=0.0, max_cycles=12, graph=graph)
+
+    def elastic_pcg(he, graph, alt):
+        return he.solve_pcg(f_el, u0=u0s[alt], nu1=2, nu2=2, eps=0.0, max_iters=16,
+                            graph=graph)
+
+    recs.append(graph_cell("elastic_2049", he, elastic, lambda hist: 12, {}, 1))
+    # outside the iterations: the start's residual (G1) and its V(2,2)
+    # preconditioner from zero (2 G1, G2 and G3 on levels 0..K-1)
+    recs.append(graph_cell("elastic_pcg_2049", he, elastic_pcg, len,
+                           {"G1": 1 + 2 * he.K, "G2": he.K, "G3": he.K}, 3))
+    del he
+    print(json.dumps({"graph_cells": [
+        dict(solve=r["solve"], cycles=r["cycles"], captures=r["captures"],
+             **{f"{path}_{key}": r[path][key] for path in ("graph", "eager")
+                for key in ("ms_per_cycle", "busy_ms_per_cycle", "busy_share",
+                            "profiled_launches")}) for r in recs]}), flush=True)
+    return recs
+
+
 def hslab_rows(s22: dict) -> list:
     """The kernel line's rows of E2's and E3's slab forms: at the world-1
     slab of sharded_hmg_4097's level 0 (homogeneous), with its launches and
@@ -4166,9 +4404,36 @@ def summary_row(key: str, rec: dict, launches: int, path: str) -> dict:
                    if t in rec})
 
 
+def stamp(label: str, since: float) -> None:
+    """Print the seconds since ``since`` at the end of a phase: the run's
+    time budget, phase by phase."""
+    print(json.dumps({"phase_done": label, "elapsed_s": time.time() - since}), flush=True)
+
+
+def time_captures() -> dict:
+    """Count the CUDA graph captures of every solver from here on and the
+    seconds they take (``torch.cuda.graph`` synchronizes, collects garbage
+    and empties the allocator's cache before each)."""
+    from multigrid_feanet_torch.solvers.common import ChunkGraphs
+
+    stats, capture = dict(captures=0, seconds=0.0), ChunkGraphs._capture
+
+    def timed(graphs, body):
+        t0 = time.time()
+        try:
+            return capture(graphs, body)
+        finally:
+            stats["captures"] += 1
+            stats["seconds"] += time.time() - t0
+
+    ChunkGraphs._capture = timed
+    return stats
+
+
 def main() -> int:
     import torch
 
+    start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4197,6 +4462,7 @@ def main() -> int:
                                                                      log, re.M)}
     print(json.dumps(dict(build_s=build_s, compile_s=compile_s, ptxas=regs[:60],
                           warnings=warnings[:20])), flush=True)
+    captures = time_captures()
 
     checks = []
     a13 = ["A1_sweep", "A1_residual", "A1_psweep", "A2"]
@@ -4226,12 +4492,14 @@ def main() -> int:
     print(json.dumps({"a34_kernel_checks": a34checks}), flush=True)
     check_repeat()
 
+    stamp("a_kernels", start)
     check_small_against_cpu()
     a_keys = ("A1", "A2", "A3", "A4")
     solves = [run_solve(label, lambda bim=bim: build_hierarchy(N_MAIN, bim, 9, 32, DEVICE),
                         a_keys, 120)
               for label, bim in (("interface_4097", True), ("poisson_4097", False))]
 
+    stamp("v2_cells", start)
     prob, hier, setup = boxmg_setup_on_card()
     gchecks = []
     for dt in (torch.bfloat16, torch.float32):
@@ -4258,6 +4526,7 @@ def main() -> int:
     print(json.dumps({"e5_variants": check_e5_variants()}), flush=True)
     print(json.dumps({"e4_variants": check_e4_variants()}), flush=True)
 
+    stamp("boxmg", start)
     hmg_solves = list(run_hmg_cells().values())
     for rec in hmg_solves:  # E2 adds its norm in its last block; E3-E5 have none
         norm_passes(rec["solve"], rec, 0)
@@ -4274,6 +4543,7 @@ def main() -> int:
     print(json.dumps({"g1_variants": check_g1_variants()}), flush=True)
     print(json.dumps({"g5_variants": check_g5_variants()}), flush=True)
     print(json.dumps({"g4_variants": check_g4_variants()}), flush=True)
+    stamp("hmg", start)
     cells = run_elastic_cells()
     # G1 and G2 add their norms in their last block: no elastic solve
     # launches a norm pass
@@ -4293,6 +4563,7 @@ def main() -> int:
     print(json.dumps({"c2_variants": check_c2_variants()}), flush=True)
     print(json.dumps({"a6_variants": check_a6_variants()}), flush=True)
     print(json.dumps({"a5_variants": check_a5_variants()}), flush=True)
+    stamp("elastic", start)
     r1 = run_r1_cells()
     for label, rec in r1.items():  # C1 and C2 add their norms in their last block
         norm_passes(label, rec, 0)
@@ -4317,6 +4588,7 @@ def main() -> int:
         rec["bound_ms"], rec["bound_by"] = bound(rec["name"][:2], rec)
     print(json.dumps({"r6_kernel_checks": r6checks}), flush=True)
     print(json.dumps({"h1_variants": check_h1_variants()}), flush=True)
+    stamp("round1", start)
     pbc_cells = run_pbc_cells()
     heat = run_heat_cell()
     small_r6 = check_r6_small_against_cpu()
@@ -4338,6 +4610,7 @@ def main() -> int:
     print(json.dumps({"f1_variants": check_f1_variants()}), flush=True)
     a1_plain = next(c for c in checks if c["name"] == "A1_sweep" and c["n"] == N_MAIN
                     and c["bim"] and not c["dform"])
+    stamp("periodic_heat", start)
     membench = run_membench_cell(r7checks[:2], a1_plain)
     qsweep_cell = run_qsweep_cell()
     hjac = run_hjac_cell()
@@ -4349,6 +4622,7 @@ def main() -> int:
     # slice 10: A1-A6 in bf16 storage against their plain versions, bench.py's
     # bf16 sweep row, the bf16 V2 solves and two 129^2 bf16 solves against
     # the CPU
+    stamp("slice7", start)
     bf_checks = check_bf16_kernels()
     bench_bf16 = run_bench_bf16_sweep(bf_checks, membench)
     bf_cells = run_bf16_cells({rec["solve"]: rec for rec in solves}, ir)
@@ -4356,16 +4630,25 @@ def main() -> int:
 
     # slice 11: the learned inter-grid operators and the elastic H-Net, which
     # launch no kernel
+    stamp("bf16", start)
     run_slice11()
 
     # the research solvers: the block-BoxMG elastic and adaptive scalar
     # BoxMG solvers in torch ops, which launch no kernel of the port
+    stamp("slice11", start)
     run_research_solvers()
 
     # slice 21: the slab forms of A1-A4, the world-1 sharded solvers
+    stamp("research", start)
     s21 = run_slice21()
     # slice 22: the slab forms of E2 and E3, the world-1 sharded H-MG
+    stamp("slice21", start)
     s22 = run_slice22()
+    stamp("slice22", start)
+    # slice 23: the replayed solves against their eager loops
+    run_graph_cells()
+    stamp("graph_cells", start)
+    print(json.dumps({"graph_captures": captures}), flush=True)
 
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must

@@ -453,7 +453,13 @@ class CudaKernel:
     ``source`` is the repository path of the file that defines it.
 
     ``launches`` rises by one for every launch of the kernel, and nowhere
-    else; callers may reset it to 0."""
+    else; callers may reset it to 0.  A launch recorded into a CUDA graph
+    counts at each replay of the graph (``solvers/common.py::ChunkGraphs``),
+    which adds it to ``launches`` and to ``replayed`` (so ``launches -
+    replayed`` are the wrapper's own calls).  Every instance is listed in
+    ``CudaKernel.instances``."""
+
+    instances: list = []
 
     def __init__(self, name: str, symbol: str, argtypes, replaces: str, source: str):
         self.name = name
@@ -461,8 +467,10 @@ class CudaKernel:
         self.replaces = replaces
         self.source = source
         self.launches = 0
+        self.replayed = 0
         self._argtypes = argtypes
         self._fn = None
+        CudaKernel.instances.append(self)
 
     def __call__(self, *args):
         if self._fn is None:

@@ -37,7 +37,7 @@ from multigrid_feanet_torch.ops.boxmg import apply_s9, boxmg_setup, prolong_w4, 
 from multigrid_feanet_torch.ops.general import GeneralSweepLevel
 from multigrid_feanet_torch.solvers.coarse import coarse_solve
 from multigrid_feanet_torch.solvers.common import (
-    pcg_buffers, solve_cycles, solve_pcg, start_fields)
+    ChunkGraphs, chunk_graphs, pcg_buffers, solve_cycles, solve_pcg, start_fields)
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -105,6 +105,7 @@ class BoxMGHierarchy:
         self._u = {l: (self._field(l), self._field(l)) for l in range(1, K)}
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
         self._cg = None  # level 0's iterate pair and the CG vectors, at the first solve_pcg
+        self.graphs = ChunkGraphs(device)
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.hier.levels[l].n_nodes
@@ -188,25 +189,29 @@ class BoxMGHierarchy:
         return cur, spare
 
     def solve(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
-              eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1):
+              eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1, graph: bool = True):
         """V-cycle solve to interior residual ``eps``; the same arguments,
-        returns and extra-cycle semantics as ``HierarchyV2.solve``."""
+        returns, extra-cycle semantics and CUDA graph replays as
+        ``HierarchyV2.solve``."""
         return solve_cycles(
             lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
-            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk)
+            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk,
+            graphs=chunk_graphs(self, graph), key=("solve", nu1, nu2))
 
     def solve_pcg(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
-                  eps: float = 1e-6, max_iters: int = 60):
+                  eps: float = 1e-6, max_iters: int = 60, graph: bool = True):
         """Flexible CG with one BoxMG V(nu1, nu2) cycle from zero as the
         preconditioner (at level 0, bi-material: D2 and D3), ``A p`` through
         A1's residual mode with f = 0 and the true residual recomputed
         every iteration: ``solvers/common.py::solve_pcg``, shared with
         ``HierarchyV2.solve_pcg``.  Returns ``(u, history)`` with the
         post-iteration history (the returned u's residual is
-        ``history[-1]``)."""
+        ``history[-1]``); on the card each iteration after the start is one
+        CUDA graph replay (``graph=False``: the eager loop)."""
         if self._cg is None:
             self._u.setdefault(0, (self._field(0), self._field(0)))
             self._cg = pcg_buffers(self._field(0))
         f, u = start_fields(self.hier.finest, f, u0, bc_value)
         return solve_pcg(self.kernel_levels[0], lambda r: self._coarse_correction(0, r, nu1, nu2),
-                         f, u, self._cg, eps, max_iters)
+                         f, u, self._cg, eps, max_iters, chunk_graphs(self, graph),
+                         ("pcg", nu1, nu2))

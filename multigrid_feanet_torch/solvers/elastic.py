@@ -46,7 +46,8 @@ from multigrid_feanet_torch.ops.elastic import ElasticSweepLevel
 from multigrid_feanet_torch.ops.stencil import pattern_ids_np
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse_elastic, coarse_solve_elastic
-from multigrid_feanet_torch.solvers.common import pcg_buffers, solve_cycles, solve_pcg
+from multigrid_feanet_torch.solvers.common import (
+    ChunkGraphs, chunk_graphs, pcg_buffers, solve_cycles, solve_pcg)
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -246,6 +247,7 @@ class ElasticHierarchy:
         self._u = {l: (self._field(l), self._field(l)) for l in range(1, K)}
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
         self._cg = None
+        self.graphs = ChunkGraphs(device)
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.levels[l].n_nodes
@@ -332,17 +334,20 @@ class ElasticHierarchy:
         return cur, spare
 
     def solve(self, f, u0=None, bc_value=None, nu1: int = 2, nu2: int = 2,
-              eps: float = 1e-8, max_cycles: int = 100, chunk: int = 1):
+              eps: float = 1e-8, max_cycles: int = 100, chunk: int = 1, graph: bool = True):
         """V-cycle solve to interior residual ``eps`` (both components).
 
         ``f`` is the (2, n+1, n+1) RHS (tensor or array).  Returns ``(u,
         history)`` in the convention of ``solvers/common.py``:
         ``history[j]`` is the residual after cycle j+1, and ``u`` includes
-        one cycle beyond ``history`` plus up to ``chunk - 1`` more."""
+        one cycle beyond ``history`` plus up to ``chunk - 1`` more.  On the
+        card each chunk is one CUDA graph replay (``graph=False``: the eager
+        loop)."""
         self._check_schedule(nu1, nu2)
         return solve_cycles(
             lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
-            self.levels[0], self._rhs(f), u0, bc_value, eps, max_cycles, chunk)
+            self.levels[0], self._rhs(f), u0, bc_value, eps, max_cycles, chunk,
+            graphs=chunk_graphs(self, graph), key=("solve", nu1, nu2))
 
     # ---- Krylov acceleration ----
 
@@ -360,7 +365,7 @@ class ElasticHierarchy:
         self._cg = pcg_buffers(self._field(0))
 
     def solve_pcg(self, f, u0=None, nu1: int = 2, nu2: int = 2, eps: float = 1e-8,
-                  max_iters: int = 60):
+                  max_iters: int = 60, graph: bool = True):
         """Flexible CG with one fused V(nu1, nu2) cycle from zero as the
         preconditioner (``solvers/common.py::solve_pcg``: Polak-Ribiere beta
         clipped at 0, the true residual recomputed by G1 every iteration --
@@ -370,7 +375,8 @@ class ElasticHierarchy:
         Returns ``(u, history)``: ``history[j]`` is the interior residual
         norm after iteration j+1 (post-iteration, no lag: the returned u's
         residual is ``history[-1]``).  The loop reads two scalars back once
-        per iteration."""
+        per iteration; on the card each iteration after the start is one
+        CUDA graph replay (``graph=False``: the eager loop)."""
         self._check_schedule(nu1, nu2)
         if self._cg is None:
             self._cg_buffers()
@@ -379,4 +385,5 @@ class ElasticHierarchy:
             u0, dtype=torch.float32, device=self.device)
         u = (u * self.levels[0].geo).contiguous()
         return solve_pcg(self.sweep_levels[0], lambda r: self._coarse_correction(0, r, nu1, nu2),
-                         f, u, self._cg, eps, max_iters)
+                         f, u, self._cg, eps, max_iters, chunk_graphs(self, graph),
+                         ("pcg", nu1, nu2))

@@ -25,9 +25,10 @@ Port of ``multigrid_feanet_tpu/solvers/hmg.py``.  Two solvers:
   - level K: the plain subtree.
 
   The solve loop, history convention (free pre-update residual, one extra
-  cycle in the returned u) and one host sync per chunk are those of
-  ``solvers/common.py``.  Level buffers are allocated once, so on the card
-  the cycles allocate nothing above the plain subtree.
+  cycle in the returned u), one host sync per chunk and, on the card, one
+  CUDA graph replay per chunk are those of ``solvers/common.py``.  Level
+  buffers are allocated once, so on the card the cycles allocate nothing
+  above the plain subtree.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from multigrid_feanet_torch.ops.sweep import SweepLevel
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 from multigrid_feanet_torch.solvers import jacobi
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse, coarse_solve
-from multigrid_feanet_torch.solvers.common import solve_cycles
+from multigrid_feanet_torch.solvers.common import ChunkGraphs, chunk_graphs, solve_cycles
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 MODES = ("hjac", "jac")
@@ -157,6 +158,7 @@ class HMGHierarchy:
         self._zero = {} if coarse_zero_legs else {
             l: self._field(l).zero_() for l in range(1, min(K, self.h_levels))}
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
+        self.graphs = ChunkGraphs(device)
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.hier.levels[l].n_nodes
@@ -229,7 +231,7 @@ class HMGHierarchy:
         return u, sp
 
     def solve(self, params, f, u0=None, bc_value=0.0, eps: float = 5e-5,
-              max_cycles: int = 100, chunk: int = 1):
+              max_cycles: int = 100, chunk: int = 1, graph: bool = True):
         """H-MG solve to interior residual ``eps`` with the (L, 3, 3) H-Net
         kernels ``params`` (tensor or array).
 
@@ -238,8 +240,11 @@ class HMGHierarchy:
         is the interior residual norm after cycle j+1, and ``u`` includes
         one cycle beyond ``history`` plus up to ``chunk - 1`` more, the loop
         testing ``eps`` once per ``chunk`` cycles (its one host sync per
-        chunk).  ``chunk=1`` is the JAX solver's semantics."""
+        chunk).  ``chunk=1`` is the JAX solver's semantics.  On the card
+        each chunk is one replay of a CUDA graph, which reads a static copy
+        of ``params`` (``graph=False``: the eager loop)."""
         params = self._params(params)
         return solve_cycles(
-            lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, params, rsq),
-            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk)
+            lambda u, sp, fb, rsq, params: self._cycle0(u, sp, fb, params, rsq),
+            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk, extra=(params,),
+            graphs=chunk_graphs(self, graph), key=("solve",))

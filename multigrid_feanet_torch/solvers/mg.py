@@ -7,7 +7,8 @@ runs the V-cycle of ``solvers/multigrid.py`` with the levels at or above
 sweeps in one pass); the levels below, the transfers and the direct coarse
 solve are plain torch ops.  Unlike ``HierarchyV2`` it computes an explicit
 post-cycle residual, so ``history[-1]`` is the residual of the returned
-``u``; the loop reads it back once per cycle.
+``u``; the loop reads it back once per cycle.  On the card the cycle and its
+residual norm are one replay of a CUDA graph (``solvers/common.py``).
 
 :func:`solve_ir` keeps an f64 iterate and residual and solves each
 correction with a few f32 V-cycles of a :class:`Hierarchy` or a
@@ -18,6 +19,7 @@ right-hand side.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -29,7 +31,7 @@ from multigrid_feanet_torch.ops.stencil_sweep import StencilLevel
 from multigrid_feanet_torch.solvers import jacobi as jac
 from multigrid_feanet_torch.solvers import multigrid as mg
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse
-from multigrid_feanet_torch.solvers.common import start_fields
+from multigrid_feanet_torch.solvers.common import ChunkGraphs, chunk_graphs, start_fields
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -62,6 +64,7 @@ class Hierarchy:
                           **({} if lv.pid is None else dict(coefficients=(lv.a0, lv.a1))))
              if lv.n >= kernel_threshold else None)
             for lv in hier.levels]
+        self.graphs = ChunkGraphs(device)
 
     # ---- level-local ops ----
 
@@ -97,22 +100,43 @@ class Hierarchy:
     # ---- solve entry points ----
 
     def solve(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
-              eps: float = 1e-6, max_cycles: int = 100):
+              eps: float = 1e-6, max_cycles: int = 100, graph: bool = True):
         """V-cycle solve to interior residual ``eps``.
 
         ``f`` is the mass-convolved RHS as an (n+1, n+1) field (tensor or
         array).  Returns ``(u, history)``: ``history[k]`` is the residual
         norm after cycle k+1, computed explicitly after the cycle, and
         ``len(history)`` the cycles run, so ``history[-1]`` is the residual
-        of the returned ``u``."""
+        of the returned ``u``.  On the card each cycle with its norm is one
+        replay of a CUDA graph on static copies of f and u, the norm staying
+        on the device until the loop reads it (``graph=False``: the eager
+        loop)."""
         f, u = start_fields(self.hier.finest, f, u0, bc_value)
+        graphs = chunk_graphs(self, graph)
+        if graphs is not None:
+            key = ("solve", nu1, nu2)
+            st = graphs.statics(key, lambda: SimpleNamespace(
+                f=torch.empty_like(f), u=torch.empty_like(u),
+                norm=torch.empty((), dtype=torch.float32, device=self.device)))
+            st.f.copy_(f)
+            st.u.copy_(u)
+
+            def body():
+                v = self.v_cycle(st.u, st.f, nu1, nu2)
+                st.norm.copy_(self._res_norm(v, st.f))
+                st.u.copy_(v)
+
         eps32 = float(np.float32(eps))  # the f32 comparison of the JAX loop
         hist, res = [], float("inf")
         while res > eps32 and len(hist) < max_cycles:
-            u = self.v_cycle(u, f, nu1, nu2)
-            res = float(self._res_norm(u, f))  # the one host sync per cycle
+            if graphs is None:
+                u = self.v_cycle(u, f, nu1, nu2)
+                res = float(self._res_norm(u, f))  # the one host sync per cycle
+            else:
+                graphs.run(key, body)
+                res = float(st.norm.cpu())
             hist.append(res)
-        return u, np.asarray(hist, dtype=np.float32)
+        return (u if graphs is None else st.u.clone()), np.asarray(hist, dtype=np.float32)
 
     def solve_jacobi(self, f, u0=None, bc_value=None, eps: float = 1e-5,
                      max_iters: int = 100_000, fuse: int = 1):
@@ -158,7 +182,7 @@ def _f64_twin(h):
 
 
 def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: float = 1e-6,
-             cycles_per_correction: int = 4, max_outer: int = 20):
+             cycles_per_correction: int = 4, max_outer: int = 20, graph: bool = True):
     """Mixed-precision iterative refinement to absolute residual ``eps``.
 
     ``h`` is a :class:`Hierarchy` or a ``solvers.mg2.HierarchyV2``.  The
@@ -173,7 +197,8 @@ def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: floa
 
     At ``max_outer`` the JAX solver computes one more correction and
     throws it away; this one returns the same ``u`` and history without
-    that solve."""
+    that solve.  The corrections replay ``h.solve``'s CUDA graphs on the
+    card (``graph=False``: its eager loop); the f64 steps run eagerly."""
     lv64 = _f64_twin(h)
     geo64 = lv64.geo
     f64 = torch.as_tensor(f, dtype=torch.float64, device=lv64.device)
@@ -191,5 +216,5 @@ def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: floa
             break
         # the correction, with zero Dirichlet data
         e32, _ = h.solve(r.float(), nu1=nu1, nu2=nu2, eps=0.0,
-                         max_cycles=cycles_per_correction)
+                         max_cycles=cycles_per_correction, graph=graph)
     return u, np.asarray(history)

@@ -20,14 +20,17 @@ correction back), and ``solve`` returns a bf16 ``u`` with an f32 history.
 
 The convergence test rides the pre-update residual norm that the first
 level-0 kernel of every cycle emits for free.  The history stays on the
-device in a preallocated tensor with -1 sentinels and is read back once per
-``chunk`` cycles: one host sync per chunk.  The fused levels' buffers and
-kernel scratch are allocated once, so on the card the cycles allocate
-nothing above the plain subtree.
+device and is read back once per ``chunk`` cycles: one host sync per chunk.
+The fused levels' buffers and kernel scratch are allocated once, so on the
+card the cycles allocate nothing above the plain subtree.  On the card each
+chunk of cycles (of A6 steps with ``use_pswrr``, each CG iteration) is one
+replay of a CUDA graph captured once per schedule and chunk
+(``solvers/common.py::ChunkGraphs``, kept in ``HierarchyV2.graphs``).
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -40,7 +43,8 @@ from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_
 from multigrid_feanet_torch.solvers import jacobi as jac
 from multigrid_feanet_torch.solvers.coarse import coarse_inverse, coarse_solve
 from multigrid_feanet_torch.solvers.common import (
-    pcg_buffers, solve_cycles, solve_pcg, start_fields, trim_history)
+    ChunkGraphs, chunk_graphs, pcg_buffers, solve_cycles, solve_pcg, start_fields,
+    trim_history)
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 
@@ -111,6 +115,7 @@ class HierarchyV2:
         self._u = {l: (self._field(l), self._field(l)) for l in range(1, K)}
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
         self._cg = None  # level 0's iterate pair and the CG vectors, at the first solve_pcg
+        self.graphs = ChunkGraphs(device)
 
     def _field(self, l: int) -> torch.Tensor:
         H = self.hier.levels[l].n_nodes
@@ -195,7 +200,7 @@ class HierarchyV2:
 
     def solve(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
               eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1,
-              use_pswrr: bool = False):
+              use_pswrr: bool = False, graph: bool = True):
         """V-cycle solve to interior residual ``eps``.
 
         ``f`` is the mass-convolved RHS as an (n+1, n+1) field (tensor or
@@ -214,42 +219,85 @@ class HierarchyV2:
         even.  The history and the extra-cycle convention are the same.
 
         With bf16 storage ``f`` and ``u0`` are rounded to bf16 (as the JAX
-        solver pads them) and ``u`` comes back in bf16."""
+        solver pads them) and ``u`` comes back in bf16.
+
+        On the card each chunk is one replay of a CUDA graph (with
+        ``use_pswrr``, the chunk of A6 steps between the peeled descent and
+        the closing ascent), bit for bit the eager loop, which ``graph=False``
+        runs instead."""
+        graphs = chunk_graphs(self, graph)
         if use_pswrr and nu1 == 1 and nu2 == 1:
-            return self._solve_pswrr(f, u0, bc_value, eps, max_cycles, chunk + (chunk & 1))
+            return self._solve_pswrr(f, u0, bc_value, eps, max_cycles, chunk + (chunk & 1),
+                                     graphs)
         return solve_cycles(
             lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
-            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk, self.dtype)
+            self.hier.finest, f, u0, bc_value, eps, max_cycles, chunk, self.dtype,
+            graphs=graphs, key=("solve", nu1, nu2))
 
-    def _solve_pswrr(self, f, u0, bc_value, eps, max_cycles, chunk):
-        """The V(1,1) solve on A6; port of ``pallas_mg2.py:270-312``."""
+    def _solve_pswrr(self, f, u0, bc_value, eps, max_cycles, chunk, graphs=None):
+        """The V(1,1) solve on A6; port of ``pallas_mg2.py:270-312``.  With
+        ``graphs`` each chunk of A6 steps (``chunk`` is even, so the iterate
+        pair ends each chunk where it began) is one graph replay on static
+        copies of f, the pair and the coarse correction."""
         p = self.sweep_levels[0]
         fb, u = start_fields(self.hier.finest, f, u0, bc_value, self.dtype)
         rsq, fc1 = torch.empty_like(self._rsq_scratch), self._fc[1]
+        if graphs is None:
+            pair, norms = (torch.empty_like(u), u), None
+        else:
+            key = ("pswrr", chunk, self.dtype)
+            st = graphs.statics(key, lambda: SimpleNamespace(
+                f=torch.empty_like(fb), pair=(torch.empty_like(u), torch.empty_like(u)),
+                # the coarse correction: level 1's own buffer when it is a
+                # fused level (the same one every cycle), else a copy
+                uc=self._u[1][0] if self.K > 1 else torch.empty_like(self._fc[1]),
+                rsq=torch.empty_like(rsq),
+                norms=torch.empty(chunk, dtype=torch.float32, device=self.device)))
+            st.f.copy_(fb)
+            fb, pair, ucs, rsq, norms = st.f, st.pair, st.uc, st.rsq, st.norms
         hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=self.device)
         # the peeled first descent: hist[0] is the residual of u0
-        u1, free = torch.empty_like(u), u
+        u1, free = pair
         p.sweep_restrict(u, fb, out=u1, fc_out=fc1, rsq=rsq)
         torch.sqrt(rsq, out=hist[0])
         uc = self._coarse_correction(1, fc1, 1, 1)
-        eps32 = float(np.float32(eps))
-        k, res = 1, float("inf")
-        while res > eps32 and k < max_cycles - 1:
-            for _ in range(chunk):
+
+        def steps(u1, free, uc, out):
+            for i in range(chunk):
                 # ends cycle k (rsq: its residual) and starts cycle k + 1
                 p.pswrr(u1, fb, uc, out=free, fc_out=fc1, rsq=rsq)
                 u1, free = free, u1
                 uc = self._coarse_correction(1, fc1, 1, 1)
-                torch.sqrt(rsq, out=hist[k])
-                k += 1
+                torch.sqrt(rsq, out=out[i])
+            return u1, free, uc
+
+        def body():
+            _, _, last = steps(*pair, ucs, norms)
+            if last is not ucs:
+                ucs.copy_(last)
+
+        if graphs is not None:  # the graph reads the coarse correction from ucs
+            if uc is not ucs:
+                ucs.copy_(uc)
+            uc = ucs
+        eps32 = float(np.float32(eps))
+        k, res = 1, float("inf")
+        while res > eps32 and k < max_cycles - 1:
+            if graphs is None:
+                u1, free, uc = steps(u1, free, uc, hist[k : k + chunk])
+            else:
+                graphs.run(key, body)
+                hist[k : k + chunk].copy_(norms)
+            k += chunk
             res = float(hist[k - 1])  # the one host sync per chunk
-        p.psweep(u1, fb, uc, out=free, rsq=self._rsq_scratch)
-        return free, trim_history(hist.cpu().numpy(), eps)
+        out = free if graphs is None else torch.empty_like(free)  # never a static buffer
+        p.psweep(u1, fb, uc, out=out, rsq=self._rsq_scratch)
+        return out, trim_history(hist.cpu().numpy(), eps)
 
     # ---- Krylov acceleration ----
 
     def solve_pcg(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
-                  eps: float = 1e-6, max_iters: int = 60):
+                  eps: float = 1e-6, max_iters: int = 60, graph: bool = True):
         """Flexible CG with one fused V(nu1, nu2) cycle from zero as the
         preconditioner (at level 0 with nu1 = 1: A3 and A4), ``A p`` through
         A1's residual mode with f = 0, the true residual recomputed every
@@ -258,7 +306,8 @@ class HierarchyV2:
 
         Returns ``(u, history)``: ``history[j]`` is the interior residual
         norm after iteration j+1 (post-iteration, no lag: the returned u's
-        residual is ``history[-1]``).
+        residual is ``history[-1]``).  On the card each iteration after the
+        start is one graph replay (``graph=False``: the eager loop).
 
         Refused with bf16 storage (NotImplementedError).  The JAX solver
         runs it, iterate, vectors and dot products in bf16, and on a
@@ -276,4 +325,5 @@ class HierarchyV2:
             self._cg = pcg_buffers(self._field(0))
         f, u = start_fields(self.hier.finest, f, u0, bc_value)
         return solve_pcg(self.sweep_levels[0], lambda r: self._coarse_correction(0, r, nu1, nu2),
-                         f, u, self._cg, eps, max_iters)
+                         f, u, self._cg, eps, max_iters, chunk_graphs(self, graph),
+                         ("pcg", nu1, nu2))
