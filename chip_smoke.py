@@ -117,7 +117,9 @@ Phases, in order; any failure exits non-zero:
    same at n = 2, 16, 126, each side of each ``ops.sweep.A5_ONE_PASS_MAX_N``
    threshold, 1000, 1024, 2048 and 4096; then
    the round-1 cells (whose only norm passes, ``rsq_reduce``, are C2's:
-   C1 finishes its norm in its last block) and ``pswrr_interface_4097`` (A6
+   C1 finishes its norm in its last block; X2 and X3 launch 8 times a cycle
+   each, the transfers from and to the 8 kernel levels) and
+   ``pswrr_interface_4097`` (A6
    at level 0, held to
    the split path's cycles +- 1 and tail q within 1%, both paths' device
    time per cycle printed).
@@ -133,8 +135,11 @@ Phases, in order; any failure exits non-zero:
    and ``pbc_mg_4096`` (``solve_pbc_mg``, 12 levels, H1 on n >= 32, within
    one cycle of the JAX solver); the heat cell ``heat_march_4097``
    (``HeatSolver(backend="fused").march``, 10 steps of 2 V(1,1) cycles,
-   exact A1-A4 counts, and one ``step``); and three 129^2 checks against
-   the CPU (the fused heat step and march, ``solve_pbc_mg`` at 128^2).
+   exact A1-A4 counts and one X1 a step; the march replays one CUDA graph a
+   step and must equal the eager march bit for bit, also with
+   time-dependent knots; both timed; and one ``step``); and four 129^2
+   checks against the CPU (the fused heat step and march, a float64 heat
+   step on the plain backend, ``solve_pbc_mg`` at 128^2).
 13. Hold B1 and B2 (4097^2, bitwise; torch.add timed beside them), F1
    (4097^2 circle (1, 20) in bf16 and f32 Q, n = 512; also against A1's
    plain-form sweep; and at n = 2, 126, each side of
@@ -241,13 +246,29 @@ Phases, in order; any failure exits non-zero:
    the eager loop's launch counts (a replay adds what its capture
    launched); the warm solve's own wrapper calls must be only those outside
    the captured chunks (none; A6's peeled descent and closing ascent; the
-   CG start); the solver must hold one capture per key; a re-solve from
+   CG start; ``ir_4097``'s X4 outer steps); the solver must hold one
+   capture per key; a re-solve from
    another u0 (H-MG: with another net) must equal its eager twin and leave
    the first returned u unchanged; ``interface_4097`` replays bit for bit
    with TF32 switched on after its capture.  Both paths' walls per cycle
    (best of three), torch.profiler's device time per cycle and busy share
    are printed (``graph_cells``).
-20. Print A1's and A2's 4097^2 times in every form held, each beside its
+20. Slice 24, the JAX package's XLA-fused passes as kernels X1-X4
+   (``ops/passes.py``): each held against its plain version by ``hold`` at
+   4097^2, 33^2, 65^2 and 257^2 in every variant (X1 bi-material and
+   homogeneous, f32 and bf16 u, one f or two knots, and f64; X4 homogeneous
+   and two-phase, an f32 and a bf16 correction), X2 and X3 bit for bit, X1
+   at ``ops.sweep.TOL`` (f64: ``ops.passes.TOL64``) and X4 at
+   ``ops.passes.TOL64`` of max(1, max|plain|), two launches bitwise; each
+   timed beside its bound and its plain version and, at 4097^2 for X2 and
+   X3, ``F.conv2d`` with stride 2 and ``F.conv_transpose2d`` in full f32
+   (``pass_kernel_checks``).  Then
+   ``ir_interface_4097``: ``solve_ir`` on ``interface_4097``'s bi-material
+   hierarchy with f = apply_mass(1, h), 6 cycles a correction, at most 20
+   outer steps, to an f64 true residual <= 1e-6 (X4 in its two-phase form,
+   one launch an outer step).  ``ir_4097`` and ``ir_4097_bf16`` count X4 =
+   outer steps too.
+21. Print A1's and A2's 4097^2 times in every form held, each beside its
    byte bound (``a12_4097``), A3's and A4's at each level size of the
    interface solve (``a34_levels``), the bf16 times beside their bf16 byte
    bounds and this run's f32 times (``bf16_times``), the kernel summary
@@ -255,7 +276,8 @@ Phases, in order; any failure exits non-zero:
    bf16 rows suffixed ``_bf16``; each row's byte bound also at the
    measured copy and triad rates; the rows of G4 and A5 also name both
    designs' device kernels, ``symbols``, and the one the timed launch ran,
-   ``design``), then the device line as the last line.
+   ``design``; X1-X4 with their cells' launches), then the device line as
+   the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -498,17 +520,22 @@ OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "C1_sweep": ("out", "rsq"), "C1_residual": ("out", "rsq"),
              "H1": ("out", "rsq", "rsq_wrap"), "E1": ("out", "rsq"), "F1": ("out",),
              "B1": ("out",), "B2": ("out",),
+             "X1": ("out",), "X2": ("out",), "X3": ("out",), "X4": ("out",),
              **{f"C2_k{k}": ("out", "rsq") for k in range(1, 9)}}
 # the legs that keep partial sums in a workspace
-RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E1", "E2", "G1", "G2", "H1")
+RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E1", "E2", "G1", "G2", "H1",
+            "X4")
 
 
-def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float, tags: dict):
+def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol, tags: dict,
+         twice: bool = False):
     """Run one leg's kernel and plain version on the same inputs; return a
     record (errors, times) and fail beyond ``tol``.  A bf16 output is held
     to one bf16 ulp per element beyond ``tol`` of max(1, max|plain|)
     (``ops.sweep.bf16_excess``): both round an f32 value that agrees to
-    ``tol``.
+    ``tol``.  A float64 output is compared in float64.  ``tol`` may give one
+    tolerance per output (0: equal values); ``twice`` also fails unless a
+    second launch on the same inputs gives the same bits.
 
     ``ms`` is the kernel's device time on cold inputs: the inputs are cloned
     into enough sets to fill twice the 50 MB L2 cache and the timed launches
@@ -516,28 +543,37 @@ def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float
     levels' traffic.  ``warm_ms`` repeats one input set."""
     import torch
 
+    def outputs(fn, kw):
+        out = call(fn, inputs, kw)
+        return out if isinstance(out, tuple) else (out,)
+
     kcfg = dict(cfg, workspace={}) if leg[:2] in RSQ_LEGS else cfg
-    got = call(cuda_fn, inputs, kcfg)
-    want = call(plain_fn, inputs, cfg)
+    got = outputs(cuda_fn, kcfg)
+    if twice:
+        got = tuple(t.clone() for t in got)
+        again = outputs(cuda_fn, kcfg)
+    want = outputs(plain_fn, cfg)
     torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    rel, abs_err, rsq_rel, excess = 0.0, 0.0, 0.0, None
+    rel, abs_err, rsq_rel, excess, errs = 0.0, 0.0, 0.0, None, []
     for g, w in zip(got, want):
         if g.dim() == 0:
             rsq_rel = max(rsq_rel, abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
+            errs.append(abs(float(g) - float(w)) / max(abs(float(w)), 1e-30))
             continue
         if not torch.isfinite(g).all():
             fail(f"{leg} {tags}: non-finite output")
         if g.dtype != w.dtype:
             fail(f"{leg} {tags}: the kernel returns {g.dtype}, its plain version {w.dtype}")
-        err = float((g.float() - w.float()).abs().max())
+        ct = torch.promote_types(w.dtype, torch.float32)
+        err = float((g.to(ct) - w.to(ct)).abs().max())
         abs_err = max(abs_err, err)
-        rel = max(rel, err / max(1.0, float(w.float().abs().max())))
+        rel = max(rel, err / max(1.0, float(w.to(ct).abs().max())))
+        errs.append(err / max(1.0, float(w.to(ct).abs().max())))
         if g.dtype == torch.bfloat16:
             from multigrid_feanet_torch.ops.sweep import bf16_excess
 
             excess = max(-1.0 if excess is None else excess, bf16_excess(g, w))
+            errs[-1] = bf16_excess(g, w)
 
     sets = min(32, -(-2 * L2_BYTES // nbytes))
     xs = [inputs] + [tuple(None if t is None else t.clone() for t in inputs)
@@ -550,9 +586,16 @@ def hold(leg: str, call, cuda_fn, plain_fn, inputs, cfg, nbytes: int, tol: float
                input_sets=sets, bytes=nbytes)
     if excess is not None:
         rec["bf16_excess"] = excess
+    if twice:
+        rec["bitwise_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
     del xs, outs, kruns, pruns
-    if (rel > tol if excess is None else excess > tol) or rsq_rel > tol:
-        fail(f"kernel disagrees with its plain version: {rec}")
+    if isinstance(tol, tuple):
+        bad = any(e > t for e, t in zip(errs, tol))
+    else:
+        bad = (rel > tol if excess is None else excess > tol) or rsq_rel > tol
+    if bad or not rec.get("bitwise_twice", True):
+        fail(f"kernel disagrees with its plain version or with itself: {rec}")
     return rec
 
 
@@ -863,11 +906,12 @@ def build_hierarchy(n: int, bim: bool, num_levels: int, threshold: int, device=N
 
 
 def all_kernels() -> dict:
-    from multigrid_feanet_torch.ops import (elastic, general, hrelax, membench, qsweep,
-                                            stencil_sweep, sweep, torus)
+    from multigrid_feanet_torch.ops import (elastic, general, hrelax, membench, passes,
+                                            qsweep, stencil_sweep, sweep, torus)
 
     return {**sweep.KERNELS, **general.KERNELS, **hrelax.KERNELS, **elastic.KERNELS,
-            **stencil_sweep.KERNELS, **torus.KERNELS, **qsweep.KERNELS, **membench.KERNELS}
+            **stencil_sweep.KERNELS, **torus.KERNELS, **qsweep.KERNELS, **membench.KERNELS,
+            **passes.KERNELS}
 
 
 def counted(run):
@@ -982,7 +1026,9 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("a5_resid_restrict", "A5"), ("a6_cross_cycle", "A6"),
                ("h1_torus_relax", "H1"), ("h1_torus_tile", "H1"),
                ("reduce_kernel", "rsq_reduce"), ("h1_reduce_pair", "rsq_reduce"),
-               ("e1_h_relax", "E1"), ("f1_qsweep", "F1"), ("b1_copy", "B1"), ("b2_triad", "B2"))
+               ("e1_h_relax", "E1"), ("f1_qsweep", "F1"), ("b1_copy", "B1"), ("b2_triad", "B2"),
+               ("x1_heat_rhs", "X1"), ("x2_restrict", "X2"), ("x3_prolong_add", "X3"),
+               ("x4_outer_step", "X4"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -1508,8 +1554,9 @@ def run_r1_cells() -> dict:
     """``poisson_4097_r1`` (V(1,1): C1) and ``poisson_4097_r1_v22`` (V(2,2):
     C2, C1 for the residuals): the homogeneous 4097^2 decay solve on the
     round-1 Hierarchy, 9 levels, threshold 32, at most 60 cycles.  Per cycle
-    each of the K = 8 kernel levels runs nu1 + nu2 sweeps and one residual,
-    and level 0 one more residual after the cycle."""
+    each of the K = 8 kernel levels runs nu1 + nu2 sweeps, one residual and
+    the two transfers (X2, X3) to and from the level below, and level 0 one
+    more residual after the cycle."""
     out = {}
     K = 8
     for label, nu in (("poisson_4097_r1", 1), ("poisson_4097_r1_v22", 2)):
@@ -1518,6 +1565,7 @@ def run_r1_cells() -> dict:
                         solve=lambda hv, f, chunk, nu=nu, **kw: hv.solve(f, nu1=nu, nu2=nu, **kw))
         c = rec["cycles"]
         expect = {"C1": (3 * K + 1) * c} if nu == 1 else {"C1": (K + 1) * c, "C2": 2 * K * c}
+        expect.update(X2=K * c, X3=K * c)
         if rec["launches"] != expect:
             fail(f"{label}: launches {rec['launches']}, expected {expect}")
         out[label] = rec
@@ -1595,14 +1643,17 @@ def run_pcg_cell() -> dict:
     return rec
 
 
-def run_ir_cell(dtype=None, max_outer: int = 12) -> dict:
+def run_ir_cell(dtype=None, max_outer: int = 12, bim: bool = False) -> dict:
     """``ir_4097``: ``solve_ir`` on the homogeneous 4097^2 HierarchyV2
     (threshold 32, 9 levels, direct coarse) with f = apply_mass(1, h), V(1,1),
     eps 1e-6, 6 cycles per correction, at most ``max_outer`` outer steps
     (bench.py's hard row: 12).  The f64 true residual of the returned u, from
-    a level assembled anew in f64, must be <= 1e-6.  Beside it, the floor of
-    the level storage: 20 plain V(1,1) cycles on the same f.  With ``dtype``
-    bf16 the hierarchy stores its levels in bf16 (``ir_4097_bf16``)."""
+    a level assembled anew in f64, must be <= 1e-6; each outer step is one
+    X4 launch.  Beside it, the floor of the level storage: 20 plain V(1,1)
+    cycles on the same f.  With ``dtype`` bf16 the hierarchy stores its
+    levels in bf16 (``ir_4097_bf16``); with ``bim`` it is the bi-material
+    interface hierarchy of ``interface_4097`` (``ir_interface_4097``: X4 in
+    its two-phase form)."""
     import torch
     from multigrid_feanet_torch.core.problem import Problem, build_level
     from multigrid_feanet_torch.ops.stencil import apply_mass
@@ -1610,9 +1661,9 @@ def run_ir_cell(dtype=None, max_outer: int = 12) -> dict:
     from multigrid_feanet_torch.solvers.mg import solve_ir
 
     eps = 1e-6
-    label = "ir_4097" if dtype is None else "ir_4097_bf16"
+    label = ("ir_interface_4097" if bim else "ir_4097") + ("" if dtype is None else "_bf16")
     t0 = time.time()
-    hv = build_hierarchy(N_MAIN, False, 9, 32, DEVICE, dtype)
+    hv = build_hierarchy(N_MAIN, bim, 9, 32, DEVICE, dtype)
     lv0 = hv.hier.finest
     f = apply_mass(torch.ones((N_MAIN + 1, N_MAIN + 1), device=DEVICE), lv0.h)
     setup_s = time.time() - t0
@@ -1622,12 +1673,15 @@ def run_ir_cell(dtype=None, max_outer: int = 12) -> dict:
                         max_outer=max_outer)
 
     (u, hist), launches = counted(run)
-    lv64 = build_level(Problem(n=N_MAIN, dtype=torch.float64), N_MAIN, device=DEVICE)
+    lv64 = build_level(Problem(n=N_MAIN, inclusion=CIRCLE if bim else None,
+                               dtype=torch.float64), N_MAIN, device=DEVICE)
     true64 = float(interior_norm(f.double() - lv64.apply(u)))
     if u.dtype != torch.float64 or not torch.isfinite(u).all() or not true64 <= eps:
         fail(f"{label}: the f64 true residual is {true64} after {len(hist)} steps: {hist}")
     if not all(launches.get(key) for key in ("A1", "A2", "A3", "A4")):
         fail(f"{label}: a kernel of the path never launched: {launches}")
+    if launches.get("X4") != len(hist):
+        fail(f"{label}: {launches.get('X4')} X4 launches for {len(hist)} outer steps")
     walls = timed_runs(label, run, hist)
     cycles = 6 * (len(hist) - 1)
     u20, h20 = hv.solve(f, eps=0.0, max_cycles=20)
@@ -1675,7 +1729,8 @@ def check_r5_small_against_cpu() -> dict:
 
     u0 = decay_u0(10)
     f0 = np.zeros_like(u0)
-    for label, nu, expect in (("r1_small_v11", 1, ("C1",)), ("r1_small_v22", 2, ("C1", "C2"))):
+    for label, nu, expect in (("r1_small_v11", 1, ("C1", "X2", "X3")),
+                              ("r1_small_v22", 2, ("C1", "C2", "X2", "X3"))):
         res = both(label, lambda dev: build_r1(n, True, 4, 16, dev),
                    lambda hv, nu=nu: hv.solve(f0, u0=u0, nu1=nu, nu2=nu, eps=0.0, max_cycles=20),
                    expect)
@@ -1698,8 +1753,9 @@ def check_r5_small_against_cpu() -> dict:
         res = both(label, build, lambda hv: hv.solve_pcg(f0, u0=u0, eps=0.0, max_iters=10),
                    expect)
         decay_history_check(label, {d: (u.cpu().numpy(), h) for d, (u, h) in res.items()})
-    irs = (("ir_small_r1", lambda dev: build_r1(n, False, 4, 16, dev), ("C1",)),
-           ("ir_small_v2", lambda dev: build_hierarchy(n, False, 4, 16, dev), ("A2", "A3", "A4")))
+    irs = (("ir_small_r1", lambda dev: build_r1(n, False, 4, 16, dev), ("C1", "X4")),
+           ("ir_small_v2", lambda dev: build_hierarchy(n, False, 4, 16, dev),
+            ("A2", "A3", "A4", "X4")))
     for label, build, expect in irs:
         res = both(label, build, lambda hv: solve_ir(hv, fm, eps=1e-9, cycles_per_correction=4,
                                                      max_outer=15), expect)
@@ -1819,9 +1875,14 @@ def heat_solver(n: int, num_levels: int, threshold: int, device=None):
 def run_heat_cell() -> dict:
     """``heat_march_4097`` (bench.py:274-289): ``HeatSolver.march``, 10
     steps of 2 V(1,1) cycles from u0 = 0 with bench.py's f, 9 levels,
-    threshold 32: exactly 20 A1, 20 A2, 140 A3, 140 A4 launches.  Beside it
-    one ``step`` to the smallest decade at least twice the step's f32 floor
-    (the least residual of 12 cycles at eps 0)."""
+    threshold 32: exactly 20 A1, 20 A2, 140 A3, 140 A4 and 10 X1 launches
+    (one right-hand side a step).  The march replays one CUDA graph a step:
+    its first (capturing) and a warm march, and a time-dependent march of 3
+    steps (knots f (1 + k / 10)), must equal the eager march (``graph=False``)
+    bit for bit with the eager march's launch counts, the warm march making
+    no wrapper call of its own, one capture per key.  Both paths are timed.
+    Beside it one ``step`` to the smallest decade at least twice the step's
+    f32 floor (the least residual of 12 cycles at eps 0)."""
     import torch
 
     n, steps, cps = N_MAIN, 10, 2
@@ -1831,23 +1892,36 @@ def run_heat_cell() -> dict:
     f = torch.as_tensor(bench_f(n), device=DEVICE)
     u0 = torch.zeros_like(f)
 
-    def run():
-        return hs.march(u0, f, steps, cycles_per_step=cps), None
+    def run(graph=True):
+        return hs.march(u0, f, steps, cycles_per_step=cps, graph=graph), None
 
     (u, _), launches = counted(run)
     c, below = steps * cps, (hs.ph.K - 1) * steps * cps  # K = 8 fused levels at 4097^2
-    expect = {"A1": c, "A2": c, "A3": below, "A4": below}
+    expect = {"A1": c, "A2": c, "A3": below, "A4": below, "X1": steps}
     if launches != expect:
         fail(f"heat_march_4097: launches {launches}, expected {expect}")
     if tuple(u.shape) != (n + 1, n + 1) or not torch.isfinite(u).all() or not u.abs().max() > 0:
         fail("heat_march_4097: the solution is not finite and nonzero")
-    walls = []
-    for _ in range(3):
-        t0 = time.time()
-        run()
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-    wall = min(walls)
+    (ue, _), launches_e = counted(lambda: run(False))
+    (uw, _), launches_w, own = own_calls(run)
+    ftd = torch.stack([f * (1.0 + 0.1 * k) for k in range(4)])
+    td_g, td_e = (hs.march(u0, ftd, 3, cycles_per_step=cps, graph=g) for g in (True, False))
+    checks = dict(cold_bitwise=bool(torch.equal(u, ue)), warm_bitwise=bool(torch.equal(uw, ue)),
+                  timedep_bitwise=bool(torch.equal(td_g, td_e)),
+                  launches_equal=launches_w == launches_e == launches, own_calls=not own,
+                  captures=hs.graphs.captures == 2)
+    del ftd, td_g, td_e
+    walls, prof = {}, {}
+    for path, graph in (("graph", True), ("eager", False)):
+        walls[path] = []
+        for _ in range(3):
+            t0 = time.time()
+            run(graph)
+            torch.cuda.synchronize()
+            walls[path].append(time.time() - t0)
+        prof[path] = profile_solve(lambda graph=graph: run(graph), steps * cps,
+                                   min(walls[path]))
+    wall = min(walls["graph"])
     _, probe = hs.step(u0, f, f, eps=0.0, max_cycles=12)
     floor = float(np.min(probe))
     eps = float(10.0 ** np.ceil(np.log10(2.0 * floor)))
@@ -1860,26 +1934,36 @@ def run_heat_cell() -> dict:
     if not hist[-1] <= eps:
         fail(f"heat_step_4097: no convergence to {eps}: {hist}")
     rec = dict(solve="heat_march_4097", n=n, steps=steps, cycles_per_step=cps, setup_s=setup_s,
-               wall_s=wall, walls_s=walls, ms_per_step=1e3 * wall / steps,
+               wall_s=wall, walls_s=walls["graph"], ms_per_step=1e3 * wall / steps,
                ms_per_cycle=1e3 * wall / (steps * cps), u_max=float(u.abs().max()),
-               launches=launches, profile=profile_solve(run, steps * cps, wall),
+               launches=launches, profile=prof["graph"], graph_checks=checks,
+               eager=dict(walls_s=walls["eager"],
+                          ms_per_step=1e3 * min(walls["eager"]) / steps,
+                          profile=prof["eager"]),
                step=dict(eps=eps, floor_12_cycles=floor, probe=probe.tolist(),
                          cycles=len(hist), hist=hist.tolist(), wall_s=min(step_walls),
                          walls_s=step_walls, launches=step_launches))
     print(json.dumps(rec), flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"heat_march_4097: the replayed march misses {failed}: own calls {own}, "
+             f"captures {hs.graphs.captures}")
     return rec
 
 
 def check_r6_small_against_cpu() -> dict:
     """129^2 checks of the heat and periodic paths on the card against the
     CPU's plain path: the fused HeatSolver.step (eps 1e-9, clear of its
-    ~5e-12 floor) and march (10 steps of 2 cycles), and solve_pbc_mg on the
+    ~5e-12 floor) and march (10 steps of 2 cycles), a float64 HeatSolver's
+    step on the plain backend (eps 1e-11; X1 in float64), and solve_pbc_mg on the
     analytic problem at 128^2, H1 on levels 128..32, to the smallest decade
     at least 100 times its f32 floor (the least norm of 12 cycles at eps 0,
     the larger of the card's and the CPU's: at eps 2e-6 the two paths'
     last norms differed by 2.7e-3).  Cycles equal, histories within 1e-3, u
     within 1e-4 of its scale.  Returns each check's launches on the card."""
     import torch
+    from multigrid_feanet_torch.core.problem import Problem
+    from multigrid_feanet_torch.ops.heat import HeatSolver
     from multigrid_feanet_torch.solvers.pbc_mg import solve_pbc_mg
 
     n = N_SMALL
@@ -1900,10 +1984,15 @@ def check_r6_small_against_cpu() -> dict:
     runs = {
         "heat_small_step": (lambda dev: heat_solver(n, 4, 16, dev),
                             lambda hs: hs.step(z, f, f, eps=1e-9, max_cycles=40),
-                            ("A1", "A2", "A3", "A4")),
+                            ("A1", "A2", "A3", "A4", "X1")),
         "heat_small_march": (lambda dev: heat_solver(n, 4, 16, dev),
                              lambda hs: (hs.march(z, f, 10, cycles_per_step=2), None),
-                             ("A1", "A2", "A3", "A4")),
+                             ("A1", "A2", "A3", "A4", "X1")),
+        "heat_small_step_f64": (lambda dev: HeatSolver(Problem(n=n, inclusion=CIRCLE,
+                                                               dtype=torch.float64),
+                                                       dt=HEAT_DT, theta=HEAT_THETA, device=dev),
+                                lambda hs: hs.step(z, f, f, eps=1e-11, max_cycles=60),
+                                ("X1",)),
         "pbc_mg_small": (lambda dev: dev, lambda dev: pbc_mg_small(dev, pbc_eps, 40), ("H1",)),
     }
     out = {}
@@ -4132,11 +4221,12 @@ def same_bits(a, b) -> bool:
             and np.array_equal(ha, hb))
 
 
-def graph_cell(label: str, solver, solve, cycles_of, outside: dict, captures: int,
+def graph_cell(label: str, solver, solve, cycles_of, outside, captures: int,
                tf32_check: bool = False) -> dict:
     """Hold one cell's replayed solve to its eager loop bit for bit (the
     first, capturing solve and a warm one), its launch counts to the eager
-    loop's, the warm solve's own wrapper calls to ``outside``, the solver's
+    loop's, the warm solve's own wrapper calls to ``outside`` (a dict, or a
+    function of the eager loop's history that gives one), the solver's
     captures to ``captures``; a re-solve with other inputs both ways, bit
     for bit, leaving the warm solve's u unchanged.  Then the walls (best of
     three) and torch.profiler's device time of both paths."""
@@ -4145,6 +4235,8 @@ def graph_cell(label: str, solver, solve, cycles_of, outside: dict, captures: in
     before = solver.graphs.captures
     cold = solve(solver, True, False)
     eager, launches_e = counted(lambda: solve(solver, False, False))
+    if callable(outside):
+        outside = outside(eager[1])
     warm, launches_g, own = own_calls(lambda: solve(solver, True, False))
     kept = warm[0].clone()
     alt_g, alt_e = solve(solver, True, True), solve(solver, False, True)
@@ -4284,7 +4376,9 @@ def run_graph_cells() -> list:
         return solve_ir(hv, f_ir, u0=u0, eps=eps, cycles_per_correction=6, max_outer=12,
                         graph=graph)
 
-    recs.append(graph_cell("ir_4097", hv, ir, lambda hist: 6 * (len(hist) - 1), {}, 1))
+    # outside the corrections' replays: one X4 outer step per history entry
+    recs.append(graph_cell("ir_4097", hv, ir, lambda hist: 6 * (len(hist) - 1),
+                           lambda hist: {"X4": len(hist)}, 1))
     del hv
     starts.clear()
 
@@ -4313,6 +4407,216 @@ def run_graph_cells() -> list:
                 for key in ("ms_per_cycle", "busy_ms_per_cycle", "busy_share",
                             "profiled_launches")}) for r in recs]}), flush=True)
     return recs
+
+
+# ---------------------------------------------------------------------------
+# Slice 24: the JAX package's XLA-fused passes as kernels X1-X4
+# (ops/passes.py, csrc/passes.cu)
+# ---------------------------------------------------------------------------
+
+FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+# operations per output node, counted from csrc/passes.cu: X1 two mass
+# applies (18 each), the mix (3), K (homogeneous 18; bitplane 18 + 4 x 10)
+# and the combination (4); X2 three row filters and the column filter (4
+# each) and the x4, per coarse node; X3 at most the two column midpoints,
+# the row midpoint, x geo and the add; X4 (f64) u + e geo (2), A (18; 58)
+# the residual and its square (3)
+PASS_FLOPS = {("X1", False): 61, ("X1", True): 101, ("X2", False): 17, ("X3", False): 8,
+              ("X4", False): 23, ("X4", True): 63}
+PASS_SIZES = (N_MAIN, 32, 64, 256)  # 4097^2 and 33^2, 65^2, 257^2
+X4_F32_TOL = 2.0 ** -23  # X4's float32 r: one rounding of an f64 value that agrees to TOL64
+
+
+def pass_bytes(key: str, n: int, bim: bool, es: int = 4, two_f: bool = False,
+               fs: int = 4) -> int:
+    """Bytes X1-X4 must move on an (n+1)^2 grid, each input read once and
+    each output written once: X1 u and b (``es`` bytes), f (``fs`` bytes,
+    once, or f0 and f1 when ``two_f``), pid; X2 the fine interior and the
+    coarse field; X3 u, u_c, geo and u; X4 u, f, geo and u' (f64), e
+    (``es``), pid and r (f32)."""
+    H2, Hc2, ph = (n + 1) ** 2, (n // 2 + 1) ** 2, (n + 1) ** 2 if bim else 0
+    return {"X1": H2 * (2 * es + fs * (1 + two_f)) + ph, "X2": 4 * (n - 1) ** 2 + 4 * Hc2,
+            "X3": 12 * H2 + 4 * Hc2, "X4": H2 * (32 + es + 4) + ph}[key]
+
+
+def pass_bound(key: str, n: int, bim: bool, nbytes: int, f64: bool = False):
+    """(bound ms, "bytes" or "operations") of one X launch (``f64``: X1 in
+    float64)."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    nodes = (n // 2 + 1) ** 2 if key == "X2" else (n + 1) ** 2
+    rate = FP64_FLOP_PER_S if key == "X4" or f64 else FP32_FLOP_PER_S
+    t_ops = 1e3 * PASS_FLOPS[(key, bim and key in ("X1", "X4"))] * nodes / rate
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def pass_forms(n: int) -> dict:
+    """The operator forms X1 and X4 take on the (n+1)^2 levels, bi-material
+    (circle) and homogeneous, f32 and f64, as the paths read them
+    (``ops.passes.operator_form``), keyed (bim, dtype)."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.ops.passes import operator_form
+
+    return {(bim, dt): operator_form(build_level(Problem(n=n, inclusion=CIRCLE if bim else None,
+                                                         dtype=dt), n, device=DEVICE))
+            for bim in (True, False) for dt in (torch.float32, torch.float64)}
+
+
+def pass_inputs(n: int, seed: int) -> dict:
+    """Seeded fields of one (n+1)^2 grid on the card: standard normal u, f0,
+    f1 (f32 and f64), the coarse u_c, the interior mask; f64 u, f and geo, a
+    correction e of 1e-3 standard normal (f32 and bf16)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    H, Hc = n + 1, n // 2 + 1
+    geo = np.zeros((H, H))
+    geo[1:-1, 1:-1] = 1.0
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(x, device=DEVICE).to(dtype).contiguous()
+
+    u, f0, f1 = rng.standard_normal((3, H, H))
+    e = 1e-3 * rng.standard_normal((H, H))
+    return dict(u=t(u), f0=t(f0), f1=t(f1), uc=t(rng.standard_normal((Hc, Hc))), geo=t(geo),
+                u64=t(u, torch.float64), f064=t(f0, torch.float64), f164=t(f1, torch.float64),
+                f64=t(rng.standard_normal((H, H)), torch.float64), geo64=t(geo, torch.float64),
+                e=t(e), e_bf16=t(e, torch.bfloat16))
+
+
+def pass_legs(x: dict, forms: dict, n: int) -> list:
+    """``hold``'s arguments for every variant of X1-X4 on the fields ``x``
+    of pass_inputs(n) and the operator ``forms`` of pass_forms(n): (leg,
+    call, kernel, plain version, inputs, cfg, bytes, tolerance, tags).  X1
+    in f32 and bf16 storage, with one f (the constant source the march
+    passes as both knots) or two, and in f64 (a float64 problem, two f), at
+    ``TOL`` (f64: ``TOL64``); X2 and X3 bit for bit; X4 with an f32 and a
+    bf16 correction at ``TOL64``, its f32 residual within one f32 rounding.
+    Each bi-material and homogeneous."""
+    import torch
+    from multigrid_feanet_torch.ops import passes as px
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    def one_f(fn, y, kw):
+        return fn(y[0], y[1], y[1], y[2], **kw)
+
+    def two_f(fn, y, kw):
+        return fn(y[0], y[1], y[2], y[3], **kw)
+
+    def direct(fn, y, kw):
+        return fn(*y, **kw)
+
+    x1 = (px.heat_rhs_cuda, px.heat_rhs_plain)
+    x4 = (px.outer_step_cuda, px.outer_step_plain)
+    legs = []
+    for bim in (True, False):
+        for dtype in (torch.float32, torch.float64):
+            form = dict(forms[(bim, dtype)])
+            pid = form.pop("pid")
+            cfg = dict(h=2.0 / n, theta=HEAT_THETA, dt=HEAT_DT, **form)
+            if dtype == torch.float32:
+                for bf16 in (False, True):
+                    u = x["u"].to(torch.bfloat16) if bf16 else x["u"]
+                    es = 2 if bf16 else 4
+                    legs += [("X1", one_f, *x1, (u, x["f0"], pid), cfg,
+                              pass_bytes("X1", n, bim, es), TOL,
+                              dict(bim=bim, bf16=bf16, two_f=False)),
+                             ("X1", two_f, *x1, (u, x["f0"], x["f1"], pid), cfg,
+                              pass_bytes("X1", n, bim, es, True), TOL,
+                              dict(bim=bim, bf16=bf16, two_f=True))]
+                continue
+            legs.append(("X1", two_f, *x1, (x["u64"], x["f064"], x["f164"], pid), cfg,
+                         pass_bytes("X1", n, bim, 8, True, 8), px.TOL64,
+                         dict(bim=bim, bf16=False, two_f=True, f64=True)))
+            for bf16 in (False, True):
+                e = x["e_bf16"] if bf16 else x["e"]
+                legs.append(("X4", direct, *x4, (x["u64"], e, x["f64"], x["geo64"], pid), form,
+                             pass_bytes("X4", n, bim, 2 if bf16 else 4),
+                             (px.TOL64, X4_F32_TOL, px.TOL64), dict(bim=bim, bf16=bf16)))
+    return legs + [("X2", direct, px.restrict_cuda, px.restrict_plain, (x["u"],), {},
+                    pass_bytes("X2", n, False), 0.0, {}),
+                   ("X3", direct, px.prolong_add_cuda, px.prolong_add_plain,
+                    (x["u"], x["uc"], x["geo"]), {}, pass_bytes("X3", n, False), 0.0, {})]
+
+
+def check_passes() -> list:
+    """Hold X1-X4 against their plain versions with ``hold`` (two launches
+    bitwise) at 4097^2, 33^2, 65^2 and 257^2 in every variant of
+    ``pass_legs``, each timed beside its bound and its plain version; at
+    4097^2 X2 and X3 also beside one PyTorch call that computes their
+    transfer (``F.conv2d`` with stride 2, ``F.conv_transpose2d``, in full
+    f32).  One record per variant and size."""
+    import torch
+    import torch.nn.functional as F
+    from multigrid_feanet_torch.core.device import full_f32
+
+    w = torch.tensor([[0.25, 0.5, 0.25]], device=DEVICE)
+    k4 = (4.0 * (w.T @ w)).reshape(1, 1, 3, 3)
+    recs = []
+    for n in PASS_SIZES:
+        x, forms = pass_inputs(n, 24 + n), pass_forms(n)
+        for leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol, tags in pass_legs(x, forms, n):
+            rec = hold(leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol, dict(n=n, **tags),
+                       twice=True)
+            rec["bound_ms"], rec["bound_by"] = pass_bound(leg, n, tags.get("bim", False), nbytes,
+                                                          tags.get("f64", False))
+            rec["library_ms"] = None
+            if n == N_MAIN and leg == "X2":  # 4 FW as one strided convolution (the ring not zeroed)
+                with full_f32():
+                    rec["library_ms"] = kernel_ms([lambda: F.conv2d(
+                        x["u"][None, None], k4, stride=2, padding=1)])
+            elif n == N_MAIN and leg == "X3":  # P as one transposed convolution (no geo, no add)
+                with full_f32():
+                    rec["library_ms"] = kernel_ms([lambda: F.conv_transpose2d(
+                        x["uc"][None, None], k4, stride=2, padding=1)])
+            recs.append(rec)
+        del x, forms
+    print(json.dumps({"pass_kernel_checks": recs}), flush=True)
+    return recs
+
+
+def run_slice24() -> dict:
+    """The slice-24 phase: X1-X4 held against their plain versions and timed
+    (``check_passes``), then ``ir_interface_4097``, ``solve_ir`` on the
+    bi-material interface hierarchy (X4 in its two-phase form), at most 20
+    outer steps.  ``python3 -c 'import chip_smoke as cs; cs.run_slice24()'``
+    runs it alone (the kernels built first)."""
+    from multigrid_feanet_torch import _build
+
+    _build.load()
+    return dict(checks=check_passes(), ir_interface_4097=run_ir_cell(bim=True, max_outer=20))
+
+
+def pass_rows(checks: list, heat: dict, r1: dict, irs: dict) -> list:
+    """The kernel line's rows of X1-X4 at 4097^2, each with the launches of
+    its path: X1 on heat_march_4097 (bi-material, one f), X2 and X3 on
+    poisson_4097_r1 and _v22, X4 on ir_4097 (homogeneous) and
+    ir_interface_4097 (bi-material)."""
+    k = all_kernels()
+
+    def rec(key, **tags):
+        return next(c for c in checks if c["name"] == key and c["n"] == N_MAIN and "ms" in c
+                    and all(c.get(t) == v for t, v in tags.items()))
+
+    spec = [("X1", rec("X1", bim=True, bf16=False, two_f=False), heat, ""),
+            ("X2", rec("X2"), r1["poisson_4097_r1"], ""),
+            ("X2", rec("X2"), r1["poisson_4097_r1_v22"], "_v22"),
+            ("X3", rec("X3"), r1["poisson_4097_r1"], ""),
+            ("X3", rec("X3"), r1["poisson_4097_r1_v22"], "_v22"),
+            ("X4", rec("X4", bim=False, bf16=False), irs["ir_4097"], ""),
+            ("X4", rec("X4", bim=True, bf16=False), irs["ir_interface_4097"], "_bim")]
+    rows = []
+    for key, c, cell, suffix in spec:
+        kern = k[key]
+        rows.append(dict(name=kern.name + suffix, route="cuda", source=kern.source,
+                         replaces=kern.replaces, launches=cell["launches"][key],
+                         max_abs_err=c["max_abs_err"], max_rel_err=c["max_rel_err"],
+                         ms=c["ms"], warm_ms=c["warm_ms"], plain_ms=c["plain_ms"],
+                         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                         library_ms=c["library_ms"], path=cell["solve"], n=N_MAIN,
+                         bytes=c["bytes"], **{t: c[t] for t in ("bim", "bf16", "two_f") if t in c}))
+    return rows
+
 
 
 def hslab_rows(s22: dict) -> list:
@@ -4648,13 +4952,17 @@ def main() -> int:
     # slice 23: the replayed solves against their eager loops
     run_graph_cells()
     stamp("graph_cells", start)
+    # slice 24: X1-X4 against their plain versions, the interface IR cell
+    s24 = run_slice24()
+    stamp("slice24", start)
     print(json.dumps({"graph_captures": captures}), flush=True)
 
     # A5 is a level method that no solver calls: its count is the sum over
     # every counted run of the scalar V2, round-1 and heat paths, which must
     # be 0
     a5_runs = {rec["solve"]: rec["launches"] for rec in (*solves, pswrr, pcg, ir, heat,
-                                                         *r1.values(), *bf_cells.values())}
+                                                         *r1.values(), *bf_cells.values(),
+                                                         s24["ir_interface_4097"])}
     a5_runs.update(small_r5)
     a5_runs.update(small_r6)
     a5_runs.update(small_bf16)
@@ -4776,6 +5084,9 @@ def main() -> int:
     summary.append(dict(row, name=row["name"] + "_bf16"))
     # every row's byte bound also at the measured copy and triad rates
     summary += slab_rows(s21) + hslab_rows(s22)
+    # X1 on heat_march_4097, X2/X3 on the round-1 cells, X4 on the IR cells
+    summary += pass_rows(s24["checks"], heat, r1, {"ir_4097": ir,
+                                                   "ir_interface_4097": s24["ir_interface_4097"]})
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
@@ -4784,6 +5095,12 @@ def main() -> int:
     print(json.dumps({"bf16_times": bf16_times(bf_checks, checks + a34checks + schecks
                                                 + r6checks),
                       "bench_bf16": bench_bf16}), flush=True)
+    # every kernel of the port has a row: the 27 TPU kernels' and X1-X4
+    names = sorted({row["name"].split("_")[0] for row in summary})
+    print(json.dumps({"kernel_line": dict(rows=len(summary), kernels=len(names),
+                                          names=names)}), flush=True)
+    if len(names) != 31:
+        fail(f"the kernel line names {len(names)} kernels, not 31: {names}")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

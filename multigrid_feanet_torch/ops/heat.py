@@ -20,11 +20,18 @@ coefficients theta dt (a0, a1) plus the per-element mass triple
 fused levels in bf16: ``step`` and ``march`` then return a bf16 u, and the
 right-hand side is computed in f32 from it and rounded to bf16 for the
 cycles (the JAX march pads it to bf16 the same way).
+
+The right-hand side is kernel X1 on the card (``ops/passes.py``), its plain
+version on the CPU, whatever the backend.  On the card the fused backend's
+``march`` replays one CUDA graph per step (``solvers/common.py::
+ChunkGraphs``): the body of the JAX march's ``lax.scan``, X1 and then the
+step's V-cycles.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -33,8 +40,9 @@ import torch
 from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.core.geometry import reset_boundary
 from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
-from multigrid_feanet_torch.ops import stencil
+from multigrid_feanet_torch.ops import passes, stencil
 from multigrid_feanet_torch.solvers import multigrid
+from multigrid_feanet_torch.solvers.common import ChunkGraphs, chunk_graphs
 from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
 
 BACKENDS = ("plain", "fused")
@@ -134,17 +142,24 @@ class HeatSolver:
         self.ph = (heat_hierarchy(self.problem, self.dt, self.theta,
                                   sys=self.sys if share else None, device=self.device, **kw)
                    if self.backend == "fused" else None)
+        self._k = passes.operator_form(self.stiff.finest)  # K as X1 takes it
+        self.graphs = ChunkGraphs(self.device)
 
     def _field(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.problem.dtype, device=self.device)
 
     def rhs(self, u_n, f_n, f_np1) -> torch.Tensor:
-        """(M - (1-theta) dt K) u^n + dt M (theta f^{n+1} + (1-theta) f^n)."""
-        u_n, f_n, f_np1 = map(self._field, (u_n, f_n, f_np1))
-        mu = stencil.apply_mass(u_n, self.h)
-        ku = self.stiff.finest.apply(u_n)
-        f_mix = self.theta * f_np1 + (1.0 - self.theta) * f_n
-        return mu - (1.0 - self.theta) * self.dt * ku + self.dt * stencil.apply_mass(f_mix, self.h)
+        """(M - (1-theta) dt K) u^n + dt M (theta f^{n+1} + (1-theta) f^n), in
+        the problem's type: X1 on the card."""
+        u_n, f_n, f_np1 = (self._field(x).contiguous() for x in (u_n, f_n, f_np1))
+        return self._rhs(u_n, f_n, f_np1)
+
+    def _rhs(self, u, f_n, f_np1, out=None):
+        """The right-hand side of u (the problem's type, or the fused levels'
+        in the march), computed in the problem's type, into ``out`` (its
+        type; u's when None)."""
+        return passes.heat_rhs(u, f_n, f_np1, h=self.h, theta=self.theta, dt=self.dt, out=out,
+                               **self._k)
 
     def step(self, u_n, f_n, f_np1, bc_value=0.0, eps: float = 1e-10, max_cycles: int = 100):
         """One implicit step -> (u^{n+1}, the inner solve's history)."""
@@ -163,28 +178,71 @@ class HeatSolver:
             t += self.dt
         return u
 
-    def march(self, u0, f, num_steps: int, cycles_per_step: int = 2, bc_value=0.0):
+    def march(self, u0, f, num_steps: int, cycles_per_step: int = 2, bc_value=0.0,
+              graph: bool = True):
         """``num_steps`` implicit steps with a FIXED number of V(1,1) cycles
         each and no host sync until it returns (the JAX package compiles the
         same loop as one ``lax.scan``).  ``f``: a time-independent (H, W)
         source, or per-time-knot sources (num_steps + 1, H, W) (knot j at
-        t0 + j dt).  Returns the final u."""
-        f = self._field(f)
+        t0 + j dt).  Returns the final u.
+
+        On the card the fused backend replays one CUDA graph per step (X1
+        and the step's cycles) on static copies of u and the (f^n, f^{n+1})
+        pair, into which a time-dependent f's knots are copied before each
+        step; the returned u is a copy.  It equals the eager loop, which
+        ``graph=False`` runs instead, bit for bit.  The plain backend's
+        march stays eager (its cycles are torch ops)."""
+        f = self._field(f).contiguous()
         timedep = f.dim() == 3
-        geo = self.sys.finest.geo
-        u = reset_boundary(self._field(u0), geo, bc_value)
-        if self.ph is not None:
-            u = u.to(self.ph.dtype).contiguous()
-            sp = torch.empty_like(u)
-            rsq = torch.empty((), dtype=torch.float32, device=self.device)
-        for k in range(num_steps):
-            f_n, f_np1 = (f[k], f[k + 1]) if timedep else (f, f)
-            b = self.rhs(u, f_n, f_np1)
-            if self.ph is not None:
-                b = b.to(self.ph.dtype)
-            for _ in range(cycles_per_step):
-                if self.ph is not None:
-                    u, sp = self.ph._cycle0(u, sp, b, 1, 1, rsq)
-                else:
+        u = reset_boundary(self._field(u0), self.sys.finest.geo, bc_value)
+
+        def knots(k):
+            return (f[k], f[k + 1]) if timedep else (f, f)
+
+        ph = self.ph
+        if ph is None:
+            for k in range(num_steps):
+                b = self._rhs(u, *knots(k))
+                for _ in range(cycles_per_step):
                     u = multigrid.v_cycle(self.sys, u, b, 1, 1, bc_value)
-        return u
+            return u
+        u = u.to(ph.dtype).contiguous()
+
+        def steps(u, sp, b, rsq, f_n, f_np1):
+            """One step of the march: the right-hand side, then its cycles."""
+            self._rhs(u, f_n, f_np1, out=b)
+            for _ in range(cycles_per_step):
+                u, sp = ph._cycle0(u, sp, b, 1, 1, rsq)
+            return u, sp
+
+        graphs = chunk_graphs(self, graph)
+        if graphs is None:
+            sp, b = torch.empty_like(u), torch.empty_like(u)
+            rsq = torch.empty((), dtype=torch.float32, device=self.device)
+            for k in range(num_steps):
+                u, sp = steps(u, sp, b, rsq, *knots(k))
+            return u
+        key = ("march", cycles_per_step, timedep, ph.dtype)
+
+        def make():
+            fs = torch.empty(f.shape[-2:], dtype=f.dtype, device=self.device)
+            return SimpleNamespace(
+                u=torch.empty_like(u), sp=torch.empty_like(u), b=torch.empty_like(u),
+                rsq=torch.empty((), dtype=torch.float32, device=self.device),
+                # one buffer for both knots of a time-independent f
+                f=(fs, torch.empty_like(fs) if timedep else fs))
+
+        st = graphs.statics(key, make)
+        st.u.copy_(u)
+
+        def body():
+            v, _ = steps(st.u, st.sp, st.b, st.rsq, *st.f)
+            if v is not st.u:
+                st.u.copy_(v)
+
+        for k in range(num_steps):
+            if timedep or k == 0:
+                for buf, knot in zip(st.f, knots(k)):
+                    buf.copy_(knot)
+            graphs.run(key, body)
+        return st.u.clone()

@@ -717,19 +717,23 @@ def _tiles_key(tiles: Tiles) -> tuple:
     return ("tiles", tiles.leg, tiles.n, tiles.strip, tiles.gy)
 
 
-def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
-    """(partials, counter) of one A1, A2, A5 or row-streaming A6 launch: one
-    partial sum per block and the zeroed counter whose last block adds them
-    (and resets it), kept in ``workspace`` under their own key when one is
-    given."""
-    key = _tiles_key(tiles)
+def _block_scratch(key, blocks: int, device, workspace, dtype=torch.float32) -> tuple:
+    """(partials, counter): one partial sum per block in ``dtype`` and the
+    zeroed counter whose last block adds them (and resets it), kept in
+    ``workspace`` under ``key`` when one is given."""
     bufs = None if workspace is None else workspace.get(key)
     if bufs is None:
-        bufs = (torch.empty(tiles.blocks, dtype=torch.float32, device=device),
+        bufs = (torch.empty(blocks, dtype=dtype, device=device),
                 torch.zeros(1, dtype=torch.int32, device=device))
         if workspace is not None:
             workspace[key] = bufs
     return bufs
+
+
+def _tile_scratch(tiles: Tiles, device, workspace) -> tuple:
+    """The scratch of one A1, A2, A5 or row-streaming A6 launch, under its
+    own key."""
+    return _block_scratch(_tiles_key(tiles), tiles.blocks, device, workspace)
 
 
 _LAUNCH_TILES = {}

@@ -4,8 +4,9 @@ and mixed-precision iterative refinement.
 Port of ``multigrid_feanet_tpu/solvers/pallas_mg.py``.  :class:`Hierarchy`
 runs the V-cycle of ``solvers/multigrid.py`` with the levels at or above
 ``kernel_threshold`` on C1 (one sweep, the masked residual) and C2 (nu > 1
-sweeps in one pass); the levels below, the transfers and the direct coarse
-solve are plain torch ops.  Unlike ``HierarchyV2`` it computes an explicit
+sweeps in one pass), and the transfers from and to those levels on X2 and
+X3 (``ops/passes.py``); the levels below, their transfers and the direct
+coarse solve are plain torch ops.  Unlike ``HierarchyV2`` it computes an explicit
 post-cycle residual, so ``history[-1]`` is the residual of the returned
 ``u``; the loop reads it back once per cycle.  On the card the cycle and its
 residual norm are one replay of a CUDA graph (``solvers/common.py``).
@@ -13,7 +14,8 @@ residual norm are one replay of a CUDA graph (``solvers/common.py``).
 :func:`solve_ir` keeps an f64 iterate and residual and solves each
 correction with a few f32 V-cycles of a :class:`Hierarchy` or a
 ``HierarchyV2``: f32 cycles alone stall at the rounding floor of a nonzero
-right-hand side.
+right-hand side.  Its outer step (the f64 correction accumulate, the f64
+residual, its norm and the f32 downcast) is kernel X4 on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.core.geometry import reset_boundary
 from multigrid_feanet_torch.core.problem import GridHierarchy, Problem, build_level
+from multigrid_feanet_torch.ops import passes
 from multigrid_feanet_torch.ops.stencil_sweep import StencilLevel
 from multigrid_feanet_torch.solvers import jacobi as jac
 from multigrid_feanet_torch.solvers import multigrid as mg
@@ -84,6 +87,17 @@ class Hierarchy:
         ps = self.ps[l]
         return ps.residual(u, f)[0] if ps is not None else f - self.hier.levels[l].apply(u)
 
+    def _restrict(self, l: int, r):
+        """The coarse right-hand side 4 FW(r) from level l: X2 when l is a
+        kernel level."""
+        return passes.restrict(r) if self.ps[l] is not None else passes.restrict_plain(r)
+
+    def _prolong_add(self, l: int, u, uc):
+        """u + geo P(uc) on level l: X3 when l is a kernel level."""
+        geo = self.hier.levels[l].geo
+        return (passes.prolong_add(u, uc, geo) if self.ps[l] is not None
+                else passes.prolong_add_plain(u, uc, geo))
+
     def _res_norm(self, u, f):
         """Interior residual norm of ``u`` on the finest level (a 0-d tensor)."""
         ps = self.ps[0]
@@ -93,9 +107,9 @@ class Hierarchy:
 
     def v_cycle(self, u, f, nu1: int, nu2: int, level: int = 0):
         """One recursive V(nu1, nu2) cycle from ``level``: ``solvers/multigrid.py``'s
-        cycle on this hierarchy's relax and residual."""
+        cycle on this hierarchy's relax, residual and transfers."""
         return mg.v_cycle(self.hier, u, f, nu1, nu2, level=level, coarse_inv=self.coarse_inv,
-                          ops=(self._relax, self._residual))
+                          ops=(self._relax, self._residual, self._restrict, self._prolong_add))
 
     # ---- solve entry points ----
 
@@ -178,6 +192,7 @@ def _f64_twin(h):
             twin = dataclasses.replace(lv, table=lv.table.double(), diag=lv.diag.double(),
                                        geo=lv.geo.double())
         h._ir_lv64 = twin
+        h._ir_form = passes.operator_form(twin)
     return twin
 
 
@@ -187,8 +202,8 @@ def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: floa
 
     ``h`` is a :class:`Hierarchy` or a ``solvers.mg2.HierarchyV2``.  The
     iterate u and the residual r = f - A u are kept in f64 (one fused f64
-    step per outer iteration, eager torch ops, and one host sync for its
-    norm); each correction equation A e = r is solved from zero with
+    step per outer iteration, X4 of ``ops/passes.py`` on the card, and one
+    host sync for its norm); each correction equation A e = r is solved from zero with
     ``cycles_per_correction`` V(nu1, nu2) cycles (r goes in as f32; on a
     bf16 ``HierarchyV2`` the levels store bf16, as ``pallas_mg2.py``
     recommends, and the bf16 e is widened) and accumulated as u += e.
@@ -198,7 +213,8 @@ def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: floa
     At ``max_outer`` the JAX solver computes one more correction and
     throws it away; this one returns the same ``u`` and history without
     that solve.  The corrections replay ``h.solve``'s CUDA graphs on the
-    card (``graph=False``: its eager loop); the f64 steps run eagerly."""
+    card (``graph=False``: its eager loop); the outer steps are X4 launches
+    between them."""
     lv64 = _f64_twin(h)
     geo64 = lv64.geo
     f64 = torch.as_tensor(f, dtype=torch.float64, device=lv64.device)
@@ -207,14 +223,14 @@ def solve_ir(h, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1, eps: floa
     if bc_value is not None:
         u = reset_boundary(u, geo64, bc_value)
     e32 = torch.zeros(f64.shape, dtype=torch.float32, device=lv64.device)
-    history = []
+    history, workspace = [], {}
     for outer in range(max_outer):
-        u = u + e32.double() * geo64
-        r = f64 - lv64.apply(u)
-        history.append(float(jac.interior_norm(r)))  # the one host sync per outer
+        # u += e geo, r = f - A u, r as f32, the interior sum of r^2
+        u, r32, rsq = passes.outer_step(u, e32, f64, geo64, workspace=workspace, **h._ir_form)
+        history.append(float(torch.sqrt(rsq)))  # the one host sync per outer
         if history[-1] <= eps or outer == max_outer - 1:
             break
         # the correction, with zero Dirichlet data
-        e32, _ = h.solve(r.float(), nu1=nu1, nu2=nu2, eps=0.0,
-                         max_cycles=cycles_per_correction, graph=graph)
+        e32, _ = h.solve(r32, nu1=nu1, nu2=nu2, eps=0.0, max_cycles=cycles_per_correction,
+                         graph=graph)
     return u, np.asarray(history)

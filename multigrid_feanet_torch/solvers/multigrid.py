@@ -30,23 +30,27 @@ def v_cycle(hier: GridHierarchy, u, f, nu1: int = 1, nu2: int = 1, bc_value=0.0,
     """One recursive V(nu1, nu2) cycle starting at ``level``; returns the
     updated u.  ``bc_value`` applies on the finest level only; the coarse
     error equations have zero Dirichlet data.  ``ops`` = ``(relax(l, u, f,
-    nu), residual(l, u, f))`` replaces the plain Jacobi relax and residual
-    (``solvers/mg.py::Hierarchy`` passes its kernel levels' ops); the
+    nu), residual(l, u, f), restrict(l, r), prolong_add(l, u, u_c))``
+    replaces the plain Jacobi relax and residual and the plain transfers
+    from and to level l: the coarse right-hand side 4 FW(r) and u + geo
+    P(u_c) (``solvers/mg.py::Hierarchy`` passes its kernel levels' ops); the
     boundary data are then the ops' own concern."""
     levels = hier.levels
     if coarse_inv is not None and level == len(levels) - 1 and level > 0:
         return coarse.coarse_solve(coarse_inv, f).to(u.dtype)
     if ops is None:
         ops = (lambda l, u, f, nu: relax(levels[l], u, f, nu, bc_value if l == 0 else 0.0, omega),
-               lambda l, u, f: f - levels[l].apply(u))
-    relax_at, residual_at = ops
+               lambda l, u, f: f - levels[l].apply(u),
+               # the h^2 scaling of the coarse right-hand side (factor 4)
+               lambda l, r: 4.0 * restrict_full_weighting(r),
+               lambda l, u, u_c: u + prolong_bilinear(u_c, levels[l].geo))
+    relax_at, residual_at, restrict_at, prolong_add_at = ops
     u = relax_at(level, u, f, nu1)
     if level < len(levels) - 1:
-        # the h^2 scaling of the coarse right-hand side (factor 4)
-        f_c = 4.0 * restrict_full_weighting(residual_at(level, u, f))
+        f_c = restrict_at(level, residual_at(level, u, f))
         u_c = v_cycle(hier, torch.zeros_like(f_c), f_c, nu1, nu2, 0.0, omega, level + 1,
                       coarse_inv, ops)
-        u = u + prolong_bilinear(u_c, levels[level].geo)
+        u = prolong_add_at(level, u, u_c)
     return relax_at(level, u, f, nu2)
 
 

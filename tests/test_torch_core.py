@@ -297,8 +297,8 @@ def test_library_hash_covers_every_source(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     cu = sorted(csrc.glob("*.cu"))
-    names = ["elastic.cu", "general.cu", "hrelax.cu", "membench.cu", "qsweep.cu", "stencil.cu",
-             "sweep.cu", "torus.cu"]
+    names = ["elastic.cu", "general.cu", "hrelax.cu", "membench.cu", "passes.cu", "qsweep.cu",
+             "stencil.cu", "sweep.cu", "torus.cu"]
     assert [p.name for p in cu] == names
     assert [p.name for p in _build.sources()] == names
     seen = {_build.library_path()}

@@ -6,8 +6,9 @@ CUDA graph and replays it; on the CPU the eager loop runs.  Here an eager
 stand-in takes the graph's place (``EagerGraphs``: every "replay" runs the
 chunk body again), so the replay path's bookkeeping -- static buffers, the
 per-chunk norm buffer, the buffer parity, the A6 chunk between its peeled
-descent and closing ascent, CG's two parity graphs, the returned copy --
-runs here and is held bit for bit to the eager loop (``graph=False``).  The
+descent and closing ascent, CG's two parity graphs, the returned copy, the
+heat march's step with its (f^n, f^{n+1}) pair -- runs here and is held bit
+for bit to the eager loop (``graph=False``).  The
 stand-in also runs every body with the tensor methods that read the device
 from the host patched to raise: a body that syncs could not be captured.
 
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+from multigrid_feanet_torch.ops.heat import HeatSolver
 from multigrid_feanet_torch.solvers.boxmg import BoxMGHierarchy
 from multigrid_feanet_torch.solvers.common import ChunkGraphs
 from multigrid_feanet_torch.solvers.elastic import ElasticHierarchy
@@ -282,6 +284,31 @@ def test_solve_ir_replays_its_corrections(build):
     got = solve_ir(h, f, **kw)
     assert torch.equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert h.graphs.captures == 1
+
+
+@pytest.mark.parametrize("timedep", [False, True], ids=["f_const", "f_knots"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_march_steps_read_nothing_back(dtype, timedep):
+    """HeatSolver.march through the replay path, one step a body (the right-
+    hand side, then the step's cycles), host reads refused in each: bit for
+    bit the eager march, one capture per key; a second march from another
+    u0 equals its eager twin and leaves the first u unchanged."""
+    hs = HeatSolver(Problem(n=N, inclusion=CIRCLE), 0.01, theta=0.5, backend="fused",
+                    kernel_kw=dict(num_levels=4, kernel_threshold=16, dtype=dtype),
+                    device="cpu")
+    steps = 3
+    f = np.random.default_rng(7).standard_normal((N + 1, N + 1)).astype(np.float32)
+    if timedep:
+        f = np.stack([f * (1.0 + 0.1 * k) for k in range(steps + 1)])
+    u0, u1 = _decay_u0(8), _decay_u0(9)
+    want = [hs.march(u, f, steps, graph=False) for u in (u0, u1)]
+    hs.graphs = EagerGraphs()
+    first = hs.march(u0, f, steps)
+    kept = first.clone()
+    second = hs.march(u1, f, steps)
+    assert first.dtype == dtype and torch.equal(first, want[0])
+    assert torch.equal(second, want[1]) and torch.equal(first, kept)
+    assert hs.graphs.captures == 1 and hs.graphs.bodies == 2 * steps
 
 
 def test_cpu_runs_the_eager_loop():
