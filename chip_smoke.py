@@ -137,7 +137,8 @@ Phases, in order; any failure exits non-zero:
    (``HeatSolver(backend="fused").march``, 10 steps of 2 V(1,1) cycles,
    exact A1-A4 counts and one X1 a step; the march replays one CUDA graph a
    step and must equal the eager march bit for bit, also with
-   time-dependent knots; both timed; and one ``step``); and four 129^2
+   time-dependent knots, and the march with X1's one-pass tile forced; both
+   timed; and one ``step``); and four 129^2
    checks against the CPU (the fused heat step and march, a float64 heat
    step on the plain backend, ``solve_pbc_mg`` at 128^2).
 13. Hold B1 and B2 (4097^2, bitwise; torch.add timed beside them), F1
@@ -257,12 +258,16 @@ Phases, in order; any failure exits non-zero:
    (``ops/passes.py``): each held against its plain version by ``hold`` at
    4097^2, 33^2, 65^2 and 257^2 in every variant (X1 bi-material and
    homogeneous, f32 and bf16 u, one f or two knots, and f64; X4 homogeneous
-   and two-phase, an f32 and a bf16 correction), X2 and X3 bit for bit, X1
-   at ``ops.sweep.TOL`` (f64: ``ops.passes.TOL64``) and X4 at
-   ``ops.passes.TOL64`` of max(1, max|plain|), two launches bitwise; each
-   timed beside its bound and its plain version and, at 4097^2 for X2 and
-   X3, ``F.conv2d`` with stride 2 and ``F.conv_transpose2d`` in full f32
-   (``pass_kernel_checks``).  Then
+   and two-phase, an f32 and a bf16 correction), X1, X2 and X3 bit for bit
+   (a bf16 X1 within one bf16 ulp) and X4 at ``ops.passes.TOL64`` of
+   max(1, max|plain|), two launches bitwise; X1 in both designs at every
+   size (the one its wrapper launches, by ``ops.passes.X1_ONE_PASS_MAX_N``,
+   and the other forced), held and timed the same way and equal to each
+   other bit for bit; each timed
+   beside its bound and its plain version and, at 4097^2, X2 and X3 beside
+   ``F.conv2d`` with stride 2 and ``F.conv_transpose2d`` in full f32 and
+   homogeneous f32 X1 beside ``F.conv2d`` of its fields stacked as
+   channels (``x1_library``) (``pass_kernel_checks``).  Then
    ``ir_interface_4097``: ``solve_ir`` on ``interface_4097``'s bi-material
    hierarchy with f = apply_mass(1, h), 6 cycles a correction, at most 20
    outer steps, to an f64 true residual <= 1e-6 (X4 in its two-phase form,
@@ -274,9 +279,10 @@ Phases, in order; any failure exits non-zero:
    bounds and this run's f32 times (``bf16_times``), the kernel summary
    line (one row per kernel and path, with the path's launch counts; the
    bf16 rows suffixed ``_bf16``; each row's byte bound also at the
-   measured copy and triad rates; the rows of G4 and A5 also name both
+   measured copy and triad rates; the rows of G4, A5 and X1 also name both
    designs' device kernels, ``symbols``, and the one the timed launch ran,
-   ``design``; X1-X4 with their cells' launches), then the device line as
+   ``design``; X1-X4 with their cells' launches, X1 with its tile's time
+   and its homogeneous time beside ``F.conv2d``'s), then the device line as
    the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
@@ -1881,9 +1887,14 @@ def run_heat_cell() -> dict:
     steps (knots f (1 + k / 10)), must equal the eager march (``graph=False``)
     bit for bit with the eager march's launch counts, the warm march making
     no wrapper call of its own, one capture per key.  Both paths are timed.
-    Beside it one ``step`` to the smallest decade at least twice the step's
-    f32 floor (the least residual of 12 cycles at eps 0)."""
+    X1 runs its row-streaming design there (``x1_design``); the graph
+    march once more with its one-pass tile forced, on fresh graphs, must
+    equal it bit for bit with the same launches.  Beside it one ``step`` to
+    the smallest decade at least twice the step's f32 floor (the least
+    residual of 12 cycles at eps 0)."""
     import torch
+    from multigrid_feanet_torch.ops import passes as px
+    from multigrid_feanet_torch.solvers.common import ChunkGraphs
 
     n, steps, cps = N_MAIN, 10, 2
     t0 = time.time()
@@ -1911,6 +1922,18 @@ def run_heat_cell() -> dict:
                   launches_equal=launches_w == launches_e == launches, own_calls=not own,
                   captures=hs.graphs.captures == 2)
     del ftd, td_g, td_e
+    # the graph march once more with X1's tile forced, on fresh graphs: bit
+    # for bit the row stream's march, with the same launches
+    graphs, saved = hs.graphs, dict(px.X1_ONE_PASS_MAX_N)
+    px.X1_ONE_PASS_MAX_N.update({k: n for k in saved})
+    hs.graphs = ChunkGraphs(hs.device)
+    try:
+        (ut, _), launches_t = counted(run)
+    finally:
+        px.X1_ONE_PASS_MAX_N.update(saved)
+        hs.graphs = graphs
+    checks.update(tile_bitwise=bool(torch.equal(u, ut)), tile_launches=launches_t == expect)
+    del ut
     walls, prof = {}, {}
     for path, graph in (("graph", True), ("eager", False)):
         walls[path] = []
@@ -1934,9 +1957,10 @@ def run_heat_cell() -> dict:
     if not hist[-1] <= eps:
         fail(f"heat_step_4097: no convergence to {eps}: {hist}")
     rec = dict(solve="heat_march_4097", n=n, steps=steps, cycles_per_step=cps, setup_s=setup_s,
-               wall_s=wall, walls_s=walls["graph"], ms_per_step=1e3 * wall / steps,
-               ms_per_cycle=1e3 * wall / (steps * cps), u_max=float(u.abs().max()),
-               launches=launches, profile=prof["graph"], graph_checks=checks,
+               x1_design=x1_design(n), wall_s=wall, walls_s=walls["graph"],
+               ms_per_step=1e3 * wall / steps, ms_per_cycle=1e3 * wall / (steps * cps),
+               u_max=float(u.abs().max()), launches=launches, profile=prof["graph"],
+               graph_checks=checks,
                eager=dict(walls_s=walls["eager"],
                           ms_per_step=1e3 * min(walls["eager"]) / steps,
                           profile=prof["eager"]),
@@ -4489,13 +4513,12 @@ def pass_legs(x: dict, forms: dict, n: int) -> list:
     of pass_inputs(n) and the operator ``forms`` of pass_forms(n): (leg,
     call, kernel, plain version, inputs, cfg, bytes, tolerance, tags).  X1
     in f32 and bf16 storage, with one f (the constant source the march
-    passes as both knots) or two, and in f64 (a float64 problem, two f), at
-    ``TOL`` (f64: ``TOL64``); X2 and X3 bit for bit; X4 with an f32 and a
-    bf16 correction at ``TOL64``, its f32 residual within one f32 rounding.
-    Each bi-material and homogeneous."""
+    passes as both knots) or two, and in f64 (a float64 problem, two f), bit
+    for bit (a bf16 b within one bf16 ulp); X2 and X3 bit for bit; X4 with
+    an f32 and a bf16 correction at ``TOL64``, its f32 residual within one
+    f32 rounding.  Each bi-material and homogeneous."""
     import torch
     from multigrid_feanet_torch.ops import passes as px
-    from multigrid_feanet_torch.ops.sweep import TOL
 
     def one_f(fn, y, kw):
         return fn(y[0], y[1], y[1], y[2], **kw)
@@ -4519,14 +4542,14 @@ def pass_legs(x: dict, forms: dict, n: int) -> list:
                     u = x["u"].to(torch.bfloat16) if bf16 else x["u"]
                     es = 2 if bf16 else 4
                     legs += [("X1", one_f, *x1, (u, x["f0"], pid), cfg,
-                              pass_bytes("X1", n, bim, es), TOL,
+                              pass_bytes("X1", n, bim, es), 0.0,
                               dict(bim=bim, bf16=bf16, two_f=False)),
                              ("X1", two_f, *x1, (u, x["f0"], x["f1"], pid), cfg,
-                              pass_bytes("X1", n, bim, es, True), TOL,
+                              pass_bytes("X1", n, bim, es, True), 0.0,
                               dict(bim=bim, bf16=bf16, two_f=True))]
                 continue
             legs.append(("X1", two_f, *x1, (x["u64"], x["f064"], x["f164"], pid), cfg,
-                         pass_bytes("X1", n, bim, 8, True, 8), px.TOL64,
+                         pass_bytes("X1", n, bim, 8, True, 8), 0.0,
                          dict(bim=bim, bf16=False, two_f=True, f64=True)))
             for bf16 in (False, True):
                 e = x["e_bf16"] if bf16 else x["e"]
@@ -4539,13 +4562,46 @@ def pass_legs(x: dict, forms: dict, n: int) -> list:
                     (x["u"], x["uc"], x["geo"]), {}, pass_bytes("X3", n, False), 0.0, {})]
 
 
+def x1_library(x: dict, form: dict, n: int, two_f: bool):
+    """One PyTorch call that computes homogeneous X1 in full f32 on the
+    fields of pass_inputs(n): ``F.conv2d`` of (u, f) or (u, f0, f1) stacked
+    as input channels, padding 1, with the weights (M - (1 - theta) dt K,
+    dt M) or (M - (1 - theta) dt K, (1 - theta) dt M, theta dt M), M the
+    mass stencil h^2 MASS_KERNEL and K the (3, 3) table; returns the call
+    (its input stacked once, outside it) and its result."""
+    import torch
+    import torch.nn.functional as F
+    from multigrid_feanet_torch.core.device import full_f32
+    from multigrid_feanet_torch.ops.stencil import MASS_KERNEL
+
+    th, dt, h = HEAT_THETA, HEAT_DT, 2.0 / n
+    m, k = (h * h) * MASS_KERNEL, np.asarray(form["table"], np.float64)
+    ws = [m - (1.0 - th) * dt * k] + ([(1.0 - th) * dt * m, th * dt * m] if two_f else [dt * m])
+    wt = torch.as_tensor(np.stack(ws)[None], dtype=torch.float32, device=DEVICE)
+    xin = torch.stack([x["u"], x["f0"]] + ([x["f1"]] if two_f else []))[None]
+
+    def run():
+        with full_f32():
+            return F.conv2d(xin, wt, padding=1)
+
+    return run, run()[0, 0]
+
+
+def x1_design(n: int, f64: bool = False, bim: bool = True) -> str:
+    """The device kernel X1's wrapper launches at size n."""
+    return design_of("X1", dict(n=n, f64=f64, bim=bim))["design"]
+
+
 def check_passes() -> list:
     """Hold X1-X4 against their plain versions with ``hold`` (two launches
     bitwise) at 4097^2, 33^2, 65^2 and 257^2 in every variant of
-    ``pass_legs``, each timed beside its bound and its plain version; at
-    4097^2 X2 and X3 also beside one PyTorch call that computes their
+    ``pass_legs``, each timed beside its bound and its plain version; X1 in
+    both designs (``x1_designs``), which must agree bit for bit.  At 4097^2
+    X2 and X3 are timed beside one PyTorch call that computes their
     transfer (``F.conv2d`` with stride 2, ``F.conv_transpose2d``, in full
-    f32).  One record per variant and size."""
+    f32) and homogeneous f32 X1 beside ``x1_library``'s ``F.conv2d`` (its
+    largest difference from the plain version, relative to max|b|, in
+    ``library_rel_err``).  One record per variant, size and design."""
     import torch
     import torch.nn.functional as F
     from multigrid_feanet_torch.core.device import full_f32
@@ -4556,12 +4612,22 @@ def check_passes() -> list:
     for n in PASS_SIZES:
         x, forms = pass_inputs(n, 24 + n), pass_forms(n)
         for leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol, tags in pass_legs(x, forms, n):
-            rec = hold(leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol, dict(n=n, **tags),
-                       twice=True)
-            rec["bound_ms"], rec["bound_by"] = pass_bound(leg, n, tags.get("bim", False), nbytes,
-                                                          tags.get("f64", False))
-            rec["library_ms"] = None
-            if n == N_MAIN and leg == "X2":  # 4 FW as one strided convolution (the ring not zeroed)
+            held = ([hold(leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol,
+                          dict(n=n, **tags), twice=True)] if leg != "X1" else
+                    x1_designs(call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol,
+                               dict(n=n, **tags)))
+            for rec in held:
+                rec["bound_ms"], rec["bound_by"] = pass_bound(leg, n, tags.get("bim", False),
+                                                              nbytes, tags.get("f64", False))
+                rec["library_ms"] = None
+            rec = held[0]  # the design the wrapper launches
+            if n == N_MAIN and leg == "X1" and not (tags["bim"] or tags["bf16"] or
+                                                    tags.get("f64")):
+                lib, got = x1_library(x, forms[(False, torch.float32)], n, tags["two_f"])
+                want = call(plain_fn, inputs, cfg)
+                rec["library_ms"] = kernel_ms([lib])
+                rec["library_rel_err"] = float((got - want).abs().max() / want.abs().max())
+            elif n == N_MAIN and leg == "X2":  # 4 FW as one strided convolution (ring not zeroed)
                 with full_f32():
                     rec["library_ms"] = kernel_ms([lambda: F.conv2d(
                         x["u"][None, None], k4, stride=2, padding=1)])
@@ -4569,9 +4635,37 @@ def check_passes() -> list:
                 with full_f32():
                     rec["library_ms"] = kernel_ms([lambda: F.conv_transpose2d(
                         x["uc"][None, None], k4, stride=2, padding=1)])
-            recs.append(rec)
+            recs += held
         del x, forms
     print(json.dumps({"pass_kernel_checks": recs}), flush=True)
+    return recs
+
+
+def x1_designs(call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol, tags: dict) -> list:
+    """X1 at size ``tags["n"]`` in both designs: the one its wrapper
+    launches there (``x1_design``) and the other, forced through the
+    variant's threshold in ``ops.passes.X1_ONE_PASS_MAX_N`` (n: the tile,
+    -1: the row stream); each held with ``hold``, and the two outputs equal
+    bit for bit.  One record each, tagged with its ``design``, the launched
+    one first."""
+    import torch
+    from multigrid_feanet_torch.ops import passes as px
+
+    n, key = tags["n"], (bool(tags.get("f64")), bool(tags["bim"]))
+    rows, tile = DESIGNS["X1"][:2]
+    launched = x1_design(n, *key)
+    saved = dict(px.X1_ONE_PASS_MAX_N)
+    recs, outs = [], []
+    for design in (launched, tile if launched == rows else rows):
+        px.X1_ONE_PASS_MAX_N[key] = n if design == tile else -1
+        try:
+            recs.append(hold("X1", call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol,
+                             dict(tags, design=design), twice=True))
+            outs.append(call(cuda_fn, inputs, cfg))
+        finally:
+            px.X1_ONE_PASS_MAX_N.update(saved)
+    if not torch.equal(*outs):
+        fail(f"X1 {tags}: the row stream and the tile differ")
     return recs
 
 
@@ -4605,16 +4699,25 @@ def pass_rows(checks: list, heat: dict, r1: dict, irs: dict) -> list:
             ("X3", rec("X3"), r1["poisson_4097_r1_v22"], "_v22"),
             ("X4", rec("X4", bim=False, bf16=False), irs["ir_4097"], ""),
             ("X4", rec("X4", bim=True, bf16=False), irs["ir_interface_4097"], "_bim")]
+    # beside X1's time: its tile's, and its homogeneous one-f time with the
+    # PyTorch call that computes it
+    hom = rec("X1", bim=False, bf16=False, two_f=False)
+    x1_extra = dict(tile_ms=rec("X1", bim=True, bf16=False, two_f=False,
+                                design=DESIGNS["X1"][1])["ms"],
+                    hom_ms=hom["ms"], hom_bound_ms=hom["bound_ms"],
+                    hom_library_ms=hom["library_ms"])
     rows = []
     for key, c, cell, suffix in spec:
         kern = k[key]
-        rows.append(dict(name=kern.name + suffix, route="cuda", source=kern.source,
-                         replaces=kern.replaces, launches=cell["launches"][key],
+        rows.append(dict(name=kern.name + suffix, **design_of(key, c), route="cuda",
+                         source=kern.source, replaces=kern.replaces,
+                         launches=cell["launches"][key],
                          max_abs_err=c["max_abs_err"], max_rel_err=c["max_rel_err"],
                          ms=c["ms"], warm_ms=c["warm_ms"], plain_ms=c["plain_ms"],
                          bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                          library_ms=c["library_ms"], path=cell["solve"], n=N_MAIN,
-                         bytes=c["bytes"], **{t: c[t] for t in ("bim", "bf16", "two_f") if t in c}))
+                         bytes=c["bytes"], **{t: c[t] for t in ("bim", "bf16", "two_f") if t in c},
+                         **(x1_extra if key == "X1" else {})))
     return rows
 
 
@@ -4672,10 +4775,15 @@ def bound(key: str, rec: dict):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# the device kernels of the two-design legs G4 and A5: (row-streaming,
-# one-pass tile), and the module and threshold that choose between them
-DESIGNS = {"G4": ("g4_el_zdescent_rows", "g4_el_zdescent", "elastic", "G4_ONE_PASS_MAX_N"),
-           "A5": ("a5_resid_restrict_rows", "a5_resid_restrict", "sweep", "A5_ONE_PASS_MAX_N")}
+# the device kernels of the two-design legs G4, A5 and X1: (row-streaming,
+# one-pass tile), the module and threshold that choose between them and the
+# record's tags that key a threshold given per instance
+DESIGNS = {"G4": ("g4_el_zdescent_rows", "g4_el_zdescent", "elastic", "G4_ONE_PASS_MAX_N",
+                  ("bim",)),
+           "A5": ("a5_resid_restrict_rows", "a5_resid_restrict", "sweep", "A5_ONE_PASS_MAX_N",
+                  ("bim",)),
+           "X1": ("x1_heat_rhs_rows", "x1_heat_rhs", "passes", "X1_ONE_PASS_MAX_N",
+                  ("f64", "bim"))}
 
 
 def design_of(key: str, rec: dict) -> dict:
@@ -4685,9 +4793,11 @@ def design_of(key: str, rec: dict) -> dict:
 
     if key not in DESIGNS:
         return {}
-    rows, tile, module, name = DESIGNS[key]
+    rows, tile, module, name, tags = DESIGNS[key]
     limit = getattr(importlib.import_module(f"multigrid_feanet_torch.ops.{module}"), name)
-    limit = limit[bool(rec.get("bim"))] if isinstance(limit, dict) else limit
+    if isinstance(limit, dict):
+        by = tuple(bool(rec.get(t)) for t in tags)
+        limit = limit[by if len(by) > 1 else by[0]]
     return dict(symbols=[rows, tile], design=tile if rec["n"] <= limit else rows)
 
 

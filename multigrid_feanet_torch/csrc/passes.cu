@@ -31,12 +31,12 @@
 //
 // Arithmetic.  Each kernel follows its plain version (ops/passes.py) op for
 // op, with the rounding intrinsics (__fadd_rn, __fmul_rn, __dadd_rn, ...),
-// which the compiler never contracts into fused multiply-adds: X2 and X3
-// equal their plain versions bit for bit (the round-1 cell is held to the
-// parent's residual history exactly), and X1 and X4 round where their plain
-// versions round.  X4's sum is taken per block in a fixed order and the last
-// block to finish adds the blocks' sums in a fixed order (no float atomics),
-// so two launches agree bitwise.
+// which the compiler never contracts into fused multiply-adds: X1 (in both
+// designs), X2 and X3 equal their plain versions bit for bit (the round-1
+// cell is held to the parent's residual history exactly), and X4 rounds
+// where its plain version rounds.  X4's sum is taken per block in a fixed
+// order and the last block to finish adds the blocks' sums in a fixed order
+// (no float atomics), so two launches agree bitwise.
 //
 // Bounds at 4097^2 (bytes, 3.35 TB/s): X1 reads u, f0, f1, pid and writes b
 // (f0 and f1 the same tensor in the time-independent march: read once); X2
@@ -47,13 +47,20 @@
 // rows).  X1 and X4 stage their tile and its one-node halo in shared memory
 // (X1: u and the mixed source; X4: u' = u + e geo, formed as it is staged);
 // X2 and X3 read through the cache, their reuse being the 3 x 3 and 2 x 2
-// neighbourhoods of stride-2 reads.  Making them fast is later work.
+// neighbourhoods of stride-2 reads.  Above a size (ops/passes.py
+// X1_ONE_PASS_MAX_N) X1 streams rows instead (x1_heat_rhs_rows, below): the
+// tile reads u and f about 1.33 times over, pays a division per staged node
+// and overlaps none of its loads with its arithmetic, which bounds X1 by
+// its instructions about as much as by its bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <cstring>
+
+#include "common.cuh"
 
 namespace {
 
@@ -118,8 +125,9 @@ struct RhsW {
 
 // sum_t w_t x(offset_t) in the plain version's order, from 0: the stencil
 // apply of ops/stencil.py apply_stencil (out = 0; out = out + w * shifted).
-template <typename A>
-__device__ __forceinline__ A stencil9(const A (*s)[SX], int y, int x, const A* w) {
+// s: rows of W values; (y, x) the centre.
+template <typename A, int W>
+__device__ __forceinline__ A stencil9(const A (*s)[W], int y, int x, const A* w) {
   A acc = 0;
 #pragma unroll
   for (int dr = 0; dr < 3; ++dr)
@@ -129,7 +137,51 @@ __device__ __forceinline__ A stencil9(const A (*s)[SX], int y, int x, const A* w
   return acc;
 }
 
-// T: u's and b's storage; A: the f's type, in which b is computed.
+// b at (y, x) of the windows su (u) and sf (the mixed source f_mix), rows of
+// W values, in the plain version's order: M u - ((1 - theta) dt) K u +
+// dt M f_mix, K u = a0 S9(u) + sum_e (da bit_e) S4_e(u) (ops/stencil.py
+// apply_stencil_bitplane) from the pattern id p when BIM, else the
+// homogeneous stencil.  The factor da bit_e is taken as da or dz = da x 0,
+// the two values the plain version's product gives it.  The weights that
+// repeat are read from one place (ops/passes.py checks that they repeat):
+// the mass stencil's corner m[0] and edge m[1], and S9's neighbour taps and
+// S4's corner as s9[1], so that a thread's outputs share the products of
+// one weight with one node.
+template <typename A, bool BIM, int W>
+__device__ __forceinline__ A rhs_at(const A (*su)[W], const A (*sf)[W], int y, int x, int p,
+                                    const RhsW<A>& w, A dz) {
+  const A m[9] = {w.m[0], w.m[1], w.m[0], w.m[1], w.m[4], w.m[1], w.m[0], w.m[1], w.m[0]};
+  const A mu = stencil9(su, y, x, m);
+  A ku;
+  if (BIM) {
+    A s9 = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const A v = mul_rn(w.s9[t == 0 ? 0 : 1], su[y + s9_dr(t)][x + s9_dc(t)]);
+      s9 = t == 0 ? v : add_rn(s9, v);
+    }
+    ku = mul_rn(w.a0, s9);
+    const A tw[4] = {w.c4, w.e4, w.e4, w.s9[1]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      A s4 = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const A v = mul_rn(tw[t], su[y + s4_dr(e, t)][x + s4_dc(e, t)]);
+        s4 = t == 0 ? v : add_rn(s4, v);
+      }
+      ku = add_rn(ku, mul_rn((p >> e) & 1 ? w.da : dz, s4));
+    }
+  } else {
+    ku = stencil9(su, y, x, w.k);
+  }
+  const A mf = stencil9(sf, y, x, m);
+  // mu - ((1 - theta) dt) K u + dt M f_mix
+  return add_rn(sub_rn(mu, mul_rn(w.c, ku)), mul_rn(w.dt, mf));
+}
+
+// The one-pass tile.  T: u's and b's storage; A: the f's type, in which b
+// is computed.
 template <typename T, typename A, bool BIM>
 __global__ void __launch_bounds__(PNT)
 x1_heat_rhs(const T* __restrict__ u, const A* __restrict__ f0, const A* __restrict__ f1,
@@ -152,36 +204,131 @@ x1_heat_rhs(const T* __restrict__ u, const A* __restrict__ f0, const A* __restri
   const int lx = threadIdx.x % PX + 1, ly = threadIdx.x / PX + 1;
   const int i = y0 + ly - 1, j = x0 + lx - 1;
   if (i >= H || j >= H) return;
-  const A mu = stencil9<A>(su, ly, lx, w.m);
-  A ku;
-  if (BIM) {
-    // a0 S9(u) + sum_e (da bit_e) S4_e(u) (ops/stencil.py apply_stencil_bitplane)
-    A s9 = 0;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const A v = mul_rn(w.s9[t], su[ly + s9_dr(t)][lx + s9_dc(t)]);
-      s9 = t == 0 ? v : add_rn(s9, v);
-    }
-    ku = mul_rn(w.a0, s9);
-    const int p = pid[(long long)i * H + j];
-    const A tw[4] = {w.c4, w.e4, w.e4, w.d4};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      A s4 = 0;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const A v = mul_rn(tw[t], su[ly + s4_dr(e, t)][lx + s4_dc(e, t)]);
-        s4 = t == 0 ? v : add_rn(s4, v);
-      }
-      ku = add_rn(ku, mul_rn(mul_rn(w.da, (A)((p >> e) & 1)), s4));
-    }
+  const long long e = (long long)i * H + j;
+  store_f(out + e, rhs_at<A, BIM>(su, sf, ly, lx, BIM ? pid[e] : 0, w, mul_rn(w.da, (A)0)));
+}
+
+// ---------------------------------------------------------------------------
+// X1, row streaming (common.cuh's row-streaming helpers and block shape).
+//
+// A block of RT threads owns a band of RB columns (RC adjacent columns a
+// thread) and marches down a strip of rows, as A1 does (sweep.cu).  Step s
+// stages row y0 - 1 + s of u and of the f's (f once when f0 and f1 are one
+// tensor, as in the time-independent march) into a ring of RNS slots with
+// cp.async, RD steps ahead of the row being read, and the pattern-id row of
+// the row it computes (y0 - 2 + s: a byte row, read at the output nodes
+// only, never with a halo).  Each thread keeps a 3 x (RC + 2) register
+// window of u and of f_mix, mixing a node's source once as its row enters
+// the window, and from step 2 on computes its RC outputs of row y0 - 2 + s
+// with rhs_at, the tile's arithmetic: the row stream equals the tile and the
+// plain version bit for bit.  The windows start one column left of the band
+// and reach one right of it; columns off the grid read as zero (the plain
+// version's ghosts), rows off it are zero-filled.  A warp wholly past the
+// grid's last column (the last band of a 4097-node row holds one) stages but
+// computes nothing.  The strip height and the grid come from ops/passes.py
+// (x1_tiles, x1_strip), which balances them against the occupancy
+// px_heat_rhs_occupancy reports.
+// ---------------------------------------------------------------------------
+
+// The ring slot of a row of T: the RW-value window after an offset of up to
+// one 16-byte chunk, in whole chunks.
+template <typename T>
+__host__ __device__ constexpr int x1_slot() {
+  constexpr int el = 16 / (int)sizeof(T);
+  return (RW + el - 1 + el - 1) / el * el;
+}
+
+// Stages the window [col, col + RW) of row `row` of an H x H field of T
+// into the slot at dst (common.cuh stage_window, which copies one chunk a
+// thread).  A float64 window spans up to 130 chunks, so it goes in two
+// parts: the 64 chunks from the window's aligned-down start (values col ..
+// col + 126, and col + 127 when the window starts on a chunk), then the
+// window from col + 128, whose aligned-down start lies 1024 bytes further.
+template <typename T>
+__device__ __forceinline__ void stage_x1_row(unsigned dst, const T* src, int row, int H, int col,
+                                             bool live) {
+  if constexpr (sizeof(T) == 8) {
+    stage_window<8, 127>(dst, src, row, H, H, col, live);
+    stage_window<8, RW - 128>(dst + 1024, src, row, H, H, col + 128, live);
   } else {
-    ku = stencil9<A>(su, ly, lx, w.k);
+    static_assert((sizeof(T) * RW + 15) / 16 + 1 <= RT, "one chunk of a row per thread");
+    stage_window<(int)sizeof(T), RW>(dst, src, row, H, H, col, live);
   }
-  const A mf = stencil9<A>(sf, ly, lx, w.m);
-  // mu - ((1 - theta) dt) K u + dt M f_mix
-  const A b = add_rn(sub_rn(mu, mul_rn(w.c, ku)), mul_rn(w.dt, mf));
-  store_f(out + (long long)i * H + j, b);
+}
+
+// The RC + 2 values at window positions x .. x + RC + 1 of a staged row in
+// the arithmetic type A, zero where `in` is false (columns off the grid).
+template <typename A, typename T>
+__device__ __forceinline__ void read_x1_row(A (&v)[RC + 2], const T* slot, int row, int H,
+                                            int col, int x, const bool (&in)[RC + 2]) {
+  const T* p = slot + win_off<T>(row, H, col) + x;
+#pragma unroll
+  for (int e = 0; e < RC + 2; ++e) v[e] = in[e] ? (A)load_f(p + e) : (A)0;
+}
+
+template <typename T, typename A, bool BIM, bool ONE_F>
+__global__ void __launch_bounds__(RT)
+x1_heat_rhs_rows(const T* __restrict__ u, const A* __restrict__ f0, const A* __restrict__ f1,
+                 const int8_t* __restrict__ pid, T* __restrict__ out, int H, int strip,
+                 RhsW<A> w) {
+  __shared__ __align__(16) T us[RNS][x1_slot<T>()];
+  __shared__ __align__(16) A fs[ONE_F ? 1 : 2][RNS][x1_slot<A>()];
+  __shared__ __align__(16) int8_t ps[BIM ? RNS : 1][RSLOTQ];
+  const int t = threadIdx.x, x0 = blockIdx.x * RB, y0 = blockIdx.y * strip, c0 = x0 + RC * t;
+  const int col = x0 - 1, base = y0 - 1, steps = min(strip, H - y0) + 2;
+  const bool warp_in = x0 + RC * 32 * (t >> 5) < H;
+  bool in[RC + 2];  // columns c0 - 1 .. c0 + RC on the grid
+#pragma unroll
+  for (int e = 0; e < RC + 2; ++e) in[e] = (unsigned)(c0 - 1 + e) < (unsigned)H;
+
+  // step s: u and f rows base + s and the pattern-id row base + s - 1 into
+  // ring slot `slot`; always commits
+  auto stage = [&](int s, int slot) {
+    const bool live = s < steps;
+    stage_x1_row(smem_addr(us[slot]), u, base + s, H, col, live);
+    stage_x1_row(smem_addr(fs[0][slot]), f1, base + s, H, col, live);
+    if constexpr (!ONE_F) stage_x1_row(smem_addr(fs[1][slot]), f0, base + s, H, col, live);
+    if constexpr (BIM) stage_window<1, RB>(smem_addr(ps[slot]), pid, base + s - 1, H, H, x0, live);
+    cp_commit();
+  };
+  for (int s = 0; s < RD; ++s) stage(s, s);
+
+  A wu[3][RC + 2] = {}, wf[3][RC + 2] = {};
+  const A dz = mul_rn(w.da, (A)0);
+  auto step = [&](int s, auto S) {
+    constexpr int slot = decltype(S)::value % RNS;
+    if (s >= steps) return;
+    cp_wait<RD - 1>();
+    __syncthreads();
+    const int row = base + s, i = row - 1;
+    A un[RC + 2], fn[RC + 2];
+    read_x1_row(un, us[slot], row, H, col, RC * t, in);
+    read_x1_row(fn, fs[0][slot], row, H, col, RC * t, in);
+    if constexpr (!ONE_F) {
+      A f0n[RC + 2];
+      read_x1_row(f0n, fs[1][slot], row, H, col, RC * t, in);
+#pragma unroll
+      for (int e = 0; e < RC + 2; ++e) fn[e] = add_rn(mul_rn(w.th, fn[e]), mul_rn(w.th1, f0n[e]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < RC + 2; ++e) fn[e] = add_rn(mul_rn(w.th, fn[e]), mul_rn(w.th1, fn[e]));
+    }
+    roll<RC + 2>(wu, un);
+    roll<RC + 2>(wf, fn);
+    if (s >= 2 && warp_in) {
+      const int8_t* pp = ps[BIM ? slot : 0] + win_off<int8_t>(i, H, x0) + RC * t;
+      T* orow = out + (size_t)i * H + c0;
+#pragma unroll
+      for (int e = 0; e < RC; ++e) {
+        const A b = rhs_at<A, BIM>(wu, wf, 1, e + 1, BIM ? pp[e] : 0, w, dz);
+        if (in[e + 1]) store_f(orow + e, b);
+      }
+    }
+    // step s + RD reuses the slot of step s - 1
+    stage(s + RD, (slot + RD) % RNS);
+  };
+  for (int s0 = 0; s0 < steps; s0 += RNS)
+    static_for<RNS>([&](auto S) { step(s0 + decltype(S)::value, S); });
 }
 
 // ---------------------------------------------------------------------------
@@ -337,21 +484,42 @@ inline dim3 grid_of(int H) { return dim3((H + PX - 1) / PX, (H + PY - 1) / PY); 
 
 inline bool aligned(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
 
-// One X1 launch with u and b of type T and the f's and weights of type A.
+// Whether gx x gy blocks are X1's grid on H x H nodes: the tile's (one_pass),
+// or row-streaming strips of `strip` rows (1 .. RS_STRIP_MAX) of bands of RB
+// columns (ops/passes.py x1_tiles).
+inline bool x1_grid_ok(int H, bool one_pass, int strip, int gx, int gy) {
+  if (one_pass) return (unsigned)gx == grid_of(H).x && (unsigned)gy == grid_of(H).y;
+  return strip >= 1 && strip <= RS_STRIP_MAX && gx == (H + RB - 1) / RB &&
+         gy == (H + strip - 1) / strip;
+}
+
+// X1's instance of u type T and arithmetic type A: the tile's (one_pass) for
+// pid or none, or the row stream's for pid or none and one f or two.
 template <typename T, typename A>
-int x1_launch(const void* u, const void* f0, const void* f1, const int8_t* pid, void* out,
-              int H, const void* w, cudaStream_t st) {
-  RhsW<A> k;
+const void* x1_of(bool one_pass, bool bim, bool one_f) {
   static_assert(sizeof(RhsW<A>) == 36 * sizeof(A), "RhsW is 36 numbers");
-  memcpy(&k, w, sizeof(k));
-  const dim3 g = grid_of(H);
-  if (pid)
-    x1_heat_rhs<T, A, true><<<g, PNT, 0, st>>>((const T*)u, (const A*)f0, (const A*)f1, pid,
-                                               (T*)out, H, k);
-  else
-    x1_heat_rhs<T, A, false><<<g, PNT, 0, st>>>((const T*)u, (const A*)f0, (const A*)f1, pid,
-                                                (T*)out, H, k);
-  return (int)cudaGetLastError();
+  if (one_pass)
+    return bim ? (const void*)x1_heat_rhs<T, A, true> : (const void*)x1_heat_rhs<T, A, false>;
+  const void* rows[2][2] = {{(const void*)x1_heat_rhs_rows<T, A, false, false>,
+                             (const void*)x1_heat_rhs_rows<T, A, false, true>},
+                            {(const void*)x1_heat_rhs_rows<T, A, true, false>,
+                             (const void*)x1_heat_rhs_rows<T, A, true, true>}};
+  return rows[bim][one_f];
+}
+
+// x1_of for px_heat_rhs's u_type and f64 (a pair it takes).
+inline const void* x1_kernel(int u_type, int f64, bool one_pass, bool bim, bool one_f) {
+  using B = __nv_bfloat16;
+  if (u_type == 2) return x1_of<double, double>(one_pass, bim, one_f);
+  if (f64)
+    return u_type ? x1_of<B, double>(one_pass, bim, one_f)
+                  : x1_of<float, double>(one_pass, bim, one_f);
+  return u_type ? x1_of<B, float>(one_pass, bim, one_f)
+                : x1_of<float, float>(one_pass, bim, one_f);
+}
+
+inline bool x1_types_ok(int u_type, int f64) {
+  return u_type >= 0 && u_type <= 2 && (u_type != 2 || f64);
 }
 
 }  // namespace
@@ -362,21 +530,40 @@ extern "C" {
 // pid null for the homogeneous stencil.  u_type: u and out float32 (0),
 // bf16 (1) or float64 (2, with f64).  f64: f0, f1 and w float64 (else
 // float32), the type b is computed in.  w: 36 numbers, the fields of RhsW in
-// order.
+// order.  The launch geometry of ops/passes.py x1_launch_tiles: the one-pass
+// tile when one_pass, else row-streaming strips of `strip` rows, on gx x gy
+// blocks; the row stream stages f once when f0 == f1 and takes u, f0, f1 and
+// pid on 16-byte boundaries.  cudaErrorInvalidValue for a geometry, a type or
+// a pointer X1 does not take.
 int px_heat_rhs(const void* u, const void* f0, const void* f1, const int8_t* pid, void* out,
-                int n, const void* w, int u_type, int f64, void* stream) {
-  if (n < 1 || !u || !f0 || !f1 || !out || !w || u_type < 0 || u_type > 2 ||
-      (u_type == 2 && !f64))
+                int n, const void* w, int u_type, int f64, int one_pass, int strip, int gx,
+                int gy, void* stream) {
+  int H = n + 1;
+  if (n < 1 || !u || !f0 || !f1 || !out || !w || !x1_types_ok(u_type, f64) ||
+      !x1_grid_ok(H, one_pass != 0, strip, gx, gy))
     return (int)cudaErrorInvalidValue;
-  const int H = n + 1;
-  const cudaStream_t st = (cudaStream_t)stream;
-  using B = __nv_bfloat16;
-  if (u_type == 2) return x1_launch<double, double>(u, f0, f1, pid, out, H, w, st);
-  if (f64)
-    return u_type ? x1_launch<B, double>(u, f0, f1, pid, out, H, w, st)
-                  : x1_launch<float, double>(u, f0, f1, pid, out, H, w, st);
-  return u_type ? x1_launch<B, float>(u, f0, f1, pid, out, H, w, st)
-                : x1_launch<float, float>(u, f0, f1, pid, out, H, w, st);
+  // the row stream's chunk offsets are ints of bytes into a field
+  if (!one_pass && (!aligned(u, 16) || !aligned(f0, 16) || !aligned(f1, 16) ||
+                    (pid && !aligned(pid, 16)) || (long long)(f64 ? 8 : 4) * H * H > INT_MAX))
+    return (int)cudaErrorInvalidValue;
+  void* wp = const_cast<void*>(w);
+  void* tile_args[] = {&u, &f0, &f1, &pid, &out, &H, wp};
+  void* rows_args[] = {&u, &f0, &f1, &pid, &out, &H, &strip, wp};
+  cudaLaunchKernel(x1_kernel(u_type, f64, one_pass != 0, pid != nullptr, f0 == f1), dim3(gx, gy),
+                   dim3(one_pass ? PNT : RT), one_pass ? tile_args : rows_args, 0,
+                   (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the row-streaming X1 of one instance that one SM holds at once:
+// what ops/passes.py balances the strip height against.  Negative on a CUDA
+// error.
+int px_heat_rhs_occupancy(int u_type, int f64, int bim, int one_f) {
+  if (!x1_types_ok(u_type, f64)) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, x1_kernel(u_type, f64, false, bim != 0, one_f != 0), RT, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // X2.  fc ((n/2+1)^2) = 4 FW(r) (r: (n+1)^2), zero on the coarse ring.

@@ -22,10 +22,14 @@ and a plain PyTorch version ``<op>_plain`` with the same signature: the torch
 code the port ran before, moved here.  :func:`heat_rhs`, :func:`restrict`,
 :func:`prolong_add` and :func:`outer_step` take the plain version for CPU
 tensors and launch the kernel for CUDA ones (or raise).  The kernels round
-where their plain versions round (``csrc/passes.cu``): X2 and X3 equal them
-bit for bit, X1 agrees to ``ops.sweep.TOL`` of max|b| (``TOL64`` when it
-computes in float64, the type of a float64 problem's f) and X4 to
-``TOL64``.
+where their plain versions round (``csrc/passes.cu``): X1 (in float32 and
+float64; a bf16 b within one bf16 ulp), X2 and X3 equal them bit for bit,
+X4 agrees to ``TOL64``.
+
+X1 has two designs: the one-pass 32 x 8 tile up to ``X1_ONE_PASS_MAX_N``
+elements per side, and above it row streaming (:func:`x1_tiles`,
+:func:`x1_strip`), which computes the same bits; :func:`x1_launch_tiles`
+chooses by size.
 
 The operator arguments: X1's stiffness K and X4's f64 A are the two-phase
 bitplane form (``pid`` with ``a0``, ``a1``) or a homogeneous (3, 3)
@@ -42,17 +46,18 @@ import functools
 import numpy as np
 import torch
 
+from multigrid_feanet_torch.ops import hrelax as hx
 from multigrid_feanet_torch.ops import stencil
 from multigrid_feanet_torch.ops import sweep as sw
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 
-TOL64 = 1e-12  # X4 and float64 X1 against their plain versions: relative to max|plain|
+TOL64 = 1e-12  # X4 against its plain version: relative to max|plain|
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SOURCE = "multigrid_feanet_torch/csrc/passes.cu"
 _TPU = "multigrid_feanet_tpu/"
 KERNELS = {
-    "X1": sw.CudaKernel("X1_heat_rhs", "px_heat_rhs", [_P] * 5 + [_I, _P, _I, _I, _P],
+    "X1": sw.CudaKernel("X1_heat_rhs", "px_heat_rhs", [_P] * 5 + [_I, _P] + [_I] * 6 + [_P],
                         _TPU + "ops/heat.py:124", _SOURCE),
     "X2": sw.CudaKernel("X2_restrict", "px_restrict", [_P, _P, _I, _P],
                         _TPU + "ops/transfer.py:38", _SOURCE),
@@ -161,20 +166,32 @@ def _s4():
     return (sw_taps[0], sw_taps[1], sw_taps[3]), tuple(stencil.UNIT_S9[k] for k in S9_ORDER)
 
 
+def _repeats(m, s9, d4) -> bool:
+    """Whether the weights repeat as the row-streaming X1 takes them: the
+    mass stencil's four corners equal, and its four edges; S9's eight
+    neighbour taps equal, and equal to S4's corner d4.  Each product of a
+    node with such a weight then serves every tap that weight has there."""
+    return (m[0] == m[2] == m[6] == m[8] and m[1] == m[3] == m[5] == m[7]
+            and all(x == d4 for x in s9[1:]))
+
+
 @functools.lru_cache(maxsize=64)
 def _rhs_weights(h, theta, dt, a0, a1, k9, f64=False):
     """X1's RhsW (csrc/passes.cu) in its arithmetic type, as the plain
     version rounds each: a scalar multiplies a field in the field's type
-    (float32, or float64 when ``f64``)."""
+    (float32, or float64 when ``f64``).  Raises if the weights do not repeat
+    as the row-streaming kernel assumes (:func:`_repeats`)."""
     dtype = torch.float64 if f64 else torch.float32
     m = ((h * h) * torch.as_tensor(stencil.MASS_KERNEL, dtype=dtype)).reshape(-1)
     (c4, e4, d4), s9 = _s4()
     da = 0.0 if a0 is None else float(a1) - float(a0)
     vals = (*m.tolist(), *k9, *s9, c4, e4, d4, 0.0 if a0 is None else float(a0), da, theta,
             1.0 - theta, (1.0 - theta) * dt, dt)
-    if f64:
-        return (ctypes.c_double * 36)(*vals)
-    return (ctypes.c_float * 36)(*np.asarray(vals, dtype=np.float32).tolist())
+    if not f64:
+        vals = np.asarray(vals, dtype=np.float32).tolist()
+    if not _repeats(vals[:9], vals[18:27], vals[29]):
+        raise ValueError("X1's mass and stiffness weights do not repeat as its kernels take them")
+    return ((ctypes.c_double if f64 else ctypes.c_float) * 36)(*vals)
 
 
 @functools.lru_cache(maxsize=64)
@@ -194,12 +211,87 @@ def _pid(pid, n, device):
 # X1's u (and b) types, as px_heat_rhs numbers them
 _U_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 
+# Launch geometry of X1 (csrc/passes.cu).  Levels of up to this many
+# elements per side, by (whether X1 computes in float64, bi-material), run
+# its one-pass tiles (x1_heat_rhs, 32 x 8 nodes a block); above, row-
+# streaming strips (x1_heat_rhs_rows).  The largest size at which the tile
+# was the faster on the H100 (``sweep_vs_parent.py --crossover --legs x1``,
+# PERF.md): up to there a grid of short strips fills a wave or less, each
+# block a chain of dependent steps; the homogeneous float64 instance, bound
+# by its float64 operations, kept the tile at every size measured (the row
+# stream mixes the source at its halo nodes too).
+X1_ONE_PASS_MAX_N = {(False, True): 512, (False, False): 512, (True, True): 1024,
+                     (True, False): 4096}
+X1_HALO_STEPS = 2  # steps a block takes beyond its strip: the rows above and below it
+X1_MIN_STRIP = 8
+
+
+def x1_tiles(n: int, strip: int = sw.A12_STRIP) -> sw.Tiles:
+    """X1 row streaming: a block owns the ``A12_THREADS A12_COLUMNS``
+    columns its threads cover (csrc/common.cuh's RB) and ``strip`` rows."""
+    sw._check_strip(strip)
+    H, band = n + 1, sw.A12_THREADS * sw.A12_COLUMNS
+    return sw.Tiles("X1", n, band, strip, -(-H // band), -(-H // strip))
+
+
+def x1_one_pass_tiles(n: int) -> sw.Tiles:
+    """X1 on one-pass tiles: one block per 32 x 8 nodes."""
+    H = n + 1
+    return sw.Tiles("X1_tile", n, 32, 8, -(-H // 32), -(-H // 8))
+
+
+def x1_strip(n: int, slots: int) -> int:
+    """The even strip height in [X1_MIN_STRIP, A12_STRIP_MAX] that finishes
+    the level soonest on a card that holds ``slots`` blocks at once: A1's
+    cost (``ops/sweep.py::balanced_strip``), whole waves of blocks each
+    taking strip + X1_HALO_STEPS steps, so that the grid fills its last
+    wave."""
+    best = None
+    for strip in range(X1_MIN_STRIP, sw.A12_STRIP_MAX + 1, 2):
+        waves = -(-x1_tiles(n, strip).blocks // max(1, slots))
+        cost = waves * (strip + X1_HALO_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, strip)
+    return best[1]
+
+
+_X1_TILES = {}
+
+
+def x1_launch_tiles(n: int, u_type: int, f64: bool, bim: bool, one_f: bool,
+                    device) -> sw.Tiles:
+    """The geometry X1 launches with on ``device``: one-pass tiles up to
+    ``X1_ONE_PASS_MAX_N[(f64, bim)]``, else row-streaming strips of
+    :func:`x1_strip`'s height for the blocks per SM the card reports for the
+    instance launched (``u_type`` as px_heat_rhs numbers it, computed once
+    per level shape)."""
+    if n <= X1_ONE_PASS_MAX_N[(bool(f64), bool(bim))]:
+        return x1_one_pass_tiles(n)
+    key = (n, u_type, bool(f64), bool(bim), bool(one_f), device.index)
+    tiles = _X1_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        slots = sms * hx.occupancy("px_heat_rhs_occupancy", u_type, int(f64), int(bim),
+                                   int(one_f))
+        tiles = _X1_TILES[key] = x1_tiles(n, x1_strip(n, slots))
+    return tiles
+
+
+def _aligned(t):
+    """``t``, or a copy of it that starts on a 16-byte boundary: the row
+    stream stages a field's rows in 16-byte chunks counted from its start,
+    and a knot of a stacked time-dependent f may start anywhere."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
 
 def heat_rhs_cuda(u, f0, f1, pid=None, *, h, theta, dt, a0=None, a1=None, table=None,
                   out=None):
     """X1 on the card; same contract as :func:`heat_rhs_plain`, with f0 and
-    f1 both float32 or both float64 (they may be one tensor), ``u`` float32,
-    bf16 or (with float64 f) float64, and ``out`` of u's type."""
+    f1 both float32 or both float64 (they may be one tensor, which the row
+    stream then reads once), ``u`` float32, bf16 or (with float64 f)
+    float64, and ``out`` of u's type.  The design is chosen by size
+    (:func:`x1_launch_tiles`); a field the row stream takes that does not
+    start on a 16-byte boundary is copied first."""
     n, dev = _grid(u, "u"), u.device
     if u.dtype not in _U_TYPES:
         raise ValueError(f"u must be float32, bfloat16 or float64, not {u.dtype}")
@@ -212,10 +304,16 @@ def heat_rhs_cuda(u, f0, f1, pid=None, *, h, theta, dt, a0=None, a1=None, table=
     _field(f1, "f1", (n + 1, n + 1), f0.dtype, dev)
     pid, k9 = _kernel_form(pid, a0, a1, table)
     out = sw._output(out, "out", (n + 1, n + 1), dev, (u, f0, f1), u.dtype)
-    f64 = f0.dtype == torch.float64
+    f64, one_f = f0.dtype == torch.float64, f0.data_ptr() == f1.data_ptr()
     w = _rhs_weights(float(h), float(theta), float(dt), a0, a1, k9, f64)
+    tiles = x1_launch_tiles(n, _U_TYPES[u.dtype], f64, pid is not None, one_f, dev)
+    one_pass = tiles.leg == "X1_tile"
+    if not one_pass:
+        u, pid, f0 = _aligned(u), _aligned(pid), _aligned(f0)
+        f1 = f0 if one_f else _aligned(f1)
     KERNELS["X1"](u.data_ptr(), f0.data_ptr(), f1.data_ptr(), _pid(pid, n, dev), out.data_ptr(),
-                  n, w, _U_TYPES[u.dtype], int(f64), sw._stream(dev))
+                  n, w, _U_TYPES[u.dtype], int(f64), int(one_pass), tiles.strip, tiles.gx,
+                  tiles.gy, sw._stream(dev))
     return out
 
 

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Time the row-streaming legs of ``csrc/sweep.cu`` (A1-A4, A6),
 ``csrc/hrelax.cu`` (E1, E2, E3, E5), ``csrc/torus.cu`` (H1), ``csrc/qsweep.cu`` (F1),
-``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G1, G2, G4, G5), ``csrc/general.cu`` (D2)
-and ``csrc/hrelax.cu``'s E4 of this checkout against those of an earlier checkout of the port on one
-GPU, in turns.
+``csrc/stencil.cu`` (C1, C2), ``csrc/elastic.cu`` (G1, G2, G4, G5), ``csrc/general.cu`` (D2),
+``csrc/hrelax.cu``'s E4 and ``csrc/passes.cu``'s X1 of this checkout against those of an
+earlier checkout of the port on one GPU, in turns.
 
     python3 sweep_vs_parent.py --parent DIR
-        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|pbc|g2d2_cells
+        [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|x1|pbc|g2d2_cells
                 |e4c2_cells|g1g5_cells|g4a5_cells]
         [--out FILE]
     python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
-    python3 sweep_vs_parent.py --crossover [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5]
-        [--out FILE]
+    python3 sweep_vs_parent.py --crossover
+        [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|x1] [--out FILE]
     python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
     python3 sweep_vs_parent.py --parent DIR --sass [--out FILE]
 
@@ -87,6 +87,11 @@ median of 3).  The turns run parent, this, this, parent.
   bi-material mass form, in f32 and bf16 storage, bi-material in difference
   form at n = 8, 16 and every size of CROSS_LEVELS, and homogeneous at n =
   8 and 16 (where this checkout runs A5's one-pass tiles).
+- ``x1``: ``heat_rhs_cuda`` (X1, ``csrc/passes.cu``) at 4097^2 in every
+  variant ``chip_smoke.pass_legs`` holds: bi-material (``heat_march_4097``'s)
+  and homogeneous, one f (the time-independent march's) and two, f32 and
+  bf16 u, and the float64 problem's f64 (two f); each held bit for bit
+  against its plain version by ``chip_smoke.hold``.
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -172,7 +177,11 @@ bi-material and homogeneous and A5 bi-material and homogeneous in
 difference form, bi-material in mass form and bi-material in difference
 form in bf16 storage (``ops/elastic.py::G4_ONE_PASS_MAX_N``,
 ``ops/sweep.py::A5_ONE_PASS_MAX_N``; ``g4a5`` alone also at n = 8, 16, 32
-and 2048), with their blocks per SM.
+and 2048), with their blocks per SM.  With ``--legs x1`` (or ``all``): X1
+bi-material and homogeneous with one f, bi-material with a bf16 u, and
+the f64 problem's, bi-material and homogeneous
+(``ops/passes.py::X1_ONE_PASS_MAX_N``; ``x1`` alone also at n = 8, 16, 32
+and 2048), with the blocks per SM of its row-streaming instances.
 Writes ``chiprun_out/sweep_crossover.json`` by default.
 
 ``--levels`` times this checkout's kernels that run on more than one level
@@ -198,13 +207,14 @@ namespace's name aside; a leg's storage-type template argument maps its
 float instance to the parent's), the number of bf16 instances, and the
 instructions of A1-A4 (whole-field and slab instances) and the row-streaming
 F1, A5, A6, C1, C2, E2, E3 (whole-field and slab instances), E4, E5, G1, G2,
-G4, G5 and D2 in all and per step
+G4, G5, D2 and X1 in all and per step
 of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
-row-streaming kernels.  The parent's kernels named in CHANGED (none in
-this checkout) are compared apart and reported, those in REMOVED (none
-either) are listed if this checkout no longer builds them; the kernels new
+row-streaming kernels.  The parent's kernels named in CHANGED (X1's tile,
+x1_heat_rhs, which shares the row stream's arithmetic in this checkout)
+are compared apart and reported, those in REMOVED (none) are listed if
+this checkout no longer builds them; the kernels new
 in this checkout are listed; fails unless every other kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
 """
@@ -229,8 +239,9 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): none
-CHANGED = ()
+# them apart): X1's tile, which takes its bit factor da bit_e as a choice of
+# two values (rhs_at, shared with the row stream) where it multiplied
+CHANGED = ("x1_heat_rhs",)
 # the parent's kernels this checkout may no longer build, by (source, name)
 REMOVED = ()
 # the row-streaming kernels whose instructions per step and registers --sass
@@ -245,7 +256,8 @@ ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
                "sweep_kernel", "swrr_kernel", "sweep_slab_kernel", "swrr_slab_kernel",
                "zpsweep_slab_kernel",
                # the slab instances of the row-streaming E2 and E3
-               "e2_slab_descent_rows", "e3_slab_ascent_rows")
+               "e2_slab_descent_rows", "e3_slab_ascent_rows",
+               "x1_heat_rhs_rows")
 
 
 def child(checkout: Path, legs: str) -> int:
@@ -363,6 +375,8 @@ def child(checkout: Path, legs: str) -> int:
             recs += cs.check_kernels(m, True, True, ["A5"])
         for m in SMALL_LEVELS[:2]:
             recs += cs.check_kernels(m, False, True, ["A5"])
+    if legs in ("all", "x1"):
+        recs += [x1_hold(cs, cs.N_MAIN, **tags) for tags in X1_VARIANTS]
     if legs == "g1g5_cells":
         cells = cs.run_elastic_cells()
         recs += cell_records(cells, lambda name: "G5" if name.endswith("v11_2049") else "G1")
@@ -388,6 +402,28 @@ def child(checkout: Path, legs: str) -> int:
         r["bound_ms"] = 1e3 * r["bytes"] / cs.HBM_BYTES_PER_S
     print(json.dumps(recs), flush=True)
     return 0
+
+
+# the variants of X1 that chip_smoke.pass_legs holds, by their tags
+X1_VARIANTS = [dict(bim=bim, bf16=bf16, two_f=two_f) for bim in (True, False)
+               for bf16 in (False, True) for two_f in (False, True)] + \
+              [dict(bim=bim, bf16=False, two_f=True, f64=True) for bim in (True, False)]
+_X1_FIELDS = {}
+
+
+def x1_hold(cs, n: int, **want) -> dict:
+    """``chip_smoke.hold`` of the X1 variant of ``pass_legs(n)`` whose tags
+    are ``want`` (a tag absent from either is False); the fields and forms
+    of size n are made once."""
+    if n not in _X1_FIELDS:
+        _X1_FIELDS.clear()
+        _X1_FIELDS[n] = (cs.pass_inputs(n, 24 + n), cs.pass_forms(n))
+    for leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol, tags in cs.pass_legs(
+            *_X1_FIELDS[n], n):
+        if leg == "X1" and all(tags.get(k, False) == want.get(k, False) for k in {*tags, *want}):
+            return cs.hold(leg, call, cuda_fn, plain_fn, inputs, cfg, nbytes, tol,
+                           dict(n=n, **tags))
+    raise ValueError(f"pass_legs holds no X1 variant {want}")
 
 
 def cell_records(cells: dict, leg_of) -> list:
@@ -548,6 +584,17 @@ def crossover(which: str) -> list:
                                                             dtype=torch.bfloat16)[0]})
         strips_of["G4"] = lambda n: [t.strip for key, t in eg._G4_TILES.items() if key[0] == n]
         strips_of["A5"] = lambda n: [t.strip for key, t in sw._A5_TILES.items() if key[0] == n]
+    if which in ("all", "x1"):
+        from multigrid_feanet_torch.ops import passes as px
+
+        thresholds += [(px, "X1_ONE_PASS_MAX_N")]
+        for label, tags in (("bim", dict(bim=True, bf16=False, two_f=False)),
+                            ("hom", dict(bim=False, bf16=False, two_f=False)),
+                            ("bim_bf16", dict(bim=True, bf16=True, two_f=False)),
+                            ("bim_f64", dict(bim=True, bf16=False, two_f=True, f64=True)),
+                            ("hom_f64", dict(bim=False, bf16=False, two_f=True, f64=True))):
+            legs[f"X1_{label}"] = lambda n, tags=tags: x1_hold(cs, n, **tags)
+        strips_of["X1"] = lambda n: [t.strip for key, t in px._X1_TILES.items() if key[0] == n]
     if which in ("all", "e4c2"):
         thresholds += [(hx, "E4_ONE_PASS_MAX_N"), (ss, "C2_ONE_PASS_MAX_N")]
         for (bim, dform), (L, ckpt) in itertools.product(((False, False), (True, True)),
@@ -563,8 +610,9 @@ def crossover(which: str) -> list:
     saved = [getattr(m, a) for m, a in thresholds]
     out, summary = [], {}
     try:
-        sizes = (SMALL_LEVELS if which in ("e3e5", "e4c2", "g1g5", "g4a5") else ()) + CROSS_LEVELS
-        for n in sizes + ((2048,) if which in ("g1g5", "g4a5") else ()):
+        sizes = (SMALL_LEVELS if which in ("e3e5", "e4c2", "g1g5", "g4a5", "x1") else ()) + \
+            CROSS_LEVELS
+        for n in sizes + ((2048,) if which in ("g1g5", "g4a5", "x1") else ()):
             ms = {leg: {"tile": [], "stream": []} for leg in legs}
             for design in ("tile", "stream", "stream", "tile"):
                 limit = n if design == "tile" else -1
@@ -620,6 +668,11 @@ def crossover(which: str) -> list:
         for bim, form, bf16 in ((1, 1, 0), (0, 1, 0), (1, 2, 0), (1, 1, 1), (0, 1, 1), (1, 2, 1)):
             blocks[f"A5_bim{bim}_form{form}_bf16{bf16}"] = hx.occupancy("mg_rr_occupancy", bim,
                                                                         form, bf16)
+    if which in ("all", "x1"):
+        for u_type, f64, bim, one_f in itertools.product((0, 1, 2), (0, 1), (0, 1), (0, 1)):
+            if u_type < 2 or f64:
+                blocks[f"X1_u{u_type}_f64{f64}_bim{bim}_onef{one_f}"] = hx.occupancy(
+                    "px_heat_rhs_occupancy", u_type, f64, bim, one_f)
     if which in ("all", "e3e5"):
         for sym, leg in (("mg_phrelax_occupancy", "E3"), ("mg_zphrelax_occupancy", "E5")):
             for bim, dform, L, strip in itertools.product((0, 1), (0, 1), (1, 3), (8, 32, 128)):
@@ -978,10 +1031,49 @@ def sass_report(parent: Path) -> dict:
                 changed_kept_same=sum(kept.values()), changed_kept_total=len(kept),
                 changed_differ=[k for k, v in kept.items() if not v], new=new,
                 removed=removed,
-                bf16_instances=sum(1 for k in mine if k[2] == "bf16"), per_step=a34)
+                bf16_instances=sum(1 for k in mine if k[2] == "bf16"), per_step=a34,
+                x1_issue=x1_issue(a34))
+
+
+# the H100 SXM's boost clock: an SM issues at most 4 warp instructions a clock
+SM_CLOCK_HZ = 1.98e9
+# the row-streaming X1 instances of heat_march_4097 (f32, bi-material, one f)
+# and of its homogeneous twin, by their mangled template arguments
+X1_PATHS = {"bim_one_f_f32": "x1_heat_rhs_rowsIffLb1ELb1E",
+            "hom_one_f_f32": "x1_heat_rhs_rowsIffLb0ELb1E"}
+
+
+def x1_issue(per_step: dict) -> dict:
+    """The issue bound of the row-streaming X1 at 4097^2 (f32, one f,
+    bi-material and homogeneous): its warp-steps on the geometry the wrapper
+    launches (x1_launch_tiles, every warp of every block at every step of
+    its strip) times its machine instructions a step (``loop_step``) over
+    4 warp instructions a clock on each SM at SM_CLOCK_HZ."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from multigrid_feanet_torch.ops import passes as px
+
+    dev, n = torch.device("cuda", 0), 4096
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, tag in X1_PATHS.items():
+        steps = next(v["loop_step"] for k, v in per_step.items() if tag in k)
+        t = px.x1_launch_tiles(n, 0, False, label.startswith("bim"), True, dev)
+        H = n + 1
+        warp_steps = t.gx * (px.sw.A12_THREADS // 32) * sum(
+            min(t.strip, H - y0) + px.X1_HALO_STEPS for y0 in range(0, H, t.strip))
+        out[label] = dict(strip=t.strip, blocks=t.blocks, warp_steps=warp_steps,
+                          instructions_per_step=steps,
+                          issue_ms=1e3 * warp_steps * steps / (sms * 4 * SM_CLOCK_HZ))
+    return out
 
 
 def _key(rec) -> str:
+    if rec["name"] == "X1":
+        dt = "f64" if rec.get("f64") else "bf16" if rec.get("bf16") else "f32"
+        return (f"X1_{rec['n']}_{'bim' if rec['bim'] else 'hom'}_"
+                f"{'two_f' if rec['two_f'] else 'one_f'}_{dt}")
     if rec["name"] == "H1":
         return f"H1_{rec['n']}"
     if rec["name"] == "F1":
@@ -1019,7 +1111,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
-                                       "g2d2", "e4c2", "g1g5", "g4a5", "pbc", "g2d2_cells",
+                                       "g2d2", "e4c2", "g1g5", "g4a5", "x1", "pbc", "g2d2_cells",
                                        "e4c2_cells", "g1g5_cells", "g4a5_cells"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
