@@ -210,14 +210,25 @@ Phases, in order; any failure exits non-zero:
    slab's own rows (the 4 partial norms' sum within 1e-6) and against the
    slab form's plain version at ``ops.sweep.TOL``; at 4097^2 the 4 slab
    launches timed beside the one whole-field launch (``slab_legs``).
-   Then ``sharded_interface_4097``: ``ShardedHierarchyV2`` in a world of 1
-   on NCCL runs ``interface_4097`` and must take the split ``HierarchyV2``
+   Then, in a world of 1 on NCCL, ``nccl_capture_check``: a captured spin,
+   ``all_reduce`` and ``all_gather`` replayed (the value, the host time of
+   a replay against its device time, no captured work in the watchdog's
+   flight-recorder entries).  Then ``sharded_interface_4097``:
+   ``ShardedHierarchyV2`` in a world of 1 on NCCL runs ``interface_4097`` and must take the split ``HierarchyV2``
    path's cycles and tail q with its iterate bitwise; the slab forms are
    timed at its shapes.  Then ``distributed_1025``: a world-1
    ``DistributedHierarchy`` solve of the 1025^2 interface problem (f = 0
    decay to 1e-2, 3 sharded levels) against ``solvers/multigrid.py::solve``
    (the same cycles, u within 1e-3 / 1e-5), and the data-parallel H-Net
-   step against ``train_step`` (parameters within 1e-6).
+   step against ``train_step`` (parameters within 1e-6).  Each of the two
+   distributed solves first runs on a fresh solver both ways
+   (``distributed_graph_cell``, the checks of phase 19): the one-dispatch
+   solve, one CUDA graph per chunk (per cycle for ``DistributedHierarchy``)
+   with its NCCL collectives inside, against ``graph=False`` bit for bit in
+   cycles, history (``distributed_1025``: cycles and res) and iterate, one
+   capture, both paths' walls, device time and busy share, the launches
+   per replay, and each kernel's torch.profiler launches at most its
+   counted ones (the profiler drops records).
 18. The slab forms of E2 and E3 and the sharded H-MG: every sharded level
    of ``sharded_hmg_4097`` (4096 ... 64), bi-material and homogeneous, the
    plain form with the L = 1 net, on 4 quarter slabs and on the world-1
@@ -234,7 +245,9 @@ Phases, in order; any failure exits non-zero:
    iterate bit for bit, launching E2 and E3 in slab form (at most once per
    sharded level and cycle each); both solves' ms per cycle and tail q are
    printed.  Then the bi-material interface at 4097^2 in the plain form, 4
-   cycles at eps 0: the iterate bitwise the whole field's.
+   cycles at eps 0: the iterate bitwise the whole field's.  Both solvers
+   first run ``distributed_graph_cell`` as in phase 17 (the re-solve with
+   another net).
 19. The one-dispatch solves (``solvers/common.py::ChunkGraphs``): every
    solve above runs its fused entry point on the card, which replays one
    CUDA graph per chunk of cycles; here each of ``interface_4097`` (f32
@@ -3910,6 +3923,12 @@ def run_sharded_solve() -> dict:
                             kernel_threshold=32, direct_coarse=True, device=DEVICE)
     setup_s = time.time() - t0
     u0, f0 = decay_start(sh.base.hier.finest)
+    starts = {False: u0, True: alt_start(sh.base.hier.finest)}
+    graph_rec = distributed_graph_cell(
+        label, sh, lambda s, graph, alt: s.solve(f0, u0=starts[alt], eps=eps,
+                                                 max_cycles=max_cycles, chunk=chunk, graph=graph),
+        lambda hist: chunk * -(-(len(hist) + 1) // chunk), chunk)
+    del starts
 
     def run():
         return sh.solve(f0, u0=u0, eps=eps, max_cycles=max_cycles, chunk=chunk)
@@ -3935,7 +3954,7 @@ def run_sharded_solve() -> dict:
                iterate_bitwise=bool(torch.equal(u, u_ref)), final_res=float(hist[-1]),
                ms_per_cycle=1e3 * min(walls) / cycles_run,
                split_ms_per_cycle=1e3 * min(split_walls) / cycles_run, setup_s=setup_s,
-               launches=launches, split_launches=split_launches)
+               launches=launches, split_launches=split_launches, graph_cell=graph_rec)
     print(json.dumps(rec), flush=True)
     if (len(hist) != len(h_ref) or not rec["iterate_bitwise"]
             or abs(rec["tail_q"] / rec["split_tail_q"] - 1) > 1e-5):
@@ -3958,9 +3977,18 @@ def run_distributed_cells() -> dict:
     n, eps = 1024, 1e-2
     hier = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), device=DEVICE)
     dh = sharding.DistributedHierarchy(hier, mesh)
-    u0 = torch.as_tensor(np.random.default_rng(2).uniform(size=(n + 1, n + 1)).astype(np.float32),
-                         device=DEVICE) * hier.finest.geo
+    u0s = {alt: torch.as_tensor(np.random.default_rng(3 if alt else 2).uniform(
+        size=(n + 1, n + 1)).astype(np.float32), device=DEVICE) * hier.finest.geo
+        for alt in (False, True)}
+    u0 = u0s[False]
     f0 = torch.zeros_like(u0)
+
+    def graph_solve(dh, graph, alt):
+        """graph_cell's (u, history) pair: ``res`` once for each cycle."""
+        u, cycles, res = dh.solve(f0, u0=u0s[alt], eps=eps, max_cycles=100, graph=graph)
+        return u, np.full(cycles, res)
+
+    graph_rec = distributed_graph_cell("distributed_1025", dh, graph_solve, len, 1)
     t0 = time.time()
     u, cycles, res = dh.solve(f0, u0=u0, eps=eps, max_cycles=100)
     torch.cuda.synchronize()
@@ -3970,7 +3998,7 @@ def run_distributed_cells() -> dict:
     rec = dict(solve="distributed_1025", n=n, mesh=list(mesh.mesh.shape), S=dh.S, cycles=cycles,
                ref_cycles=len(h_ref), res=res, ref_res=float(h_ref[-1]), u_close=close,
                u_max_abs_diff=float((u - u_ref).abs().max()), wall_s=wall,
-               ms_per_cycle=1e3 * wall / max(cycles, 1))
+               ms_per_cycle=1e3 * wall / max(cycles, 1), graph_cell=graph_rec)
     level = build_level(Problem(n=32), 32, device=DEVICE)
     rng = np.random.default_rng(1)
     B = 4
@@ -4003,6 +4031,95 @@ def in_world1(run):
         dist.destroy_process_group()
 
 
+def nccl_capture_check() -> dict:
+    """NCCL under CUDA graph capture, on a new group of the world-1 ranks
+    made with the flight recorder on (``TORCH_FR_BUFFER_SIZE``, read when
+    a group is made; NCCL's recorder): a graph of a ~20 ms device spin, an
+    ``all_reduce`` (blocking call), an ``all_gather`` into a list of chunk
+    views (async, ``wait()``) and an add, captured on a side stream after
+    one eager round has made the communicator, then replayed.  Records the
+    host time of a replay call against its device time (a host blocked on
+    NCCL would take the spin's time), the recorder's entries of the eager
+    round and those made since (the watchdog retires the works it tracks
+    there once they are done), ``TORCH_NCCL_BLOCKING_WAIT``, and an eager
+    ``all_reduce`` after the replays.  Fails on a wrong value or a
+    captured work the watchdog retired."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    keys = ("TORCH_FR_BUFFER_SIZE", "TORCH_NCCL_TRACE_BUFFER_SIZE")
+    before = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: "64" for k in keys})
+    try:
+        group = dist.new_group()
+    finally:
+        for k, v in before.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    world = dist.get_world_size(group)
+    x = torch.ones(1024, device=DEVICE)
+    out = torch.empty(world * 1024, device=DEVICE)
+
+    def body():
+        torch.cuda._sleep(40_000_000)
+        dist.all_reduce(x, group=group)
+        dist.all_gather(list(out.chunk(world)), x, group=group, async_op=True).wait()
+        x.add_(1.0)
+
+    c10d = torch._C._distributed_c10d
+    dump = getattr(c10d, "_dump_nccl_trace_json", c10d._dump_fr_trace_json)
+
+    def entries(after=-1):
+        raw = dump(True, False)
+        return [dict(id=e["record_id"], name=e["profiling_name"], state=e["state"],
+                     retired=e["retired"]) for e in json.loads(raw).get("entries", [])
+                if e["record_id"] > after]
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body()  # makes the communicator
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    time.sleep(1.0)  # the watchdog's polls
+    eager = entries()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        body()
+    host, device = [], []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        graph.replay()
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    value = float(x[0])  # 1 eager round, 3 replays: each adds 1 (all_reduce of world 1)
+    time.sleep(1.0)  # the watchdog's polls
+    captured = entries(max((e["id"] for e in eager), default=-1))
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    del graph
+    dist.destroy_process_group(group)
+    rec = dict(torch=torch.__version__, nccl=list(torch.cuda.nccl.version()),
+               blocking_wait=os.environ.get("TORCH_NCCL_BLOCKING_WAIT"),
+               replay_host_ms=host, replay_device_ms=device, value=value,
+               eager_entries=eager, captured_entries=captured, after_eager=float(x[0]))
+    print(json.dumps({"nccl_capture": rec}), flush=True)
+    if (value != 5.0 or rec["after_eager"] != 5.0 or min(device) < 5.0
+            or any(e["retired"] for e in captured)):
+        fail(f"NCCL under capture: a wrong value, no spin in the replays or a captured work "
+             f"in the watchdog: {rec}")
+    return rec
+
+
 def run_slice21() -> dict:
     """The slab legs, then, in a world-1 NCCL group, the sharded solvers."""
     recs = []
@@ -4011,8 +4128,9 @@ def run_slice21() -> dict:
             for dform in (False, True):
                 recs += check_slab_level(n, bim, dform)
     print(json.dumps({"slab_legs": recs}), flush=True)
-    sharded, distributed = in_world1(lambda: (run_sharded_solve(), run_distributed_cells()))
-    return dict(slab_legs=recs, sharded=sharded, distributed=distributed)
+    nccl, sharded, distributed = in_world1(lambda: (nccl_capture_check(), run_sharded_solve(),
+                                                    run_distributed_cells()))
+    return dict(slab_legs=recs, nccl_capture=nccl, sharded=sharded, distributed=distributed)
 
 
 # ---- slice 22: the slab forms of E2 and E3 and the sharded H-MG ----
@@ -4131,11 +4249,26 @@ def run_sharded_hmg(sh, whole, setup_s: float, params) -> dict:
     False), from the same decay start: the same cycles, the history and the
     iterate bitwise, E2 and E3 launched in slab form (at most once per
     sharded level and cycle each); then the bi-material 4097^2 problem, 4
-    cycles at eps 0, the history and the iterate bitwise."""
+    cycles at eps 0, the history and the iterate bitwise.  Each solver
+    first runs ``distributed_graph_cell``."""
     import torch
 
     label, eps, max_cycles, chunk = "sharded_hmg_4097", 1e-6, 40, 2
     u0, f0 = decay_start(sh.base.hier.finest)
+    nets = {False: params, True: load_params(HNET_L1_ALT)}
+
+    def graph_cell_of(sh, label, eps, max_cycles):
+        """distributed_graph_cell of ``sh``: the re-solve from another u0
+        with another net."""
+        starts = {False: u0, True: alt_start(sh.base.hier.finest)}
+        return distributed_graph_cell(
+            label, sh, lambda s, graph, alt: s.solve(nets[alt], f0, u0=starts[alt], eps=eps,
+                                                     max_cycles=max_cycles, chunk=chunk,
+                                                     graph=graph),
+            lambda hist: max_cycles if eps == 0.0 else chunk * -(-(len(hist) + 1) // chunk),
+            chunk)
+
+    graph_rec = graph_cell_of(sh, label, eps, max_cycles)
 
     def run(solver):
         return lambda: solver.solve(params, f0, u0=u0, eps=eps, max_cycles=max_cycles,
@@ -4162,7 +4295,8 @@ def run_sharded_hmg(sh, whole, setup_s: float, params) -> dict:
                whole_ms_per_cycle=1e3 * min(whole_walls) / cycles_run, setup_s=setup_s,
                launches=launches, whole_launches=whole_launches,
                profile=profile_solve(run(sh), cycles_run, min(walls)),
-               whole_profile=profile_solve(run(whole), cycles_run, min(whole_walls)))
+               whole_profile=profile_solve(run(whole), cycles_run, min(whole_walls)),
+               graph_cell=graph_rec)
     print(json.dumps(rec), flush=True)
     if (len(hist) >= max_cycles or not hist[-1] <= eps or not rec["history_bitwise"]
             or not rec["iterate_bitwise"] or len(hist) != len(h_ref)):
@@ -4173,12 +4307,14 @@ def run_sharded_hmg(sh, whole, setup_s: float, params) -> dict:
 
     sh, whole = hmg_pair(True)
     u0, f0 = decay_start(sh.base.hier.finest)
+    bim_graph_rec = graph_cell_of(sh, "sharded_hmg_interface_4097_4cycles", 0.0, 4)
     u, hist = sh.solve(params, f0, u0=u0, eps=0.0, max_cycles=4, chunk=2)
     u_ref, h_ref = whole.solve(params, f0, u0=u0, eps=0.0, max_cycles=4, chunk=2)
     bim = dict(solve="sharded_hmg_interface_4097_4cycles", cycles=len(hist),
                iterate_bitwise=bool(torch.equal(u, u_ref)),
                history_bitwise=bool(np.array_equal(hist, h_ref)),
-               history=[float(h) for h in hist], whole_history=[float(h) for h in h_ref])
+               history=[float(h) for h in hist], whole_history=[float(h) for h in h_ref],
+               graph_cell=bim_graph_rec)
     print(json.dumps(bim), flush=True)
     if not bim["iterate_bitwise"] or not bim["history_bitwise"] or not torch.isfinite(u).all():
         fail(f"the bi-material sharded H-MG differs from the whole field's: {bim}")
@@ -4291,6 +4427,8 @@ def graph_cell(label: str, solver, solve, cycles_of, outside, captures: int,
                          profiled_launches=sum(r["launches"] for k, r in
                                                prof.get("by_kernel", {}).items()
                                                if not k.startswith("torch:")),
+                         profiled_by_kernel={k: r["launches"] for k, r in
+                                             prof.get("by_kernel", {}).items()},
                          tf32_kernels=prof.get("tf32_kernels", []))
     print(json.dumps({"graph_cell": rec}), flush=True)
     failed = [k for k, ok in checks.items() if not ok]
@@ -4300,6 +4438,39 @@ def graph_cell(label: str, solver, solve, cycles_of, outside, captures: int,
     if rec["graph"]["tf32_kernels"]:
         fail(f"{label}: the replayed solve ran TF32 kernels: {rec['graph']['tf32_kernels']}")
     return rec
+
+
+def distributed_graph_cell(label: str, solver, solve, cycles_of, chunk: int) -> dict:
+    """``graph_cell`` for a distributed solver in the group (fresh: no
+    capture yet): its one-dispatch solve, one replay per ``chunk`` cycles
+    with the NCCL collectives inside, against ``graph=False``, no wrapper
+    call outside the replays, one capture.  Adds the launches per replay
+    (the warm solve's counts over its replays) and holds each kernel's
+    torch.profiler launches on the graph path to at most its counted ones
+    (the profiler drops records; torch's own kernels are not counted)."""
+    rec = graph_cell(label, solver, solve, cycles_of, {}, 1)
+    replays = rec["cycles_run"] / chunk
+    profiled = rec["graph"]["profiled_by_kernel"]
+    over = {k: (n, rec["launches"][k]) for k, n in profiled.items()
+            if k in rec["launches"] and n > rec["launches"][k]}
+    out = dict(solve=label, captures=rec["captures"], replays_per_solve=replays,
+               launches_per_replay={k: n / replays for k, n in rec["launches"].items()},
+               profiled_launches_at_most_counted=not over,
+               **{f"{path}_{key}": rec[path][key] for path in ("graph", "eager")
+                  for key in ("ms_per_cycle", "busy_ms_per_cycle", "busy_share")})
+    print(json.dumps({"distributed_graph_cell": out}), flush=True)
+    if over:
+        fail(f"{label}: torch.profiler saw more launches than the wrappers counted: {over}")
+    return dict(rec, **out)
+
+
+def alt_start(lv0, seed: int = 1):
+    """Another decay start on ``lv0``: 150000 * uniform(rng ``seed``) on the
+    interior."""
+    import torch
+
+    u1 = np.random.default_rng(seed).uniform(size=(lv0.n + 1, lv0.n + 1)).astype(np.float32)
+    return 150000.0 * torch.as_tensor(u1, device=lv0.device) * lv0.geo
 
 
 def run_graph_cells() -> list:
@@ -4321,8 +4492,7 @@ def run_graph_cells() -> list:
         150000 * uniform(rng 1) on the interior."""
         if starts.get("solver") is not solver:
             u0, f0 = decay_start(solver.hier.finest)
-            u1 = np.random.default_rng(1).uniform(size=tuple(u0.shape)).astype(np.float32)
-            u1 = 150000.0 * torch.as_tensor(u1, device=DEVICE) * solver.hier.finest.geo
+            u1 = alt_start(solver.hier.finest)
             starts.update(solver=solver, fields={False: (u0, f0), True: (u1, f0)})
         return starts["fields"][alt]
 

@@ -37,6 +37,18 @@ Per V(1,1) cycle: 2 + 2 (S - 1) exchanges, one all_gather, one all_reduce;
 per H-MG cycle 2 + 3 (S - 1) exchanges (``comm_bytes_per_cycle`` counts
 their bytes).  On a CUDA device the group must be NCCL, on the CPU gloo;
 nothing falls back to the other or to the unsharded solver.
+
+- **One dispatch.**  On the card a solve replays one CUDA graph per chunk
+  of cycles (``solvers/common.py::run_cycles`` on the level-0 slabs, the
+  solver's own ``ChunkGraphs``): the graph holds the slab kernels, the
+  agglomerated subtree and the NCCL collectives of the chunk (the ghost
+  exchanges, the ``all_gather``, the ``all_reduce``), and the host reads
+  the chunk's norms once per replay -- the port of the JAX classes' one
+  jitted ``shard_map`` of a ``while_loop``.  The last ``all_gather`` of u
+  runs after the loop, outside the graph.  ``graph=False`` runs the same
+  cycles from the host, one collective call at a time; on the CPU (gloo)
+  that eager loop always runs.  The capture needs the communicator to
+  exist: the first chunk runs eagerly and creates it.
 """
 
 from __future__ import annotations
@@ -51,7 +63,8 @@ from multigrid_feanet_torch.core.device import resolve_device
 from multigrid_feanet_torch.core.problem import Problem
 from multigrid_feanet_torch.ops.hrelax import SLAB_DEPTH, HSlabLevel
 from multigrid_feanet_torch.ops.sweep import Slab
-from multigrid_feanet_torch.solvers.common import start_fields, trim_history
+from multigrid_feanet_torch.solvers.common import (ChunkGraphs, chunk_graphs, run_cycles,
+                                                   start_fields)
 from multigrid_feanet_torch.solvers.hmg import HMGHierarchy
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 from multigrid_feanet_torch.solvers.mg2 import HierarchyV2
@@ -138,7 +151,9 @@ class ShardedHierarchyV2:
     single-device solver on ``device`` with the V2 layout contract
     (``.hier``, ``.K``, ``.sweep_levels``, ``._fc``, ``._u``,
     ``._coarse_correction``; :class:`ShardedHMG` passes its
-    ``HMGHierarchy``); the options that build one are then not used."""
+    ``HMGHierarchy``); the options that build one are then not used.
+    ``graphs`` holds the solves' captured chunks (the base's own
+    ``graphs`` are not used)."""
 
     def __init__(self, problem: Problem, num_levels: Optional[int] = None,
                  omega: float = DEFAULT_OMEGA, kernel_threshold: int = 256,
@@ -190,6 +205,7 @@ class ShardedHierarchyV2:
         self._gathered = torch.empty((self.world * self.Hloc[S], levels[S].n_nodes),
                                      dtype=torch.float32, device=device)
         self._rsq_scratch = torch.empty((), dtype=torch.float32, device=device)
+        self.graphs = ChunkGraphs(device)
 
     def _rows(self, l: int) -> int:
         return self.Hloc[l] + 2 * GHOST
@@ -316,37 +332,35 @@ class ShardedHierarchyV2:
         dist.all_reduce(rsq_pre, group=self.group)
         return cur, spare
 
-    def _solve(self, cycle, f, u0, bc_value, eps: float, max_cycles: int, chunk: int):
-        """Run ``cycle(u, spare, f, rsq) -> (u, spare)`` on this rank's
-        level-0 slabs (``rsq`` gets the summed residual norm^2 of the
-        incoming u) in ``solvers/common.py::solve_cycles``' protocol; returns
-        the gathered u and the history."""
-        finest = self.base.hier.finest
-        f, u = start_fields(finest, f, u0, bc_value)
-        fb, u = self.to_slab(0, f), self.to_slab(0, u)
-        sp = torch.empty_like(u)
-        rsq = torch.empty((), dtype=torch.float32, device=self.device)
-        hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=self.device)
-        eps32 = float(np.float32(eps))
-        k, res = 0, float("inf")
-        while res > eps32 and k < max_cycles:
-            for _ in range(chunk):
-                u, sp = cycle(u, sp, fb, rsq)
-                torch.sqrt(rsq, out=hist[k])
-                k += 1
-            res = float(hist[k - 1])  # the same on every rank: the norms are all-reduced
-        return self.gather(u), trim_history(hist.cpu().numpy(), eps)
+    def _solve(self, cycle, f, u0, bc_value, eps: float, max_cycles: int, chunk: int,
+               extra=(), graph: bool = True, key=()):
+        """Run ``cycle(u, spare, f, rsq, *extra) -> (u, spare)`` on this
+        rank's level-0 slabs (``rsq`` gets the summed residual norm^2 of the
+        incoming u) in ``solvers/common.py::run_cycles``; every rank stops
+        at the same cycle, the norms being all-reduced.  On the card with
+        ``graph`` each chunk is one replay of the graph of ``key``.
+        Returns the gathered u (a fresh tensor) and the history."""
+        f, u = start_fields(self.base.hier.finest, f, u0, bc_value)
+        u, history = run_cycles(cycle, self.to_slab(0, f), self.to_slab(0, u), eps, max_cycles,
+                                chunk, extra, chunk_graphs(self, graph), key)
+        return self.gather(u), history
 
     def solve(self, f, u0=None, bc_value=None, nu1: int = 1, nu2: int = 1,
-              eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1):
+              eps: float = 1e-6, max_cycles: int = 100, chunk: int = 1, graph: bool = True):
         """Distributed V-cycle solve; ``HierarchyV2.solve``'s protocol: every
         rank passes the whole (n+1)^2 ``f`` (and ``u0``), the history stays
         on the device with one host sync per ``chunk`` cycles,
         ``history[j]`` is the residual after cycle j + 1, and ``u`` is one
         cycle (plus up to ``chunk - 1``) ahead.  Returns ``(u, history)``
-        with the gathered (n+1)^2 ``u`` on every rank."""
+        with the gathered (n+1)^2 ``u`` on every rank.
+
+        On the card each chunk is one replay of a CUDA graph captured once
+        per (nu1, nu2) and chunk, its collectives inside, with one read of
+        its norms; ``graph=False`` runs the eager loop, bit for bit the
+        same."""
         return self._solve(lambda u, sp, fb, rsq: self._cycle0(u, sp, fb, nu1, nu2, rsq),
-                           f, u0, bc_value, eps, max_cycles, chunk)
+                           f, u0, bc_value, eps, max_cycles, chunk, graph=graph,
+                           key=("solve", nu1, nu2))
 
     def gather(self, u: torch.Tensor) -> torch.Tensor:
         """The whole (n+1)^2 level-0 field from every rank's own rows."""
@@ -446,13 +460,18 @@ class ShardedHMG(ShardedHierarchyV2):
         return u, sp
 
     def solve(self, params, f, u0=None, bc_value=0.0, eps: float = 5e-5,
-              max_cycles: int = 100, chunk: int = 1):
+              max_cycles: int = 100, chunk: int = 1, graph: bool = True):
         """Distributed H-MG solve with the (1, 3, 3) H-Net kernels ``params``
         (tensor or array); ``HMGHierarchy.solve``'s protocol: every rank
         passes the whole (n+1)^2 ``f`` (and ``u0``), ``history[j]`` is the
         residual after cycle j + 1, ``u`` is one cycle (plus up to ``chunk -
         1``) ahead, one host sync per ``chunk`` cycles.  Returns ``(u,
-        history)`` with the gathered (n+1)^2 ``u`` on every rank."""
-        params = self._params(params)
-        return self._solve(lambda u, sp, fb, rsq: self._h_cycle0(u, sp, fb, params, rsq),
-                           f, u0, bc_value, eps, max_cycles, chunk)
+        history)`` with the gathered (n+1)^2 ``u`` on every rank.
+
+        On the card each chunk is one replay of a CUDA graph, its
+        collectives inside, which reads a static copy of ``params`` (a
+        re-solve with other kernels replays the same graph); ``graph=False``
+        runs the eager loop, bit for bit the same."""
+        return self._solve(lambda u, sp, fb, rsq, params: self._h_cycle0(u, sp, fb, params, rsq),
+                           f, u0, bc_value, eps, max_cycles, chunk, extra=(self._params(params),),
+                           graph=graph, key=("hsolve",))

@@ -17,7 +17,9 @@ explicit ``torch.distributed`` call on the mesh's groups:
   small to shard, and the smaller levels are replicated (the agglomeration
   policy: no communication rides the coarse solve).  Block heights and
   widths halve with the level, so every coarse block lies under its fine
-  block and both transfers are block-local;
+  block and both transfers are block-local.  On the card its solve replays
+  one CUDA graph per cycle, the collectives inside (the port of JAX's
+  whole-solve jit);
 - :func:`shardmap_jacobi_step` and :func:`shardmap_jacobi_step_overlap`, the
   explicit-halo Jacobi sweep and its overlapped form;
 - :func:`sharded_hnet_train_step`, the H-Net step with the batch split over
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -45,6 +48,7 @@ from multigrid_feanet_torch.ops.stencil import UNIT_S4, UNIT_S9
 from multigrid_feanet_torch.parallel.shard import (cut_rows, group_backend, round_up,
                                                    start_ops, wait_all)
 from multigrid_feanet_torch.solvers import multigrid
+from multigrid_feanet_torch.solvers.common import ChunkGraphs, chunk_graphs
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA
 
 MESH_DIMS = ("dp", "x", "y")
@@ -175,12 +179,14 @@ class DistributedHierarchy:
     into ``x`` x ``y`` blocks of zero-padded buffers, block heights and
     widths halving with the level; smaller levels are replicated and
     unpadded (coarse agglomeration).  Every rank of a dp replica runs the
-    same solve on its blocks."""
+    same solve on its blocks.  ``graphs`` holds the solve's captured
+    cycles."""
 
     def __init__(self, hier: GridHierarchy, mesh: DeviceMesh, replicate_below: int = 257):
         self.hier = hier
         self.mesh = mesh
         self.replicate_below = replicate_below
+        self.graphs = ChunkGraphs(hier.device)
         _, sx, ix = _axis(mesh, "x")
         _, sy, iy = _axis(mesh, "y")
         levels = hier.levels
@@ -283,18 +289,47 @@ class DistributedHierarchy:
         return torch.sqrt(_all_sum(rr, self.mesh))[0]
 
     def solve(self, f, u0=None, nu1: int = 1, nu2: int = 1, eps: float = 1e-6,
-              max_cycles: int = 100):
+              max_cycles: int = 100, graph: bool = True):
         """V-cycles to the interior residual ``eps``: ``f`` is the whole
         mass-convolved right-hand side.  Returns ``(u, cycles, res)``, the
-        whole u on every rank; one host sync per cycle."""
+        whole u on every rank and the residual after the last cycle; one
+        host sync per cycle.
+
+        On the card each cycle is one replay of a CUDA graph captured once
+        per (nu1, nu2) and block shape: the V-cycle, its halo exchanges and
+        gather, and the all-reduced norm of the new residual into a static
+        scalar, which the host reads once per cycle.  The graph runs on
+        static copies of the blocks of ``f`` and ``u0`` and allocates its
+        temporaries from its own pool.  ``graph=False`` runs the eager loop,
+        bit for bit the same."""
         if self.S == 0:
             raise ValueError("no level is sharded: use solvers/multigrid.py::solve")
         f = self.block(0, f)
         u = torch.zeros_like(f) if u0 is None else self.block(0, u0)
+        graphs = chunk_graphs(self, graph)
+        if graphs is not None:
+            key = ("solve", nu1, nu2, f.dtype, u.dtype, tuple(f.shape))
+            st = graphs.statics(key, lambda: SimpleNamespace(
+                f=torch.empty_like(f), u=torch.empty_like(u),
+                res=torch.empty((), dtype=torch.promote_types(f.dtype, u.dtype),
+                                device=f.device)))
+            st.f.copy_(f)
+            st.u.copy_(u)
+            f, u = st.f, st.u
+
+            def body():
+                new = self.v_cycle(st.u, st.f, nu1, nu2)
+                st.res.copy_(self.res_norm(st.f - self.apply(0, new)))
+                st.u.copy_(new)
+
         k, res = 0, float("inf")
         while res > eps and k < max_cycles:
-            u = self.v_cycle(u, f, nu1, nu2)
-            res = float(self.res_norm(f - self.apply(0, u)))
+            if graphs is None:
+                u = self.v_cycle(u, f, nu1, nu2)
+                res = float(self.res_norm(f - self.apply(0, u)))
+            else:
+                graphs.run(key, body)
+                res = float(st.res)  # the one host read per cycle
             k += 1
         return self.unblock(0, u), k, res
 

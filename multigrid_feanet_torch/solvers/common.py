@@ -24,6 +24,14 @@ of its norms per chunk -- the port's form of the JAX solvers' one compiled
 buffers in the same order as the eager loop, so both give the same history
 and iterate bit for bit; ``graph=False`` on an entry point runs the eager
 loop on the card, and on the CPU the eager loop always runs.
+
+The distributed solvers replay theirs with their NCCL collectives inside
+the graph: ``parallel/shard.py``'s ``ShardedHierarchyV2.solve`` and
+``ShardedHMG.solve`` run :func:`run_cycles` on their level-0 slabs (one
+replay and one read per chunk, the ghost exchanges, the ``all_gather`` and
+the ``all_reduce`` captured), and ``parallel/sharding.py``'s
+``DistributedHierarchy.solve`` replays one cycle and its all-reduced norm
+(one read per cycle).
 """
 
 from __future__ import annotations
@@ -37,8 +45,8 @@ import torch
 from multigrid_feanet_torch.core.geometry import reset_boundary
 from multigrid_feanet_torch.ops.sweep import CudaKernel
 
-__all__ = ["ChunkGraphs", "chunk_graphs", "pcg_buffers", "run_chunks", "solve_cycles",
-           "solve_pcg", "start_fields", "trim_history"]
+__all__ = ["ChunkGraphs", "chunk_graphs", "pcg_buffers", "run_chunks", "run_cycles",
+           "solve_cycles", "solve_pcg", "start_fields", "trim_history"]
 
 
 def trim_history(hist, eps: float) -> np.ndarray:
@@ -193,24 +201,34 @@ def solve_cycles(cycle, finest, f, u0=None, bc_value=None, eps: float = 1e-6,
     if None), whose boundary is set to ``bc_value``; both are stored as
     ``dtype`` (the fused levels' storage type), the history in f32.
     ``extra`` are further tensors the cycle reads (the H-Net kernels).  The
-    history stays on the device, with -1 sentinels, and is read back once
-    per ``chunk`` cycles: one host sync per chunk.
+    loop is :func:`run_cycles`; with ``graphs`` the returned ``u`` is a copy
+    of the static iterate.
+    Returns ``(u, history)`` in the convention of :func:`trim_history`."""
+    f, u = start_fields(finest, f, u0, bc_value, dtype)
+    u, history = run_cycles(cycle, f, u, eps, max_cycles, chunk, extra, graphs, key)
+    return (u if graphs is None else u.clone()), history
+
+
+def run_cycles(cycle, f, u, eps: float, max_cycles: int, chunk: int, extra=(), graphs=None,
+               key=()):
+    """:func:`solve_cycles`' loop on the started fields ``f`` and ``u`` (the
+    sharded solvers pass their level-0 slabs).  The history stays on the
+    device, with -1 sentinels, and is read back once per ``chunk`` cycles:
+    one host sync per chunk.
 
     With ``graphs`` (a :class:`ChunkGraphs`) each chunk is one replay of the
     graph of ``key`` (extended by the chunk, the storage type and the
-    shapes) on static copies of ``f``, ``u`` and ``extra``, the chunk's
-    norms are read back once per replay, and the returned ``u`` is a copy
-    of the static iterate.
-    Returns ``(u, history)`` in the convention of :func:`trim_history`."""
-    dev = finest.device
-    f, u = start_fields(finest, f, u0, bc_value, dtype)
+    shapes) on static copies of ``f``, ``u`` and ``extra``, and the chunk's
+    norms are read back once per replay; the returned ``u`` is then the
+    key's static iterate, which the next solve overwrites: the caller
+    copies it.  Returns ``(u, history)`` as :func:`solve_cycles`."""
     eps32 = float(np.float32(eps))  # the f32 comparison of the JAX loop
     if graphs is not None:
         return _replay_cycles(graphs, key, cycle, f, u, tuple(extra), eps, eps32, max_cycles,
                               chunk)
     sp = torch.empty_like(u)
-    rsq = torch.empty((), dtype=torch.float32, device=dev)
-    hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=dev)
+    rsq = torch.empty((), dtype=torch.float32, device=u.device)
+    hist = torch.full((max_cycles + chunk,), -1.0, dtype=torch.float32, device=u.device)
     k, res = 0, float("inf")
     while res > eps32 and k < max_cycles:
         for _ in range(chunk):
@@ -224,7 +242,8 @@ def solve_cycles(cycle, finest, f, u0=None, bc_value=None, eps: float = 1e-6,
 
 
 def _replay_cycles(graphs, key, cycle, f, u, extra, eps, eps32, max_cycles, chunk):
-    """:func:`solve_cycles`' loop on replayed chunks."""
+    """:func:`run_cycles`' loop on replayed chunks; returns the static
+    iterate."""
     key = (key, chunk, u.dtype, tuple(u.shape)) + tuple(tuple(x.shape) for x in extra)
     st = graphs.statics(key, lambda: SimpleNamespace(
         f=torch.empty_like(f), u=(torch.empty_like(u), torch.empty_like(u)),
@@ -251,7 +270,7 @@ def _replay_cycles(graphs, key, cycle, f, u, extra, eps, eps32, max_cycles, chun
         hist[k : k + chunk] = st.norms.cpu().numpy()  # the one host sync per chunk
         k += chunk
         res = float(hist[k - 1])
-    return st.u[0].clone(), trim_history(hist, eps)
+    return st.u[0], trim_history(hist, eps)
 
 
 def pcg_buffers(like: torch.Tensor) -> dict:
