@@ -176,18 +176,35 @@ Phases, in order; any failure exits non-zero:
    printed beside its f32 cell, and two 129^2 bi-material bf16 decay
    solves (split and use_pswrr) on the card against the CPU (cycles +- 1,
    histories within 2%).
-15. Slice 11, the learned inter-grid operators and the elastic H-Net,
-   which launch no kernel (every count is zeroed before each phase and
-   must read zero after it): ``intergrid_train_64`` (the reference's q_m
-   training protocol at 65^2, 10 epochs, card against CPU, resume, the
-   train_kernel = 3 curriculum, 10 multi-size decay steps),
-   ``learned_vcycle_4097`` (12 learned V-cycles at 4097^2 with the init
-   and the multi-size trained operators; 6 two-grid cycles at 129^2 with
-   the n = 64 checkpoint against the CPU), ``hnet_elastic_train_16`` (the
-   elastic H-Net's training anchor) and ``h_elastic_2049`` (32 H-corrected
-   block-Jacobi sweeps at 2049^2 beside 32 plain ones; 4 sweeps at 129^2
-   against the CPU); and one profiled periodic training step, which like
-   every slice-11 profile must run no TF32 kernel.
+15. Slice 11, the learned inter-grid operators and the elastic H-Net.
+   First X5 and X6 (``ops/passes.py``) held against their plain
+   versions by ``hold`` at 4097^2, 129^2, 65^2 and 33^2, bi-material with
+   16 and 12 channels and homogeneous with one, batch 1 and 2, at
+   ``ops.sweep.TOL``, two launches bitwise, each timed beside its bound
+   and its plain version and, at 4097^2, beside the torch path's split and
+   convolution (``learned_pass_checks``).  Then ``intergrid_train_64``
+   (the reference's q_m training protocol at 65^2, 10 epochs, card against
+   CPU within 1e-4, resume, the train_kernel = 3 curriculum, 10 multi-size
+   decay steps) and ``learned_vcycle_4097`` (12 learned V-cycles at 4097^2
+   with the init and the multi-size trained operators on the kernel route,
+   and with the init operators on the torch path beside them: ms, device
+   ms a cycle, peak GB, float32 and float64 histories; every C1, X5 and X6
+   call of two route cycles against its plain version; the two paths
+   within 1e-4 a cycle on the f = 0 decay protocol and, on the evaluator's
+   protocol, within 1e-4 of max|u| after the first cycle, the route's
+   float64 residual after the last at most 1.5 times the torch path's; 6
+   two-grid cycles at 129^2 on a batch of 2 with the n = 64 checkpoint
+   against the CPU's route), each run with every count zeroed
+   and required to equal the
+   kernel route's C1, X5 and X6 launches exactly (``route_launches``: C1 3
+   a sample on each kernel level, X5 and X6 one a level and cycle each;
+   none on the torch path or for batches over ``KERNEL_MAX_BATCH``); then
+   ``hnet_elastic_train_16`` (the elastic H-Net's
+   training anchor) and ``h_elastic_2049`` (32 H-corrected block-Jacobi
+   sweeps at 2049^2 beside 32 plain ones; 4 sweeps at 129^2 against the
+   CPU), which launch no kernel (every count zeroed before each phase and
+   required zero after it); and one profiled periodic training step, which
+   like every slice-11 profile must run no TF32 kernel.
 16. The research solvers in torch ops, which launch no kernel of the
    port (every count zeroed before each run, required zero after):
    ``elastic_boxmg_1025`` (``solvers/elastic_boxmg.py``: the 1025^2
@@ -295,8 +312,9 @@ Phases, in order; any failure exits non-zero:
    measured copy and triad rates; the rows of G4, A5 and X1 also name both
    designs' device kernels, ``symbols``, and the one the timed launch ran,
    ``design``; X1-X4 with their cells' launches, X1 with its tile's time
-   and its homogeneous time beside ``F.conv2d``'s), then the device line as
-   the last line.
+   and its homogeneous time beside ``F.conv2d``'s; X5, X6 and C1 with
+   ``learned_vcycle_4097``'s launches; 33 kernels), then the device line
+   as the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -540,6 +558,7 @@ OUT_NAMES = {"A1_sweep": ("out", "rsq"), "A1_residual": ("out", "rsq"),
              "H1": ("out", "rsq", "rsq_wrap"), "E1": ("out", "rsq"), "F1": ("out",),
              "B1": ("out",), "B2": ("out",),
              "X1": ("out",), "X2": ("out",), "X3": ("out",), "X4": ("out",),
+             "X5": ("out",), "X6": ("out",),
              **{f"C2_k{k}": ("out", "rsq") for k in range(1, 9)}}
 # the legs that keep partial sums in a workspace
 RSQ_LEGS = ("A1", "A2", "A5", "A6", "C1", "C2", "D1", "D2", "E1", "E2", "G1", "G2", "H1",
@@ -1047,7 +1066,8 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("reduce_kernel", "rsq_reduce"), ("h1_reduce_pair", "rsq_reduce"),
                ("e1_h_relax", "E1"), ("f1_qsweep", "F1"), ("b1_copy", "B1"), ("b2_triad", "B2"),
                ("x1_heat_rhs", "X1"), ("x2_restrict", "X2"), ("x3_prolong_add", "X3"),
-               ("x4_outer_step", "X4"))
+               ("x4_outer_step", "X4"), ("x5_learned_restrict", "X5"),
+               ("x6_learned_prolong_add", "X6"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -3105,13 +3125,152 @@ def check_bf16_small_against_cpu() -> dict:
 # slice 11: learned inter-grid operators and the elastic H-Net
 # ---------------------------------------------------------------------------
 #
-# None of these paths runs a hand-written kernel: the JAX package computes
-# them in XLA, outside any pallas_call, and the port in torch ops (cuDNN
-# convolutions in full f32).  Each phase runs with every launch count zeroed
-# and fails if any count is not zero after it.
+# The JAX package computes these in XLA, outside any pallas_call.  The
+# learned cycle's serving path (no gradient) runs C1, X5 and X6 on the card,
+# each phase holding the wrappers' own counts to the route's
+# exact launches; the graded cycles, the elastic H-Net and the periodic step
+# run torch ops (cuDNN convolutions in full f32), and those phases run with
+# every launch count zeroed and fail if any count is not zero after them.
 
 IG_N64 = "results/intergrid_trained_interface_n64.npz"
 IG_ROBUST = "results/intergrid_robust/intergrid_robust.npz"
+# X5's and X6's holds: 4097^2, 129^2, 65^2 and 33^2; (inclusion, channels)
+LEARNED_SIZES = (N_MAIN, 128, 64, 32)
+LEARNED_VARIANTS = {"bim16": (CIRCLE, 16), "bim12": (CIRCLE, 12), "hom1": (None, 1)}
+# operations a node, counted from csrc/passes.cu: X5 nine fused multiply-adds
+# and x w[0] a coarse interior node; X6 2.25 taps a fine node on average
+# (1, 2, 2 and 4 by parity) of a multiply and an add, x w[1] and the add
+LEARNED_FLOPS = {"X5": 19, "X6": 6.5}
+
+
+def learned_bytes(key: str, n: int, N: int, bim: bool) -> int:
+    """Bytes X5 or X6 must move for a batch of N on an (n+1)^2 level, each
+    input read once and each output written once: X5 the fine interior of
+    r, its pattern ids and f_c; X6 u, v, the coarse ids and out (the weight
+    table aside)."""
+    H2, Hc2, I2 = (n + 1) ** 2, (n // 2 + 1) ** 2, (n - 1) ** 2
+    if key == "X5":
+        return N * 4 * (I2 + Hc2) + (I2 if bim else 0)
+    return N * 4 * (2 * H2 + Hc2) + (Hc2 if bim else 0)
+
+
+def learned_bound(key: str, n: int, N: int, nbytes: int):
+    """(bound ms, "bytes" or "operations") of one X5 or X6 launch."""
+    nodes = (n // 2 - 1) ** 2 if key == "X5" else (n + 1) ** 2
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * LEARNED_FLOPS[key] * N * nodes / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def learned_pass_inputs(n: int, variant: str, N: int, seed: int, hiers: dict):
+    """Seeded operands of X5 and X6 on the card: the level's and the coarse
+    level's pattern ids (circle, or None; the 2-level hierarchy built once
+    per size and inclusion in ``hiers``), random per-channel kernels and w,
+    r, u standard normal (N, n+1, n+1), v (N, n/2+1, n/2+1)."""
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.models.intergrid import BILINEAR_4, FULL_WEIGHTING_16
+
+    inclusion, C = LEARNED_VARIANTS[variant]
+    key = (n, inclusion is not None)
+    if key not in hiers:
+        hiers[key] = GridHierarchy.create(Problem(n=n, inclusion=inclusion), 2, device=DEVICE)
+    hier = hiers[key]
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=DEVICE)
+
+    return dict(pid=hier.levels[0].pid, pid_c=hier.levels[1].pid,
+                conv=t(FULL_WEIGHTING_16 + 0.1 * rng.standard_normal((C, 3, 3))),
+                deconv=t(BILINEAR_4 + 0.1 * rng.standard_normal((C, 3, 3))),
+                w=t([3.7, 1.1]), r=t(rng.standard_normal((N, n + 1, n + 1))),
+                u=t(rng.standard_normal((N, n + 1, n + 1))),
+                v=t(rng.standard_normal((N, n // 2 + 1, n // 2 + 1))))
+
+
+def check_learned_passes() -> list:
+    """Hold X5 and X6 against their plain versions with ``hold`` at
+    ``ops.sweep.TOL`` (two launches bitwise) at every size of LEARNED_SIZES,
+    in every variant of LEARNED_VARIANTS (bi-material with 16 random
+    channels, 12 channels where ids 12-15 have none, homogeneous with one),
+    batch 1 and 2 (a compact batch: sample 1 off a 16-byte boundary at odd
+    sizes), each timed beside its bound and its plain version; at 4097^2,
+    bi-material 16, batch 1, beside the torch path's transfer in full f32
+    (``models/intergrid.py`` ``restrict_learned``: the split and
+    ``F.conv2d`` with stride 2; ``prolong_learned``: the split and
+    ``F.conv_transpose2d``, without the add), 5 calls."""
+    import torch
+    from multigrid_feanet_torch.models.intergrid import (IntergridParams, prolong_learned,
+                                                         restrict_learned)
+    from multigrid_feanet_torch.ops import passes as px
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    def x5(fn, y, kw):
+        return fn(*y, **kw)
+
+    recs, hiers = [], {}
+    for n in LEARNED_SIZES:
+        for variant in LEARNED_VARIANTS:
+            for N in (1, 2):
+                x = learned_pass_inputs(n, variant, N, 27 + n + N, hiers)
+                bim = x["pid"] is not None
+                legs = (("X5", px.learned_restrict_cuda, px.learned_restrict_plain,
+                         (x["r"], x["pid"], x["conv"], x["w"])),
+                        ("X6", px.learned_prolong_add_cuda, px.learned_prolong_add_plain,
+                         (x["u"], x["v"], x["pid_c"], x["deconv"], x["w"])))
+                for key, kfn, pfn, inputs in legs:
+                    nbytes = learned_bytes(key, n, N, bim)
+                    rec = hold(key, x5, kfn, pfn, inputs, {}, nbytes, TOL,
+                               dict(n=n, variant=variant, batch=N, bim=bim), twice=True)
+                    rec["bound_ms"], rec["bound_by"] = learned_bound(key, n, N, nbytes)
+                    rec["library_ms"] = None
+                    if n == N_MAIN and variant == "bim16" and N == 1:
+                        p = IntergridParams(x["conv"], x["deconv"], x["w"])
+                        with torch.no_grad():
+                            if key == "X5":
+                                lib, base = (lambda: restrict_learned(p, x["r"], x["pid"])), 0.0
+                            else:
+                                lib, base = (lambda: prolong_learned(p, x["v"], x["pid_c"])), x["u"]
+                            rec["library_ms"] = plain_ms([lib], 5)
+                            want = pfn(*inputs)
+                            rec["library_rel_err"] = float((base + lib() - want).abs().max()
+                                                           / want.abs().max())
+                    recs.append(rec)
+                del x
+        hiers.clear()
+    print(json.dumps({"learned_pass_checks": recs}), flush=True)
+    return recs
+
+
+def route_launches(hier, cycles: int, batch: int, n_relax: int = 1) -> dict:
+    """The launches of ``cycles`` learned V-cycles on the kernel route with
+    a batch of ``batch`` samples: C1 (2 n_relax + 1) a sample on every
+    kernel level (``models.intergrid.kernel_levels``), X5 and X6 one each a
+    level and cycle; none for a batch of more than ``KERNEL_MAX_BATCH``
+    samples, which keeps the torch path."""
+    from multigrid_feanet_torch.models.intergrid import KERNEL_MAX_BATCH, kernel_levels
+
+    K = len(kernel_levels(hier)) if batch <= KERNEL_MAX_BATCH else 0
+    return {k: v for k, v in dict(C1=(2 * n_relax + 1) * K * cycles * batch, X5=K * cycles,
+                                  X6=K * cycles).items() if v}
+
+
+def add_counts(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def exact_launches(label: str, run, expect: dict):
+    """``run()`` with every launch count zeroed; fails unless the wrappers'
+    own counts are ``expect`` exactly (no other kernel launched)."""
+    out, launches = counted(run)
+    if launches != expect:
+        fail(f"{label}: launched {launches}, expected {expect}")
+    return out
 
 
 def no_launches(label: str, run):
@@ -3135,7 +3294,11 @@ def run_intergrid_train_cell() -> dict:
     gives the straight run's losses and weights (rtol 1e-5); a 2-epoch
     train_kernel = 3 run changes channel 3 of conv and deconv only, and
     never w; 10 steps of train_step_decay_multisize at 16, 32 and 64
-    (batches 16, 8, 2: experiments/intergrid_robust.py) stay finite."""
+    (batches 16, 8, 2: experiments/intergrid_robust.py) stay finite.  Each
+    run launches exactly the kernel route's C1, X5 and X6 of its m - 1
+    cycles without gradient a step (``route_launches``: none for a batch
+    over ``KERNEL_MAX_BATCH``, which keeps the torch path); the graded
+    cycle launches none.  The CPU's run takes the same paths."""
     import shutil
     import torch
     from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
@@ -3150,9 +3313,14 @@ def run_intergrid_train_cell() -> dict:
     F = make_dataset(65, 120, seed=0).numpy()
     kw = dict(batch_size=64, seed=0, m=6, m0=2, lr=1e-3, verbose=False)
     h64 = hier(64)
+
+    def epochs(k):  # k epochs of 120 RHS: k steps of m - 1 cycles on each of 64 and 56
+        return add_counts(*(route_launches(h64, (kw["m"] - 1) * k, b) for b in (64, 56)))
+
     torch.cuda.synchronize()
     t0 = time.time()
-    params, losses = no_launches(label, lambda: ti.train(h64, F, num_epochs=10, **kw))
+    params, losses = exact_launches(label, lambda: ti.train(h64, F, num_epochs=10, **kw),
+                                    epochs(10))
     torch.cuda.synchronize()
     wall = time.time() - t0
     t0 = time.time()
@@ -3160,11 +3328,13 @@ def run_intergrid_train_cell() -> dict:
     cpu_s = time.time() - t0
     ckpt = ROOT / "build" / "smoke_intergrid_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
-    no_launches(label, lambda: ti.train(h64, F, num_epochs=5, ckpt_dir=ckpt, **kw))
-    p_res, l_res = no_launches(label, lambda: ti.train(h64, F, num_epochs=10, ckpt_dir=ckpt,
-                                                       **kw))
+    exact_launches(label, lambda: ti.train(h64, F, num_epochs=5, ckpt_dir=ckpt, **kw),
+                   epochs(5))
+    p_res, l_res = exact_launches(label, lambda: ti.train(h64, F, num_epochs=10, ckpt_dir=ckpt,
+                                                          **kw), epochs(5))
     shutil.rmtree(ckpt, ignore_errors=True)
-    p_cur, _ = no_launches(label, lambda: ti.train(h64, F, num_epochs=2, train_kernel=3, **kw))
+    p_cur, _ = exact_launches(label, lambda: ti.train(h64, F, num_epochs=2, train_kernel=3,
+                                                      **kw), epochs(2))
     init = IntergridParams.init(device=DEVICE)
     moved = {k: [i for i in range(getattr(init, k).shape[0])
                  if not torch.equal(getattr(p_cur, k)[i], getattr(init, k)[i])]
@@ -3181,7 +3351,9 @@ def run_intergrid_train_cell() -> dict:
 
     torch.cuda.synchronize()
     t0 = time.time()
-    no_launches(label, multisize)
+    # 10 steps of m - 1 = 9 cycles at each size
+    exact_launches(label, multisize, add_counts(*(route_launches(h, 90, b)
+                                                  for h, b in zip(hiers, batches))))
     ms_wall = time.time() - t0
     step_state = ti.init_state(0, device=DEVICE)
     F_batch = torch.as_tensor(F[:64], device=DEVICE)
@@ -3193,7 +3365,7 @@ def run_intergrid_train_cell() -> dict:
                drop=float(losses[0] - losses[-1]), losses_resumed=l_res.tolist(),
                curriculum_moved=moved, multisize_sizes=list(sizes),
                multisize_losses=ms_losses, multisize_s_per_step=ms_wall / 10, profile=prof,
-               launches={})
+               launches=epochs(10))
     print(json.dumps(rec), flush=True)
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(ms_losses))):
         fail(f"{label}: non-finite loss: {rec}")
@@ -3224,68 +3396,181 @@ def profile_top(label: str, run, units: int, wall_s: float, top: int = 6) -> dic
     return prof
 
 
-def learned_history(hier, params, f, cycles: int):
-    """``cycles`` learned V-cycles from u = 0 without gradient -> (u, the
-    interior residual norm after each cycle, each cycle's seconds on the
-    host clock, synchronised)."""
+def torch_cycle(hier, params, u, f):
+    """A learned V-cycle on the torch path (the split and cuDNN), the
+    cycle ``learned_v_cycle`` runs where it takes no kernel route."""
+    from multigrid_feanet_torch.models import intergrid
+
+    return intergrid._torch_cycle(hier, params, u, f, 1, intergrid.DEFAULT_OMEGA, 0)
+
+
+def learned_history(hier, params, f, cycles: int, cycle=None, u0=None, level64=None) -> dict:
+    """``cycles`` learned V-cycles from u0 (default 0) without gradient
+    (``cycle``: default ``learned_v_cycle``) -> {u, hist: the interior
+    residual norm of each sample after each cycle, (cycles, N), secs: each
+    cycle's seconds on the host clock, synchronised, peak_gb: on the card
+    the most memory allocated during a cycle; with ``level64``, a float64
+    level of the finest grid, also hist64: the float64 residual norms of
+    sample 0, computed outside the cycles' peak}."""
     import torch
     from multigrid_feanet_torch.models.intergrid import learned_v_cycle
     from multigrid_feanet_torch.solvers.jacobi import interior_norm
 
-    u, hist, secs = torch.zeros_like(f), [], []
+    cycle = learned_v_cycle if cycle is None else cycle
+    u = torch.zeros_like(f) if u0 is None else u0
+    hist, hist64, secs, peak = [], [], [], 0
     with torch.no_grad():
         for _ in range(cycles):
             if u.is_cuda:
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
-            u = learned_v_cycle(hier, params, u, f)
+            u = cycle(hier, params, u, f)
             if u.is_cuda:
                 torch.cuda.synchronize()
+                peak = max(peak, torch.cuda.max_memory_allocated())
             secs.append(time.time() - t0)
-            hist.append(float(interior_norm(f - hier.finest.apply(u))[0]))
-    return u, np.asarray(hist), secs
+            hist.append(interior_norm(f - hier.finest.apply(u)).cpu().numpy())
+            if level64 is not None:
+                r64 = f.double() - level64.apply(u.double())
+                hist64.append(float(interior_norm(r64)[0]))
+    return dict(u=u, hist=np.asarray(hist), secs=secs, peak_gb=peak / 1e9,
+                hist64=np.asarray(hist64))
+
+
+def route_call_holds(run) -> dict:
+    """``run()`` with every C1, X5 and X6 launch of the kernel route held
+    against its plain version on the same operands: the largest difference
+    of each kernel's output, relative to max(1, max|plain|) as ``hold``
+    measures it, over every call (C1 by mode); fails beyond
+    ``ops.sweep.TOL``."""
+    from multigrid_feanet_torch.ops import passes as px
+    from multigrid_feanet_torch.ops import stencil_sweep as ss
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    errs = {}
+
+    def note(key, got, want):
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        rec = errs.setdefault(key, dict(calls=0, max_rel_err=0.0))
+        rec["calls"] += 1
+        rec["max_rel_err"] = max(rec["max_rel_err"], err)
+
+    saved = ss.relax_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda
+
+    def c1(u, f, pid=None, **kw):
+        out = saved[0](u, f, pid, **kw)
+        kw = {k: v for k, v in kw.items() if k not in ("out", "rsq", "workspace")}
+        note("C1_" + kw.get("mode", "sweep"), out[0], ss.relax_plain(u, f, pid, **kw)[0])
+        return out
+
+    def x5(r, pid, k, w, out=None):
+        got = saved[1](r, pid, k, w, out)
+        note("X5", got, px.learned_restrict_plain(r, pid, k, w))
+        return got
+
+    def x6(u, v, pid, k, w, out=None):
+        got = saved[2](u, v, pid, k, w, out)
+        note("X6", got, px.learned_prolong_add_plain(u, v, pid, k, w))
+        return got
+
+    ss.relax_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda = c1, x5, x6
+    try:
+        run()
+    finally:
+        ss.relax_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda = saved
+    if not errs or any(r["max_rel_err"] > TOL for r in errs.values()):
+        fail(f"the kernel route's launches disagree with their plain versions: {errs}")
+    return errs
+
+
+# learned_vcycle_4097 on the evaluator's protocol: the kernel route's iterate
+# after the first cycle within EVAL_FIRST_TOL of the torch path's (of its
+# max|u|), its float64 residual after the last at most EVAL_LAST_RATIO times
+# the torch path's
+EVAL_FIRST_TOL = 1e-4
+EVAL_LAST_RATIO = 1.5
 
 
 def run_learned_vcycle_cell() -> dict:
     """``learned_vcycle_4097``: the evaluator of experiments/
     learn_intergrid.py:35-47 at the production size, the 4097^2 interface
     problem with 12 levels, f = mass(1), u0 = 0, 12 cycles, with the init
-    parameters and with results/intergrid_robust/intergrid_robust.npz: ms
-    per cycle (median), hist[6] / hist[5] and the peak memory; with the
-    init parameters also the level-0 restriction's and prolongation's ms
-    (CUDA events, 5 calls) and a profile of one cycle.  Finite, and
-    the init history must fall.  Then 6 cycles at 129^2 with the n = 64
-    checkpoint on the card against the CPU: histories within 1e-4.  That
-    checkpoint is a two-grid operator (results/intergrid_training_notes.md):
-    on the full 7-level hierarchy its cycle diverges to inf within 5
-    cycles, in the JAX package as in the port, so it runs on 2 levels."""
+    parameters and with results/intergrid_robust/intergrid_robust.npz, on
+    the kernel route (C1, X5 and X6 on every kernel level, each run
+    launching exactly ``route_launches``), and with the init parameters on
+    the torch path (``torch_cycle``: no launch): ms per cycle (median),
+    hist[6] / hist[5], the peak memory during a cycle (``base_gb`` allocated
+    before: the hierarchy, f, a float64 level), the float32 and the float64
+    residual norms, and device ms a cycle from a profile of one cycle.
+    Finite, and the init history must fall.  Every C1, X5 and X6 launch of
+    two kernel-route cycles is held against its plain version on its own
+    operands (``route_call_holds``).  On the evaluator's protocol the cycle
+    amplifies rounding from cycle 2 on (the two paths' rounding, C1's
+    contracted multiply-adds against cuDNN's tiles, steers their histories
+    apart by tens of percent; the residual of the first cycle already
+    differs by a few tenths of a percent, f - A u being float32
+    cancellation), so the two paths are held to each other on the iterate
+    after the first cycle with the init and the robust parameters (within
+    ``EVAL_FIRST_TOL`` of max|u|), on the float64 residual after the last
+    (the kernel route's at most ``EVAL_LAST_RATIO`` times the torch
+    path's), and on the f = 0 decay protocol (u0 = standard
+    normal x geo from rng 27, 12 cycles), where the cycle amplifies
+    nothing: every cycle within 1e-4 relative.  Then 6 cycles at 129^2 on
+    a batch of 2 (f = mass(1) and mass of a seeded normal field: sample 1
+    of the compact batch off a 16-byte boundary) with the n = 64
+    checkpoint, the card's kernel route against the CPU's (jacobi_step's
+    arithmetic and the plain X5 and X6): histories within 1e-4.  That checkpoint
+    is a two-grid operator (results/intergrid_training_notes.md): on the
+    full 7-level hierarchy its cycle diverges to inf within 5 cycles, in
+    the JAX package as in the port, so it runs on 2 levels."""
     import torch
     from multigrid_feanet_torch.core.convert import intergrid_params_from_npz
-    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
-    from multigrid_feanet_torch.models.intergrid import (IntergridParams, learned_v_cycle,
-                                                         prolong_learned, restrict_learned)
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem, build_level
+    from multigrid_feanet_torch.models.intergrid import (IntergridParams, kernel_levels,
+                                                         learned_v_cycle, prolong_learned,
+                                                         restrict_learned)
     from multigrid_feanet_torch.ops.stencil import apply_mass
 
-    def problem(n, levels, device):
+    def problem(n, levels, device, batch=1):
         h = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), num_levels=levels,
                                  device=device)
         H = h.finest.n_nodes
-        return h, apply_mass(torch.ones((1, H, H), device=h.device), h.finest.h)
+        F = np.ones((batch, H, H), np.float32)
+        F[1:] = np.random.default_rng(27).standard_normal((batch - 1, H, H))
+        return h, apply_mass(torch.as_tensor(F, device=h.device), h.finest.h)
 
     label = "learned_vcycle_4097"
     hier, f = problem(N_MAIN, int(np.log2(N_MAIN)), DEVICE)  # 12 levels: 4097^2 ... 3^2
-    rec = dict(solve=label, n=N_MAIN, levels=hier.num_levels, cycles=12, launches={})
-    for name, params in (("init", IntergridParams.init(device=DEVICE)),
-                         ("robust", intergrid_params_from_npz(IG_ROBUST, DEVICE))):
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.max_memory_allocated()
-        u, hist, secs = no_launches(label, lambda: learned_history(hier, params, f, 12))
+    lv64 = build_level(Problem(n=N_MAIN, inclusion=CIRCLE, dtype=torch.float64), N_MAIN,
+                       device=DEVICE)
+    expect = route_launches(hier, 12, 1)
+    rec = dict(solve=label, n=N_MAIN, levels=hier.num_levels, cycles=12,
+               kernel_levels=kernel_levels(hier), launches=expect)
+    runs = [("init", IntergridParams.init(device=DEVICE), learned_v_cycle),
+            ("robust", intergrid_params_from_npz(IG_ROBUST, DEVICE), learned_v_cycle),
+            ("init_torch", IntergridParams.init(device=DEVICE), torch_cycle)]
+    for name, params, cycle in runs:
+        base = torch.cuda.memory_allocated()
+        run = exact_launches(label, lambda: learned_history(hier, params, f, 12, cycle,
+                                                            level64=lv64),
+                             expect if cycle is learned_v_cycle else {})
+        u, hist, secs = run["u"], run["hist"][:, 0], run["secs"]
         rec[name] = dict(ms_per_cycle=1e3 * float(np.median(secs)), ms_cycles=[
             1e3 * t for t in secs], q_6_5=float(hist[6] / hist[5]), hist=hist.tolist(),
-            peak_gb=torch.cuda.max_memory_allocated() / 1e9, base_gb=base / 1e9)
+            hist_f64=run["hist64"].tolist(), peak_gb=run["peak_gb"], base_gb=base / 1e9)
         if not (np.all(np.isfinite(hist)) and bool(torch.isfinite(u).all())):
             fail(f"{label}: non-finite values with the {name} parameters: {rec}")
+        if name != "robust":
+            with torch.no_grad():
+                prof = profile_top(label, lambda: cycle(hier, params, u, f), 1,
+                                   1e-3 * rec[name]["ms_per_cycle"], top=12)
+            rec[name]["profile"] = prof
+            rec[name]["device_ms_per_cycle"] = prof.get("busy_ms_per_cycle", "not measured")
         if name == "init":
+            rec[name]["call_holds"] = route_call_holds(
+                lambda: learned_history(hier, params, f, 2))
+        if name == "init_torch":
             with torch.no_grad():
                 r0 = f - hier.finest.apply(u)
                 rec[name]["restrict_ms"] = plain_ms([lambda: restrict_learned(
@@ -3294,20 +3579,56 @@ def run_learned_vcycle_cell() -> dict:
                 v1 = torch.ones((1, m, m), device=DEVICE)
                 rec[name]["prolong_ms"] = plain_ms([lambda: prolong_learned(
                     params, v1, hier.levels[1].pid)], 5)
-                rec[name]["profile"] = profile_top(
-                    label, lambda: learned_v_cycle(hier, params, u, f), 1,
-                    1e-3 * rec[name]["ms_per_cycle"])
         del u
     if not rec["init"]["hist"][-1] < rec["init"]["hist"][0]:
         fail(f"{label}: the init-parameter history does not fall: {rec}")
+    k64, t64 = rec["init"]["hist_f64"], rec["init_torch"]["hist_f64"]
+    rec["evaluator"] = dict(first_residual_rel_dev=abs(k64[0] / t64[0] - 1.0),
+                            last_ratio=k64[-1] / t64[-1], last_limit=EVAL_LAST_RATIO,
+                            first_tol=EVAL_FIRST_TOL)
+    for name, params, _ in runs[:2]:  # the first cycle's iterates, init and robust
+        u1 = {}
+        with torch.no_grad():
+            for path, cycle in (("kernels", learned_v_cycle), ("torch", torch_cycle)):
+                u1[path] = exact_launches(label, lambda: cycle(
+                    hier, params, torch.zeros_like(f), f), route_launches(hier, 1, 1)
+                    if cycle is learned_v_cycle else {})
+        rec["evaluator"][f"first_iterate_dev_{name}"] = float(
+            (u1["kernels"] - u1["torch"]).abs().max() / u1["torch"].abs().max())
+        del u1
+    if not (max(rec["evaluator"][f"first_iterate_dev_{k}"] for k in ("init", "robust"))
+            <= EVAL_FIRST_TOL and rec["evaluator"]["last_ratio"] <= EVAL_LAST_RATIO):
+        fail(f"{label}: on the evaluator's protocol the kernel route departs from the torch "
+             f"path: {rec['evaluator']}")
+    # the f = 0 decay protocol: the two paths' histories held to each other
+    params = IntergridParams.init(device=DEVICE)
+    rng = np.random.default_rng(27)
+    u0 = torch.as_tensor(rng.standard_normal(f.shape).astype(np.float32), device=DEVICE)
+    u0 = u0 * hier.finest.geo
+    zero = torch.zeros_like(f)
+    decay = {}
+    for name, cycle in (("kernels", learned_v_cycle), ("torch", torch_cycle)):
+        decay[name] = exact_launches(label, lambda: learned_history(
+            hier, params, zero, 12, cycle, u0=u0),
+            expect if cycle is learned_v_cycle else {})["hist"][:, 0]
+    dev_torch = float(np.max(np.abs(decay["kernels"] / decay["torch"] - 1.0)))
+    rec["decay"] = dict(hist=decay["kernels"].tolist(), hist_torch=decay["torch"].tolist(),
+                        max_rel_dev_torch=dev_torch)
+    if not dev_torch <= 1e-4:
+        fail(f"{label}: on the decay protocol the kernel route departs from the torch path: "
+             f"{rec}")
+    del u0, zero
     hists = {}
     for dev in (DEVICE, "cpu"):
-        h, f_small = problem(128, 2, dev)
+        h, f_small = problem(128, 2, dev, batch=2)
         params = intergrid_params_from_npz(IG_N64, dev)
-        hists[dev] = no_launches(label, lambda: learned_history(h, params, f_small, 6))[1]
+        run = lambda: learned_history(h, params, f_small, 6)  # noqa: E731
+        hists[dev] = (exact_launches(label, run, route_launches(h, 6, 2)) if dev == DEVICE
+                      else run())["hist"]
     dev_cpu = float(np.max(np.abs(hists[DEVICE] / hists["cpu"] - 1.0)))
-    rec["small_129"] = dict(cycles=6, hist=hists[DEVICE].tolist(),
-                            hist_cpu=hists["cpu"].tolist(), max_rel_dev_cpu=dev_cpu)
+    rec["small_129"] = dict(cycles=6, batch=2, hist=hists[DEVICE].tolist(),
+                            hist_cpu=hists["cpu"].tolist(), max_rel_dev_cpu=dev_cpu,
+                            launches=route_launches(h, 6, 2))
     print(json.dumps(rec), flush=True)
     if not dev_cpu <= 1e-4:
         fail(f"{label}: the 129^2 learned cycles on the card depart from the CPU's: {rec}")
@@ -3458,13 +3779,16 @@ def check_pbc_train_f32() -> dict:
 
 
 def run_slice11() -> dict:
-    """The slice-11 phases, in order."""
+    """The slice-11 phases, in order, after X5's and X6's holds:
+    {"learned_pass_checks": the holds, each cell's label: its record}."""
+    checks = check_learned_passes()
     ig_train = run_intergrid_train_cell()
     learned = run_learned_vcycle_cell()
     el_train = run_hnet_elastic_train_cell()
     h_el = run_h_elastic_cell(el_train.pop("params"))
     pbc_f32 = no_launches("pbc_train_f32", check_pbc_train_f32)
-    return {rec["solve"]: rec for rec in (ig_train, learned, el_train, h_el, pbc_f32)}
+    return {"learned_pass_checks": checks,
+            **{rec["solve"]: rec for rec in (ig_train, learned, el_train, h_el, pbc_f32)}}
 
 
 def decay_q(hist, k: int) -> float:
@@ -4892,6 +5216,30 @@ def pass_rows(checks: list, heat: dict, r1: dict, irs: dict) -> list:
 
 
 
+def learned_rows(s11: dict, c1_rec: dict) -> list:
+    """The kernel line's rows of X5 and X6 at 4097^2 (bi-material, 16
+    channels, batch 1), and of C1 (the bi-material sweep at 4097^2), each
+    with its launches on learned_vcycle_4097's 12 init cycles."""
+    k = all_kernels()
+    cell = s11["learned_vcycle_4097"]
+    rows = []
+    for key in ("X5", "X6"):
+        c = next(r for r in s11["learned_pass_checks"] if r["name"] == key
+                 and r["n"] == N_MAIN and r["variant"] == "bim16" and r["batch"] == 1)
+        kern = k[key]
+        rows.append(dict(name=kern.name, route="cuda", source=kern.source,
+                         replaces=kern.replaces, launches=cell["launches"][key],
+                         max_abs_err=c["max_abs_err"], max_rel_err=c["max_rel_err"],
+                         ms=c["ms"], warm_ms=c["warm_ms"], plain_ms=c["plain_ms"],
+                         bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                         library_ms=c["library_ms"], path=cell["solve"], n=N_MAIN,
+                         bytes=c["bytes"], bim=True, channels=16, batch=1,
+                         bitwise_twice=c["bitwise_twice"]))
+    row = summary_row("C1", c1_rec, cell["launches"]["C1"], cell["solve"])
+    rows.append(dict(row, name=row["name"] + "_learned"))
+    return rows
+
+
 def hslab_rows(s22: dict) -> list:
     """The kernel line's rows of E2's and E3's slab forms: at the world-1
     slab of sharded_hmg_4097's level 0 (homogeneous), with its launches and
@@ -5212,10 +5560,10 @@ def main() -> int:
     bf_cells = run_bf16_cells({rec["solve"]: rec for rec in solves}, ir)
     small_bf16 = check_bf16_small_against_cpu()
 
-    # slice 11: the learned inter-grid operators and the elastic H-Net, which
-    # launch no kernel
+    # slice 11: the learned inter-grid operators (X5 and X6 held first; the
+    # serving cycle on C1, X5 and X6) and the elastic H-Net
     stamp("bf16", start)
-    run_slice11()
+    s11 = run_slice11()
 
     # the research solvers: the block-BoxMG elastic and adaptive scalar
     # BoxMG solvers in torch ops, which launch no kernel of the port
@@ -5367,6 +5715,8 @@ def main() -> int:
     # X1 on heat_march_4097, X2/X3 on the round-1 cells, X4 on the IR cells
     summary += pass_rows(s24["checks"], heat, r1, {"ir_4097": ir,
                                                    "ir_interface_4097": s24["ir_interface_4097"]})
+    # X5, X6 and C1 on learned_vcycle_4097 (bi-material, 16 channels, batch 1)
+    summary += learned_rows(s11, srec("C1_sweep", True))
     for row in summary:
         row["bound_copy_ms"] = 1e3 * row["bytes"] / (membench["copy_gbps"] * 1e9)
         row["bound_triad_ms"] = 1e3 * row["bytes"] / (membench["triad_gbps"] * 1e9)
@@ -5375,12 +5725,12 @@ def main() -> int:
     print(json.dumps({"bf16_times": bf16_times(bf_checks, checks + a34checks + schecks
                                                 + r6checks),
                       "bench_bf16": bench_bf16}), flush=True)
-    # every kernel of the port has a row: the 27 TPU kernels' and X1-X4
+    # every kernel of the port has a row: the 27 TPU kernels' and X1-X6
     names = sorted({row["name"].split("_")[0] for row in summary})
     print(json.dumps({"kernel_line": dict(rows=len(summary), kernels=len(names),
                                           names=names)}), flush=True)
-    if len(names) != 31:
-        fail(f"the kernel line names {len(names)} kernels, not 31: {names}")
+    if len(names) != 33:
+        fail(f"the kernel line names {len(names)} kernels, not 33: {names}")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,25 @@
 //     _outer64): u' = u + e geo, r = f - A u' in float64 (A the homogeneous
 //     (3, 3) stencil or the two-phase bitplane form), r as float32, and the
 //     interior sum of r^2 in float64.
+// X5  the learned restriction (multigrid_feanet_tpu/models/intergrid.py:65
+//     restrict_learned: the pattern split, the crop, a VALID stride-2 3 x 3
+//     correlation with the (C, 3, 3) kernels, the zero ring, x w[0]) as its
+//     per-node form: f_c(I, J) = w[0] sum_{a,b} k[pid(y, x), a, b] r(y, x),
+//     y = 2I - 1 + a, x = 2J - 1 + b, on coarse interior nodes, 0 on the
+//     ring; the weights of each FINE node's pattern id (the split masks the
+//     fine values).
+// X6  the learned prolongation-add (multigrid_feanet_tpu/models/intergrid.py:82
+//     prolong_learned, the stride-2 transposed convolution, padding 1, of the
+//     split coarse correction, and the add of learned_v_cycle:112) in gather
+//     form: out(p, q) = u(p, q) + w[1] sum k[pid_c(c, d), t, s] v(c, d) over
+//     p = 2c + t - 1, q = 2d + s - 1; the weights of each COARSE node's
+//     pattern id.  An even fine index takes tap 1 of one coarse node, an odd
+//     one taps 0 and 2 of its two neighbours.
+//     X5 and X6 take a batch of N fields (blockIdx.z), rows compact, samples
+//     any number of values apart; the (C, 9) weights and w are read from
+//     device memory (no host read per call); an id no channel holds adds 0,
+//     as the split's comparison puts it in no channel; pid null (a
+//     homogeneous level) takes channel 0 of one.
 //
 // Every field is compact row-major (n+1) x (n+1); pid the int8 node pattern
 // ids (bit e: the phase of the node's element e, in the order SW, SE, NW,
@@ -32,22 +51,31 @@
 // Arithmetic.  Each kernel follows its plain version (ops/passes.py) op for
 // op, with the rounding intrinsics (__fadd_rn, __fmul_rn, __dadd_rn, ...),
 // which the compiler never contracts into fused multiply-adds: X1 (in both
-// designs), X2 and X3 equal their plain versions bit for bit (the round-1
-// cell is held to the parent's residual history exactly), and X4 rounds
-// where its plain version rounds.  X4's sum is taken per block in a fixed
-// order and the last block to finish adds the blocks' sums in a fixed order
-// (no float atomics), so two launches agree bitwise.
+// designs), X2, X3 and X6 equal their plain versions bit for bit (the
+// round-1 cell is held to the parent's residual history exactly), and X4
+// rounds where its plain version rounds; X5's chain of fused multiply-adds
+// (__fmaf_rn), which its plain version takes in float64, differs from it
+// only where that double rounding meets a float32 tie.  X5 and X6 sum in
+// the order the JAX package's convolutions take on the CPU (X5 fused, in
+// XLA's nine partial sums; X6 in reverse tap order, its kernel being
+// flipped there).
+// X4's sum is taken per block in a fixed order and the last block to finish
+// adds the blocks' sums in a fixed order (no float atomics), so two
+// launches agree bitwise.
 //
 // Bounds at 4097^2 (bytes, 3.35 TB/s): X1 reads u, f0, f1, pid and writes b
 // (f0 and f1 the same tensor in the time-independent march: read once); X2
 // reads the fine interior and writes the coarse field; X3 reads u, u_c and
 // geo and writes u; X4 reads u, e, f, geo (and pid) and writes u' and the
-// float32 r.  Design: plain tiles of 32 x 8 outputs, 256 threads, one
-// output a thread, neighbouring threads on neighbouring columns (coalesced
-// rows).  X1 and X4 stage their tile and its one-node halo in shared memory
-// (X1: u and the mixed source; X4: u' = u + e geo, formed as it is staged);
-// X2 and X3 read through the cache, their reuse being the 3 x 3 and 2 x 2
-// neighbourhoods of stride-2 reads.  Above a size (ops/passes.py
+// float32 r; X5 reads the fine interior and pid and writes f_c; X6 reads u,
+// v and pid_c and writes u (per sample; pid once).  Design: plain tiles of
+// 32 x 8 outputs, 256 threads, one output a thread, neighbouring threads on
+// neighbouring columns (coalesced rows); X6 a thread per coarse cell, its
+// 2 x 2 fine nodes.  X1 and X4 stage their tile and its one-node halo in
+// shared memory (X1: u and the mixed source; X4: u' = u + e geo, formed as
+// it is staged); X2, X3, X5 and X6 read through the cache, their reuse
+// being the 3 x 3 and 2 x 2 neighbourhoods of stride-2 reads (X5 and X6
+// stage only their weight table).  Above a size (ops/passes.py
 // X1_ONE_PASS_MAX_N) X1 streams rows instead (x1_heat_rhs_rows, below): the
 // tile reads u and f about 1.33 times over, pays a division per staged node
 // and overlaps none of its loads with its arithmetic, which bounds X1 by
@@ -480,6 +508,145 @@ x4_outer_step(const double* __restrict__ u, const TE* __restrict__ e,
   }
 }
 
+// ---------------------------------------------------------------------------
+// X5, X6
+// ---------------------------------------------------------------------------
+
+// Channels a weight table may hold: every id an int8 pattern-id field holds.
+constexpr int LK_MAX = 128;
+
+// Stages the (C, 9) weights k, channel-major, into s; every thread of the
+// block reaches the barrier.
+__device__ __forceinline__ void stage_taps(float* s, const float* __restrict__ k, int C) {
+  for (int t = threadIdx.x; t < 9 * C; t += PNT) s[t] = k[t];
+  __syncthreads();
+}
+
+// Tap t of the kernel of pattern id p; 0 for an id no channel holds.
+__device__ __forceinline__ float tap(const float* s, int p, int t, int C) {
+  return (unsigned)p < (unsigned)C ? s[9 * p + t] : 0.f;
+}
+
+// f_c of sample blockIdx.z, as the plain version rounds it: each tap's
+// product added by a fused multiply-add to one of nine partial sums
+// (ops/passes.py x5_chain: index t C + p mod 8 over the first 8 floor(9 C /
+// 8) indices, the rest in the ninth; all in the first where the launch has
+// at most two coarse interior nodes), the nine summed ((0 + 1) + (4 + 5)) +
+// ((2 + 3) + (6 + 7)) + 8, then x w[0].  sr, sf: the values between two
+// samples of r and f_c.
+__global__ void __launch_bounds__(PNT)
+x5_learned_restrict(const float* __restrict__ r, const int8_t* __restrict__ pid,
+                    const float* __restrict__ k, const float* __restrict__ w,
+                    float* __restrict__ fc, int H, int Hc, int C, long long sr, long long sf) {
+  __shared__ float sk[9 * LK_MAX];
+  stage_taps(sk, k, C);
+  const int J = blockIdx.x * PX + threadIdx.x % PX, I = blockIdx.y * PY + threadIdx.x / PX;
+  if (I >= Hc || J >= Hc) return;
+  float v = 0.f;
+  if (I > 0 && J > 0 && I < Hc - 1 && J < Hc - 1) {
+    const float* rb = r + (long long)blockIdx.z * sr;
+    const int head = 9 * C - 9 * C % 8;  // the indices of the eight chains
+    const bool single = gridDim.z <= 2 && Hc == 3;
+    float kt[9], x[9];
+    int chain[9];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int t = 3 * a + b;
+        const long long e = (long long)(2 * I - 1 + a) * H + 2 * J - 1 + b;
+        const int p = pid ? pid[e] : 0, kx = t * C + p;
+        chain[t] = single ? 0 : kx < head ? (kx & 7) : 8;
+        kt[t] = tap(sk, p, t, C);
+        x[t] = rb[e];
+      }
+    bool one = true;  // every product in one partial sum: the others add 0
+#pragma unroll
+    for (int t = 1; t < 9; ++t) one = one && chain[t] == chain[0];
+    float sum = 0.f;
+    if (!pid && !one) {  // one channel: tap t alone in sum t (t < 8), tap 8 in the ninth
+      float m[9];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) m[t] = __fmul_rn(kt[t], x[t]);
+      sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(m[0], m[1]), __fadd_rn(m[4], m[5])),
+                                __fadd_rn(__fadd_rn(m[2], m[3]), __fadd_rn(m[6], m[7]))),
+                      m[8]);
+    } else if (one) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) sum = __fmaf_rn(kt[t], x[t], sum);
+    } else {
+      float acc[9];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) acc[q] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int q = 0; q < 9; ++q)
+          acc[q] = chain[t] == q ? __fmaf_rn(kt[t], x[t], acc[q]) : acc[q];
+      sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), __fadd_rn(acc[4], acc[5])),
+                                __fadd_rn(__fadd_rn(acc[2], acc[3]), __fadd_rn(acc[6], acc[7]))),
+                      acc[8]);
+    }
+    v = __fmul_rn(__ldg(w), sum);
+  }
+  fc[(long long)blockIdx.z * sf + (long long)I * Hc + J] = v;
+}
+
+// The product of tap (t, s) of coarse node (a, b) of a cell's 2 x 2 with
+// its value, as X6 rounds it.
+#define X6_TERM(a, b, t, s) __fmul_rn(tap(sk, p[a][b], 3 * (t) + (s), C), x[a][b])
+
+// out of sample blockIdx.z, as the plain version rounds it: from 0 the
+// products of the coarse nodes that reach a fine node, in reverse tap
+// order, then u + w[1] x the sum.  A thread takes coarse cell (c, d), the
+// fine nodes (2c + dy, 2d + dx) on the grid, from coarse nodes (c, d) ..
+// (c + 1, d + 1): an even fine index takes tap 1 of its coarse node, an odd
+// one tap 2 of the node before and tap 0 of the node after.  su, sv, so:
+// the values between two samples of u, v and out.
+__global__ void __launch_bounds__(PNT)
+x6_learned_prolong_add(const float* __restrict__ u, const float* __restrict__ v,
+                       const int8_t* __restrict__ pidc, const float* __restrict__ k,
+                       const float* __restrict__ w, float* __restrict__ out, int H, int Hc,
+                       int C, long long su, long long sv, long long so) {
+  __shared__ float sk[9 * LK_MAX];
+  stage_taps(sk, k, C);
+  const int d = blockIdx.x * PX + threadIdx.x % PX, c = blockIdx.y * PY + threadIdx.x / PX;
+  if (c >= Hc || d >= Hc) return;
+  const bool odd_r = c + 1 < Hc, odd_c = d + 1 < Hc;  // fine row 2c + 1, column 2d + 1
+  const float* vb = v + (long long)blockIdx.z * sv;
+  float x[2][2];
+  int p[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const bool in = (a == 0 || odd_r) && (b == 0 || odd_c);
+      const long long e = (long long)(c + a) * Hc + d + b;
+      x[a][b] = in ? vb[e] : 0.f;
+      p[a][b] = in && pidc ? pidc[e] : 0;
+    }
+  const float w1 = __ldg(w + 1);
+  const float* ub = u + (long long)blockIdx.z * su;
+  float* ob = out + (long long)blockIdx.z * so;
+  const long long e0 = (long long)(2 * c) * H + 2 * d, e1 = e0 + H;
+  ob[e0] = __fadd_rn(ub[e0], __fmul_rn(w1, __fadd_rn(0.f, X6_TERM(0, 0, 1, 1))));
+  if (odd_c)
+    ob[e0 + 1] = __fadd_rn(ub[e0 + 1], __fmul_rn(w1, __fadd_rn(__fadd_rn(0.f, X6_TERM(0, 0, 1, 2)),
+                                                                X6_TERM(0, 1, 1, 0))));
+  if (odd_r)
+    ob[e1] = __fadd_rn(ub[e1], __fmul_rn(w1, __fadd_rn(__fadd_rn(0.f, X6_TERM(0, 0, 2, 1)),
+                                                        X6_TERM(1, 0, 0, 1))));
+  if (odd_r && odd_c) {
+    float acc = __fadd_rn(0.f, X6_TERM(0, 0, 2, 2));
+    acc = __fadd_rn(acc, X6_TERM(0, 1, 2, 0));
+    acc = __fadd_rn(acc, X6_TERM(1, 0, 0, 2));
+    acc = __fadd_rn(acc, X6_TERM(1, 1, 0, 0));
+    ob[e1 + 1] = __fadd_rn(ub[e1 + 1], __fmul_rn(w1, acc));
+  }
+}
+
+#undef X6_TERM
+
 inline dim3 grid_of(int H) { return dim3((H + PX - 1) / PX, (H + PY - 1) / PY); }
 
 inline bool aligned(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
@@ -613,6 +780,43 @@ int px_outer_step(const double* u, const void* e, const double* f, const double*
   else
     x4_outer_step<false, float><<<g, PNT, 0, st>>>(u, (const float*)e, f, geo, pid, u_out, r32,
                                                    partial, done, rsq, H, k);
+  return (int)cudaGetLastError();
+}
+
+// X5.  fc ((n/2+1)^2 a sample) = the learned restriction of r ((n+1)^2 a
+// sample) with the (C, 3, 3) float32 kernels k and w[0] (w: 2 floats in
+// device memory), pid the fine level's ids or null (then C is 1), for
+// `batch` samples sr and sf values apart (rows compact).
+int px_learned_restrict(const float* r, const int8_t* pid, const float* k, const float* w,
+                        float* fc, int n, int C, int batch, long long sr, long long sf,
+                        void* stream) {
+  const int H = n + 1, Hc = n / 2 + 1;
+  if (n < 2 || n % 2 || !r || !k || !w || !fc || C < 1 || C > LK_MAX || (!pid && C != 1) ||
+      batch < 1 || batch > 65535 || sr < (long long)H * H || sf < (long long)Hc * Hc)
+    return (int)cudaErrorInvalidValue;
+  dim3 g = grid_of(Hc);
+  g.z = batch;
+  x5_learned_restrict<<<g, PNT, 0, (cudaStream_t)stream>>>(r, pid, k, w, fc, H, Hc, C, sr, sf);
+  return (int)cudaGetLastError();
+}
+
+// X6.  out ((n+1)^2 a sample) = u + w[1] P(v), P the learned prolongation of
+// v ((n/2+1)^2 a sample) with the (C, 3, 3) float32 kernels k, pidc the
+// coarse level's ids or null (then C is 1), for `batch` samples su, sv and
+// so values apart (rows compact).
+int px_learned_prolong_add(const float* u, const float* v, const int8_t* pidc, const float* k,
+                           const float* w, float* out, int n, int C, int batch, long long su,
+                           long long sv, long long so, void* stream) {
+  const int H = n + 1, Hc = n / 2 + 1;
+  const long long plane = (long long)H * H;
+  if (n < 2 || n % 2 || !u || !v || !k || !w || !out || C < 1 || C > LK_MAX ||
+      (!pidc && C != 1) || batch < 1 || batch > 65535 || su < plane ||
+      sv < (long long)Hc * Hc || so < plane)
+    return (int)cudaErrorInvalidValue;
+  dim3 g = grid_of(Hc);  // a thread per coarse cell
+  g.z = batch;
+  x6_learned_prolong_add<<<g, PNT, 0, (cudaStream_t)stream>>>(u, v, pidc, k, w, out, H, Hc, C,
+                                                               su, sv, so);
   return (int)cudaGetLastError();
 }
 

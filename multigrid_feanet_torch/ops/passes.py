@@ -1,30 +1,50 @@
-"""The passes the JAX package leaves to XLA's fusion, as kernels X1-X4.
+"""The passes the JAX package leaves to XLA's fusion, as kernels X1-X6.
 
 The JAX package computes these outside any Pallas kernel, and XLA fuses
 each into one program inside a compiled loop: the heat right-hand side in
 ``HeatSolver.march``'s ``lax.scan``, the round-1 transfers in
 ``PallasHierarchy.solve``'s ``while_loop``, ``solve_ir``'s outer step in its
-jitted ``_outer64``.  Run as eager torch ops each is a chain of passes over
-the whole grid; here each is one hand-written CUDA C++ kernel
+jitted ``_outer64``, the learned transfers in the jitted
+``learned_v_cycle``, where XLA folds the pattern split into the
+convolution.  Run as eager torch ops each is a chain of passes over the
+whole grid (the learned transfers a 16-channel split and a cuDNN
+convolution); here each is one hand-written CUDA C++ kernel
 (``csrc/passes.cu``), the port's form of that fusion:
 
-====  =====================  ==================================================
-name  C entry point          replaces (XLA-fused, no Pallas kernel)
-====  =====================  ==================================================
-X1    ``px_heat_rhs``        ``ops/heat.py:124 HeatSolver.rhs``
-X2    ``px_restrict``        ``ops/transfer.py:38 restrict_full_weighting`` x 4
-X3    ``px_prolong_add``     ``ops/transfer.py:61 prolong_bilinear`` + the add
-X4    ``px_outer_step``      ``solvers/pallas_mg.py:313 _outer64``
-====  =====================  ==================================================
+====  ==========================  ====================================================
+name  C entry point               replaces (XLA-fused, no Pallas kernel)
+====  ==========================  ====================================================
+X1    ``px_heat_rhs``             ``ops/heat.py:124 HeatSolver.rhs``
+X2    ``px_restrict``             ``ops/transfer.py:38 restrict_full_weighting`` x 4
+X3    ``px_prolong_add``          ``ops/transfer.py:61 prolong_bilinear`` + the add
+X4    ``px_outer_step``           ``solvers/pallas_mg.py:313 _outer64``
+X5    ``px_learned_restrict``     ``models/intergrid.py:65 restrict_learned``
+X6    ``px_learned_prolong_add``  ``models/intergrid.py:82 prolong_learned`` + the add
+====  ==========================  ====================================================
 
 Each has a wrapper ``<op>_cuda`` (checks, allocation, launch, launch count)
 and a plain PyTorch version ``<op>_plain`` with the same signature: the torch
-code the port ran before, moved here.  :func:`heat_rhs`, :func:`restrict`,
-:func:`prolong_add` and :func:`outer_step` take the plain version for CPU
-tensors and launch the kernel for CUDA ones (or raise).  The kernels round
-where their plain versions round (``csrc/passes.cu``): X1 (in float32 and
-float64; a bf16 b within one bf16 ulp), X2 and X3 equal them bit for bit,
-X4 agrees to ``TOL64``.
+code the port ran before, moved here (X5 and X6: the per-node form of the
+learned transfers, gathering each tap's weight by pattern id, with no split
+and no convolution).  :func:`heat_rhs`, :func:`restrict`,
+:func:`prolong_add`, :func:`outer_step`, :func:`learned_restrict` and
+:func:`learned_prolong_add` take the plain version for CPU tensors and
+launch the kernel for CUDA ones (or raise).  The kernels round where their
+plain versions round (``csrc/passes.cu``): X1 (in float32 and float64; a
+bf16 b within one bf16 ulp), X2, X3 and X6 equal them bit for bit, X4
+agrees to ``TOL64``; X5's fused multiply-adds, which its plain version
+takes in float64 and rounds to float32, differ from it only where that
+double rounding meets a float32 tie.  X5 and X6 round as the JAX package's
+convolutions round on the CPU (X5 in XLA's nine partial sums,
+:func:`x5_chain`), so that ``learned_v_cycle``'s kernel route on CPU
+fields is the JAX package's eager cycle bit for bit.
+
+X5 and X6 take a batch of float32 fields (N, H, H) whose rows are compact
+and whose samples lie any number of values apart (``learned_v_cycle``'s
+16-byte aligned per-sample buffers), the (C, 3, 3) kernels and ``w``
+(read on the card, never through the host), and the pattern ids of the
+fine level (X5) or the coarse level (X6), or None for a homogeneous level
+with one channel.
 
 X1 has two designs: the one-pass 32 x 8 tile up to ``X1_ONE_PASS_MAX_N``
 elements per side, and above it row streaming (:func:`x1_tiles`,
@@ -53,7 +73,7 @@ from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_
 
 TOL64 = 1e-12  # X4 against its plain version: relative to max|plain|
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SOURCE = "multigrid_feanet_torch/csrc/passes.cu"
 _TPU = "multigrid_feanet_tpu/"
 KERNELS = {
@@ -66,7 +86,16 @@ KERNELS = {
     "X4": sw.CudaKernel("X4_outer_step", "px_outer_step",
                         [_P] * 10 + [_I, ctypes.POINTER(ctypes.c_double), _I, _P],
                         _TPU + "solvers/pallas_mg.py:313", _SOURCE),
+    "X5": sw.CudaKernel("X5_learned_restrict", "px_learned_restrict",
+                        [_P] * 5 + [_I] * 3 + [_L] * 2 + [_P],
+                        _TPU + "models/intergrid.py:65", _SOURCE),
+    "X6": sw.CudaKernel("X6_learned_prolong_add", "px_learned_prolong_add",
+                        [_P] * 6 + [_I] * 3 + [_L] * 3 + [_P],
+                        _TPU + "models/intergrid.py:82", _SOURCE),
 }
+# channels of X5's and X6's weight tables (csrc/passes.cu LK_MAX): every id
+# an int8 pattern-id field holds
+LK_MAX = 128
 
 # The offsets of ops/stencil.py UNIT_S9's taps in the order of its dict, as
 # csrc/passes.cu's s9_dr / s9_dc list them; every UNIT_S4 dict holds its
@@ -120,6 +149,79 @@ def outer_step_plain(u, e, f, geo, pid=None, *, a0=None, a1=None, table=None, ou
     r = f - _apply(u, pid, a0, a1, table)
     ri = r[..., 1:-1, 1:-1]
     return sw._emit(u, out), r.float(), torch.sum(ri * ri, dim=(-2, -1))
+
+
+def _tap(k, pid, t, rows, cols):
+    """Tap ``t`` (row-major in the 3 x 3 kernel) of the kernel of each node
+    of ``pid[rows, cols]``: k[pid, t], 0 where no channel holds the id (the
+    split's comparison puts it in none); k[0, t] when ``pid`` is None."""
+    C = k.shape[0]
+    kt = k.reshape(C, 9)[:, t]
+    if pid is None:
+        return kt[0]
+    p = pid[rows, cols].long()
+    return torch.where((p >= 0) & (p < C), kt[p.clamp(0, C - 1)], 0.0)
+
+
+def x5_chain(t, p, C: int, single: bool):
+    """The partial sum X5 adds tap ``t`` of a node of pattern id ``p`` to,
+    in the order the JAX package's convolution sums on the CPU (XLA's
+    contraction over the split's 9 C (tap, channel) products, index t C +
+    p): eight chains by index mod 8 over the first 8 floor(9 C / 8)
+    indices, a ninth (8) over the rest; one chain (0) where the batch has
+    at most two coarse interior nodes."""
+    if single:
+        return torch.zeros_like(p)
+    k = t * C + p
+    return torch.where(k < 9 * C - 9 * C % 8, k % 8, 8)
+
+
+def learned_restrict_plain(r, pid, k, w, out=None):
+    """X5: the learned restriction (N, n+1, n+1) -> (N, n/2+1, n/2+1),
+    f_c(I, J) = w[0] sum_{a,b} k[pid(y, x), a, b] r(y, x) with y = 2I - 1 +
+    a, x = 2J - 1 + b on the coarse interior (the JAX package's crop and
+    VALID stride-2 correlation), 0 on the ring; ``pid``: the fine level's
+    ids.  Rounded as the JAX package's convolution rounds it on the CPU
+    (bit for bit at 16 channels and at one): each product added to its
+    chain (:func:`x5_chain`) by a fused multiply-add in tap order (taken in
+    float64, where the product is exact, and rounded to float32), the
+    chains summed ((0 + 1) + (4 + 5)) + ((2 + 3) + (6 + 7)), then + chain 8,
+    w[0] last."""
+    N, n, C = r.shape[0], r.shape[-1] - 1, k.shape[0]
+    m = n // 2 - 1  # coarse interior nodes a side
+    acc = r.new_zeros((9, N, m, m))
+    for a in range(3):
+        for b in range(3):
+            rows, cols = slice(1 + a, 2 * m + a, 2), slice(1 + b, 2 * m + b, 2)
+            p = (torch.zeros((m, m), dtype=torch.long, device=r.device) if pid is None
+                 else pid[rows, cols].long())
+            q = x5_chain(3 * a + b, p, C, N * m * m <= 2).expand(1, N, m, m)
+            prod = _tap(k, pid, 3 * a + b, rows, cols).double() * r[..., rows, cols].double()
+            acc.scatter_(0, q, (acc.gather(0, q).double() + prod).float())
+    s = ((acc[0] + acc[1]) + (acc[4] + acc[5])) + ((acc[2] + acc[3]) + (acc[6] + acc[7]))
+    fc = r.new_zeros((N, n // 2 + 1, n // 2 + 1))
+    fc[:, 1:-1, 1:-1] = w[0] * (s + acc[8])
+    return sw._emit(fc, out)
+
+
+def learned_prolong_add_plain(u, v, pid_c, k, w, out=None):
+    """X6: u + w[1] P(v), P the learned prolongation (the stride-2
+    transposed convolution, padding 1, of the pattern-split v) in gather
+    form: fine index p = 2c + t - 1 takes tap t of coarse node c with the
+    kernel of c's pattern id; ``pid_c``: the coarse level's ids.  Rounded as
+    the JAX package's dilated convolution with the flipped kernel rounds it
+    on the CPU: the products summed from 0 in reverse tap order, w[1] last,
+    then the add."""
+    m, H = v.shape[-1], u.shape[-1]
+    # by tap t: the coarse nodes c with 0 <= 2c + t - 1 <= H - 1, and theirs
+    src = (slice(1, m), slice(0, m), slice(0, m - 1))
+    dst = (slice(1, H - 1, 2), slice(0, H, 2), slice(1, H - 1, 2))
+    P = torch.zeros(u.shape, dtype=u.dtype, device=u.device)
+    for t in (2, 1, 0):
+        for s in (2, 1, 0):
+            P[..., dst[t], dst[s]] += (_tap(k, pid_c, 3 * t + s, src[t], src[s])
+                                       * v[..., src[t], src[s]])
+    return sw._emit(u + w[1] * P, out)
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +473,83 @@ def outer_step_cuda(u, e, f, geo, pid=None, *, a0=None, a1=None, table=None, out
     return out, r32, rsq
 
 
+def _batch(t, name, H, device):
+    """Check an (N, H, H) float32 field on the card for X5 and X6: rows
+    compact, samples at least a plane apart; its (N, values between two
+    samples)."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {t.device} ones")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dim() != 3 or tuple(t.shape[1:]) != (H, H) or not 1 <= t.shape[0] <= 65535:
+        raise ValueError(f"{name} must be an (N, {H}, {H}) batch, got {tuple(t.shape)}")
+    N = t.shape[0]
+    if t.stride(2) != 1 or t.stride(1) != H or (N > 1 and t.stride(0) < H * H):
+        raise ValueError(f"{name}'s rows must be compact and its samples a plane apart")
+    return N, t.stride(0) if N > 1 else H * H
+
+
+def _batch_out(out, N, H, device, inputs):
+    if out is None:
+        return torch.empty((N, H, H), dtype=torch.float32, device=device)
+    if tuple(out.shape) != (N, H, H):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {(N, H, H)}")
+    if any(x.data_ptr() == out.data_ptr() for x in inputs):
+        raise ValueError("out must not alias an input")
+    return out
+
+
+def _learned_operands(pid, k, w, H, device):
+    """Check X5's or X6's pattern ids (H x H) and weights; C."""
+    C = k.shape[0] if k.dim() == 3 else 0
+    _field(k, "k", (C, 3, 3), torch.float32, device)
+    _field(w, "w", (2,), torch.float32, device)
+    if not 1 <= C <= LK_MAX:
+        raise ValueError(f"the learned transfers take 1 to {LK_MAX} channels, not {C}")
+    if pid is None and C != 1:
+        raise ValueError(f"a homogeneous level (pid None) takes one channel, not {C}")
+    if pid is not None:
+        _field(pid, "pid", (H, H), torch.int8, device)
+    return C
+
+
+def learned_restrict_cuda(r, pid, k, w, out=None):
+    """X5 on the card; same contract as :func:`learned_restrict_plain`: r
+    (and ``out``) float32 batches of compact rows, samples any number of
+    values apart; ``k`` (C, 3, 3) and ``w`` (2,) float32 on the card."""
+    dev = r.device
+    n = r.shape[-1] - 1
+    _even(n)
+    N, sr = _batch(r, "r", n + 1, dev)
+    C = _learned_operands(pid, k, w, n + 1, dev)
+    out = _batch_out(out, N, n // 2 + 1, dev, (r,))
+    _, so = _batch(out, "out", n // 2 + 1, dev)
+    KERNELS["X5"](r.data_ptr(), sw._ptr(pid), k.data_ptr(), w.data_ptr(), out.data_ptr(), n, C,
+                  N, sr, so, sw._stream(dev))
+    return out
+
+
+def learned_prolong_add_cuda(u, v, pid_c, k, w, out=None):
+    """X6 on the card; same contract as :func:`learned_prolong_add_plain`:
+    u, v (and ``out``) float32 batches of compact rows, samples any number
+    of values apart; ``k`` (C, 3, 3) and ``w`` (2,) float32 on the card."""
+    dev = u.device
+    n = u.shape[-1] - 1
+    _even(n)
+    N, su = _batch(u, "u", n + 1, dev)
+    Nv, sv = _batch(v, "v", n // 2 + 1, dev)
+    if Nv != N:
+        raise ValueError(f"u holds {N} samples and v {Nv}")
+    C = _learned_operands(pid_c, k, w, n // 2 + 1, dev)
+    out = _batch_out(out, N, n + 1, dev, (u, v))
+    _, so = _batch(out, "out", n + 1, dev)
+    KERNELS["X6"](u.data_ptr(), v.data_ptr(), sw._ptr(pid_c), k.data_ptr(), w.data_ptr(),
+                  out.data_ptr(), n, C, N, su, sv, so, sw._stream(dev))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Dispatch: the plain version on the CPU, the kernel on the card.
 # ---------------------------------------------------------------------------
@@ -416,3 +595,15 @@ def outer_step(u, e, f, geo, out=None, workspace=None, **form):
     if u.device.type == "cuda":
         return outer_step_cuda(u, e, f, geo, out=out, workspace=workspace, **form)
     return outer_step_plain(u, e, f, geo, out=out, **form)
+
+
+def learned_restrict(r, pid, k, w, out=None):
+    """X5 (kernel on CUDA tensors, plain version on CPU ones)."""
+    fn = learned_restrict_cuda if r.device.type == "cuda" else learned_restrict_plain
+    return fn(r, pid, k, w, out)
+
+
+def learned_prolong_add(u, v, pid_c, k, w, out=None):
+    """X6 (kernel on CUDA tensors, plain version on CPU ones)."""
+    fn = learned_prolong_add_cuda if u.device.type == "cuda" else learned_prolong_add_plain
+    return fn(u, v, pid_c, k, w, out)

@@ -7,7 +7,7 @@ earlier checkout of the port on one GPU, in turns.
 
     python3 sweep_vs_parent.py --parent DIR
         [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|x1|pbc|g2d2_cells
-                |e4c2_cells|g1g5_cells|g4a5_cells]
+                |e4c2_cells|g1g5_cells|g4a5_cells|learned]
         [--out FILE]
     python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
     python3 sweep_vs_parent.py --crossover
@@ -115,6 +115,16 @@ median of 3).  The turns run parent, this, this, parent.
   (``rsq_reduce``), with the cycles, the q and the wall per cycle.
 - ``g4a5_cells`` (not part of ``all``): as ``g1g5_cells``, with G4 on
   ``_v11`` (A5 runs on no cell).
+- ``learned`` (not part of ``all``): ``learned_v_cycle`` as each checkout
+  serves it (the evaluator's f: mass(1) in sample 0, mass of a seeded
+  normal field in the rest; init parameters; wall ms a cycle, the median
+  of 6 after one): at 4097^2 (12 levels, batch 1) and at 65^2 (6 levels)
+  on batches of LEARNED_BATCHES; in a checkout with the kernel route also
+  that route and the torch path forced at every batch (``_route_`` and
+  ``_torch`` rows, this checkout only), the data ``KERNEL_MAX_BATCH`` is
+  set from; and, first in each turn, ``intergrid_train_64``'s training
+  step (batch 64 of ``make_dataset(65, 120, seed=0)``, m = 6, the median
+  of 10 after one).
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -211,9 +221,8 @@ G4, G5, D2 and X1 in all and per step
 of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
-row-streaming kernels.  The parent's kernels named in CHANGED (X1's tile,
-x1_heat_rhs, which shares the row stream's arithmetic in this checkout)
-are compared apart and reported, those in REMOVED (none) are listed if
+row-streaming kernels.  The parent's kernels named in CHANGED (none) are
+compared apart and reported, those in REMOVED (none) are listed if
 this checkout no longer builds them; the kernels new
 in this checkout are listed; fails unless every other kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
@@ -239,9 +248,9 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): X1's tile, which takes its bit factor da bit_e as a choice of
-# two values (rhs_at, shared with the row stream) where it multiplied
-CHANGED = ("x1_heat_rhs",)
+# them apart): none, every kernel of the parent must compile to the same
+# instructions
+CHANGED = ()
 # the parent's kernels this checkout may no longer build, by (source, name)
 REMOVED = ()
 # the row-streaming kernels whose instructions per step and registers --sass
@@ -387,6 +396,8 @@ def child(checkout: Path, legs: str) -> int:
         recs += descent_cells(cs)
     if legs == "e4c2_cells":
         recs += zdescent_multi_cells(cs)
+    if legs == "learned":
+        recs += learned_turn(cs)
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -402,6 +413,63 @@ def child(checkout: Path, legs: str) -> int:
         r["bound_ms"] = 1e3 * r["bytes"] / cs.HBM_BYTES_PER_S
     print(json.dumps(recs), flush=True)
     return 0
+
+
+# the batches the learned cycle is timed on at 65^2 (--legs learned)
+LEARNED_BATCHES = (1, 2, 4, 8, 16, 32, 64)
+
+
+def learned_turn(cs) -> list:
+    """``--legs learned`` on the imported checkout (module docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.data.rhs import make_dataset
+    from multigrid_feanet_torch.learn import train_intergrid as ti
+    from multigrid_feanet_torch.models import intergrid
+    from multigrid_feanet_torch.ops.stencil import apply_mass
+
+    def hier(n, levels=None):
+        return GridHierarchy.create(Problem(n=n, inclusion=cs.CIRCLE), num_levels=levels,
+                                    device=cs.DEVICE)
+
+    def field(h, batch):
+        H = h.finest.n_nodes
+        F = np.ones((batch, H, H), np.float32)
+        F[1:] = np.random.default_rng(27).standard_normal((batch - 1, H, H))
+        return apply_mass(torch.as_tensor(F, device=cs.DEVICE), h.finest.h)
+
+    def cycle_ms(h, params, f, cycle=None):
+        return 1e3 * statistics.median(cs.learned_history(h, params, f, 7, cycle)["secs"][1:])
+
+    def route(h, params, u, f):
+        return intergrid._route(h, intergrid.DEFAULT_OMEGA).cycle(params, u, f)
+
+    # the training step first, before the cycles' work in this process
+    h64 = hier(64)
+    F = torch.as_tensor(make_dataset(65, 120, seed=0).numpy()[:64], device=cs.DEVICE)
+    state, secs = ti.init_state(0, device=cs.DEVICE), []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, _ = ti.train_step(h64, state, F)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    recs = [dict(name="intergrid_train_64_step", ms=1e3 * statistics.median(secs[1:]))]
+    params = intergrid.IntergridParams.init(device=cs.DEVICE)
+    h = hier(cs.N_MAIN, int(np.log2(cs.N_MAIN)))
+    recs.append(dict(name="learned_4097_b1", ms=cycle_ms(h, params, field(h, 1))))
+    del h
+    for b in LEARNED_BATCHES:
+        f = field(h64, b)
+        recs.append(dict(name=f"learned_65_b{b}", ms=cycle_ms(h64, params, f)))
+        if hasattr(intergrid, "_route"):
+            recs += [dict(name=f"learned_65_b{b}_route", ms=cycle_ms(h64, params, f, route)),
+                     dict(name=f"learned_65_b{b}_torch",
+                          ms=cycle_ms(h64, params, f, cs.torch_cycle))]
+    return [dict(r, bytes=0, max_rel_err=0.0) for r in recs]
 
 
 # the variants of X1 that chip_smoke.pass_legs holds, by their tags
@@ -1112,7 +1180,7 @@ def main() -> int:
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
                                        "g2d2", "e4c2", "g1g5", "g4a5", "x1", "pbc", "g2d2_cells",
-                                       "e4c2_cells", "g1g5_cells", "g4a5_cells"),
+                                       "e4c2_cells", "g1g5_cells", "g4a5_cells", "learned"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -1181,12 +1249,12 @@ def main() -> int:
     summary = {}
 
     def ratio(a, b):
-        return a / b if b else None
+        return a / b if a is not None and b else None
 
     for key, by in times.items():
         (parent, p_spread), (this, t_spread) = (
             (statistics.mean(by[k]), ratio(max(by[k]) - min(by[k]), statistics.mean(by[k])))
-            for k in ("parent", "this"))
+            if k in by else (None, None) for k in ("parent", "this"))
         summary[key] = dict(parent_ms=parent, this_ms=this, bound_ms=bounds[key],
                             parent_over_this=ratio(parent, this),
                             this_of_bound=ratio(bounds[key], this),
