@@ -182,10 +182,25 @@ Phases, in order; any failure exits non-zero:
    16 and 12 channels and homogeneous with one, batch 1 and 2, at
    ``ops.sweep.TOL``, two launches bitwise, each timed beside its bound
    and its plain version and, at 4097^2, beside the torch path's split and
-   convolution (``learned_pass_checks``).  Then ``intergrid_train_64``
+   convolution (``learned_pass_checks``).  Slice 28: C1 over a batch (one
+   launch, ``StencilLevel.sweep_batch`` / ``residual_batch``) bit for bit
+   the per-sample launches at 4097^2 (batch 1 and 2), 257^2, 65^2 and 33^2
+   (batch 64), timed beside them (``c1_batch_checks``); X7 and X8 (the
+   backward of X5 and X6) with X9 (their weight gradients) against their
+   plain versions at 4097^2, 257^2, 65^2 (batch 64) and 33^2 in every
+   variant: grad r and grad v bit for bit, the weight gradients within
+   ``ops.passes.TOL_WEIGHT_GRAD`` of the same gradients of the inputs'
+   magnitudes, two launches bitwise, each timed alone beside its bound,
+   its plain version and the torch path's backward
+   (``learned_backward_checks``); one graded cycle with its backward at
+   65^2 (batch 64) and 257^2 (batch 4), exactly ``graded_launches``, its
+   forward bit for bit the no-gradient route's, its loss and gradients
+   within ``GRADED_TOL`` of the torch path's (``graded_cycles``).  Then
+   ``intergrid_train_64``
    (the reference's q_m training protocol at 65^2, 10 epochs, card against
    CPU within 1e-4, resume, the train_kernel = 3 curriculum, 10 multi-size
-   decay steps) and ``learned_vcycle_4097`` (12 learned V-cycles at 4097^2
+   decay steps; every step on the route, ``train_step_launches`` exactly)
+   and ``learned_vcycle_4097`` (12 learned V-cycles at 4097^2
    with the init and the multi-size trained operators on the kernel route,
    and with the init operators on the torch path beside them: ms, device
    ms a cycle, peak GB, float32 and float64 histories; every C1, X5 and X6
@@ -197,8 +212,8 @@ Phases, in order; any failure exits non-zero:
    against the CPU's route), each run with every count zeroed
    and required to equal the
    kernel route's C1, X5 and X6 launches exactly (``route_launches``: C1 3
-   a sample on each kernel level, X5 and X6 one a level and cycle each;
-   none on the torch path or for batches over ``KERNEL_MAX_BATCH``); then
+   a batch on each kernel level, X5 and X6 one a level and cycle each;
+   none on the torch path); then
    ``hnet_elastic_train_16`` (the elastic H-Net's
    training anchor) and ``h_elastic_2049`` (32 H-corrected block-Jacobi
    sweeps at 2049^2 beside 32 plain ones; 4 sweeps at 129^2 against the
@@ -313,8 +328,9 @@ Phases, in order; any failure exits non-zero:
    designs' device kernels, ``symbols``, and the one the timed launch ran,
    ``design``; X1-X4 with their cells' launches, X1 with its tile's time
    and its homogeneous time beside ``F.conv2d``'s; X5, X6 and C1 with
-   ``learned_vcycle_4097``'s launches; 33 kernels), then the device line
-   as the last line.
+   ``learned_vcycle_4097``'s launches, C1 with its batch times; X7, X8 and
+   X9 at 65^2, batch 64, with ``intergrid_train_64``'s launches; 36
+   kernels), then the device line as the last line.
 
 Each 4097^2 solve and each elastic cell also reports its device time per
 kernel from torch.profiler and the busy share of its wall time.
@@ -1067,7 +1083,8 @@ KERNEL_TAGS = (("zpsweep_kernel", "A4"), ("swrr_kernel", "A2"),
                ("e1_h_relax", "E1"), ("f1_qsweep", "F1"), ("b1_copy", "B1"), ("b2_triad", "B2"),
                ("x1_heat_rhs", "X1"), ("x2_restrict", "X2"), ("x3_prolong_add", "X3"),
                ("x4_outer_step", "X4"), ("x5_learned_restrict", "X5"),
-               ("x6_learned_prolong_add", "X6"))
+               ("x6_learned_prolong_add", "X6"), ("x7_learned_restrict_bwd", "X7"),
+               ("x8_learned_prolong_bwd", "X8"), ("x9_weight_grad", "X9"))
 
 
 def profile_solve(solve, cycles_run: int, wall_s: float) -> dict:
@@ -3243,17 +3260,296 @@ def check_learned_passes() -> list:
     return recs
 
 
-def route_launches(hier, cycles: int, batch: int, n_relax: int = 1) -> dict:
-    """The launches of ``cycles`` learned V-cycles on the kernel route with
-    a batch of ``batch`` samples: C1 (2 n_relax + 1) a sample on every
-    kernel level (``models.intergrid.kernel_levels``), X5 and X6 one each a
-    level and cycle; none for a batch of more than ``KERNEL_MAX_BATCH``
-    samples, which keeps the torch path."""
-    from multigrid_feanet_torch.models.intergrid import KERNEL_MAX_BATCH, kernel_levels
+# slice 28: C1 over a batch, X7-X9 (the backward of X5 and X6) and the graded
+# cycle on them
+#
+# C1's batch holds: (n, batch), each bi-material and homogeneous
+C1_BATCH_SHAPES = ((N_MAIN, 1), (N_MAIN, 2), (256, 4), (64, 64), (32, 64))
+# X7's and X8's holds: (n, batch), in every variant of LEARNED_VARIANTS
+BWD_SHAPES = ((N_MAIN, 1), (256, 2), (64, 64), (32, 2))
+# operations a coarse cell (X7) or node (X8), counted from csrc/passes.cu:
+# nine products for the weight sums, nine multiply-adds of taps and w[i]
+# (X7: four fine nodes)
+BWD_FLOPS = {"X7": 31, "X8": 28}
+# the graded cycle's gradient on the card against the torch path's (the
+# split and cuDNN in full f32): float32 sums in other orders, as the port's
+# gradient against JAX's (tests/test_torch_learned_backward.py)
+GRADED_TOL = 1e-4
 
-    K = len(kernel_levels(hier)) if batch <= KERNEL_MAX_BATCH else 0
-    return {k: v for k, v in dict(C1=(2 * n_relax + 1) * K * cycles * batch, X5=K * cycles,
+
+def check_c1_batch() -> list:
+    """C1 over a batch (``StencilLevel.sweep_batch`` and
+    ``residual_batch``, one launch) at C1_BATCH_SHAPES, bi-material and
+    homogeneous, in both modes: bit for bit the per-sample launches, within
+    ``ops.sweep.TOL`` of the plain version; the batch launch's ms beside the
+    per-sample launches' (one graph-replayed run of N launches), on inputs
+    that fill twice the L2 or more."""
+    import torch
+    from multigrid_feanet_torch.core.problem import Problem, build_level
+    from multigrid_feanet_torch.models import intergrid
+    from multigrid_feanet_torch.ops import stencil_sweep as ss
+    from multigrid_feanet_torch.ops.sweep import TOL
+
+    recs = []
+    for n, N in C1_BATCH_SHAPES:
+        for bim in (True, False):
+            lv = build_level(Problem(n=n, inclusion=CIRCLE if bim else None), n, device=DEVICE)
+            st = ss.StencilLevel(n, pid=lv.pid, coefficients=intergrid._c1_coefficients(lv),
+                                 omega=intergrid.DEFAULT_OMEGA, device=DEVICE)
+            H = n + 1
+            nbytes = N * 12 * H * H + (H * H if bim else 0)
+            rng = np.random.default_rng(n + N)
+            sets = min(8, -(-2 * L2_BYTES // nbytes))
+            xs = []
+            for _ in range(sets):
+                u, f = intergrid._buffer(N, H, DEVICE), intergrid._buffer(N, H, DEVICE)
+                u.copy_(torch.as_tensor(rng.standard_normal((N, H, H)), dtype=torch.float32,
+                                        device=DEVICE) * lv.geo)
+                f.copy_(torch.as_tensor(rng.standard_normal((N, H, H)), dtype=torch.float32,
+                                        device=DEVICE))
+                xs.append((u, f, intergrid._buffer(N, H, DEVICE)))
+            rsq = torch.empty((), device=DEVICE)
+            for mode in ("sweep", "residual"):
+                batch = st.sweep_batch if mode == "sweep" else st.residual_batch
+                one = st.sweep if mode == "sweep" else st.residual
+                u, f, _ = xs[0]
+                got = batch(u, f)
+                each = torch.stack([one(u[i], f[i])[0] for i in range(N)])
+                want = ss.relax_batch_plain(u, f, st.pid, a0=st.a0, da=st.da, omega=st.omega,
+                                            mode=mode)
+                torch.cuda.synchronize()
+                rel = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+                rec = dict(name=f"C1_batch_{mode}", n=n, batch=N, bim=bim,
+                           bitwise_per_sample=bool(torch.equal(got, each)), max_rel_err=rel,
+                           max_abs_err=float((got - want).abs().max()), bytes=nbytes,
+                           ms=kernel_ms([lambda x=x: batch(x[0], x[1], out=x[2]) for x in xs]),
+                           per_sample_ms=kernel_ms([lambda x=x: [
+                               one(x[0][i], x[1][i], out=x[2][i], rsq=rsq) for i in range(N)]
+                               for x in xs], reps=max(2, 50 // N)),
+                           bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+                recs.append(rec)
+                if not (rec["bitwise_per_sample"] and rel <= TOL):
+                    fail(f"C1 over a batch disagrees with its launches a sample or its plain "
+                         f"version: {rec}")
+            del xs
+    print(json.dumps({"c1_batch_checks": recs}), flush=True)
+    return recs
+
+
+def bwd_bytes(key: str, n: int, N: int, bim: bool) -> int:
+    """Bytes X7 or X8 must move for a batch of N on an (n+1)^2 level, each
+    input read once and each output written once: X7 g_c, r, the fine ids
+    and grad r; X8 g, v, the coarse ids and grad v (the weights and the
+    partial sums aside)."""
+    H2, Hc2 = (n + 1) ** 2, (n // 2 + 1) ** 2
+    if key == "X7":
+        return N * 4 * (Hc2 + 2 * H2) + (H2 if bim else 0)
+    return N * 4 * (H2 + 2 * Hc2) + (Hc2 if bim else 0)
+
+
+def bwd_bound(key: str, n: int, N: int, nbytes: int):
+    """(bound ms, "bytes" or "operations") of one X7 or X8 launch."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * BWD_FLOPS[key] * N * (n // 2 + 1) ** 2 / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_learned_backward() -> list:
+    """X7 and X8 (``ops/passes.py``) with X9 on their partial sums, held
+    against their plain versions at BWD_SHAPES in every variant of
+    LEARNED_VARIANTS: grad r and grad v bit for bit (both sum in tap order),
+    grad k and grad w within ``TOL_WEIGHT_GRAD`` of the same gradients of
+    |g| and |r| (|v|, |k|, |w|), two launches bitwise; X9 alone against
+    ``weight_grad_plain`` on the same partials, to the same tolerance.
+    Each timed alone (``ms``: X7 or X8; ``x9_ms``) beside its bound, the
+    plain backward's ms (X7 or X8 with X9's sums) and, at 4097^2 and at
+    65^2 (batch 64), bi-material 16, the torch path's backward (autograd of
+    the split and cuDNN in full f32; no single PyTorch call computes a
+    pattern-split adjoint)."""
+    import torch
+    from multigrid_feanet_torch.core.device import full_f32
+    from multigrid_feanet_torch.models.intergrid import (IntergridParams, prolong_learned,
+                                                         restrict_learned)
+    from multigrid_feanet_torch.ops import passes as px
+
+    recs = []
+    for n, N in BWD_SHAPES:
+        hiers = {}
+        for variant in LEARNED_VARIANTS:
+            x = learned_pass_inputs(n, variant, N, 41 + n + N, hiers)
+            bim = x["pid"] is not None
+            rng = np.random.default_rng(43 + n + N)
+            g_c = torch.as_tensor(rng.standard_normal((N, n // 2 + 1, n // 2 + 1)),
+                                  dtype=torch.float32, device=DEVICE)
+            g = torch.as_tensor(rng.standard_normal((N, n + 1, n + 1)), dtype=torch.float32,
+                                device=DEVICE)
+            legs = (("X7", px.learned_restrict_bwd_cuda, px.learned_restrict_backward_plain,
+                     (g_c, x["r"], x["pid"], x["conv"], x["w"]), 0),
+                    ("X8", px.learned_prolong_bwd_cuda, px.learned_prolong_add_backward_plain,
+                     (g, x["v"], x["pid_c"], x["deconv"], x["w"]), 1))
+            for key, kfn, pfn, args, which in legs:
+                k, w = args[3], args[4]
+                field, partial = kfn(*args)
+                got = (field.clone(), *px.weight_grad_cuda(partial, k, w, which))
+                field2, partial2 = kfn(*args)
+                again = (field2, *px.weight_grad_cuda(partial2, k, w, which))
+                x9_plain = px.weight_grad_plain(partial, k, w, which)
+                want = pfn(*args)
+                absw = pfn(*(a.abs() if torch.is_tensor(a) and a.is_floating_point() else a
+                             for a in args))
+                torch.cuda.synchronize()
+
+                def excess(a, b):
+                    return max(float(((p - q).abs() / (c + 1e-30)).max())
+                               for p, q, c in zip(a, b, absw[1:]))
+
+                nbytes = bwd_bytes(key, n, N, bim)
+                bound_ms, bound_by = bwd_bound(key, n, N, nbytes)
+                sets = min(8, -(-2 * L2_BYTES // nbytes))
+                xs = [args] + [tuple(a.clone() if torch.is_tensor(a) and a.is_floating_point()
+                                     else a for a in args) for _ in range(sets - 1)]
+                outs = [kfn(*a) for a in xs]
+                rec = dict(name=key, n=n, batch=N, variant=variant, bim=bim, bytes=nbytes,
+                           field_bitwise=bool(torch.equal(got[0], want[0])),
+                           max_abs_err=float((got[0] - want[0]).abs().max()),
+                           weight_excess=excess(got[1:], want[1:]),
+                           x9_excess=excess(got[1:], x9_plain),
+                           x9_max_abs_err=max(float((a - b).abs().max())
+                                              for a, b in zip(got[1:], x9_plain)),
+                           bitwise_twice=all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                           ms=kernel_ms([lambda a=a, o=o: kfn(*a, *o) for a, o in zip(xs, outs)]),
+                           x9_ms=kernel_ms([lambda o=o: px.weight_grad_cuda(o[1], k, w, which)
+                                            for o in outs]),
+                           x9_plain_ms=plain_ms([lambda o=o: px.weight_grad_plain(
+                               o[1], k, w, which) for o in outs]),
+                           x9_blocks=int(partial.shape[0]),
+                           plain_ms=plain_ms([lambda a=a: pfn(*a) for a in xs]),
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                if variant == "bim16" and (n, N) in ((N_MAIN, 1), (64, 64)):
+                    p = IntergridParams(x["conv"].clone(), x["deconv"].clone(), x["w"].clone())
+                    with full_f32():
+                        if key == "X7":
+                            inp = x["r"].clone().requires_grad_()
+                            out, wrt = restrict_learned(p, inp, x["pid"]), (inp, p.conv, p.w)
+                        else:
+                            inp = x["v"].clone().requires_grad_()
+                            out, wrt = prolong_learned(p, inp, x["pid_c"]), (inp, p.deconv, p.w)
+                        rec["torch_backward_ms"] = plain_ms([lambda: torch.autograd.grad(
+                            out, wrt, g_c if key == "X7" else g, retain_graph=True)], 5)
+                    del out, inp
+                del xs, outs
+                recs.append(rec)
+                if not (rec["field_bitwise"] and rec["weight_excess"] <= px.TOL_WEIGHT_GRAD
+                        and rec["x9_excess"] <= px.TOL_WEIGHT_GRAD and rec["bitwise_twice"]):
+                    fail(f"{key} or X9 disagrees with its plain version or with itself: {rec}")
+            del x
+    print(json.dumps({"learned_backward_checks": recs}), flush=True)
+    return recs
+
+
+def check_graded_cycle() -> list:
+    """One graded learned cycle and its backward on the kernel route (its
+    autograd form: the C1 Functions, X5 and X6 forward, X7, X8 and X9
+    backward) at 65^2 (6 levels, batch 64) and 257^2 (8 levels, batch 4),
+    random per-channel weights, the loss sum(c * cycle(u0)): exactly
+    ``graded_launches``, its forward bit for bit the no-gradient route's,
+    and its loss and gradients in conv, deconv and w within GRADED_TOL of
+    the torch path's on the card (the split and cuDNN in full f32); ms of
+    the cycle with its backward on both paths (synchronised host clock,
+    median of 5 after one)."""
+    import torch
+    from multigrid_feanet_torch.core.convert import intergrid_params_from_arrays
+    from multigrid_feanet_torch.core.device import full_f32
+    from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
+    from multigrid_feanet_torch.models import intergrid
+
+    recs = []
+    for n, N in ((64, 64), (256, 4)):
+        label = f"graded_cycle_{n + 1}"
+        hier = GridHierarchy.create(Problem(n=n, inclusion=CIRCLE), device=DEVICE)
+        rng = np.random.default_rng(n + N)
+        conv = intergrid.FULL_WEIGHTING_16 + 0.1 * rng.standard_normal((16, 3, 3))
+        deconv = intergrid.BILINEAR_4 + 0.1 * rng.standard_normal((16, 3, 3))
+        u0, f, c = (torch.as_tensor(rng.standard_normal((N, n + 1, n + 1)), dtype=torch.float32,
+                                    device=DEVICE) for _ in range(3))
+        res = {}
+        for path in ("route", "torch"):
+            p = intergrid_params_from_arrays(conv, deconv, [3.7, 1.1], device=DEVICE)
+
+            def step():
+                for t in p.parameters():
+                    t.grad = None
+                cyc = (intergrid.learned_v_cycle(hier, p, u0, f) if path == "route" else
+                       intergrid._torch_cycle(hier, p, u0, f, 1, intergrid.DEFAULT_OMEGA, 0))
+                loss = (cyc * c).sum()
+                with full_f32():
+                    loss.backward()
+                return cyc.detach(), loss.detach()
+
+            expect = graded_launches(hier) if path == "route" else {}
+            cyc, loss = exact_launches(label, step, expect)
+            secs = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                step()
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+            res[path] = dict(cycle=cyc, loss=float(loss), ms=1e3 * float(np.median(secs[1:])),
+                             grads={k: getattr(p, k).grad.clone() for k in ("conv", "deconv", "w")})
+        with torch.no_grad():
+            plain = intergrid.learned_v_cycle(hier, p, u0, f)
+        r, t = res["route"], res["torch"]
+        rec = dict(name=label, n=n, batch=N, levels=hier.num_levels,
+                   launches=graded_launches(hier), route_ms=r["ms"], torch_ms=t["ms"],
+                   forward_bitwise_no_grad=bool(torch.equal(r["cycle"], plain)),
+                   loss_rel_dev=abs(r["loss"] / t["loss"] - 1.0),
+                   grad_rel_dev={k: float((r["grads"][k] - t["grads"][k]).abs().max()
+                                          / t["grads"][k].abs().max()) for k in r["grads"]},
+                   tol=GRADED_TOL)
+        print(json.dumps(rec), flush=True)
+        if not (rec["forward_bitwise_no_grad"] and rec["loss_rel_dev"] <= GRADED_TOL
+                and max(rec["grad_rel_dev"].values()) <= GRADED_TOL):
+            fail(f"{label}: the graded cycle departs from the torch path's: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def route_launches(hier, cycles: int, n_relax: int = 1) -> dict:
+    """The launches of ``cycles`` learned V-cycles on the kernel route, at
+    any batch size: C1 2 n_relax + 1 times (one launch a batch) on every
+    kernel level (``models.intergrid.kernel_levels``), X5 and X6 one each a
+    level and cycle."""
+    from multigrid_feanet_torch.models.intergrid import kernel_levels
+
+    K = len(kernel_levels(hier))
+    return {k: v for k, v in dict(C1=(2 * n_relax + 1) * K * cycles, X5=K * cycles,
                                   X6=K * cycles).items() if v}
+
+
+def graded_launches(hier, n_relax: int = 1) -> dict:
+    """The launches of one graded cycle (from an iterate that needs no
+    gradient) and its backward, n_relax >= 1: forward ``route_launches``;
+    backward on level 0 two C1 launches a post-sweep (its pre-sweeps and
+    residual need no gradient), on each coarser kernel level two a sweep
+    (one for the first, whose u is 0) and two for the residual; X7 and X8
+    once a kernel level, X9 twice."""
+    from multigrid_feanet_torch.models.intergrid import kernel_levels
+
+    K = len(kernel_levels(hier))
+    back = dict(C1=2 * n_relax + (K - 1) * (4 * n_relax + 1), X7=K, X8=K, X9=2 * K)
+    return add_counts(route_launches(hier, 1, n_relax), back)
+
+
+# q_m's residuals on a kernel finest level: f - A u_m and f - A u_m0 forward,
+# and the two of f - A u_m's backward (grad f = mask g, grad u)
+QM_LAUNCHES = {"C1": 4}
+
+
+def train_step_launches(hier, m: int = 6) -> dict:
+    """One q_m training step (``learn/train_intergrid.py``): m - 1 cycles
+    without gradient, a graded cycle and its backward, q_m's residuals."""
+    return add_counts(route_launches(hier, m - 1), graded_launches(hier), QM_LAUNCHES)
 
 
 def add_counts(*counts) -> dict:
@@ -3262,6 +3558,10 @@ def add_counts(*counts) -> dict:
         for k, v in c.items():
             out[k] = out.get(k, 0) + v
     return out
+
+
+def times(counts: dict, k: int) -> dict:
+    return {key: k * v for key, v in counts.items()}
 
 
 def exact_launches(label: str, run, expect: dict):
@@ -3295,10 +3595,11 @@ def run_intergrid_train_cell() -> dict:
     train_kernel = 3 run changes channel 3 of conv and deconv only, and
     never w; 10 steps of train_step_decay_multisize at 16, 32 and 64
     (batches 16, 8, 2: experiments/intergrid_robust.py) stay finite.  Each
-    run launches exactly the kernel route's C1, X5 and X6 of its m - 1
-    cycles without gradient a step (``route_launches``: none for a batch
-    over ``KERNEL_MAX_BATCH``, which keeps the torch path); the graded
-    cycle launches none.  The CPU's run takes the same paths."""
+    run launches exactly ``train_step_launches`` a step: the kernel route's
+    C1, X5 and X6 in its m - 1 cycles without gradient and its graded
+    cycle, the backward's C1, X7, X8 and X9, and q_m's C1 residuals (every
+    count zeroed before the run and read after it).  The CPU's run takes
+    the same paths (their plain versions)."""
     import shutil
     import torch
     from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
@@ -3314,8 +3615,8 @@ def run_intergrid_train_cell() -> dict:
     kw = dict(batch_size=64, seed=0, m=6, m0=2, lr=1e-3, verbose=False)
     h64 = hier(64)
 
-    def epochs(k):  # k epochs of 120 RHS: k steps of m - 1 cycles on each of 64 and 56
-        return add_counts(*(route_launches(h64, (kw["m"] - 1) * k, b) for b in (64, 56)))
+    def epochs(k):  # k epochs of 120 RHS: two steps each (batches of 64 and 56)
+        return times(train_step_launches(h64, kw["m"]), 2 * k)
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3351,9 +3652,9 @@ def run_intergrid_train_cell() -> dict:
 
     torch.cuda.synchronize()
     t0 = time.time()
-    # 10 steps of m - 1 = 9 cycles at each size
-    exact_launches(label, multisize, add_counts(*(route_launches(h, 90, b)
-                                                  for h, b in zip(hiers, batches))))
+    # 10 steps of m = 10 at each size
+    exact_launches(label, multisize, add_counts(*(times(train_step_launches(h, 10), 10)
+                                                  for h in hiers)))
     ms_wall = time.time() - t0
     step_state = ti.init_state(0, device=DEVICE)
     F_batch = torch.as_tensor(F[:64], device=DEVICE)
@@ -3439,11 +3740,11 @@ def learned_history(hier, params, f, cycles: int, cycle=None, u0=None, level64=N
 
 
 def route_call_holds(run) -> dict:
-    """``run()`` with every C1, X5 and X6 launch of the kernel route held
-    against its plain version on the same operands: the largest difference
-    of each kernel's output, relative to max(1, max|plain|) as ``hold``
-    measures it, over every call (C1 by mode); fails beyond
-    ``ops.sweep.TOL``."""
+    """``run()`` with every C1 (a batch a launch), X5 and X6 launch of the
+    kernel route held against its plain version on the same operands: the
+    largest difference of each kernel's output, relative to max(1,
+    max|plain|) as ``hold`` measures it, over every call (C1 by mode);
+    fails beyond ``ops.sweep.TOL``."""
     from multigrid_feanet_torch.ops import passes as px
     from multigrid_feanet_torch.ops import stencil_sweep as ss
     from multigrid_feanet_torch.ops.sweep import TOL
@@ -3456,12 +3757,12 @@ def route_call_holds(run) -> dict:
         rec["calls"] += 1
         rec["max_rel_err"] = max(rec["max_rel_err"], err)
 
-    saved = ss.relax_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda
+    saved = ss.relax_batch_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda
 
     def c1(u, f, pid=None, **kw):
         out = saved[0](u, f, pid, **kw)
-        kw = {k: v for k, v in kw.items() if k not in ("out", "rsq", "workspace")}
-        note("C1_" + kw.get("mode", "sweep"), out[0], ss.relax_plain(u, f, pid, **kw)[0])
+        kw = {k: v for k, v in kw.items() if k != "out"}
+        note("C1_" + kw.get("mode", "sweep"), out, ss.relax_batch_plain(u, f, pid, **kw))
         return out
 
     def x5(r, pid, k, w, out=None):
@@ -3474,11 +3775,11 @@ def route_call_holds(run) -> dict:
         note("X6", got, px.learned_prolong_add_plain(u, v, pid, k, w))
         return got
 
-    ss.relax_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda = c1, x5, x6
+    ss.relax_batch_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda = c1, x5, x6
     try:
         run()
     finally:
-        ss.relax_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda = saved
+        ss.relax_batch_cuda, px.learned_restrict_cuda, px.learned_prolong_add_cuda = saved
     if not errs or any(r["max_rel_err"] > TOL for r in errs.values()):
         fail(f"the kernel route's launches disagree with their plain versions: {errs}")
     return errs
@@ -3544,7 +3845,7 @@ def run_learned_vcycle_cell() -> dict:
     hier, f = problem(N_MAIN, int(np.log2(N_MAIN)), DEVICE)  # 12 levels: 4097^2 ... 3^2
     lv64 = build_level(Problem(n=N_MAIN, inclusion=CIRCLE, dtype=torch.float64), N_MAIN,
                        device=DEVICE)
-    expect = route_launches(hier, 12, 1)
+    expect = route_launches(hier, 12)
     rec = dict(solve=label, n=N_MAIN, levels=hier.num_levels, cycles=12,
                kernel_levels=kernel_levels(hier), launches=expect)
     runs = [("init", IntergridParams.init(device=DEVICE), learned_v_cycle),
@@ -3591,7 +3892,7 @@ def run_learned_vcycle_cell() -> dict:
         with torch.no_grad():
             for path, cycle in (("kernels", learned_v_cycle), ("torch", torch_cycle)):
                 u1[path] = exact_launches(label, lambda: cycle(
-                    hier, params, torch.zeros_like(f), f), route_launches(hier, 1, 1)
+                    hier, params, torch.zeros_like(f), f), route_launches(hier, 1)
                     if cycle is learned_v_cycle else {})
         rec["evaluator"][f"first_iterate_dev_{name}"] = float(
             (u1["kernels"] - u1["torch"]).abs().max() / u1["torch"].abs().max())
@@ -3623,12 +3924,12 @@ def run_learned_vcycle_cell() -> dict:
         h, f_small = problem(128, 2, dev, batch=2)
         params = intergrid_params_from_npz(IG_N64, dev)
         run = lambda: learned_history(h, params, f_small, 6)  # noqa: E731
-        hists[dev] = (exact_launches(label, run, route_launches(h, 6, 2)) if dev == DEVICE
+        hists[dev] = (exact_launches(label, run, route_launches(h, 6)) if dev == DEVICE
                       else run())["hist"]
     dev_cpu = float(np.max(np.abs(hists[DEVICE] / hists["cpu"] - 1.0)))
     rec["small_129"] = dict(cycles=6, batch=2, hist=hists[DEVICE].tolist(),
                             hist_cpu=hists["cpu"].tolist(), max_rel_dev_cpu=dev_cpu,
-                            launches=route_launches(h, 6, 2))
+                            launches=route_launches(h, 6))
     print(json.dumps(rec), flush=True)
     if not dev_cpu <= 1e-4:
         fail(f"{label}: the 129^2 learned cycles on the card depart from the CPU's: {rec}")
@@ -3779,15 +4080,21 @@ def check_pbc_train_f32() -> dict:
 
 
 def run_slice11() -> dict:
-    """The slice-11 phases, in order, after X5's and X6's holds:
-    {"learned_pass_checks": the holds, each cell's label: its record}."""
+    """The slice-11 phases, in order, after X5's and X6's holds and slice
+    28's (C1 over a batch, X7-X9, the graded cycle): {"learned_pass_checks":
+    the holds, "c1_batch_checks", "learned_backward_checks",
+    "graded_cycles": theirs, each cell's label: its record}."""
     checks = check_learned_passes()
+    c1_batch = check_c1_batch()
+    backward = check_learned_backward()
+    graded = check_graded_cycle()
     ig_train = run_intergrid_train_cell()
     learned = run_learned_vcycle_cell()
     el_train = run_hnet_elastic_train_cell()
     h_el = run_h_elastic_cell(el_train.pop("params"))
     pbc_f32 = no_launches("pbc_train_f32", check_pbc_train_f32)
-    return {"learned_pass_checks": checks,
+    return {"learned_pass_checks": checks, "c1_batch_checks": c1_batch,
+            "learned_backward_checks": backward, "graded_cycles": graded,
             **{rec["solve"]: rec for rec in (ig_train, learned, el_train, h_el, pbc_f32)}}
 
 
@@ -5218,8 +5525,12 @@ def pass_rows(checks: list, heat: dict, r1: dict, irs: dict) -> list:
 
 def learned_rows(s11: dict, c1_rec: dict) -> list:
     """The kernel line's rows of X5 and X6 at 4097^2 (bi-material, 16
-    channels, batch 1), and of C1 (the bi-material sweep at 4097^2), each
-    with its launches on learned_vcycle_4097's 12 init cycles."""
+    channels, batch 1), and of C1 (the bi-material sweep at 4097^2, with
+    its batch instance's times at 4097^2 and 65^2 beside it), each with its
+    launches on learned_vcycle_4097's 12 init cycles; of X7, X8 and X9 at
+    65^2, batch 64 (bi-material, 16 channels), the shapes of
+    intergrid_train_64's finest level, with that cell's launches (its 10
+    epochs) and their 4097^2 times beside them."""
     k = all_kernels()
     cell = s11["learned_vcycle_4097"]
     rows = []
@@ -5236,7 +5547,41 @@ def learned_rows(s11: dict, c1_rec: dict) -> list:
                          bytes=c["bytes"], bim=True, channels=16, batch=1,
                          bitwise_twice=c["bitwise_twice"]))
     row = summary_row("C1", c1_rec, cell["launches"]["C1"], cell["solve"])
-    rows.append(dict(row, name=row["name"] + "_learned"))
+
+    def c1b(n, N):
+        return next(r for r in s11["c1_batch_checks"] if r["name"] == "C1_batch_sweep"
+                    and r["n"] == n and r["batch"] == N and r["bim"])
+
+    rows.append(dict(row, name=row["name"] + "_learned", batch_4097_ms=c1b(N_MAIN, 1)["ms"],
+                     batch_65_b64_ms=c1b(64, 64)["ms"],
+                     per_sample_65_b64_ms=c1b(64, 64)["per_sample_ms"]))
+    train = s11["intergrid_train_64"]
+
+    def bwd(key, n, N):
+        return next(r for r in s11["learned_backward_checks"] if r["name"] == key
+                    and r["n"] == n and r["batch"] == N and r["variant"] == "bim16")
+
+    for key in ("X7", "X8", "X9"):
+        c, big = bwd("X8" if key == "X8" else "X7", 64, 64), bwd("X8" if key == "X8" else "X7",
+                                                                 N_MAIN, 1)
+        kern = k[key]
+        if key == "X9":  # on X7's partial sums: one block's row of 9 C floats each
+            nbytes = 4 * 9 * 16 * c["x9_blocks"]
+            timing = dict(ms=c["x9_ms"], plain_ms=c["x9_plain_ms"],
+                          bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                          ms_4097=big["x9_ms"], blocks=c["x9_blocks"],
+                          max_abs_err=c["x9_max_abs_err"])
+        else:
+            nbytes = c["bytes"]
+            timing = dict(ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                          bound_by=c["bound_by"], ms_4097=big["ms"],
+                          bound_4097_ms=big["bound_ms"], max_abs_err=c["max_abs_err"],
+                          torch_backward_ms=c.get("torch_backward_ms"),
+                          torch_backward_4097_ms=big.get("torch_backward_ms"))
+        rows.append(dict(name=kern.name, route="cuda", source=kern.source,
+                         replaces=kern.replaces, launches=train["launches"][key],
+                         library_ms=None, path=train["solve"], n=64, bytes=nbytes, bim=True,
+                         channels=16, batch=64, **timing))
     return rows
 
 
@@ -5725,12 +6070,12 @@ def main() -> int:
     print(json.dumps({"bf16_times": bf16_times(bf_checks, checks + a34checks + schecks
                                                 + r6checks),
                       "bench_bf16": bench_bf16}), flush=True)
-    # every kernel of the port has a row: the 27 TPU kernels' and X1-X6
+    # every kernel of the port has a row: the 27 TPU kernels' and X1-X9
     names = sorted({row["name"].split("_")[0] for row in summary})
     print(json.dumps({"kernel_line": dict(rows=len(summary), kernels=len(names),
                                           names=names)}), flush=True)
-    if len(names) != 33:
-        fail(f"the kernel line names {len(names)} kernels, not 33: {names}")
+    if len(names) != 36:
+        fail(f"the kernel line names {len(names)} kernels, not 36: {names}")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

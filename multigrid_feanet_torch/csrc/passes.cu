@@ -42,6 +42,25 @@
 //     device memory (no host read per call); an id no channel holds adds 0,
 //     as the split's comparison puts it in no channel; pid null (a
 //     homogeneous level) takes channel 0 of one.
+// X7  the backward of X5 (no TPU kernel: the gradient JAX's value_and_grad
+//     takes through the convolution of restrict_learned): from the gradient
+//     g_c of f_c, grad_r(p) = w[0] sum k[pid(p), a, b] g_c(I, J) over the
+//     coarse interior nodes (I, J) whose window holds p at tap (a, b), 0 on
+//     the fine ring (the crop), and each block's partial sums of
+//     P[c][a, b] = sum [pid(p) = c] g_c(I, J) r(p) over its coarse cells.
+// X8  the backward of X6: from the gradient g of out, grad_v(c, d) = w[1]
+//     sum_{t,s} k[pid_c(c, d), t, s] g(2c + t - 1, 2d + s - 1) (the adjoint of
+//     X6's gather, its restriction-shaped transpose; g zero off the grid),
+//     and each block's partial sums of Q[c][t, s] = sum [pid_c = c] v g(..).
+//     grad u = g needs no kernel.
+// X9  the weight gradients from X7's or X8's partial sums: P = the sum of
+//     the blocks' partials, grad_k = w[i] P and grad_w[i] = sum k P (i = 0
+//     for X7, 1 for X8), grad_w[1 - i] = 0.
+//     The partial sums go by pattern id: a warp adds its lanes' products of
+//     one id and tap by a shuffle tree, for each id its lanes hold (in the
+//     order of their first lane), into its own row of shared sums; the
+//     block adds its warps' rows in order, and X9 adds the blocks' partials
+//     in float64 in a fixed order: no float atomics, two runs agree bitwise.
 //
 // Every field is compact row-major (n+1) x (n+1); pid the int8 node pattern
 // ids (bit e: the phase of the node's element e, in the order SW, SE, NW,
@@ -63,12 +82,19 @@
 // adds the blocks' sums in a fixed order (no float atomics), so two
 // launches agree bitwise.
 //
+// X7 and X8 sum grad_r and grad_v from 0 in tap order, the weight w[i]
+// last, as their plain versions do (bit for bit); their weight sums and X9
+// round in another order than the plain versions' float64 sums, and agree
+// with them to the float32 rounding of a few hundred terms a sum.
+//
 // Bounds at 4097^2 (bytes, 3.35 TB/s): X1 reads u, f0, f1, pid and writes b
 // (f0 and f1 the same tensor in the time-independent march: read once); X2
 // reads the fine interior and writes the coarse field; X3 reads u, u_c and
 // geo and writes u; X4 reads u, e, f, geo (and pid) and writes u' and the
 // float32 r; X5 reads the fine interior and pid and writes f_c; X6 reads u,
-// v and pid_c and writes u (per sample; pid once).  Design: plain tiles of
+// v and pid_c and writes u (per sample; pid once); X7 reads g_c, r and pid
+// and writes grad_r; X8 reads g, v and pid_c and writes grad_v (the partial
+// sums are a few hundred kB).  Design: plain tiles of
 // 32 x 8 outputs, 256 threads, one output a thread, neighbouring threads on
 // neighbouring columns (coalesced rows); X6 a thread per coarse cell, its
 // 2 x 2 fine nodes.  X1 and X4 stage their tile and its one-node halo in
@@ -647,7 +673,224 @@ x6_learned_prolong_add(const float* __restrict__ u, const float* __restrict__ v,
 
 #undef X6_TERM
 
+// ---------------------------------------------------------------------------
+// X7, X8, X9
+// ---------------------------------------------------------------------------
+
+// Tiles of PY rows that a block of X7 or X8 walks down, adding its weight
+// sums over all of them: fewer blocks' partials for X9 to add.
+constexpr int WB_TRIPS = 16;
+constexpr int WARPS = PNT / 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Adds the lanes' products x[t] to the warp's row ws of shared sums (9 C
+// floats): for each tap t and each id c in [0, C) among the lanes' ids p[t]
+// (taken in the order of their first lane), the sum of x[t] over the lanes
+// of id c, by a shuffle tree, to ws[9 c + t].  Every lane of the warp calls
+// it; a lane with no product passes an id outside [0, C).
+__device__ __forceinline__ void warp_bins(float* ws, const int (&p)[9], const float (&x)[9],
+                                          int C) {
+  const bool lead = (threadIdx.x & 31) == 0;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    unsigned todo = __ballot_sync(FULL, (unsigned)p[t] < (unsigned)C);
+    while (todo) {
+      const int c = __shfl_sync(FULL, p[t], __ffs(todo) - 1);
+      const bool mine = p[t] == c;
+      todo &= ~__ballot_sync(FULL, mine);
+      float v = mine ? x[t] : 0.f;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+      if (lead) ws[9 * c + t] += v;
+    }
+  }
+}
+
+// The block's partial sums: its warps' rows (ws, WARPS rows of S floats)
+// added in order into partial[block * S ..], block = (z gy + y) gx + x.
+__device__ __forceinline__ void store_bins(const float* ws, int S, float* __restrict__ partial) {
+  __syncthreads();
+  const long long b = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  for (int j = threadIdx.x; j < S; j += PNT) {
+    float v = ws[j];
+    for (int q = 1; q < WARPS; ++q) v += ws[q * S + j];
+    partial[b * S + j] = v;
+  }
+}
+
+// Dynamic shared memory of X7 and X8: the (C, 9) weights and WARPS rows of
+// 9 C sums, zeroed; every thread reaches the barrier.
+__device__ __forceinline__ void stage_bins(float* sk, float* ws, const float* __restrict__ k,
+                                           int C) {
+  for (int t = threadIdx.x; t < WARPS * 9 * C; t += PNT) ws[t] = 0.f;
+  stage_taps(sk, k, C);
+}
+
+// X7 on sample blockIdx.z.  A thread takes coarse cell (I, J): fine rows
+// 2I - 1 (I > 0) and 2I by columns 2J - 1 (J > 0) and 2J.  An even fine row
+// takes tap a = 1 of coarse row I, an odd one taps a = 0 of row I and a = 2
+// of row I - 1 (columns likewise), so the cell holds nine (fine node,
+// coarse node) pairs, one for each tap.  g_c is read as 0 off the coarse
+// interior (X5 writes 0 there).  sg, sr, so: the values between two samples
+// of g_c, r and grad_r.
+__global__ void __launch_bounds__(PNT)
+x7_learned_restrict_bwd(const float* __restrict__ g, const float* __restrict__ r,
+                        const int8_t* __restrict__ pid, const float* __restrict__ k,
+                        const float* __restrict__ w, float* __restrict__ gr,
+                        float* __restrict__ partial, int H, int Hc, int C, long long sg,
+                        long long sr, long long so) {
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* ws = smem + 9 * C;
+  stage_bins(sk, ws, k, C);
+  const float w0 = __ldg(w);
+  const float* gb = g + (long long)blockIdx.z * sg;
+  const float* rb = r + (long long)blockIdx.z * sr;
+  float* ob = gr + (long long)blockIdx.z * so;
+  float* myws = ws + (threadIdx.x / 32) * 9 * C;
+  const int J = blockIdx.x * PX + threadIdx.x % PX;
+  for (int trip = 0; trip < WB_TRIPS; ++trip) {
+    const int I = (blockIdx.y * WB_TRIPS + trip) * PY + threadIdx.x / PX;
+    const bool live = I < Hc && J < Hc;
+    float gv[2][2], x[2][2];  // g_c at (I - 1 + i, J - 1 + j); r at the fine nodes
+    int p[2][2];              // their ids, -1 off the grid
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ci = I - 1 + i, cj = J - 1 + j;
+        const bool cin = live && ci >= 1 && cj >= 1 && ci <= Hc - 2 && cj <= Hc - 2;
+        gv[i][j] = cin ? gb[(long long)ci * Hc + cj] : 0.f;
+        const int y = 2 * I - 1 + i, xx = 2 * J - 1 + j;
+        const bool in = live && y >= 0 && xx >= 0;
+        const long long e = (long long)y * H + xx;
+        x[i][j] = in ? rb[e] : 0.f;
+        p[i][j] = in ? (pid ? (int)pid[e] : 0) : -1;
+      }
+    // tap (a, b): fine row index fi = (a == 1), coarse row index ci = (a != 2)
+    int pt[9];
+    float xt[9];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int fi = a == 1, fj = b == 1, ci = a != 2, cj = b != 2;
+        pt[3 * a + b] = p[fi][fj];
+        xt[3 * a + b] = __fmul_rn(gv[ci][cj], x[fi][fj]);
+      }
+    warp_bins(myws, pt, xt, C);
+#pragma unroll
+    for (int fi = 0; fi < 2; ++fi)
+#pragma unroll
+      for (int fj = 0; fj < 2; ++fj) {
+        const int y = 2 * I - 1 + fi, xx = 2 * J - 1 + fj;
+        if (!live || y < 0 || xx < 0) continue;
+        float acc = 0.f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+            if ((a == 1) == (fi == 1) && (b == 1) == (fj == 1))
+              acc = __fadd_rn(acc, __fmul_rn(tap(sk, p[fi][fj], 3 * a + b, C),
+                                             gv[a != 2][b != 2]));
+        const bool ring = y == 0 || xx == 0 || y == H - 1 || xx == H - 1;
+        ob[(long long)y * H + xx] = ring ? 0.f : __fmul_rn(w0, acc);
+      }
+  }
+  store_bins(ws, 9 * C, partial);
+}
+
+// X8 on sample blockIdx.z.  A thread takes coarse node (c, d): the nine
+// fine nodes (2c + t - 1, 2d + s - 1), g read as 0 off the grid.  sg, sv,
+// so: the values between two samples of g, v and grad_v.
+__global__ void __launch_bounds__(PNT)
+x8_learned_prolong_bwd(const float* __restrict__ g, const float* __restrict__ v,
+                       const int8_t* __restrict__ pidc, const float* __restrict__ k,
+                       const float* __restrict__ w, float* __restrict__ gv,
+                       float* __restrict__ partial, int H, int Hc, int C, long long sg,
+                       long long sv, long long so) {
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* ws = smem + 9 * C;
+  stage_bins(sk, ws, k, C);
+  const float w1 = __ldg(w + 1);
+  const float* gb = g + (long long)blockIdx.z * sg;
+  const float* vb = v + (long long)blockIdx.z * sv;
+  float* ob = gv + (long long)blockIdx.z * so;
+  float* myws = ws + (threadIdx.x / 32) * 9 * C;
+  const int d = blockIdx.x * PX + threadIdx.x % PX;
+  for (int trip = 0; trip < WB_TRIPS; ++trip) {
+    const int c = (blockIdx.y * WB_TRIPS + trip) * PY + threadIdx.x / PX;
+    const bool live = c < Hc && d < Hc;
+    const long long ec = (long long)c * Hc + d;
+    const int p = live ? (pidc ? (int)pidc[ec] : 0) : -1;
+    const float vc = live ? vb[ec] : 0.f;
+    int pt[9];
+    float gt[9], xt[9];
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int y = 2 * c + t - 1, x = 2 * d + s - 1;
+        const bool in = live && y >= 0 && x >= 0 && y < H && x < H;
+        gt[3 * t + s] = in ? gb[(long long)y * H + x] : 0.f;
+        pt[3 * t + s] = p;
+        xt[3 * t + s] = __fmul_rn(vc, gt[3 * t + s]);
+        acc = __fadd_rn(acc, __fmul_rn(tap(sk, p, 3 * t + s, C), gt[3 * t + s]));
+      }
+    warp_bins(myws, pt, xt, C);
+    if (live) ob[ec] = __fmul_rn(w1, acc);
+  }
+  store_bins(ws, 9 * C, partial);
+}
+
+constexpr int X9_THREADS = 1024, X9_LANES = 32, X9_GROUPS = X9_THREADS / X9_LANES;
+
+// X9, one block: for each weight j < S, P[j] = the sum over the `blocks`
+// rows of partial (row b at b S) in float64 (row group b mod X9_GROUPS
+// first, then the groups in order), rounded to float32; gk[j] = w[which]
+// P[j]; gw[which] = sum_j k[j] P[j] in float64 (by lane, then a shuffle
+// tree), gw[1 - which] = 0.
+__global__ void __launch_bounds__(X9_THREADS)
+x9_weight_grad(const float* __restrict__ partial, int blocks, int S, const float* __restrict__ k,
+               const float* __restrict__ w, int which, float* __restrict__ gk,
+               float* __restrict__ gw) {
+  __shared__ double red[X9_GROUPS][X9_LANES + 1];
+  const int lane = threadIdx.x % X9_LANES, grp = threadIdx.x / X9_LANES;
+  const float wi = __ldg(w + which);
+  double kp = 0.0;
+  for (int j0 = 0; j0 < S; j0 += X9_LANES) {
+    const int j = j0 + lane;
+    double acc = 0.0;
+    if (j < S)
+      for (int b = grp; b < blocks; b += X9_GROUPS) acc += (double)partial[(long long)b * S + j];
+    red[grp][lane] = acc;
+    __syncthreads();
+    if (grp == 0 && j < S) {
+      double sum = 0.0;
+      for (int q = 0; q < X9_GROUPS; ++q) sum += red[q][lane];
+      const float P = (float)sum;
+      gk[j] = __fmul_rn(wi, P);
+      kp += (double)k[j] * (double)P;
+    }
+    __syncthreads();
+  }
+  if (grp == 0) {
+    for (int o = 16; o > 0; o >>= 1) kp += __shfl_down_sync(FULL, kp, o);
+    if (lane == 0) {
+      gw[which] = (float)kp;
+      gw[1 - which] = 0.f;
+    }
+  }
+}
+
 inline dim3 grid_of(int H) { return dim3((H + PX - 1) / PX, (H + PY - 1) / PY); }
+
+// X7's and X8's grid on Hc x Hc coarse nodes (cells): PX columns and
+// WB_TRIPS tiles of PY rows a block, `batch` samples.
+inline dim3 bwd_grid(int Hc, int batch) {
+  return dim3((Hc + PX - 1) / PX, (Hc + PY * WB_TRIPS - 1) / (PY * WB_TRIPS), batch);
+}
 
 inline bool aligned(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
 
@@ -817,6 +1060,58 @@ int px_learned_prolong_add(const float* u, const float* v, const int8_t* pidc, c
   g.z = batch;
   x6_learned_prolong_add<<<g, PNT, 0, (cudaStream_t)stream>>>(u, v, pidc, k, w, out, H, Hc, C,
                                                                su, sv, so);
+  return (int)cudaGetLastError();
+}
+
+// X7.  gr ((n+1)^2 a sample) and the blocks' partial weight sums of the
+// backward of X5 from g (the gradient of f_c, (n/2+1)^2 a sample), r, the
+// fine ids pid (or null: then C is 1) and the (C, 3, 3) float32 kernels k
+// and w (device memory), for `batch` samples sg, sr and so values apart;
+// partial holds a row of 9 C floats for each block of bwd_grid (ops/passes.py
+// bwd_blocks).
+int px_learned_restrict_bwd(const float* g, const float* r, const int8_t* pid, const float* k,
+                            const float* w, float* gr, float* partial, int n, int C, int batch,
+                            long long sg, long long sr, long long so, void* stream) {
+  const int H = n + 1, Hc = n / 2 + 1;
+  const long long plane = (long long)H * H;
+  if (n < 2 || n % 2 || !g || !r || !k || !w || !gr || !partial || C < 1 || C > LK_MAX ||
+      (!pid && C != 1) || batch < 1 || batch > 65535 || sg < (long long)Hc * Hc ||
+      sr < plane || so < plane)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 9 * C * (WARPS + 1);
+  x7_learned_restrict_bwd<<<bwd_grid(Hc, batch), PNT, smem, (cudaStream_t)stream>>>(
+      g, r, pid, k, w, gr, partial, H, Hc, C, sg, sr, so);
+  return (int)cudaGetLastError();
+}
+
+// X8.  gv ((n/2+1)^2 a sample) and the blocks' partial weight sums of the
+// backward of X6 from g (the gradient of out, (n+1)^2 a sample), v, the
+// coarse ids pidc (or null: then C is 1), k and w, for `batch` samples
+// sg, sv and so values apart; partial as X7's.
+int px_learned_prolong_bwd(const float* g, const float* v, const int8_t* pidc, const float* k,
+                           const float* w, float* gv, float* partial, int n, int C, int batch,
+                           long long sg, long long sv, long long so, void* stream) {
+  const int H = n + 1, Hc = n / 2 + 1;
+  const long long cplane = (long long)Hc * Hc;
+  if (n < 2 || n % 2 || !g || !v || !k || !w || !gv || !partial || C < 1 || C > LK_MAX ||
+      (!pidc && C != 1) || batch < 1 || batch > 65535 || sg < (long long)H * H ||
+      sv < cplane || so < cplane)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 9 * C * (WARPS + 1);
+  x8_learned_prolong_bwd<<<bwd_grid(Hc, batch), PNT, smem, (cudaStream_t)stream>>>(
+      g, v, pidc, k, w, gv, partial, H, Hc, C, sg, sv, so);
+  return (int)cudaGetLastError();
+}
+
+// X9.  gk (9 C floats) = w[which] P and gw (2 floats) = (sum k P at which,
+// 0 at the other), P the sums of `blocks` rows of 9 C partial sums.
+int px_weight_grad(const float* partial, int blocks, int C, const float* k, const float* w,
+                   int which, float* gk, float* gw, void* stream) {
+  if (!partial || !k || !w || !gk || !gw || blocks < 1 || C < 1 || C > LK_MAX ||
+      (which != 0 && which != 1))
+    return (int)cudaErrorInvalidValue;
+  x9_weight_grad<<<1, X9_THREADS, 0, (cudaStream_t)stream>>>(partial, blocks, 9 * C, k, w,
+                                                             which, gk, gw);
   return (int)cudaGetLastError();
 }
 

@@ -26,12 +26,29 @@
 // streams rows above C1_ONE_PASS_MAX_N and C2 above C2_ONE_PASS_MAX_N[k]
 // for k up to C2_STREAM_MAX_K (ops/stencil_sweep.py); both run one-pass
 // tiles at and below them.
+//
+// C1 also takes a batch of fields in one launch (its MODE's C1_BATCH bit,
+// instances of their own, so that the single-field instances keep their
+// code): sample blockIdx.z of u, f and out starts batch_plane(n + 1) values
+// after sample 0 (n+1 squared rounded up to whole 16 bytes, the layout of
+// models/intergrid.py's per-level buffers), the pattern ids are shared, and
+// the batch instances sum no norm.  Each node of a sample is computed as the
+// single-field launch computes it, bit for bit.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr float KN13 = (float)(-1.0 / 3.0);
+
+// C1's MODE: bit 0 the residual (else a sweep), bit 1 (C1_BATCH) a batch
+constexpr int C1_RESIDUAL = 1, C1_BATCH = 2;
+
+// Values between two samples of a batch of H x H fields: H^2 rounded up to
+// a whole 16 bytes (ops/stencil_sweep.py batch_plane).
+__host__ __device__ __forceinline__ long long batch_plane(int H) {
+  return ((long long)H * H + 3) / 4 * 4;
+}
 
 // One level: n, the phase step da (Q = a0 + da * phase), omega, and the
 // taps and diagonals derived from a0 as the Pallas kernel derives them.
@@ -99,7 +116,9 @@ __device__ __forceinline__ void window9(float* v, const float (*w)[RC + 2], int 
 
 // ---------------------------------------------------------------------------
 // C1: one weighted-Jacobi sweep (MODE 0) or the masked residual (MODE 1),
-// and the interior ||f - A u||^2 of the input.
+// and the interior ||f - A u||^2 of the input; with MODE's C1_BATCH bit the
+// same on sample blockIdx.z of a batch, without the norm (partial, done and
+// rsq unused).
 // Replaces multigrid_feanet_tpu/ops/pallas_stencil.py:122 _sweep_kernel.
 // Bound: bytes.  Per node it must read u and f (8 B) and the pattern id
 // (1 B; 0 when homogeneous) and write the output (4 B): 12-13 B/node,
@@ -123,6 +142,12 @@ c1_stencil_relax(const float* __restrict__ u, const float* __restrict__ f,
   static_assert(TX * TY == NT, "one thread per node of the tile");
   __shared__ float us[RU * SU];
   const int H = k.n + 1;
+  if constexpr ((MODE & C1_BATCH) != 0) {
+    const long long z = (long long)blockIdx.z * batch_plane(H);
+    u += z;
+    f += z;
+    out += z;
+  }
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
 
@@ -140,12 +165,14 @@ c1_stencil_relax(const float* __restrict__ u, const float* __restrict__ f,
     const float* U = us + (ty + 1) * SU + tx + 1;
     const float au = apply_bitplane<BIM>(U, SU, p, k);
     const float r = interior(i, j, H) ? f[g] - au : 0.f;
-    out[g] = MODE == 1 ? r : U[0] + (k.omega / diag<BIM>(p, k)) * r;
+    out[g] = (MODE & C1_RESIDUAL) ? r : U[0] + (k.omega / diag<BIM>(p, k)) * r;
     rr = r * r;
   }
-  float sums[1] = {rr};
-  float* const outs[1] = {rsq};
-  finish_sums<NT, 1>(sums, partial, done, outs);
+  if constexpr ((MODE & C1_BATCH) == 0) {
+    float sums[1] = {rr};
+    float* const outs[1] = {rsq};
+    finish_sums<NT, 1>(sums, partial, done, outs);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -180,6 +207,12 @@ c1_stencil_relax_rows(const float* __restrict__ u, const float* __restrict__ f,
   __shared__ __align__(16) int8_t ps[BIM ? RNS : 1][RSLOTQ];
   __shared__ float wdt[5];  // omega / d by the number of the node's phase-1 elements
   const int H = k.n + 1, t = threadIdx.x;
+  if constexpr ((MODE & C1_BATCH) != 0) {
+    const long long z = (long long)blockIdx.z * batch_plane(H);
+    u += z;
+    f += z;
+    out += z;
+  }
   const int x0 = blockIdx.x * RB, y0 = blockIdx.y * strip, c0 = x0 + RC * t;
   const int col = x0 - 1, base = y0 - 1;
   const int steps = min(strip, H - y0) + 2;
@@ -233,7 +266,7 @@ c1_stencil_relax_rows(const float* __restrict__ u, const float* __restrict__ f,
         const float au = apply_bitplane<BIM>(v9 + 4, 3, p[e], k);
         const float r = i_in && col_in[e] ? fv[e] - au : 0.f;
         const float wd = BIM ? wdt[__popc(p[e] & 15)] : k.omega / k.d_hom;
-        if (col_out[e]) orow[e] = MODE == 1 ? r : w[1][e + 1] + wd * r;
+        if (col_out[e]) orow[e] = (MODE & C1_RESIDUAL) ? r : w[1][e + 1] + wd * r;
         rr += r * r;  // zero off the interior
       }
     }
@@ -242,9 +275,11 @@ c1_stencil_relax_rows(const float* __restrict__ u, const float* __restrict__ f,
   };
   for (int s0 = 0; s0 < steps; s0 += C1_UNR)
     static_for<C1_UNR>([&](auto S) { step(s0 + decltype(S)::value, S); });
-  float sums[1] = {rr};
-  float* const outs[1] = {rsq};
-  finish_sums<RT, 1>(sums, partial, done, outs);
+  if constexpr ((MODE & C1_BATCH) == 0) {
+    float sums[1] = {rr};
+    float* const outs[1] = {rsq};
+    finish_sums<RT, 1>(sums, partial, done, outs);
+  }
 }
 
 // C1's grid: on one-pass tiles, fine_grid; row streaming, bands of RB
@@ -258,12 +293,14 @@ inline bool c1_grid_ok(int n, bool one_pass, int strip, int gx, int gy) {
          gy == (H + strip - 1) / strip;
 }
 
-// The row-streaming C1 for the runtime flags.
+// The row-streaming C1 for the runtime flags (mode: its MODE, 0 .. 3).
 inline const void* c1_rows_kernel(int bim, int mode) {
-  const void* by_mode[2][2] = {
-      {(const void*)c1_stencil_relax_rows<false, 0>, (const void*)c1_stencil_relax_rows<false, 1>},
-      {(const void*)c1_stencil_relax_rows<true, 0>, (const void*)c1_stencil_relax_rows<true, 1>}};
-  return by_mode[bim != 0][mode != 0];
+  const void* by_mode[2][4] = {
+      {(const void*)c1_stencil_relax_rows<false, 0>, (const void*)c1_stencil_relax_rows<false, 1>,
+       (const void*)c1_stencil_relax_rows<false, 2>, (const void*)c1_stencil_relax_rows<false, 3>},
+      {(const void*)c1_stencil_relax_rows<true, 0>, (const void*)c1_stencil_relax_rows<true, 1>,
+       (const void*)c1_stencil_relax_rows<true, 2>, (const void*)c1_stencil_relax_rows<true, 3>}};
+  return by_mode[bim != 0][mode & 3];
 }
 
 template <bool BIM, int MODE>
@@ -607,35 +644,46 @@ void launch_c2(int kk, bool one_pass, dim3 g, cudaStream_t st, const float* u, c
 
 extern "C" {
 
-// C1.  mode 0: out = sweep(u); 1: out = masked residual.  rsq[0] =
-// interior ||f - A u||^2.  The launch geometry of
+// C1.  mode 0: out = sweep(u); 1: out = masked residual.  batch 0: one
+// field, rsq[0] = interior ||f - A u||^2, with scratch of gx gy partial sums
+// and a zeroed counter that the last block resets.  batch N >= 1: N samples
+// of u, f and out batch_plane(n + 1) values apart (u and f on 16-byte
+// boundaries when their first samples are), the pattern ids shared, no norm
+// (partial, done and rsq unused).  The launch geometry of
 // ops/stencil_sweep.py::c1_launch_tiles: one-pass tiles when one_pass, else
-// row-streaming strips of `strip` rows, on gx x gy blocks; scratch of gx gy
-// partial sums and a zeroed counter that the last block resets.
-// cudaErrorInvalidValue for a geometry or mode C1 does not take.
+// row-streaming strips of `strip` rows, on gx x gy blocks (a sample).
+// cudaErrorInvalidValue for a geometry, mode or batch C1 does not take.
 int st_relax(const float* u, const float* f, const int8_t* pid, float* out, float* partial,
              unsigned* done, float* rsq, int n, double a0, double da, double omega, int bim,
-             int mode, int one_pass, int strip, int gx, int gy, void* stream) {
-  if (mode < 0 || mode > 1 || !c1_grid_ok(n, one_pass != 0, strip, gx, gy))
+             int mode, int one_pass, int strip, int gx, int gy, int batch, void* stream) {
+  if (mode < 0 || mode > 1 || batch < 0 || batch > 65535 ||
+      !c1_grid_ok(n, one_pass != 0, strip, gx, gy))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const SCoef k = make_scoef(n, a0, da, omega);
-  const dim3 g(gx, gy);
+  const dim3 g(gx, gy, batch ? batch : 1);
   const bool op = one_pass != 0;
-  if (bim) {
-    if (mode == 0) launch_c1<true, 0>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
-    else launch_c1<true, 1>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
-  } else {
-    if (mode == 0) launch_c1<false, 0>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
-    else launch_c1<false, 1>(op, g, st, u, f, pid, out, partial, done, rsq, strip, k);
+#define C1_ARGS op, g, st, u, f, pid, out, partial, done, rsq, strip, k
+  switch ((batch ? C1_BATCH : 0) | mode | (bim ? 4 : 0)) {
+    case 0: launch_c1<false, 0>(C1_ARGS); break;
+    case 1: launch_c1<false, 1>(C1_ARGS); break;
+    case 2: launch_c1<false, 2>(C1_ARGS); break;
+    case 3: launch_c1<false, 3>(C1_ARGS); break;
+    case 4: launch_c1<true, 0>(C1_ARGS); break;
+    case 5: launch_c1<true, 1>(C1_ARGS); break;
+    case 6: launch_c1<true, 2>(C1_ARGS); break;
+    default: launch_c1<true, 3>(C1_ARGS); break;
   }
+#undef C1_ARGS
   return (int)cudaGetLastError();
 }
 
-// Blocks of the row-streaming C1 in one form and mode that one SM holds at
-// once: what ops/stencil_sweep.py balances the strip height against.
-// Negative on a CUDA error.
+// Blocks of the row-streaming C1 in one form and MODE (0 .. 3: the batch
+// instances with C1_BATCH) that one SM holds at once: what
+// ops/stencil_sweep.py balances the strip height against.  Negative on a
+// CUDA error.
 int st_relax_occupancy(int bim, int mode) {
+  if (mode < 0 || mode > 3) return -(int)cudaErrorInvalidValue;
   int blocks = 0;
   const cudaError_t err =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c1_rows_kernel(bim, mode), RT, 0);

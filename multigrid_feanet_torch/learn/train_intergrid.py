@@ -13,7 +13,12 @@ protocol (MM-FEANet-interface_multigrid_rhs_kernel_split_res.ipynb cells
   stays frozen.
 
 The m - 1 early cycles run under ``torch.no_grad()``, which gives the
-iterate and gradient of the JAX package's ``stop_gradient``.  The
+iterate and gradient of the JAX package's ``stop_gradient``.  Every cycle
+of a step takes ``models/intergrid.py``'s kernel route for float32 fields
+and parameters, at any batch size: the early cycles its no-gradient form,
+the graded cycle its autograd form, whose backward runs on the kernels too
+(C1, X7, X8 and X9 on the card), and q_m's residuals are C1's; the JAX
+package's train step is one ``jax.jit`` of the same program.  The
 curriculum is a gradient mask: masked gradients are zeros, not None, so
 ``torch.optim.Adam`` advances every slot as ``optax.adam`` does.  Random
 starts come from the state's CPU ``torch.Generator``, drawn on the host and

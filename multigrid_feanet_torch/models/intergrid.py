@@ -23,28 +23,33 @@ and :func:`prolong_learned` are cuDNN convolutions in full f32
 computes them with ``lax.conv_general_dilated``, outside any Pallas kernel.
 Fields are batched (N, H, W); the level's operator fields broadcast over N.
 
-:func:`learned_v_cycle` serves on hand-written kernels (the kernel route)
-when no gradient is needed, the fields and parameters are float32 and the
-batch holds at most ``KERNEL_MAX_BATCH`` samples: on every level that is
-not the coarsest and whose operator C1 takes (two-phase bitplane or
-homogeneous; :func:`kernel_levels`), the relaxations are C1 sweeps and the
-residual C1's residual mode (``ops/stencil_sweep.py``, one launch a sample,
-on 16-byte aligned per-sample buffers kept per level), the restriction is
-X5 and the prolongation-add X6 (``ops/passes.py``, one launch a batch),
-where the JAX package's jitted cycle leaves the transfers to XLA.  The
-coarsest level's double relaxation, larger batches and every cycle that
-needs a gradient keep the torch path above.  The route depends on grad
-mode, dtype and sizes alone, never on the device or a failure: a kernel
-that fails to build or launch raises.  On CPU fields the route computes
-the JAX package's eager cycle op for op, bit for bit at 16 channels and
-at one: the sweep and the
-residual with ``Level.apply`` and ``jacobi_step``'s weight omega / diag(A)
-(divided, as the JAX package divides it), the plain X5 and X6, which round
-as its convolutions do on the CPU.  C1 on the card weights by its own
-diagonal (2/3)(4 a0 + da popcount) in float32, an ulp above the table's on
-nodes of four phase-1 elements, and sums A u in the Pallas kernel's order:
-it agrees with ``jacobi_step`` to ``ops.sweep.TOL`` on the cycle's zero
-ring.
+:func:`learned_v_cycle` runs on hand-written kernels (the kernel route)
+whenever the fields and parameters are float32, at any batch size: on every
+level that is not the coarsest and whose operator C1 takes (two-phase
+bitplane or homogeneous; :func:`kernel_levels`), the relaxations are C1
+sweeps and the residual C1's residual mode (``ops/stencil_sweep.py``, one
+launch a batch, on per-sample planes of ``batch_plane`` values, each on a
+16-byte boundary), the restriction is X5 and the prolongation-add X6
+(``ops/passes.py``, one launch a batch), where the JAX package leaves the
+transfers to XLA.  The coarsest level's double relaxation and float64 keep
+the torch path above.  Grad mode picks the route's form: without a
+gradient the cycle recycles per-level buffers (:meth:`_Route.cycle`); with
+one every kernel level's operation is a ``torch.autograd.Function`` on
+fresh outputs (:meth:`_Route.graded_cycle`): :class:`C1Sweep` and
+:class:`C1Residual`, whose backward is two C1 launches, and
+:class:`LearnedRestrict` and :class:`LearnedProlongAdd`, whose backward is
+X7 or X8 and X9.  The route depends on dtype and sizes alone, never on the
+device or a failure: a kernel that fails to build or launch raises.  On
+CPU fields the route computes the JAX package's eager cycle op for op, bit
+for bit at 16 channels and at one: the sweep and the residual with
+``Level.apply`` and ``jacobi_step``'s weight omega / diag(A) (divided, as
+the JAX package divides it), the plain X5 and X6, which round as its
+convolutions do on the CPU, and the plain X7, X8 and X9 backward.  C1 on
+the card weights by its own diagonal (2/3)(4 a0 + da popcount) in
+float32, an ulp above the table's on nodes of four phase-1 elements, and
+sums A u in the Pallas kernel's order: it agrees with ``jacobi_step`` to
+``ops.sweep.TOL`` on the cycle's zero ring, and its backward uses the same
+diagonal, the exact adjoint of what ran forward.
 """
 
 from __future__ import annotations
@@ -59,17 +64,11 @@ from torch import nn
 from multigrid_feanet_torch.core.device import full_f32, resolve_device
 from multigrid_feanet_torch.core.problem import GridHierarchy
 from multigrid_feanet_torch.ops import passes, stencil
-from multigrid_feanet_torch.ops.stencil_sweep import StencilLevel
+from multigrid_feanet_torch.ops.stencil_sweep import StencilLevel, batch_plane
 from multigrid_feanet_torch.solvers.jacobi import DEFAULT_OMEGA, interior_norm, relax
 
 FULL_WEIGHTING_16 = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=np.float32) / 16.0
 BILINEAR_4 = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=np.float32) / 4.0
-# the most samples a batch may hold on the kernel route: C1 takes a launch
-# a sample, where the torch path's launches do not grow with the batch.  At
-# 65^2 (6 levels) on an H100 the route took 19.08 ms a cycle against the
-# torch path's 33.03 at a batch of 16, and 34.99 against 34.40 at 32
-# (sweep_vs_parent.py --legs learned)
-KERNEL_MAX_BATCH = 16
 
 class IntergridParams(nn.Module):
     """``conv`` (C, 3, 3) restriction kernels (channel = pid), ``deconv``
@@ -135,14 +134,16 @@ def learned_v_cycle(hier: GridHierarchy, params: IntergridParams, u: torch.Tenso
                     level: int = 0) -> torch.Tensor:
     """One V-cycle with the learned split transfers on batched (N, H, W)
     fields: on the kernel route (module docstring) for float32 fields and
-    parameters, batches of at most ``KERNEL_MAX_BATCH`` and no gradient
-    needed; else in torch ops (the split and cuDNN), where only one level's
-    split exists at a time: the restriction's is freed before the
-    recursion.  (reference:
+    parameters, in its autograd form where a gradient is needed; else in
+    torch ops (the split and cuDNN), where only one level's split exists at
+    a time: the restriction's is freed before the recursion.  (reference:
     MultiGrid.iterate, FEANet/multigrid.py:159-184)"""
-    if _kernel_route(params, u, f):
-        return _route(hier, omega).cycle(params, u, f, n_relax, level)
-    return _torch_cycle(hier, params, u, f, n_relax, omega, level)
+    if not _kernel_route(params, u, f):
+        return _torch_cycle(hier, params, u, f, n_relax, omega, level)
+    route = _route(hier, omega)
+    if _needs_grad(params.conv, params.deconv, params.w, u, f):
+        return route.graded_cycle(params, u, f, n_relax, level)
+    return route.cycle(params, u, f, n_relax, level)
 
 
 def _torch_cycle(hier, params, u, f, n_relax, omega, level):
@@ -158,15 +159,23 @@ def _torch_cycle(hier, params, u, f, n_relax, omega, level):
 
 
 def _kernel_route(params: IntergridParams, u: torch.Tensor, f: torch.Tensor) -> bool:
-    """Whether the kernel route takes the cycle: no gradient needed, u and f
-    float32 batches of one shape and at most ``KERNEL_MAX_BATCH`` samples,
-    the parameters float32."""
-    tensors = (params.conv, params.deconv, params.w, u, f)
-    if any(t.dtype != torch.float32 for t in tensors) or u.dim() != 3 or u.shape != f.shape:
-        return False
-    if u.shape[0] > KERNEL_MAX_BATCH:
-        return False
-    return not torch.is_grad_enabled() or not any(t.requires_grad for t in tensors)
+    """Whether the kernel route takes the cycle: u and f float32 batches of
+    one shape, the parameters float32 (grad mode picks its form)."""
+    return _float32(params.conv, params.deconv, params.w) and _batches(u, f)
+
+
+def _float32(*tensors) -> bool:
+    return all(t.dtype == torch.float32 for t in tensors)
+
+
+def _batches(*fields) -> bool:
+    """Whether the fields are float32 (N, H, H) batches of one shape."""
+    return (_float32(*fields) and fields[0].dim() == 3
+            and all(x.shape == fields[0].shape for x in fields))
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _c1_coefficients(lv) -> Optional[tuple]:
@@ -193,33 +202,129 @@ def kernel_levels(hier: GridHierarchy) -> list:
     return out
 
 
-def _plane(H: int) -> int:
-    """Values between two samples of a per-level buffer: H^2 rounded up to
-    a whole 16 bytes, so that every sample starts on a 16-byte boundary."""
-    return -(-H * H // 4) * 4
+def _buffer(N: int, H: int, device, dtype=torch.float32) -> torch.Tensor:
+    """An (N, H, H) field in C1's batch layout: rows compact, samples
+    ``batch_plane(H)`` values apart, each on a 16-byte boundary."""
+    return torch.empty((N, batch_plane(H)), dtype=dtype, device=device)[:, :H * H].view(N, H, H)
 
 
-def _buffer(N: int, H: int, device) -> torch.Tensor:
-    """An (N, H, H) float32 field whose samples each start on a 16-byte
-    boundary (C1's operands), rows compact, ``_plane(H)`` values apart."""
-    return torch.empty((N, _plane(H)), dtype=torch.float32,
-                       device=device)[:, :H * H].view(N, H, H)
+def _like(x: torch.Tensor) -> torch.Tensor:
+    """A fresh field of x's shape and type in C1's batch layout."""
+    return _buffer(x.shape[0], x.shape[-1], x.device, x.dtype)
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """Whether every sample of an (N, H, H) field is a compact field that
-    starts on a 16-byte boundary."""
+    """Whether an (N, H, H) field is in C1's batch layout."""
     H = t.shape[-1]
     return (t.stride(2) == 1 and t.stride(1) == H and t.data_ptr() % 16 == 0
-            and (t.shape[0] == 1 or t.stride(0) % 4 == 0))
+            and (t.shape[0] == 1 or t.stride(0) == batch_plane(H)))
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x, or a contiguous copy where its rows are not compact or its samples
+    overlap (X5 to X8 take samples any number of values apart)."""
+    H = x.shape[-1]
+    if x.stride(2) == 1 and x.stride(1) == H and (x.shape[0] == 1 or x.stride(0) >= H * H):
+        return x
+    return x.contiguous()
+
+
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it in C1's batch layout (a copy autograd sees
+    through)."""
+    return x if _aligned(x) else _like(x).copy_(x)
+
+
+class C1Sweep(torch.autograd.Function):
+    """One Jacobi sweep of the route's level l, out = u + W (f - A u) on the
+    interior (u on the ring), W = omega / diag(A), into a fresh field.
+    Backward from g: h = W g (a sweep of u = 0, f = g), grad u = mask (g -
+    A h) (the residual of u = h, f = g), grad f = h.  This is the adjoint
+    for a symmetric A (the assembled Q1 stiffness) and, on the ring, that
+    of the Jacobi step's reset, which the route's zero rings make the same
+    sweep (tests/test_torch_learned_backward.py)."""
+
+    @staticmethod
+    def forward(ctx, u, f, route, l):
+        ctx.route, ctx.l = route, l
+        u, f = _operand(u), _operand(f)
+        return route._sweep(l, u, f, _like(u))
+
+    @staticmethod
+    def backward(ctx, g):
+        route, l = ctx.route, ctx.l
+        g = _operand(g)
+        h = route._sweep(l, route._zeros(l, g.shape[0]), g, _like(g))
+        gu = None
+        if ctx.needs_input_grad[0]:
+            gu = route._residual(l, h, g, _like(g))
+        return gu, h if ctx.needs_input_grad[1] else None, None, None
+
+
+class C1Residual(torch.autograd.Function):
+    """The residual of the route's level l, r = mask (f - A u), into a fresh
+    field.  Backward from g: grad f = mask g (the residual of u = 0, f = g),
+    grad u = -mask A (mask g) (the residual of u = mask g, f = 0), A
+    symmetric."""
+
+    @staticmethod
+    def forward(ctx, u, f, route, l):
+        ctx.route, ctx.l = route, l
+        u, f = _operand(u), _operand(f)
+        return route._residual(l, u, f, _like(u))
+
+    @staticmethod
+    def backward(ctx, g):
+        route, l = ctx.route, ctx.l
+        g = _operand(g)
+        zero = route._zeros(l, g.shape[0])
+        gf = route._residual(l, zero, g, _like(g))
+        gu = None
+        if ctx.needs_input_grad[0]:
+            gu = route._residual(l, gf, zero, _like(g))
+        return gu, gf if ctx.needs_input_grad[1] else None, None, None
+
+
+class LearnedRestrict(torch.autograd.Function):
+    """X5 into a fresh coarse field in C1's batch layout; backward X7 and
+    X9 (``ops/passes.py``)."""
+
+    @staticmethod
+    def forward(ctx, r, k, w, pid):
+        ctx.pid = pid
+        ctx.save_for_backward(r, k, w)
+        Hc = r.shape[-1] // 2 + 1
+        return passes.learned_restrict(r, pid, k, w, out=_buffer(r.shape[0], Hc, r.device,
+                                                                 r.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        r, k, w = ctx.saved_tensors
+        return (*passes.learned_restrict_backward(_rows(g), r, ctx.pid, k, w), None)
+
+
+class LearnedProlongAdd(torch.autograd.Function):
+    """X6, u + w[1] P(v), into a fresh field in C1's batch layout; backward
+    grad u = g, and X8 and X9 (``ops/passes.py``)."""
+
+    @staticmethod
+    def forward(ctx, u, v, k, w, pid_c):
+        ctx.pid_c = pid_c
+        ctx.save_for_backward(v, k, w)
+        return passes.learned_prolong_add(u, v, pid_c, k, w, out=_like(u))
+
+    @staticmethod
+    def backward(ctx, g):
+        v, k, w = ctx.saved_tensors
+        return (g, *passes.learned_prolong_add_backward(_rows(g), v, ctx.pid_c, k, w), None)
 
 
 class _Route:
     """The kernel route on one hierarchy and omega: its kernel levels, per
-    level a ``StencilLevel`` of a single sample on the card or the sweep's
-    weight omega / diag(A) on the CPU (built once), and per level and batch
-    size the aligned buffers of the cycle (two for u, one for f), kept
-    between cycles."""
+    level a ``StencilLevel`` on the card or the sweep's weight omega /
+    diag(A) on the CPU (built once), and per level and batch size the
+    buffers of the no-gradient cycle (two for u, one for f) and a field of
+    zeros (the backward's), kept between cycles."""
 
     def __init__(self, hier: GridHierarchy, omega: float):
         self.hier = hier
@@ -234,31 +339,30 @@ class _Route:
                                           omega=omega, device=hier.device)
             else:  # jacobi_step's omega / diag, divided, 0 on the ring
                 self.weight[l] = torch.full_like(lv.diag, self.omega) / lv.diag * lv.geo
-        self.rsq = {l: torch.empty((), dtype=torch.float32, device=hier.device)
-                    for l in self.levels}
-        self.buffers = {}
+        self.buffers, self.zeros = {}, {}
 
     def _sweep(self, l: int, u, f, out):
-        """One Jacobi sweep of the batch u (ring 0) on level l into out: a
-        C1 launch a sample on the card; on the CPU jacobi_step's
-        arithmetic."""
+        """One Jacobi sweep of the batch u (ring 0) on level l into out, all
+        three in C1's batch layout: one C1 launch on the card; on the CPU
+        jacobi_step's arithmetic."""
         if self.cuda:
-            for i in range(u.shape[0]):
-                self.c1[l].sweep(u[i], f[i], out=out[i], rsq=self.rsq[l])
-        else:
-            torch.add(u, self.weight[l] * (f - self.hier.levels[l].apply(u)), out=out)
-        return out
+            return self.c1[l].sweep_batch(u, f, out=out)
+        return torch.add(u, self.weight[l] * (f - self.hier.levels[l].apply(u)), out=out)
 
     def _residual(self, l: int, u, f, out):
-        """f - A u of the batch on level l into out, 0 on the ring: C1's
-        residual mode a sample on the card, Level.apply on the CPU."""
+        """f - A u of the batch on level l into out, 0 on the ring: one
+        launch of C1's residual mode on the card, Level.apply on the CPU."""
         if self.cuda:
-            for i in range(u.shape[0]):
-                self.c1[l].residual(u[i], f[i], out=out[i], rsq=self.rsq[l])
-        else:
-            lv = self.hier.levels[l]
-            torch.mul(f - lv.apply(u), lv.geo, out=out)
-        return out
+            return self.c1[l].residual_batch(u, f, out=out)
+        lv = self.hier.levels[l]
+        return torch.mul(f - lv.apply(u), lv.geo, out=out)
+
+    def _zeros(self, l: int, N: int):
+        """A batch of zeros on level l in C1's batch layout, never written."""
+        if (l, N) not in self.zeros:
+            geo = self.hier.levels[l].geo
+            self.zeros[(l, N)] = _buffer(N, geo.shape[-1], geo.device, geo.dtype).zero_()
+        return self.zeros[(l, N)]
 
     def _buffers(self, l: int, N: int) -> list:
         key = (l, N)
@@ -312,6 +416,34 @@ class _Route:
             cur = final.copy_(cur)
         return cur
 
+    def graded_cycle(self, params, u, f, n_relax: int = 1, level: int = 0):
+        """:meth:`cycle` with autograd: the same operations in the same
+        order (the same values, bit for bit), each kernel level's through
+        the autograd Functions above on fresh outputs, so that no saved
+        tensor is overwritten."""
+        if level not in self.levels:
+            return _torch_cycle(self.hier, params, u, f, n_relax, self.omega, level)
+        if n_relax:
+            u = u * self.hier.levels[level].geo
+        out = self._graded(params, level, _operand(u), _operand(f), n_relax)
+        return out if out.shape[0] == 1 else out.contiguous()
+
+    def _graded(self, params, l, u, f, n_relax):
+        for _ in range(n_relax):
+            u = C1Sweep.apply(u, f, self, l)
+        r = C1Residual.apply(u, f, self, l)
+        lc, levels = l + 1, self.hier.levels
+        fc = LearnedRestrict.apply(r, params.conv, params.w, levels[l].pid)
+        if lc in self.levels:
+            uc = self._graded(params, lc, self._zeros(lc, u.shape[0]), fc, n_relax)
+        else:
+            uc = _torch_cycle(self.hier, params, torch.zeros_like(fc), fc, n_relax, self.omega,
+                              lc)
+        u = LearnedProlongAdd.apply(u, uc, params.deconv, params.w, levels[lc].pid)
+        for _ in range(n_relax):
+            u = C1Sweep.apply(u, f, self, l)
+        return u
+
 
 def _route(hier: GridHierarchy, omega: float) -> _Route:
     """The hierarchy's kernel route for ``omega``, built at its first cycle
@@ -326,9 +458,19 @@ def qm_loss(hier: GridHierarchy, u_m: torch.Tensor, u_m0: torch.Tensor, f: torch
             m: int, m0: int) -> torch.Tensor:
     """Mean geometric convergence factor over the batch,
     q_m = mean((|r_m| / |r_m0|)^(1/(m-m0+1))), with the m0 residual
-    detached.  (reference: MultiGrid.qm, FEANet/multigrid.py:132-136)"""
+    detached.  Where the finest level is a kernel level and the fields
+    float32 batches, both residuals are C1's (:class:`C1Residual`, the m0
+    one without gradient).  (reference: MultiGrid.qm,
+    FEANet/multigrid.py:132-136)"""
     lv = hier.finest
-    ratio = interior_norm(f - lv.apply(u_m)) / interior_norm(f - lv.apply(u_m0)).detach()
+    route = _route(hier, DEFAULT_OMEGA) if _batches(u_m, u_m0, f) else None
+    if route is not None and 0 in route.levels:
+        r_m = C1Residual.apply(u_m, f, route, 0)
+        with torch.no_grad():
+            r_m0 = C1Residual.apply(u_m0, f, route, 0)
+    else:
+        r_m, r_m0 = f - lv.apply(u_m), f - lv.apply(u_m0)
+    ratio = interior_norm(r_m) / interior_norm(r_m0).detach()
     return torch.mean(torch.pow(ratio, 1.0 / (m - m0 + 1)))
 
 

@@ -20,6 +20,10 @@ X3    ``px_prolong_add``          ``ops/transfer.py:61 prolong_bilinear`` + the 
 X4    ``px_outer_step``           ``solvers/pallas_mg.py:313 _outer64``
 X5    ``px_learned_restrict``     ``models/intergrid.py:65 restrict_learned``
 X6    ``px_learned_prolong_add``  ``models/intergrid.py:82 prolong_learned`` + the add
+X7    ``px_learned_restrict_bwd``  the backward of X5 (``value_and_grad``,
+                                  ``learn/train_intergrid.py:100``)
+X8    ``px_learned_prolong_bwd``  the backward of X6 (the same)
+X9    ``px_weight_grad``          X7's and X8's weight gradients (the same)
 ====  ==========================  ====================================================
 
 Each has a wrapper ``<op>_cuda`` (checks, allocation, launch, launch count)
@@ -46,6 +50,22 @@ and whose samples lie any number of values apart (``learned_v_cycle``'s
 fine level (X5) or the coarse level (X6), or None for a homogeneous level
 with one channel.
 
+X7 and X8 are their backward: from the gradient of X5's f_c,
+:func:`learned_restrict_backward` gives (grad r, grad k, grad w) with
+grad r(p) = w[0] sum k[pid(p), a, b] g_c(I, J) over the coarse interior
+nodes whose window holds p at tap (a, b) (0 on the fine ring), grad k =
+w[0] P and grad w[0] = sum k P, P[c, a, b] = sum [pid(p) = c] g_c(I, J)
+r(p); from the gradient g of X6's output,
+:func:`learned_prolong_add_backward` gives (grad v, grad k, grad w) with
+grad v(c) = w[1] sum_t k[pid_c(c), t] g(2c + t - 1) and Q[c, t] = sum
+[pid_c = c] v g(2c + t - 1) in place of P (grad u = g needs no kernel).  The
+weights go by the fine node's id in X7 and the coarse node's in X8, as
+forward.  Each kernel writes its blocks' partial sums of P (or Q), and X9
+adds them in a fixed order (no float atomics) into grad k and grad w.
+grad r and grad v equal their plain versions bit for bit (both sum from 0
+in tap order, the weight last); the plain versions sum P in float64, and
+grad k and grad w agree with them to ``TOL_WEIGHT_GRAD``.
+
 X1 has two designs: the one-pass 32 x 8 tile up to ``X1_ONE_PASS_MAX_N``
 elements per side, and above it row streaming (:func:`x1_tiles`,
 :func:`x1_strip`), which computes the same bits; :func:`x1_launch_tiles`
@@ -65,6 +85,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from multigrid_feanet_torch.ops import hrelax as hx
 from multigrid_feanet_torch.ops import stencil
@@ -72,6 +93,11 @@ from multigrid_feanet_torch.ops import sweep as sw
 from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_weighting
 
 TOL64 = 1e-12  # X4 against its plain version: relative to max|plain|
+# X7 + X9 and X8 + X9 against their plain versions' weight gradients: each
+# within this fraction of the same gradient of |g| and |r| (or |v|), the
+# rounding of the kernels' float32 sums (a shuffle tree of 32, 16 trips, 8
+# warps, then float64) against the plain versions' float64 sums
+TOL_WEIGHT_GRAD = 1e-5
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SOURCE = "multigrid_feanet_torch/csrc/passes.cu"
@@ -92,6 +118,15 @@ KERNELS = {
     "X6": sw.CudaKernel("X6_learned_prolong_add", "px_learned_prolong_add",
                         [_P] * 6 + [_I] * 3 + [_L] * 3 + [_P],
                         _TPU + "models/intergrid.py:82", _SOURCE),
+    "X7": sw.CudaKernel("X7_learned_restrict_bwd", "px_learned_restrict_bwd",
+                        [_P] * 7 + [_I] * 3 + [_L] * 3 + [_P],
+                        _TPU + "learn/train_intergrid.py:100", _SOURCE),
+    "X8": sw.CudaKernel("X8_learned_prolong_bwd", "px_learned_prolong_bwd",
+                        [_P] * 7 + [_I] * 3 + [_L] * 3 + [_P],
+                        _TPU + "learn/train_intergrid.py:100", _SOURCE),
+    "X9": sw.CudaKernel("X9_weight_grad", "px_weight_grad",
+                        [_P, _I, _I, _P, _P, _I, _P, _P, _P],
+                        _TPU + "learn/train_intergrid.py:100", _SOURCE),
 }
 # channels of X5's and X6's weight tables (csrc/passes.cu LK_MAX): every id
 # an int8 pattern-id field holds
@@ -186,7 +221,8 @@ def learned_restrict_plain(r, pid, k, w, out=None):
     chain (:func:`x5_chain`) by a fused multiply-add in tap order (taken in
     float64, where the product is exact, and rounded to float32), the
     chains summed ((0 + 1) + (4 + 5)) + ((2 + 3) + (6 + 7)), then + chain 8,
-    w[0] last."""
+    w[0] last.  A float64 r sums in float64 (and autograd sees through
+    it)."""
     N, n, C = r.shape[0], r.shape[-1] - 1, k.shape[0]
     m = n // 2 - 1  # coarse interior nodes a side
     acc = r.new_zeros((9, N, m, m))
@@ -197,7 +233,7 @@ def learned_restrict_plain(r, pid, k, w, out=None):
                  else pid[rows, cols].long())
             q = x5_chain(3 * a + b, p, C, N * m * m <= 2).expand(1, N, m, m)
             prod = _tap(k, pid, 3 * a + b, rows, cols).double() * r[..., rows, cols].double()
-            acc.scatter_(0, q, (acc.gather(0, q).double() + prod).float())
+            acc = acc.scatter(0, q, (acc.gather(0, q).double() + prod).to(r.dtype))
     s = ((acc[0] + acc[1]) + (acc[4] + acc[5])) + ((acc[2] + acc[3]) + (acc[6] + acc[7]))
     fc = r.new_zeros((N, n // 2 + 1, n // 2 + 1))
     fc[:, 1:-1, 1:-1] = w[0] * (s + acc[8])
@@ -222,6 +258,79 @@ def learned_prolong_add_plain(u, v, pid_c, k, w, out=None):
             P[..., dst[t], dst[s]] += (_tap(k, pid_c, 3 * t + s, src[t], src[s])
                                        * v[..., src[t], src[s]])
     return sw._emit(u + w[1] * P, out)
+
+
+def _bins(p, prod, C: int):
+    """(C,) float64: the sums of ``prod`` (N, m, m) over the samples and the
+    nodes of each id of ``p`` (m, m; None: all in channel 0), ids outside
+    [0, C) in none."""
+    s = prod.sum(0)
+    out = torch.zeros(C, dtype=torch.float64, device=prod.device)
+    if p is None:
+        out[0] = s.sum()
+        return out
+    p = p.long()
+    keep = (p >= 0) & (p < C)
+    return out.index_add_(0, p[keep], s[keep])
+
+
+def _weight_grads(P, k, w, which: int):
+    """(grad k = w[which] P, grad w = sum k P at ``which`` and 0 at the
+    other) from the (C, 9) float64 sums P, in k's type."""
+    P = P.to(k.dtype)
+    gk = (w[which] * P).reshape(k.shape)
+    dot = (k.reshape(-1, 9).double() * P.double()).sum().to(w.dtype)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    return gk, torch.stack([dot, zero] if which == 0 else [zero, dot])
+
+
+def weight_grad_plain(partial, k, w, which: int):
+    """X9: (grad k, grad w) from rows of partial sums of the (C, 9) weights
+    (X7's or X8's, one row a block), added in float64; ``which``: 0 for
+    X7's (w[0]), 1 for X8's (w[1])."""
+    return _weight_grads(partial.double().sum(0).reshape(-1, 9), k, w, which)
+
+
+def learned_restrict_backward_plain(g, r, pid, k, w):
+    """X7 and X9: the backward of X5 -> (grad r, grad k, grad w) from the
+    gradient ``g`` (N, n/2+1, n/2+1) of its output; grad r(p) = w[0] sum
+    k[pid(p), a, b] g(I, J) over the coarse interior nodes (I, J) with p =
+    (2I - 1 + a, 2J - 1 + b), summed from 0 in tap order, w[0] last, 0 on
+    the fine ring; the weight sums P in float64 (:func:`_weight_grads`).
+    Any float type."""
+    n, C = r.shape[-1] - 1, k.shape[0]
+    m = n // 2 - 1
+    gi = g[..., 1:-1, 1:-1]
+    acc = torch.zeros_like(r)
+    P = torch.zeros((C, 9), dtype=torch.float64, device=r.device)
+    for a in range(3):
+        for b in range(3):
+            rows, cols = slice(1 + a, 2 * m + a, 2), slice(1 + b, 2 * m + b, 2)
+            acc[..., rows, cols] += _tap(k, pid, 3 * a + b, rows, cols) * gi
+            P[:, 3 * a + b] = _bins(None if pid is None else pid[rows, cols],
+                                    gi.double() * r[..., rows, cols].double(), C)
+    gr = torch.zeros_like(r)
+    gr[..., 1:-1, 1:-1] = w[0] * acc[..., 1:-1, 1:-1]
+    return (gr, *_weight_grads(P, k, w, 0))
+
+
+def learned_prolong_add_backward_plain(g, v, pid_c, k, w):
+    """X8 and X9: the backward of X6 -> (grad v, grad k, grad w) from the
+    gradient ``g`` (N, n+1, n+1) of its output (grad u is g itself); grad
+    v(c) = w[1] sum_t k[pid_c(c), t] g(2c + t - 1), g zero off the grid,
+    summed from 0 in tap order, w[1] last; the weight sums Q in float64.
+    Any float type."""
+    m, C = v.shape[-1], k.shape[0]
+    gp = F.pad(g, (1, 1, 1, 1))  # fine index 2c + t - 1 at 2c + t
+    acc = torch.zeros_like(v)
+    Q = torch.zeros((C, 9), dtype=torch.float64, device=v.device)
+    every = slice(None)
+    for t in range(3):
+        for s in range(3):
+            gt = gp[..., t:t + 2 * m - 1:2, s:s + 2 * m - 1:2]
+            acc += _tap(k, pid_c, 3 * t + s, every, every) * gt
+            Q[:, 3 * t + s] = _bins(pid_c, v.double() * gt.double(), C)
+    return (w[1] * acc, *_weight_grads(Q, k, w, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -501,13 +610,19 @@ def _batch_out(out, N, H, device, inputs):
     return out
 
 
-def _learned_operands(pid, k, w, H, device):
-    """Check X5's or X6's pattern ids (H x H) and weights; C."""
+def _weights(k, w, device):
+    """Check the learned transfers' (C, 3, 3) kernels and w; C."""
     C = k.shape[0] if k.dim() == 3 else 0
     _field(k, "k", (C, 3, 3), torch.float32, device)
     _field(w, "w", (2,), torch.float32, device)
     if not 1 <= C <= LK_MAX:
         raise ValueError(f"the learned transfers take 1 to {LK_MAX} channels, not {C}")
+    return C
+
+
+def _learned_operands(pid, k, w, H, device):
+    """Check X5's to X8's pattern ids (H x H) and weights; C."""
+    C = _weights(k, w, device)
     if pid is None and C != 1:
         raise ValueError(f"a homogeneous level (pid None) takes one channel, not {C}")
     if pid is not None:
@@ -548,6 +663,88 @@ def learned_prolong_add_cuda(u, v, pid_c, k, w, out=None):
     KERNELS["X6"](u.data_ptr(), v.data_ptr(), sw._ptr(pid_c), k.data_ptr(), w.data_ptr(),
                   out.data_ptr(), n, C, N, su, sv, so, sw._stream(dev))
     return out
+
+
+# X7's and X8's blocks (csrc/passes.cu bwd_grid): PX columns of coarse
+# cells or nodes by BWD_TRIPS tiles of PY rows, a sample each
+BWD_PX, BWD_PY, BWD_TRIPS = 32, 8, 16
+
+
+def bwd_blocks(n: int, N: int) -> int:
+    """Blocks of one X7 or X8 launch on a batch of N at level n: the rows
+    of partial weight sums X9 adds."""
+    Hc = n // 2 + 1
+    return -(-Hc // BWD_PX) * -(-Hc // (BWD_PY * BWD_TRIPS)) * N
+
+
+def weight_grad_cuda(partial, k, w, which: int, gk=None, gw=None):
+    """X9 on the card; same contract as :func:`weight_grad_plain`:
+    ``partial`` float32 (blocks, 9 C), k (C, 3, 3) and w (2,) float32, into
+    ``gk`` and ``gw`` when given."""
+    dev = partial.device
+    C = _weights(k, w, dev)
+    if partial.dim() != 2 or partial.shape[1] != 9 * C or partial.shape[0] < 1:
+        raise ValueError(f"partial must be (blocks, {9 * C}), got {tuple(partial.shape)}")
+    _field(partial, "partial", tuple(partial.shape), torch.float32, dev)
+    gk = sw._output(gk, "gk", tuple(k.shape), dev, (partial, k, w))
+    gw = sw._output(gw, "gw", (2,), dev, (partial, k, w, gk))
+    KERNELS["X9"](partial.data_ptr(), partial.shape[0], C, k.data_ptr(), w.data_ptr(), which,
+                  gk.data_ptr(), gw.data_ptr(), sw._stream(dev))
+    return gk, gw
+
+
+def learned_restrict_bwd_cuda(g, r, pid, k, w, gr=None, partial=None):
+    """X7 alone -> (grad r, its blocks' partial weight sums), into ``gr``
+    and ``partial`` when given: g and r float32 batches of compact rows,
+    samples any number of values apart."""
+    dev = r.device
+    n = r.shape[-1] - 1
+    _even(n)
+    N, sr = _batch(r, "r", n + 1, dev)
+    Ng, sg = _batch(g, "g", n // 2 + 1, dev)
+    if Ng != N:
+        raise ValueError(f"r holds {N} samples and g {Ng}")
+    C = _learned_operands(pid, k, w, n + 1, dev)
+    gr = sw._output(gr, "gr", (N, n + 1, n + 1), dev, (g, r))
+    partial = sw._output(partial, "partial", (bwd_blocks(n, N), 9 * C), dev, (g, r, gr))
+    KERNELS["X7"](g.data_ptr(), r.data_ptr(), sw._ptr(pid), k.data_ptr(), w.data_ptr(),
+                  gr.data_ptr(), partial.data_ptr(), n, C, N, sg, sr, (n + 1) ** 2,
+                  sw._stream(dev))
+    return gr, partial
+
+
+def learned_prolong_bwd_cuda(g, v, pid_c, k, w, gv=None, partial=None):
+    """X8 alone -> (grad v, its blocks' partial weight sums), into ``gv``
+    and ``partial`` when given: g and v float32 batches of compact rows,
+    samples any number of values apart."""
+    dev = g.device
+    n = g.shape[-1] - 1
+    _even(n)
+    N, sg = _batch(g, "g", n + 1, dev)
+    Nv, sv = _batch(v, "v", n // 2 + 1, dev)
+    if Nv != N:
+        raise ValueError(f"g holds {N} samples and v {Nv}")
+    C = _learned_operands(pid_c, k, w, n // 2 + 1, dev)
+    gv = sw._output(gv, "gv", (N, n // 2 + 1, n // 2 + 1), dev, (g, v))
+    partial = sw._output(partial, "partial", (bwd_blocks(n, N), 9 * C), dev, (g, v, gv))
+    KERNELS["X8"](g.data_ptr(), v.data_ptr(), sw._ptr(pid_c), k.data_ptr(), w.data_ptr(),
+                  gv.data_ptr(), partial.data_ptr(), n, C, N, sg, sv, (n // 2 + 1) ** 2,
+                  sw._stream(dev))
+    return gv, partial
+
+
+def learned_restrict_backward_cuda(g, r, pid, k, w):
+    """X7 and X9 on the card; same contract as
+    :func:`learned_restrict_backward_plain` (float32)."""
+    gr, partial = learned_restrict_bwd_cuda(g, r, pid, k, w)
+    return (gr, *weight_grad_cuda(partial, k, w, 0))
+
+
+def learned_prolong_add_backward_cuda(g, v, pid_c, k, w):
+    """X8 and X9 on the card; same contract as
+    :func:`learned_prolong_add_backward_plain` (float32)."""
+    gv, partial = learned_prolong_bwd_cuda(g, v, pid_c, k, w)
+    return (gv, *weight_grad_cuda(partial, k, w, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -607,3 +804,17 @@ def learned_prolong_add(u, v, pid_c, k, w, out=None):
     """X6 (kernel on CUDA tensors, plain version on CPU ones)."""
     fn = learned_prolong_add_cuda if u.device.type == "cuda" else learned_prolong_add_plain
     return fn(u, v, pid_c, k, w, out)
+
+
+def learned_restrict_backward(g, r, pid, k, w):
+    """X7 and X9 (kernels on CUDA tensors, plain version on CPU ones)."""
+    fn = (learned_restrict_backward_cuda if r.device.type == "cuda"
+          else learned_restrict_backward_plain)
+    return fn(g, r, pid, k, w)
+
+
+def learned_prolong_add_backward(g, v, pid_c, k, w):
+    """X8 and X9 (kernels on CUDA tensors, plain version on CPU ones)."""
+    fn = (learned_prolong_add_backward_cuda if v.device.type == "cuda"
+          else learned_prolong_add_backward_plain)
+    return fn(g, v, pid_c, k, w)

@@ -43,6 +43,14 @@ its k sweeps as a wavefront for k up to ``C2_STREAM_MAX_K`` above
 (:func:`c2_launch_tiles` chooses).  u, f and ``pid`` must start on a
 16-byte boundary (whole tensors do; an offset view may not, and raises
 ValueError).
+
+C1 also takes a batch in one launch (:func:`relax_batch_cuda`, the level's
+``sweep_batch`` and ``residual_batch``): (N, n+1, n+1) fields whose
+samples lie :func:`batch_plane` values apart (n+1 squared rounded up to
+whole 16 bytes, each sample on a 16-byte boundary), with no norm, its strips
+chosen for its own instance's occupancy and the whole batch's blocks.  Its instances are their own
+(``csrc/stencil.cu``), and each sample equals C1's launch on it alone bit
+for bit.
 """
 
 from __future__ import annotations
@@ -103,6 +111,14 @@ def relax_plain(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None, rsq=No
     return _emit(res, out), _emit(torch.sum(r * r), rsq)
 
 
+def relax_batch_plain(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None):
+    """C1 over a batch: :func:`relax_plain` on each sample of the (N, n+1,
+    n+1) u and f, without the norm -> out."""
+    res = torch.stack([relax_plain(u[i], f[i], pid, a0=a0, da=da, omega=omega, mode=mode)[0]
+                       for i in range(u.shape[0])])
+    return _emit(res, out)
+
+
 def multi_plain(u, f, pid=None, *, k, a0, da, omega, out=None, rsq=None):
     """C2: ``k`` chained C1 sweeps -> (u_k, rsq of the last sweep's input)."""
     _check_k(k)
@@ -126,9 +142,10 @@ def _check_k(k):
 # ---------------------------------------------------------------------------
 
 KERNELS = {
-    # u f pid out partial done rsq; n a0 da omega; bim mode one_pass strip gx gy; stream
+    # u f pid out partial done rsq; n a0 da omega; bim mode one_pass strip gx gy batch;
+    # stream
     "C1": CudaKernel("C1_stencil_relax", "st_relax",
-                     [_P] * 7 + [_I, _D, _D, _D] + [_I] * 6 + [_P],
+                     [_P] * 7 + [_I, _D, _D, _D] + [_I] * 7 + [_P],
                      "multigrid_feanet_tpu/ops/pallas_stencil.py:122", _SOURCE),
     # u f pid out partial done rsq; n a0 da omega; bim k one_pass strip gx gy; stream
     "C2": CudaKernel("C2_stencil_multi", "st_multi",
@@ -165,20 +182,24 @@ def c1_one_pass_tiles(n: int) -> Tiles:
 _C1_TILES = {}
 
 
-def c1_launch_tiles(n: int, bim: bool, mode: int, device) -> Tiles:
-    """The geometry C1 launches with on ``device``: one-pass tiles up to
-    ``C1_ONE_PASS_MAX_N``, else row-streaming strips of ``row_strip``'s
-    height for the occupancy the card reports for the instance launched
-    (computed once per level shape)."""
+def c1_launch_tiles(n: int, bim: bool, mode: int, device, batch: int = 0) -> Tiles:
+    """The geometry C1 launches with on ``device`` (a sample's, for a batch
+    of ``batch`` samples on the batch instance; 0: the single field):
+    one-pass tiles up to ``C1_ONE_PASS_MAX_N``, else row-streaming strips
+    of ``row_strip``'s height for the occupancy the card reports for the
+    instance launched and the blocks of the whole batch (computed once per
+    level shape and batch)."""
     if n <= C1_ONE_PASS_MAX_N:
         return c1_one_pass_tiles(n)
-    key = (n, bool(bim), mode, device.index)
+    key = (n, bool(bim), mode, batch, device.index)
     tiles = _C1_TILES.get(key)
     if tiles is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        slots = sms * occupancy("st_relax_occupancy", int(bim), mode)
-        tiles = c1_tiles(n, row_strip(lambda s: c1_tiles(n, s), C1_HALO_STEPS, slots, sms))
-        _C1_TILES[key] = tiles
+        slots = sms * occupancy("st_relax_occupancy", int(bim), mode + (2 if batch else 0))
+        samples = max(1, batch)
+        strip = row_strip(lambda s: c1_tiles(n, s)._replace(gy=samples * c1_tiles(n, s).gy),
+                          C1_HALO_STEPS, slots, sms)
+        tiles = _C1_TILES[key] = c1_tiles(n, strip)
     return tiles
 
 
@@ -263,8 +284,64 @@ def relax_cuda(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None, rsq=Non
     partial, done = row_scratch(tiles, 1, dev, workspace)
     KERNELS["C1"](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(), partial.data_ptr(),
                   done.data_ptr(), rsq.data_ptr(), n, a0, da, omega, int(pid is not None), m,
-                  int(tiles.leg == "C1_tile"), tiles.strip, tiles.gx, tiles.gy, _stream(dev))
+                  int(tiles.leg == "C1_tile"), tiles.strip, tiles.gx, tiles.gy, 0, _stream(dev))
     return out, rsq
+
+
+def batch_plane(H: int) -> int:
+    """Values between two samples of a batch C1 takes: H^2 rounded up to a
+    whole 16 bytes (csrc/stencil.cu batch_plane)."""
+    return -(-H * H // 4) * 4
+
+
+def check_batch(t, name, H, device):
+    """Check an (N, H, H) float32 batch on ``device`` in C1's batch layout:
+    rows compact, sample 0 on a 16-byte boundary, samples
+    ``batch_plane(H)`` values apart; N."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if t.dim() != 3 or tuple(t.shape[1:]) != (H, H) or not 1 <= t.shape[0] <= 65535:
+        raise ValueError(f"{name} must be an (N, {H}, {H}) batch, got {tuple(t.shape)}")
+    N = t.shape[0]
+    if t.stride(2) != 1 or t.stride(1) != H or (N > 1 and t.stride(0) != batch_plane(H)):
+        raise ValueError(f"{name}'s rows must be compact and its samples batch_plane({H}) "
+                         "values apart")
+    _check_aligned((name, t))
+    return N
+
+
+def relax_batch_cuda(u, f, pid=None, *, a0, da, omega, mode="sweep", out=None):
+    """C1 over a batch on the card, one launch; same contract as
+    :func:`relax_batch_plain`: u, f and ``out`` (N, n+1, n+1) float32 in
+    C1's batch layout (:func:`check_batch`), ``pid`` shared and on a 16-byte
+    boundary; the geometry of :func:`c1_launch_tiles` for the batch."""
+    _check_mode(mode)
+    n, dev = u.shape[-1] - 1, u.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev} ones")
+    if n < 2 or n % 2:
+        raise ValueError(f"levels must have an even n >= 2, got n={n}")
+    N = check_batch(u, "u", n + 1, dev)
+    if check_batch(f, "f", n + 1, dev) != N:
+        raise ValueError(f"u holds {N} samples and f {f.shape[0]}")
+    if pid is not None:
+        _check(pid, "pid", (n + 1, n + 1), torch.int8, dev)
+        _check_aligned(("pid", pid))
+    if out is None:
+        out = torch.empty((N, batch_plane(n + 1)), dtype=torch.float32,
+                          device=dev)[:, :(n + 1) ** 2].view(N, n + 1, n + 1)
+    elif check_batch(out, "out", n + 1, dev) != N:
+        raise ValueError(f"out holds {out.shape[0]} samples, expected {N}")
+    if out.data_ptr() in (u.data_ptr(), f.data_ptr()):
+        raise ValueError("out must not alias an input")
+    m = 0 if mode == "sweep" else 1
+    tiles = c1_launch_tiles(n, pid is not None, m, dev, N)
+    KERNELS["C1"](u.data_ptr(), f.data_ptr(), _ptr(pid), out.data_ptr(), None, None, None, n,
+                  a0, da, omega, int(pid is not None), m, int(tiles.leg == "C1_tile"),
+                  tiles.strip, tiles.gx, tiles.gy, N, _stream(dev))
+    return out
 
 
 def multi_cuda(u, f, pid=None, *, k, a0, da, omega, out=None, rsq=None, workspace=None):
@@ -323,6 +400,19 @@ class StencilLevel:
     def residual(self, u, f, out=None, rsq=None):
         """Interior-masked residual f - A u -> (r, ||r||^2)."""
         return self._call(relax_cuda, relax_plain, u, f, mode="residual", out=out, rsq=rsq)
+
+    def sweep_batch(self, u, f, out=None):
+        """One weighted-Jacobi sweep of each sample of a batch in C1's
+        batch layout, one launch, no norm -> u_new."""
+        fn = relax_batch_cuda if u.is_cuda else relax_batch_plain
+        return fn(u, f, self.pid, a0=self.a0, da=self.da, omega=self.omega, out=out)
+
+    def residual_batch(self, u, f, out=None):
+        """The interior-masked residual of each sample of a batch, one
+        launch, no norm -> r."""
+        fn = relax_batch_cuda if u.is_cuda else relax_batch_plain
+        return fn(u, f, self.pid, a0=self.a0, da=self.da, omega=self.omega, mode="residual",
+                  out=out)
 
     def sweep_k(self, u, f, k: int, out=None, rsq=None):
         """``k`` <= 8 sweeps in one pass -> (u_k, rsq of the last sweep's

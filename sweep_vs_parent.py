@@ -118,13 +118,17 @@ median of 3).  The turns run parent, this, this, parent.
 - ``learned`` (not part of ``all``): ``learned_v_cycle`` as each checkout
   serves it (the evaluator's f: mass(1) in sample 0, mass of a seeded
   normal field in the rest; init parameters; wall ms a cycle, the median
-  of 6 after one): at 4097^2 (12 levels, batch 1) and at 65^2 (6 levels)
+  of 6 after one; at 4097^2 also the sha256 of the iterate after 7 cycles,
+  compared across the turns, ``iterates_bitwise``): at 4097^2 (12 levels,
+  batch 1) and at 65^2 (6 levels)
   on batches of LEARNED_BATCHES; in a checkout with the kernel route also
-  that route and the torch path forced at every batch (``_route_`` and
-  ``_torch`` rows, this checkout only), the data ``KERNEL_MAX_BATCH`` is
-  set from; and, first in each turn, ``intergrid_train_64``'s training
+  that route and the torch path forced at every batch (``_route`` and
+  ``_torch`` rows); first in each turn ``intergrid_train_64``'s training
   step (batch 64 of ``make_dataset(65, 120, seed=0)``, m = 6, the median
-  of 10 after one).
+  of 10 after one), then a graded cycle with its backward at 65^2 on that
+  batch (``graded_65_b64``: random per-channel weights, the loss sum(c *
+  cycle(u0)), the median of 6 after one): the kernel route's autograd
+  form in a checkout that has one, the torch path in one that has not.
 
 Prints the card's name and power limit, one JSON line per turn and a
 summary line (each checkout's mean and spread over its two turns, the byte
@@ -231,6 +235,7 @@ in this checkout are listed; fails unless every other kernel matches.  Writes
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import itertools
 import json
@@ -425,6 +430,7 @@ def learned_turn(cs) -> list:
 
     import numpy as np
     import torch
+    from multigrid_feanet_torch.core.device import full_f32
     from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
     from multigrid_feanet_torch.data.rhs import make_dataset
     from multigrid_feanet_torch.learn import train_intergrid as ti
@@ -444,6 +450,11 @@ def learned_turn(cs) -> list:
     def cycle_ms(h, params, f, cycle=None):
         return 1e3 * statistics.median(cs.learned_history(h, params, f, 7, cycle)["secs"][1:])
 
+    def digest(h, params, f):
+        """The sha256 of the iterate after 7 cycles from 0 (its float32 bytes)."""
+        u = cs.learned_history(h, params, f, 7)["u"]
+        return hashlib.sha256(u.cpu().numpy().tobytes()).hexdigest()[:16]
+
     def route(h, params, u, f):
         return intergrid._route(h, intergrid.DEFAULT_OMEGA).cycle(params, u, f)
 
@@ -458,9 +469,27 @@ def learned_turn(cs) -> list:
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
     recs = [dict(name="intergrid_train_64_step", ms=1e3 * statistics.median(secs[1:]))]
+    rng = np.random.default_rng(64)
+    graded = intergrid.IntergridParams(*(torch.as_tensor(
+        (k + 0.1 * rng.standard_normal((16, 3, 3))).astype(np.float32), device=cs.DEVICE)
+        for k in (intergrid.FULL_WEIGHTING_16, intergrid.BILINEAR_4)),
+        torch.tensor([3.7, 1.1], device=cs.DEVICE))
+    u0, f, c = (torch.as_tensor(rng.standard_normal((64, 65, 65)).astype(np.float32),
+                                device=cs.DEVICE) for _ in range(3))
+    secs = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with full_f32():
+            (intergrid.learned_v_cycle(h64, graded, u0, f) * c).sum().backward()
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    recs.append(dict(name="graded_65_b64", ms=1e3 * statistics.median(secs[1:])))
     params = intergrid.IntergridParams.init(device=cs.DEVICE)
     h = hier(cs.N_MAIN, int(np.log2(cs.N_MAIN)))
-    recs.append(dict(name="learned_4097_b1", ms=cycle_ms(h, params, field(h, 1))))
+    f = field(h, 1)
+    recs.append(dict(name="learned_4097_b1", ms=cycle_ms(h, params, f),
+                     digest=digest(h, params, f)))
     del h
     for b in LEARNED_BATCHES:
         f = field(h64, b)
@@ -1006,7 +1035,8 @@ STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restr
 
 
 # the counts and cell results a turn's line keeps beside each record's ms
-CELL_KEYS = ("launches", "cycles", "tail_q", "q_last6", "tail_q12", "q_asym60", "contraction")
+CELL_KEYS = ("launches", "cycles", "tail_q", "q_last6", "tail_q12", "q_asym60", "contraction",
+             "digest")
 
 
 # kernels this checkout keeps under a new name (new name: parent's name)
@@ -1261,6 +1291,12 @@ def main() -> int:
                             parent_spread=p_spread, this_spread=t_spread)
     lines.append(dict(summary=summary))
     print(json.dumps(lines[-1]), flush=True)
+    digests = {key: sorted({line["legs"][key]["digest"] for line in lines[1:5]})
+               for key in lines[1]["legs"] if "digest" in lines[1]["legs"][key]}
+    if digests:  # the iterates of every turn, bit for bit (one digest) or not
+        lines.append(dict(iterates_bitwise={k: len(v) == 1 for k, v in digests.items()},
+                          digests=digests))
+        print(json.dumps(lines[-1]), flush=True)
     pair = a6_against_split(times)
     if pair:
         lines.append(dict(a6_against_split=pair))

@@ -15,8 +15,9 @@ models/intergrid.py::learned_v_cycle, against the JAX package on the CPU.
   results/intergrid_trained_interface_n64.npz at 64^2, that checkpoint on 2
   levels at 128^2; 1 cycle at 1e-5, 5 at 1e-4 relative (XLA's fusion sums
   in another order); and against the eager JAX cycle bit for bit.
-- What the route launches (counting wrappers), the operands it hands C1 (on
-  16-byte boundaries), the batch rule, C1's sweep and residual against
+- What the route launches (counting wrappers: C1 one call a batch), the
+  operands it hands C1 (in its batch layout), the rule that takes every
+  batch and picks the form by grad mode, C1's sweep and residual against
   ``jacobi_step`` on a zero ring (1e-5), and the wrappers' refusals.
 
 Inputs come from ``np.random.default_rng``.
@@ -217,18 +218,19 @@ def test_kernel_route_is_the_eager_jax_cycle(case, batch):
 
 
 def _counting(monkeypatch):
-    """Count the samples the route hands C1 (on the card a launch each),
-    checking that every operand starts on a 16-byte boundary, and its X5
-    and X6 calls."""
+    """Count the route's C1 calls (on the card one launch a batch),
+    checking that every operand is in C1's batch layout, and its X5 and X6
+    calls."""
     calls = {"C1": 0, "X5": 0, "X6": 0}
     sweep, residual = intergrid._Route._sweep, intergrid._Route._residual
     restrict, prolong = px.learned_restrict, px.learned_prolong_add
 
     def c1(fn):
         def run(self, l, u, f, out):
-            for i in range(u.shape[0]):
-                calls["C1"] += 1
-                sw._check_aligned(("u", u[i]), ("f", f[i]), ("out", out[i]))
+            calls["C1"] += 1
+            H = u.shape[-1]
+            for name, t in (("u", u), ("f", f), ("out", out)):
+                assert ss.check_batch(t, name, H, t.device) == u.shape[0]
             return fn(self, l, u, f, out)
         return run
 
@@ -249,10 +251,11 @@ def _counting(monkeypatch):
 
 @pytest.mark.parametrize("n_relax", [1, 2])
 def test_route_launches_per_kernel_level(monkeypatch, n_relax):
-    """Per cycle on a batch of N: C1 (2 n_relax + 1) N times on each kernel
-    level (64 ... 4 of 64 ... 2; the coarsest runs the torch path), X5 and
-    X6 once each; every C1 operand aligned although sample 1 of a compact
-    65^2 batch is not."""
+    """Per cycle on a batch of N: C1 2 n_relax + 1 times (a launch a
+    batch) on each kernel level (64 ... 4 of 64 ... 2; the coarsest runs
+    the torch path), X5 and X6 once each; every C1 operand in C1's batch
+    layout although sample 1 of a compact 65^2 batch is off a 16-byte
+    boundary."""
     _, th = _hiers(64, CIRCLE)
     assert intergrid.kernel_levels(th) == [0, 1, 2, 3, 4]
     tp = intergrid.IntergridParams.init(device="cpu")
@@ -265,57 +268,76 @@ def test_route_launches_per_kernel_level(monkeypatch, n_relax):
         want = _torch_cycle(th, tp, u, f, n_relax)
         assert calls == {"C1": 0, "X5": 0, "X6": 0}
         got = intergrid.learned_v_cycle(th, tp, u, f, n_relax)
-    assert calls == {"C1": 5 * (2 * n_relax + 1) * 3, "X5": 5, "X6": 5}
+    assert calls == {"C1": 5 * (2 * n_relax + 1), "X5": 5, "X6": 5}
     assert _rel(got, want) < CYCLE_TOL
 
 
-def test_route_takes_batches_up_to_its_limit(monkeypatch):
-    """C1 takes a launch a sample, so a batch of more than KERNEL_MAX_BATCH
-    samples runs the torch path on every level; up to it every kernel
-    level runs C1, X5 and X6, and the two give the same cycle."""
+@pytest.mark.parametrize("batch", [1, 17, 64])
+def test_route_takes_batches_up_to_its_limit(monkeypatch, batch):
+    """C1 takes a whole batch in one launch, so every batch size takes the
+    route: every kernel level runs C1 three times a cycle whatever the
+    batch, X5 and X6 once, and the route's cycle
+    of the batch is the torch path's, and each sample's its cycle alone (to
+    the tolerance: on the CPU X5 rounds as XLA does, whose partial sums
+    depend on the batch, x5_chain)."""
     _, th = _hiers(32, CIRCLE)
-    B = intergrid.KERNEL_MAX_BATCH
     tp = intergrid.IntergridParams.init(device="cpu")
     rng = np.random.default_rng(6)
-    f = torch.from_numpy(rng.standard_normal((B + 1, 33, 33)).astype(np.float32))
+    f = torch.from_numpy(rng.standard_normal((batch, 33, 33)).astype(np.float32))
     calls = _counting(monkeypatch)
     with torch.no_grad():
-        assert intergrid._kernel_route(tp, f[:B], f[:B])
-        assert not intergrid._kernel_route(tp, f, f)
-        want = intergrid.learned_v_cycle(th, tp, torch.zeros_like(f), f)
+        assert intergrid._kernel_route(tp, f, f)
+        want = _torch_cycle(th, tp, torch.zeros_like(f), f)
         assert calls == {"C1": 0, "X5": 0, "X6": 0}
-        got = intergrid.learned_v_cycle(th, tp, torch.zeros_like(f[:B]), f[:B])
-    assert calls == {"C1": 4 * 3 * B, "X5": 4, "X6": 4}  # levels 32 ... 4 of 32 ... 2
-    assert _rel(got, want[:B]) < CYCLE_TOL
+        got = intergrid.learned_v_cycle(th, tp, torch.zeros_like(f), f)
+        assert calls == {"C1": 4 * 3, "X5": 4, "X6": 4}  # levels 32 ... 4 of 32 ... 2
+        one = intergrid.learned_v_cycle(th, tp, torch.zeros_like(f[-1:]), f[-1:])
+    assert _rel(got, want) < CYCLE_TOL and _rel(got[-1:], one) < CYCLE_TOL
 
 
 def test_route_taken_by_grad_mode_dtype_and_device(monkeypatch):
-    """The route needs no gradient (grad mode off, or nothing of params, u
-    and f requiring one), float32 and batches of one shape, and not the
-    card: CPU fields take it too (its plain versions)."""
+    """The route takes float32 batches of one shape and float32
+    parameters, and not the card: CPU fields take it too (its plain
+    versions).  Grad mode picks its form only: with a gradient needed
+    (grad mode on and any of params, u and f requiring one) the autograd
+    form, which runs the same C1, X5 and X6 calls forward, and backward
+    the C1 Functions' and X7 / X8 with X9 (``learned_*_backward``)."""
     _, th = _hiers(32, CIRCLE)
     tp = intergrid.IntergridParams.init(device="cpu")
     u = torch.zeros((1, 33, 33))
     f = torch.ones((1, 33, 33))
-    assert not intergrid._kernel_route(tp, u, f)  # the parameters require grad
+    assert intergrid._kernel_route(tp, u, f)  # the parameters require grad
+    assert intergrid._needs_grad(tp.conv, u, f)
     assert not intergrid._kernel_route(tp, u[0], f[0])
     with torch.no_grad():
         assert intergrid._kernel_route(tp, u, f)
+        assert not intergrid._needs_grad(tp.conv, u, f)
         assert not intergrid._kernel_route(tp, u.double(), f.double())
         assert not intergrid._kernel_route(tp, u, f[:, :-1, :-1])
     frozen = intergrid.IntergridParams(*(getattr(tp, k).detach() for k in ("conv", "deconv", "w")))
     for p in frozen.parameters():
         p.requires_grad_(False)
     assert intergrid._kernel_route(frozen, u, f)
-    assert not intergrid._kernel_route(frozen, u.requires_grad_(), f)
+    assert not intergrid._needs_grad(*frozen.parameters(), u, f)
+    assert intergrid._needs_grad(*frozen.parameters(), u.clone().requires_grad_(), f)
     calls = _counting(monkeypatch)
+    bwd = {"X7": 0, "X8": 0}
+    for key, name in (("X7", "learned_restrict_backward"),
+                      ("X8", "learned_prolong_add_backward")):
+        def counted(*a, fn=getattr(px, name), key=key):
+            bwd[key] += 1
+            return fn(*a)
+        monkeypatch.setattr(px, name, counted)
     out = intergrid.learned_v_cycle(th, tp, u, f)
+    assert calls == {"C1": 4 * 3, "X5": 4, "X6": 4}  # levels 32 ... 4 of 32 ... 2
     out.sum().backward()
-    assert tp.conv.grad is not None
-    assert calls == {"C1": 0, "X5": 0, "X6": 0}
+    assert tp.conv.grad is not None and bwd == {"X7": 4, "X8": 4}
+    # backward: 2 C1 calls on level 0 (its last sweep), 5 on each coarser
+    # kernel level (the last sweep 2, the residual 2, the first sweep 1)
+    assert calls == {"C1": 4 * 3 + 2 + 3 * 5, "X5": 4, "X6": 4}
     with torch.no_grad():
         intergrid.learned_v_cycle(th, tp, u, f)
-    assert calls == {"C1": 4 * 3, "X5": 4, "X6": 4}  # levels 32 ... 4 of 32 ... 2
+    assert calls == {"C1": 2 * 4 * 3 + 2 + 3 * 5, "X5": 8, "X6": 8}
 
 
 def test_route_keeps_its_levels_and_buffers():
