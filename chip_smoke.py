@@ -187,8 +187,8 @@ Phases, in order; any failure exits non-zero:
    the per-sample launches at 4097^2 (batch 1 and 2), 257^2, 65^2 and 33^2
    (batch 64), timed beside them (``c1_batch_checks``); X7 and X8 (the
    backward of X5 and X6) with X9 (their weight gradients) against their
-   plain versions at 4097^2, 257^2, 65^2 (batch 64) and 33^2 in every
-   variant: grad r and grad v bit for bit, the weight gradients within
+   plain versions at 4097^2, 257^2, 65^2, 17^2 and 5^2 (batch 64) and 33^2
+   in every variant: grad r and grad v bit for bit, the weight gradients within
    ``ops.passes.TOL_WEIGHT_GRAD`` of the same gradients of the inputs'
    magnitudes, two launches bitwise, each timed alone beside its bound,
    its plain version and the torch path's backward
@@ -3265,12 +3265,16 @@ def check_learned_passes() -> list:
 #
 # C1's batch holds: (n, batch), each bi-material and homogeneous
 C1_BATCH_SHAPES = ((N_MAIN, 1), (N_MAIN, 2), (256, 4), (64, 64), (32, 64))
-# X7's and X8's holds: (n, batch), in every variant of LEARNED_VARIANTS
-BWD_SHAPES = ((N_MAIN, 1), (256, 2), (64, 64), (32, 2))
+# X7's and X8's holds: (n, batch), in every variant of LEARNED_VARIANTS; the
+# training step's levels 64, 16 and 4 at its batch of 64
+BWD_SHAPES = ((N_MAIN, 1), (256, 2), (64, 64), (32, 2), (16, 64), (4, 64))
+# the hold whose operands are also laid out as the graded cycle lays them
+# (samples intergrid._buffer's batch plane apart, more than a plane)
+BWD_SPACED = (64, 64, "bim16")
 # operations a coarse cell (X7) or node (X8), counted from csrc/passes.cu:
-# nine products for the weight sums, nine multiply-adds of taps and w[i]
-# (X7: four fine nodes)
-BWD_FLOPS = {"X7": 31, "X8": 28}
+# nine multiply-adds for the weight sums, nine of taps, and w[i] (X7: four
+# fine nodes)
+BWD_FLOPS = {"X7": 40, "X8": 37}
 # the graded cycle's gradient on the card against the torch path's (the
 # split and cuDNN in full f32): float32 sums in other orders, as the port's
 # gradient against JAX's (tests/test_torch_learned_backward.py)
@@ -3360,14 +3364,17 @@ def check_learned_backward() -> list:
     LEARNED_VARIANTS: grad r and grad v bit for bit (both sum in tap order),
     grad k and grad w within ``TOL_WEIGHT_GRAD`` of the same gradients of
     |g| and |r| (|v|, |k|, |w|), two launches bitwise; X9 alone against
-    ``weight_grad_plain`` on the same partials, to the same tolerance.
-    Each timed alone (``ms``: X7 or X8; ``x9_ms``) beside its bound, the
-    plain backward's ms (X7 or X8 with X9's sums) and, at 4097^2 and at
-    65^2 (batch 64), bi-material 16, the torch path's backward (autograd of
-    the split and cuDNN in full f32; no single PyTorch call computes a
-    pattern-split adjoint)."""
+    ``weight_grad_plain`` on the same partials, to the same tolerance; at
+    BWD_SPACED also on g and the field in the graded cycle's layout, bit
+    for bit the compact batch's field and partials.  Each timed alone
+    (``ms``: X7 or X8; ``x9_ms``) beside its bound, the plain backward's
+    ms (X7 or X8 with X9's sums), with X9's rows and X7's or X8's blocks an
+    SM, and, at 4097^2 and at 65^2 (batch 64), bi-material 16, the torch
+    path's backward (autograd of the split and cuDNN in full f32; no single
+    PyTorch call computes a pattern-split adjoint)."""
     import torch
     from multigrid_feanet_torch.core.device import full_f32
+    from multigrid_feanet_torch.models import intergrid
     from multigrid_feanet_torch.models.intergrid import (IntergridParams, prolong_learned,
                                                          restrict_learned)
     from multigrid_feanet_torch.ops import passes as px
@@ -3423,8 +3430,16 @@ def check_learned_backward() -> list:
                            x9_plain_ms=plain_ms([lambda o=o: px.weight_grad_plain(
                                o[1], k, w, which) for o in outs]),
                            x9_blocks=int(partial.shape[0]),
+                           blocks_per_sm=px.bwd_occupancy(key, k.shape[0]),
                            plain_ms=plain_ms([lambda a=a: pfn(*a) for a in xs]),
                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                if (n, N, variant) == BWD_SPACED:
+                    spaced = list(args)
+                    for i in (0, 1):
+                        spaced[i] = intergrid._buffer(N, args[i].shape[-1], DEVICE)
+                        spaced[i].copy_(args[i])
+                    rec["spaced_bitwise"] = all(bool(torch.equal(a, b)) for a, b in
+                                                zip(kfn(*spaced), (field2, partial2)))
                 if variant == "bim16" and (n, N) in ((N_MAIN, 1), (64, 64)):
                     p = IntergridParams(x["conv"].clone(), x["deconv"].clone(), x["w"].clone())
                     with full_f32():
@@ -3440,7 +3455,8 @@ def check_learned_backward() -> list:
                 del xs, outs
                 recs.append(rec)
                 if not (rec["field_bitwise"] and rec["weight_excess"] <= px.TOL_WEIGHT_GRAD
-                        and rec["x9_excess"] <= px.TOL_WEIGHT_GRAD and rec["bitwise_twice"]):
+                        and rec["x9_excess"] <= px.TOL_WEIGHT_GRAD and rec["bitwise_twice"]
+                        and rec.get("spaced_bitwise", True)):
                     fail(f"{key} or X9 disagrees with its plain version or with itself: {rec}")
             del x
     print(json.dumps({"learned_backward_checks": recs}), flush=True)
@@ -3599,7 +3615,8 @@ def run_intergrid_train_cell() -> dict:
     C1, X5 and X6 in its m - 1 cycles without gradient and its graded
     cycle, the backward's C1, X7, X8 and X9, and q_m's C1 residuals (every
     count zeroed before the run and read after it).  The CPU's run takes
-    the same paths (their plain versions)."""
+    the same paths (their plain versions).  One step is profiled: its top
+    kernels by device time, and X7, X8 and X9."""
     import shutil
     import torch
     from multigrid_feanet_torch.core.problem import GridHierarchy, Problem
@@ -3658,7 +3675,8 @@ def run_intergrid_train_cell() -> dict:
     ms_wall = time.time() - t0
     step_state = ti.init_state(0, device=DEVICE)
     F_batch = torch.as_tensor(F[:64], device=DEVICE)
-    prof = profile_top(label, lambda: ti.train_step(h64, step_state, F_batch), 1, wall / 20)
+    prof = profile_top(label, lambda: ti.train_step(h64, step_state, F_batch), 1, wall / 20,
+                       keep=("X7", "X8", "X9"))
     dev_cpu = float(np.max(np.abs(losses / l_cpu - 1.0)))
     rec = dict(solve=label, n=64, levels=h64.num_levels, rhs=120, epochs=10, steps=20,
                s_per_step=wall / 20, cpu_s_per_step=cpu_s / 20, losses=losses.tolist(),
@@ -3682,17 +3700,18 @@ def run_intergrid_train_cell() -> dict:
     return rec
 
 
-def profile_top(label: str, run, units: int, wall_s: float, top: int = 6) -> dict:
+def profile_top(label: str, run, units: int, wall_s: float, top: int = 6,
+                keep: tuple = ()) -> dict:
     """``profile_solve`` of ``run()`` (``units`` cycles, steps or sweeps
     taking ``wall_s`` unprofiled), its kernels cut to the ``top`` by device
-    time; fails if any kernel ran in TF32 (the port's convolutions, and
-    their backward, run in full f32)."""
+    time and those named in ``keep``; fails if any kernel ran in TF32 (the
+    port's convolutions, and their backward, run in full f32)."""
     prof = profile_solve(run, units, wall_s)
     if "tf32_kernels" in prof:
         fail(f"{label}: kernels ran in TF32: {prof['tf32_kernels']}")
     if "by_kernel" in prof:
         ranked = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1]["ms_per_cycle"])
-        prof["by_kernel"] = dict(ranked[:top])
+        prof["by_kernel"] = dict(ranked[:top] + [kv for kv in ranked[top:] if kv[0] in keep])
         prof["kernel_names"] = len(ranked)
     return prof
 

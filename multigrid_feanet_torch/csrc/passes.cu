@@ -56,11 +56,14 @@
 // X9  the weight gradients from X7's or X8's partial sums: P = the sum of
 //     the blocks' partials, grad_k = w[i] P and grad_w[i] = sum k P (i = 0
 //     for X7, 1 for X8), grad_w[1 - i] = 0.
-//     The partial sums go by pattern id: a warp adds its lanes' products of
-//     one id and tap by a shuffle tree, for each id its lanes hold (in the
-//     order of their first lane), into its own row of shared sums; the
-//     block adds its warps' rows in order, and X9 adds the blocks' partials
-//     in float64 in a fixed order: no float atomics, two runs agree bitwise.
+//     The partial sums go by pattern id: each lane of X7 and X8 keeps its
+//     nine products a tap in running sums while its ids stay, and its warp
+//     adds them into its own row of shared sums when an id changes and at
+//     the end of its strip (a (slot, id) pair one lane holds alone by that
+//     lane, each other id its lanes hold, in the order of their first lane,
+//     by a transposing warp sum); the block adds its warps' rows in order,
+//     and X9 adds the blocks' partials in float64 in a fixed order: no float
+//     atomics, two runs agree bitwise.
 //
 // Every field is compact row-major (n+1) x (n+1); pid the int8 node pattern
 // ids (bit e: the phase of the node's element e, in the order SW, SE, NW,
@@ -105,7 +108,13 @@
 // X1_ONE_PASS_MAX_N) X1 streams rows instead (x1_heat_rhs_rows, below): the
 // tile reads u and f about 1.33 times over, pays a division per staged node
 // and overlaps none of its loads with its arithmetic, which bounds X1 by
-// its instructions about as much as by its bytes.
+// its instructions about as much as by its bytes.  X7 and X8 stream rows
+// over the batch (x7_learned_restrict_bwd_rows, x8_learned_prolong_bwd_rows:
+// a warp a band of 32 columns and a strip of the batch's coarse rows laid
+// end to end, the row before carried from step to step) so that a launch
+// of many small samples fills the card with short chains and a large field
+// fills whole waves, and they bin their weight products per lane in
+// registers: a warp sum only where an id changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -677,169 +686,359 @@ x6_learned_prolong_add(const float* __restrict__ u, const float* __restrict__ v,
 // X7, X8, X9
 // ---------------------------------------------------------------------------
 
-// Tiles of PY rows that a block of X7 or X8 walks down, adding its weight
-// sums over all of them: fewer blocks' partials for X9 to add.
-constexpr int WB_TRIPS = 16;
+// X7 and X8 stream rows over the batch: the batch's coarse rows laid end to
+// end (row R is row R mod Hc of sample R / Hc), a warp takes a band of 32
+// columns of coarse cells (X7) or nodes (X8) and walks a strip of `strip`
+// of those rows, so that small levels fill whole warps and a launch covers
+// the card with short chains.  Unit u = blockIdx.x WARPS + warp is band
+// u mod nb of strip u / nb, nb = ceil(Hc / 32); the blocks' partial sums
+// are X9's rows (bwd_blocks, ops/passes.py bwd_blocks).  A step loads the
+// values of a later step before it computes its own (X8 the next step's,
+// X7 the one after it), and the row before it comes from the step before.
+// Each lane keeps its nine weight sums in registers while its ids stay as
+// they were the step before; the warp adds them by id into its shared row
+// (warp_bins) when some lane's id changes, and once at the end of its
+// strip.
 constexpr int WARPS = PNT / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Adds the lanes' products x[t] to the warp's row ws of shared sums (9 C
-// floats): for each tap t and each id c in [0, C) among the lanes' ids p[t]
-// (taken in the order of their first lane), the sum of x[t] over the lanes
-// of id c, by a shuffle tree, to ws[9 c + t].  Every lane of the warp calls
-// it; a lane with no product passes an id outside [0, C).
-__device__ __forceinline__ void warp_bins(float* ws, const int (&p)[9], const float (&x)[9],
-                                          int C) {
-  const bool lead = (threadIdx.x & 31) == 0;
+// Mask M of the transposing warp sum: lanes whose bit M is clear keep the
+// first M / 2 of their first M values and send the others to the lane
+// across, which keeps the others; each adds what it receives.
+template <int M>
+__device__ __forceinline__ void halve(float (&v)[16], bool hi) {
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    unsigned todo = __ballot_sync(FULL, (unsigned)p[t] < (unsigned)C);
-    while (todo) {
-      const int c = __shfl_sync(FULL, p[t], __ffs(todo) - 1);
-      const bool mine = p[t] == c;
-      todo &= ~__ballot_sync(FULL, mine);
-      float v = mine ? x[t] : 0.f;
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
-      if (lead) ws[9 * c + t] += v;
+  for (int i = 0; i < M / 2; ++i) {
+    const float send = hi ? v[i] : v[M / 2 + i];
+    const float keep = hi ? v[M / 2 + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(FULL, send, M);
+  }
+}
+
+// The sums over the warp's lanes of x[0 .. 8], in a fixed order, in 16
+// shuffles: masks 16, 8, 4 and 2 halve the values a lane holds, mask 1 adds
+// the pair; lanes 2t and 2t + 1 return the sum of x[t].
+__device__ __forceinline__ float warp_sum9(const float (&x)[9]) {
+  const int lane = threadIdx.x & 31;
+  float v[16];
+#pragma unroll
+  for (int t = 0; t < 16; ++t) v[t] = t < 9 ? x[t] : 0.f;
+  halve<16>(v, lane & 16);
+  halve<8>(v, lane & 8);
+  halve<4>(v, lane & 4);
+  halve<2>(v, lane & 2);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// The slot of tap t = 3 a + b among a lane's S ids: X7's fine node of the
+// cell, 2 (a == 1) + (b == 1) (S = 4); X8's one id (S = 1).
+template <int S>
+__device__ __forceinline__ int slot_of(int t) {
+  return S == 1 ? 0 : 2 * (t / 3 == 1) + (t % 3 == 1);
+}
+
+// Adds the lanes' running sums x[t] to the warp's row ws of shared sums
+// (9 C floats), each under its lane's id q[slot_of<S>(t)].  A (slot, id)
+// pair that one lane alone holds adds its taps' sums itself: no other lane
+// adds to those entries.  Then for each id c in [0, C) that the lanes'
+// other slots hold (in the order of the first lane and slot that holds it),
+// the sums over the lanes of the taps under c (warp_sum9) go to ws[9 c + t].
+// Every lane of the warp calls it; an id outside [0, C) adds nothing.
+template <int S>
+__device__ __forceinline__ void warp_bins(float* ws, const int (&q)[S], const float (&x)[9],
+                                          int C) {
+  const int lane = threadIdx.x & 31;
+  unsigned todo = 0;  // the lane's slots not yet added
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool alone = __popc(__match_any_sync(FULL, q[s])) == 1;
+    if ((unsigned)q[s] >= (unsigned)C) continue;
+    if (!alone) {
+      todo |= 1u << s;
+      continue;
     }
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      if (slot_of<S>(t) == s) ws[9 * q[s] + t] += x[t];
+  }
+  for (unsigned lanes; (lanes = __ballot_sync(FULL, todo != 0)) != 0;) {
+    int first = 0;
+#pragma unroll
+    for (int s = S - 1; s >= 0; --s) first = todo >> s & 1u ? q[s] : first;
+    const int c = __shfl_sync(FULL, first, __ffs(lanes) - 1);
+    unsigned hit = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) hit |= (unsigned)((todo >> s & 1u) && q[s] == c) << s;
+    todo &= ~hit;
+    float v[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) v[t] = hit >> slot_of<S>(t) & 1u ? x[t] : 0.f;
+    const float sum = warp_sum9(v);
+    if (!(lane & 1) && lane < 18) ws[9 * c + lane / 2] += sum;
   }
 }
 
 // The block's partial sums: its warps' rows (ws, WARPS rows of S floats)
-// added in order into partial[block * S ..], block = (z gy + y) gx + x.
+// added in order into partial[blockIdx.x * S ..].
 __device__ __forceinline__ void store_bins(const float* ws, int S, float* __restrict__ partial) {
   __syncthreads();
-  const long long b = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   for (int j = threadIdx.x; j < S; j += PNT) {
     float v = ws[j];
     for (int q = 1; q < WARPS; ++q) v += ws[q * S + j];
-    partial[b * S + j] = v;
+    partial[(long long)blockIdx.x * S + j] = v;
   }
 }
 
-// Dynamic shared memory of X7 and X8: the (C, 9) weights and WARPS rows of
-// 9 C sums, zeroed; every thread reaches the barrier.
+// Dynamic shared memory of X7 and X8: the (C, 9) weights and a row of 9
+// zeros (the weights of an id no channel holds: kernel_row), then WARPS
+// rows of 9 C sums, zeroed; every thread reaches the barrier.
 __device__ __forceinline__ void stage_bins(float* sk, float* ws, const float* __restrict__ k,
                                            int C) {
   for (int t = threadIdx.x; t < WARPS * 9 * C; t += PNT) ws[t] = 0.f;
-  stage_taps(sk, k, C);
+  for (int t = threadIdx.x; t < 9 * C + 9; t += PNT) sk[t] = t < 9 * C ? k[t] : 0.f;
+  __syncthreads();
 }
 
-// X7 on sample blockIdx.z.  A thread takes coarse cell (I, J): fine rows
-// 2I - 1 (I > 0) and 2I by columns 2J - 1 (J > 0) and 2J.  An even fine row
-// takes tap a = 1 of coarse row I, an odd one taps a = 0 of row I and a = 2
-// of row I - 1 (columns likewise), so the cell holds nine (fine node,
-// coarse node) pairs, one for each tap.  g_c is read as 0 off the coarse
-// interior (X5 writes 0 there).  sg, sr, so: the values between two samples
-// of g_c, r and grad_r.
+inline size_t bins_smem(int C) { return sizeof(float) * 9 * (C + 1 + WARPS * C); }
+
+// The weights of id p in stage_bins' table: its row, or the zero row.
+__device__ __forceinline__ const float* kernel_row(const float* sk, int p, int C) {
+  return sk + 9 * ((unsigned)p < (unsigned)C ? p : C);
+}
+
+// A warp's place in the batch: coarse row `row` of the sample whose fields
+// start at the three pointers; next() steps to the next row, row 0 of the
+// next sample after the last (a, b, o: the values between two samples).
+struct BwdRow {
+  int row;
+  const float *a, *b;
+  float* o;
+  __device__ __forceinline__ BwdRow next(int Hc, long long sa, long long sb, long long so) const {
+    return row + 1 < Hc ? BwdRow{row + 1, a, b, o} : BwdRow{0, a + sa, b + sb, o + so};
+  }
+};
+
+// The warp's strip: (its first row, that row's first node's column in its
+// band, its rows), or no rows; the same in every lane.
+__device__ __forceinline__ BwdRow bwd_start(int Hc, int N, int strip, const float* a,
+                                            const float* b, float* o, long long sa,
+                                            long long sb, long long so, int& col, int& steps) {
+  const int nb = (Hc + 31) / 32;
+  const long long unit = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  const long long R0 = unit / nb * strip, smp = R0 / Hc;
+  col = (int)(unit % nb) * 32 + threadIdx.x % 32;
+  steps = (int)max(0LL, min((long long)strip, (long long)N * Hc - R0));
+  return BwdRow{(int)(R0 - smp * Hc), a + smp * sa, b + smp * sb, o + smp * so};
+}
+
+// X7 on its strip.  A thread takes coarse cell (I, J) of each row: fine
+// rows 2I - 1 (I > 0) and 2I by columns 2J - 1 (J > 0) and 2J.  An even
+// fine row takes tap a = 1 of coarse row I, an odd one taps a = 0 of row I
+// and a = 2 of row I - 1 (columns likewise), so the cell holds nine (fine
+// node, coarse node) pairs, one for each tap.  g_c is read as 0 off the
+// coarse interior (X5 writes 0 there); its row I passes to the next step as
+// row I - 1.  The lane's weight sums run while the ids of its four fine
+// nodes stay; a node off the grid, whose products are 0, keeps the id
+// before it.  sg, sr, so: the values between two samples of g_c, r and
+// grad_r.
 __global__ void __launch_bounds__(PNT)
-x7_learned_restrict_bwd(const float* __restrict__ g, const float* __restrict__ r,
-                        const int8_t* __restrict__ pid, const float* __restrict__ k,
-                        const float* __restrict__ w, float* __restrict__ gr,
-                        float* __restrict__ partial, int H, int Hc, int C, long long sg,
-                        long long sr, long long so) {
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* ws = smem + 9 * C;
-  stage_bins(sk, ws, k, C);
-  const float w0 = __ldg(w);
-  const float* gb = g + (long long)blockIdx.z * sg;
-  const float* rb = r + (long long)blockIdx.z * sr;
-  float* ob = gr + (long long)blockIdx.z * so;
-  float* myws = ws + (threadIdx.x / 32) * 9 * C;
-  const int J = blockIdx.x * PX + threadIdx.x % PX;
-  for (int trip = 0; trip < WB_TRIPS; ++trip) {
-    const int I = (blockIdx.y * WB_TRIPS + trip) * PY + threadIdx.x / PX;
-    const bool live = I < Hc && J < Hc;
-    float gv[2][2], x[2][2];  // g_c at (I - 1 + i, J - 1 + j); r at the fine nodes
-    int p[2][2];              // their ids, -1 off the grid
+x7_learned_restrict_bwd_rows(const float* __restrict__ g, const float* __restrict__ r,
+                             const int8_t* __restrict__ pid, const float* __restrict__ k,
+                             const float* __restrict__ w, float* __restrict__ gr,
+                             float* __restrict__ partial, int H, int Hc, int C, int N, int strip,
+                             long long sg, long long sr, long long so) {
+  int J, steps;
+  BwdRow at = bwd_start(Hc, N, strip, g, r, gr, sg, sr, so, J, steps);
+  const bool live = J < Hc && steps > 0;
+  bool cj[2];  // coarse columns J - 1 and J in the interior
+#pragma unroll
+  for (int j = 0; j < 2; ++j) cj[j] = live && J - 1 + j >= 1 && J - 1 + j <= Hc - 2;
+  // g_c's row I at columns J - 1 and J, r and the ids at the cell's fine
+  // nodes (2I - 1 + i, 2J - 1 + j) on the grid, of row `rw`
+  auto fetch = [&](const BwdRow& rw, bool go, float (&gc)[2], float (&x)[2][2],
+                   int (&p)[2][2]) {
+    const int I = rw.row;
+    const bool ci = go && I >= 1 && I <= Hc - 2;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) gc[j] = ci && cj[j] ? rw.a[I * Hc + J - 1 + j] : 0.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int ci = I - 1 + i, cj = J - 1 + j;
-        const bool cin = live && ci >= 1 && cj >= 1 && ci <= Hc - 2 && cj <= Hc - 2;
-        gv[i][j] = cin ? gb[(long long)ci * Hc + cj] : 0.f;
-        const int y = 2 * I - 1 + i, xx = 2 * J - 1 + j;
-        const bool in = live && y >= 0 && xx >= 0;
-        const long long e = (long long)y * H + xx;
-        x[i][j] = in ? rb[e] : 0.f;
-        p[i][j] = in ? (pid ? (int)pid[e] : 0) : -1;
+        const int y = 2 * I - 1 + i, xx = 2 * J - 1 + j, e = y * H + xx;
+        const bool in = go && live && y >= 0 && xx >= 0;
+        x[i][j] = in ? rw.b[e] : 0.f;
+        p[i][j] = in && pid ? (int)pid[e] : 0;
       }
-    // tap (a, b): fine row index fi = (a == 1), coarse row index ci = (a != 2)
-    int pt[9];
-    float xt[9];
+  };
+  float gv[2][2];  // g_c at (I - 1 + i, J - 1 + j)
+  float x[2][2];
+  int p[2][2];
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
+  for (int j = 0; j < 2; ++j)
+    gv[0][j] = cj[j] && at.row >= 2 && at.row <= Hc - 1 ? at.a[(at.row - 1) * Hc + J - 1 + j]
+                                                        : 0.f;
+  // the first two rows' loads run across the barrier; a step then loads the
+  // row two after its own
+  fetch(at, true, gv[1], x, p);
+  BwdRow nx = at.next(Hc, sg, sr, so);
+  float ngc[2], nxv[2][2];  // the next row's
+  int np[2][2];
+  fetch(nx, 1 < steps, ngc, nxv, np);
+  extern __shared__ float smem[];
+  float* sk = smem;
+  float* ws = smem + 9 * (C + 1);
+  stage_bins(sk, ws, k, C);
+  if (steps > 0) {  // the warp's rows (the same in every lane)
+    float* myws = ws + (threadIdx.x / 32) * 9 * C;
+    const float w0 = __ldg(w);
+    float sum[9];
 #pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const int fi = a == 1, fj = b == 1, ci = a != 2, cj = b != 2;
-        pt[3 * a + b] = p[fi][fj];
-        xt[3 * a + b] = __fmul_rn(gv[ci][cj], x[fi][fj]);
+    for (int t = 0; t < 9; ++t) sum[t] = 0.f;
+    int run[4] = {-1, -1, -1, -1};  // the ids the sums run under, by fine node 2 i + j
+    for (int step = 0; step < steps; ++step) {
+      const BwdRow nx2 = nx.next(Hc, sg, sr, so);
+      float mgc[2], mxv[2][2];  // the row after the next
+      int mp[2][2];
+      fetch(nx2, step + 2 < steps, mgc, mxv, mp);
+      const int I = at.row;
+      int q[4];  // the fine nodes' ids; the run's off the grid
+      bool moved = false;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int y = 2 * I - 1 + i, xx = 2 * J - 1 + j;
+          const bool in = live && y >= 0 && xx >= 0;
+          q[2 * i + j] = in ? p[i][j] : run[2 * i + j];
+          moved = moved || (run[2 * i + j] >= 0 && q[2 * i + j] != run[2 * i + j]);
+          const float* kp = kernel_row(sk, p[i][j], C);
+          float acc = 0.f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+              if ((a == 1) == (i == 1) && (b == 1) == (j == 1))
+                acc = __fadd_rn(acc, __fmul_rn(kp[3 * a + b], gv[a != 2][b != 2]));
+          const bool ring = y == 0 || xx == 0 || y == H - 1 || xx == H - 1;
+          if (in) at.o[y * H + xx] = ring ? 0.f : __fmul_rn(w0, acc);
+        }
+      if (__any_sync(FULL, moved)) {
+        warp_bins<4>(myws, run, sum, C);
+#pragma unroll
+        for (int t = 0; t < 9; ++t) sum[t] = 0.f;
       }
-    warp_bins(myws, pt, xt, C);
 #pragma unroll
-    for (int fi = 0; fi < 2; ++fi)
+      for (int t = 0; t < 4; ++t) run[t] = q[t];
 #pragma unroll
-      for (int fj = 0; fj < 2; ++fj) {
-        const int y = 2 * I - 1 + fi, xx = 2 * J - 1 + fj;
-        if (!live || y < 0 || xx < 0) continue;
-        float acc = 0.f;
+      for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b)
+          sum[3 * a + b] = __fmaf_rn(gv[a != 2][b != 2], x[a == 1][b == 1], sum[3 * a + b]);
+      // row 0 of a sample follows row Hc - 1 of g_c, which is 0
 #pragma unroll
-          for (int b = 0; b < 3; ++b)
-            if ((a == 1) == (fi == 1) && (b == 1) == (fj == 1))
-              acc = __fadd_rn(acc, __fmul_rn(tap(sk, p[fi][fj], 3 * a + b, C),
-                                             gv[a != 2][b != 2]));
-        const bool ring = y == 0 || xx == 0 || y == H - 1 || xx == H - 1;
-        ob[(long long)y * H + xx] = ring ? 0.f : __fmul_rn(w0, acc);
+      for (int j = 0; j < 2; ++j) {
+        gv[0][j] = gv[1][j];
+        gv[1][j] = ngc[j];
+        ngc[j] = mgc[j];
       }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          x[i][j] = nxv[i][j];
+          nxv[i][j] = mxv[i][j];
+          p[i][j] = np[i][j];
+          np[i][j] = mp[i][j];
+        }
+      at = nx;
+      nx = nx2;
+    }
+    warp_bins<4>(myws, run, sum, C);
   }
   store_bins(ws, 9 * C, partial);
 }
 
-// X8 on sample blockIdx.z.  A thread takes coarse node (c, d): the nine
-// fine nodes (2c + t - 1, 2d + s - 1), g read as 0 off the grid.  sg, sv,
-// so: the values between two samples of g, v and grad_v.
+// X8 on its strip.  A thread takes coarse node (c, d) of each row: the nine
+// fine nodes (2c + t - 1, 2d + s - 1), g read as 0 off the grid.  Fine row
+// 2c + 1 is row 2(c + 1) - 1 of the next row's node, so its three values
+// pass to the next step and a step loads six.  The lane's weight sums run
+// while its id pid_c(c, d) stays.  sg, sv, so: the values between two
+// samples of g, v and grad_v.
 __global__ void __launch_bounds__(PNT)
-x8_learned_prolong_bwd(const float* __restrict__ g, const float* __restrict__ v,
-                       const int8_t* __restrict__ pidc, const float* __restrict__ k,
-                       const float* __restrict__ w, float* __restrict__ gv,
-                       float* __restrict__ partial, int H, int Hc, int C, long long sg,
-                       long long sv, long long so) {
+x8_learned_prolong_bwd_rows(const float* __restrict__ g, const float* __restrict__ v,
+                            const int8_t* __restrict__ pidc, const float* __restrict__ k,
+                            const float* __restrict__ w, float* __restrict__ gv,
+                            float* __restrict__ partial, int H, int Hc, int C, int N, int strip,
+                            long long sg, long long sv, long long so) {
+  int d, steps;
+  BwdRow at = bwd_start(Hc, N, strip, g, v, gv, sg, sv, so, d, steps);
+  const bool live = d < Hc && steps > 0;
+  // fine columns 2d - 1, 2d and 2d + 1 on the grid
+  const bool col[3] = {live && d > 0, live, live && d < Hc - 1};
+  // g at fine rows 2c and 2c + 1 (6 values), v and the id at (c, d), of row `rw`
+  auto fetch = [&](const BwdRow& rw, bool go, float (&gm)[6], float& vc, int& p) {
+    const int c = rw.row, e = 2 * c * H + 2 * d;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      gm[s] = go && col[s] ? rw.a[e + s - 1] : 0.f;
+      gm[3 + s] = go && c < Hc - 1 && col[s] ? rw.a[e + H + s - 1] : 0.f;
+    }
+    const int ec = c * Hc + d;
+    vc = go && live ? rw.b[ec] : 0.f;
+    p = !(go && live) ? -1 : pidc ? (int)pidc[ec] : 0;
+  };
+  float gt[9];  // g at the nine fine nodes, rows 2c - 1, 2c, 2c + 1
+  float vc;
+  int p;
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+    gt[s] = at.row > 0 && col[s] ? at.a[(2 * at.row - 1) * H + 2 * d + s - 1] : 0.f;
+  {
+    float gm[6];
+    fetch(at, true, gm, vc, p);  // the first row's loads run across the barrier
+#pragma unroll
+    for (int s = 0; s < 6; ++s) gt[3 + s] = gm[s];
+  }
   extern __shared__ float smem[];
   float* sk = smem;
-  float* ws = smem + 9 * C;
+  float* ws = smem + 9 * (C + 1);
   stage_bins(sk, ws, k, C);
-  const float w1 = __ldg(w + 1);
-  const float* gb = g + (long long)blockIdx.z * sg;
-  const float* vb = v + (long long)blockIdx.z * sv;
-  float* ob = gv + (long long)blockIdx.z * so;
-  float* myws = ws + (threadIdx.x / 32) * 9 * C;
-  const int d = blockIdx.x * PX + threadIdx.x % PX;
-  for (int trip = 0; trip < WB_TRIPS; ++trip) {
-    const int c = (blockIdx.y * WB_TRIPS + trip) * PY + threadIdx.x / PX;
-    const bool live = c < Hc && d < Hc;
-    const long long ec = (long long)c * Hc + d;
-    const int p = live ? (pidc ? (int)pidc[ec] : 0) : -1;
-    const float vc = live ? vb[ec] : 0.f;
-    int pt[9];
-    float gt[9], xt[9];
-    float acc = 0.f;
+  if (steps > 0) {  // the warp's rows (the same in every lane)
+    float* myws = ws + (threadIdx.x / 32) * 9 * C;
+    const float w1 = __ldg(w + 1);
+    float sum[9];
 #pragma unroll
-    for (int t = 0; t < 3; ++t)
+    for (int t = 0; t < 9; ++t) sum[t] = 0.f;
+    int run[1] = {-1};  // the id the sums run under
+    for (int step = 0; step < steps; ++step) {
+      const BwdRow nx = at.next(Hc, sg, sv, so);
+      float ngm[6], nvc;
+      int np;
+      fetch(nx, step + 1 < steps, ngm, nvc, np);
+      const float* kp = kernel_row(sk, p, C);
+      float acc = 0.f;
 #pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        const int y = 2 * c + t - 1, x = 2 * d + s - 1;
-        const bool in = live && y >= 0 && x >= 0 && y < H && x < H;
-        gt[3 * t + s] = in ? gb[(long long)y * H + x] : 0.f;
-        pt[3 * t + s] = p;
-        xt[3 * t + s] = __fmul_rn(vc, gt[3 * t + s]);
-        acc = __fadd_rn(acc, __fmul_rn(tap(sk, p, 3 * t + s, C), gt[3 * t + s]));
+      for (int t = 0; t < 9; ++t) acc = __fadd_rn(acc, __fmul_rn(kp[t], gt[t]));
+      if (live) at.o[at.row * Hc + d] = __fmul_rn(w1, acc);
+      if (__any_sync(FULL, run[0] >= 0 && p != run[0])) {
+        warp_bins<1>(myws, run, sum, C);
+#pragma unroll
+        for (int t = 0; t < 9; ++t) sum[t] = 0.f;
       }
-    warp_bins(myws, pt, xt, C);
-    if (live) ob[ec] = __fmul_rn(w1, acc);
+      run[0] = p;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) sum[t] = __fmaf_rn(vc, gt[t], sum[t]);
+      // fine row 2c + 1 is the next row's 2c - 1 (row H, past a sample, is 0)
+#pragma unroll
+      for (int s = 0; s < 3; ++s) gt[s] = gt[6 + s];
+#pragma unroll
+      for (int s = 0; s < 6; ++s) gt[3 + s] = ngm[s];
+      vc = nvc;
+      p = np;
+      at = nx;
+    }
+    warp_bins<1>(myws, run, sum, C);
   }
   store_bins(ws, 9 * C, partial);
 }
@@ -886,10 +1085,27 @@ x9_weight_grad(const float* __restrict__ partial, int blocks, int S, const float
 
 inline dim3 grid_of(int H) { return dim3((H + PX - 1) / PX, (H + PY - 1) / PY); }
 
-// X7's and X8's grid on Hc x Hc coarse nodes (cells): PX columns and
-// WB_TRIPS tiles of PY rows a block, `batch` samples.
-inline dim3 bwd_grid(int Hc, int batch) {
-  return dim3((Hc + PX - 1) / PX, (Hc + PY * WB_TRIPS - 1) / (PY * WB_TRIPS), batch);
+// X7's and X8's blocks on Hc x Hc coarse cells (nodes) of `batch` samples:
+// nb = ceil(Hc / 32) bands by the strips of `strip` rows of the batch's
+// batch Hc rows, WARPS units a block (ops/passes.py bwd_blocks).
+inline long long bwd_blocks(int Hc, int batch, int strip) {
+  const long long nb = (Hc + 31) / 32, ns = ((long long)batch * Hc + strip - 1) / strip;
+  return (nb * ns + WARPS - 1) / WARPS;
+}
+
+// Whether X7 or X8 takes these operands: an even n, C channels (one without
+// ids), `batch` samples at least a plane apart (sf: the field of (n + 1)^2,
+// sc: of (n/2 + 1)^2 values a sample) and `blocks` the grid of strips of
+// `strip` rows.
+inline bool bwd_ok(int n, int C, bool ids, int batch, int strip, long long blocks, long long sf,
+                   long long sc, long long so, long long oplane) {
+  const int Hc = n / 2 + 1;
+  // a sample's offsets are ints
+  return n >= 2 && n % 2 == 0 && (long long)(n + 1) * (n + 1) <= INT_MAX && C >= 1 &&
+         C <= LK_MAX && (ids || C == 1) && batch >= 1 && batch <= 65535 && strip >= 1 &&
+         blocks <= INT_MAX &&
+         blocks == bwd_blocks(Hc, batch, strip) && sf >= (long long)(n + 1) * (n + 1) &&
+         sc >= (long long)Hc * Hc && so >= oplane;
 }
 
 inline bool aligned(const void* p, int bytes) { return ((uintptr_t)p % bytes) == 0; }
@@ -1066,41 +1282,49 @@ int px_learned_prolong_add(const float* u, const float* v, const int8_t* pidc, c
 // X7.  gr ((n+1)^2 a sample) and the blocks' partial weight sums of the
 // backward of X5 from g (the gradient of f_c, (n/2+1)^2 a sample), r, the
 // fine ids pid (or null: then C is 1) and the (C, 3, 3) float32 kernels k
-// and w (device memory), for `batch` samples sg, sr and so values apart;
-// partial holds a row of 9 C floats for each block of bwd_grid (ops/passes.py
-// bwd_blocks).
+// and w (device memory), for `batch` samples sg, sr and so values apart, on
+// `blocks` blocks of strips of `strip` rows (bwd_blocks); partial holds a
+// row of 9 C floats for each block (ops/passes.py bwd_launch_tiles).
 int px_learned_restrict_bwd(const float* g, const float* r, const int8_t* pid, const float* k,
                             const float* w, float* gr, float* partial, int n, int C, int batch,
-                            long long sg, long long sr, long long so, void* stream) {
-  const int H = n + 1, Hc = n / 2 + 1;
-  const long long plane = (long long)H * H;
-  if (n < 2 || n % 2 || !g || !r || !k || !w || !gr || !partial || C < 1 || C > LK_MAX ||
-      (!pid && C != 1) || batch < 1 || batch > 65535 || sg < (long long)Hc * Hc ||
-      sr < plane || so < plane)
+                            int strip, int blocks, long long sg, long long sr, long long so,
+                            void* stream) {
+  if (!g || !r || !k || !w || !gr || !partial ||
+      !bwd_ok(n, C, pid != nullptr, batch, strip, blocks, sr, sg, so, (long long)(n + 1) * (n + 1)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 9 * C * (WARPS + 1);
-  x7_learned_restrict_bwd<<<bwd_grid(Hc, batch), PNT, smem, (cudaStream_t)stream>>>(
-      g, r, pid, k, w, gr, partial, H, Hc, C, sg, sr, so);
+  x7_learned_restrict_bwd_rows<<<blocks, PNT, bins_smem(C), (cudaStream_t)stream>>>(
+      g, r, pid, k, w, gr, partial, n + 1, n / 2 + 1, C, batch, strip, sg, sr, so);
   return (int)cudaGetLastError();
 }
 
 // X8.  gv ((n/2+1)^2 a sample) and the blocks' partial weight sums of the
 // backward of X6 from g (the gradient of out, (n+1)^2 a sample), v, the
 // coarse ids pidc (or null: then C is 1), k and w, for `batch` samples
-// sg, sv and so values apart; partial as X7's.
+// sg, sv and so values apart; the blocks and partial as X7's.
 int px_learned_prolong_bwd(const float* g, const float* v, const int8_t* pidc, const float* k,
                            const float* w, float* gv, float* partial, int n, int C, int batch,
-                           long long sg, long long sv, long long so, void* stream) {
-  const int H = n + 1, Hc = n / 2 + 1;
-  const long long cplane = (long long)Hc * Hc;
-  if (n < 2 || n % 2 || !g || !v || !k || !w || !gv || !partial || C < 1 || C > LK_MAX ||
-      (!pidc && C != 1) || batch < 1 || batch > 65535 || sg < (long long)H * H ||
-      sv < cplane || so < cplane)
+                           int strip, int blocks, long long sg, long long sv, long long so,
+                           void* stream) {
+  if (!g || !v || !k || !w || !gv || !partial ||
+      !bwd_ok(n, C, pidc != nullptr, batch, strip, blocks, sg, sv, so,
+              (long long)(n / 2 + 1) * (n / 2 + 1)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 9 * C * (WARPS + 1);
-  x8_learned_prolong_bwd<<<bwd_grid(Hc, batch), PNT, smem, (cudaStream_t)stream>>>(
-      g, v, pidc, k, w, gv, partial, H, Hc, C, sg, sv, so);
+  x8_learned_prolong_bwd_rows<<<blocks, PNT, bins_smem(C), (cudaStream_t)stream>>>(
+      g, v, pidc, k, w, gv, partial, n + 1, n / 2 + 1, C, batch, strip, sg, sv, so);
   return (int)cudaGetLastError();
+}
+
+// Blocks of X7 (prolong 0) or X8 (1) with C channels' shared memory that
+// one SM holds at once: what ops/passes.py balances the strip against.
+// Negative on a CUDA error.
+int px_learned_bwd_occupancy(int prolong, int C) {
+  if (C < 1 || C > LK_MAX) return -(int)cudaErrorInvalidValue;
+  const void* kernel = prolong ? (const void*)x8_learned_prolong_bwd_rows
+                                : (const void*)x7_learned_restrict_bwd_rows;
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, PNT, bins_smem(C));
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // X9.  gk (9 C floats) = w[which] P and gw (2 floats) = (sum k P at which,

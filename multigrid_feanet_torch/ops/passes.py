@@ -60,8 +60,11 @@ r(p); from the gradient g of X6's output,
 grad v(c) = w[1] sum_t k[pid_c(c), t] g(2c + t - 1) and Q[c, t] = sum
 [pid_c = c] v g(2c + t - 1) in place of P (grad u = g needs no kernel).  The
 weights go by the fine node's id in X7 and the coarse node's in X8, as
-forward.  Each kernel writes its blocks' partial sums of P (or Q), and X9
-adds them in a fixed order (no float atomics) into grad k and grad w.
+forward.  X7 and X8 walk the batch's coarse rows laid end to end, a warp a
+band of 32 columns and a strip of rows (:func:`bwd_launch_tiles`); each
+lane keeps its weight sums while its pattern ids stay, and each block
+writes its partial sums of P (or Q), which X9 adds in a fixed order (no
+float atomics) into grad k and grad w.
 grad r and grad v equal their plain versions bit for bit (both sum from 0
 in tap order, the weight last); the plain versions sum P in float64, and
 grad k and grad w agree with them to ``TOL_WEIGHT_GRAD``.
@@ -80,6 +83,7 @@ with ``pid`` (the gather form), which the kernels refuse.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -95,8 +99,9 @@ from multigrid_feanet_torch.ops.transfer import prolong_bilinear, restrict_full_
 TOL64 = 1e-12  # X4 against its plain version: relative to max|plain|
 # X7 + X9 and X8 + X9 against their plain versions' weight gradients: each
 # within this fraction of the same gradient of |g| and |r| (or |v|), the
-# rounding of the kernels' float32 sums (a shuffle tree of 32, 16 trips, 8
-# warps, then float64) against the plain versions' float64 sums
+# rounding of the kernels' float32 sums (a lane's running sums down its
+# strip, added over the warp's lanes, then its block's 8 warps, then in
+# float64) against the plain versions' float64 sums
 TOL_WEIGHT_GRAD = 1e-5
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -119,10 +124,10 @@ KERNELS = {
                         [_P] * 6 + [_I] * 3 + [_L] * 3 + [_P],
                         _TPU + "models/intergrid.py:82", _SOURCE),
     "X7": sw.CudaKernel("X7_learned_restrict_bwd", "px_learned_restrict_bwd",
-                        [_P] * 7 + [_I] * 3 + [_L] * 3 + [_P],
+                        [_P] * 7 + [_I] * 5 + [_L] * 3 + [_P],
                         _TPU + "learn/train_intergrid.py:100", _SOURCE),
     "X8": sw.CudaKernel("X8_learned_prolong_bwd", "px_learned_prolong_bwd",
-                        [_P] * 7 + [_I] * 3 + [_L] * 3 + [_P],
+                        [_P] * 7 + [_I] * 5 + [_L] * 3 + [_P],
                         _TPU + "learn/train_intergrid.py:100", _SOURCE),
     "X9": sw.CudaKernel("X9_weight_grad", "px_weight_grad",
                         [_P, _I, _I, _P, _P, _I, _P, _P, _P],
@@ -665,16 +670,62 @@ def learned_prolong_add_cuda(u, v, pid_c, k, w, out=None):
     return out
 
 
-# X7's and X8's blocks (csrc/passes.cu bwd_grid): PX columns of coarse
-# cells or nodes by BWD_TRIPS tiles of PY rows, a sample each
-BWD_PX, BWD_PY, BWD_TRIPS = 32, 8, 16
+# X7's and X8's launch geometry (csrc/passes.cu bwd_blocks): a warp takes a
+# band of BWD_LANES columns of coarse cells or nodes and a strip of the
+# batch's coarse rows laid end to end, BWD_WARPS warps a block
+BWD_LANES, BWD_WARPS = 32, 8
+# blocks of 256 threads an SM holds at most (2048 threads): X7's and X8's
+# blocks, X9's rows, stay within one such wave of the card
+BWD_WAVE_BLOCKS = 8
+BwdTiles = collections.namedtuple("BwdTiles", "strip blocks")
 
 
-def bwd_blocks(n: int, N: int) -> int:
-    """Blocks of one X7 or X8 launch on a batch of N at level n: the rows
-    of partial weight sums X9 adds."""
+def bwd_blocks(n: int, N: int, strip: int) -> int:
+    """Blocks of one X7 or X8 launch on a batch of N at level n in strips
+    of ``strip`` rows: the rows of partial weight sums X9 adds."""
     Hc = n // 2 + 1
-    return -(-Hc // BWD_PX) * -(-Hc // (BWD_PY * BWD_TRIPS)) * N
+    return -(-(-(-Hc // BWD_LANES) * -(-N * Hc // strip)) // BWD_WARPS)
+
+
+def bwd_strip(n: int, N: int, sms: int) -> int:
+    """The shortest even strip (2 up to ``A12_STRIP_MAX`` rows) whose
+    blocks, X9's rows, fit in BWD_WAVE_BLOCKS a card of ``sms`` SMs.
+
+    Not ``ops/hrelax.py::row_strip``'s cost: for X7 at 4097^2 (3 blocks
+    an SM) it picks one wave of 44-row strips with a halo of 1 to 3 steps,
+    and 2-row strips (8329 partial rows) with none.  X7 and X8 carry no
+    halo and no barrier a step, their blocks finish as their warps do, and
+    the card balances many waves of short chains.  At
+    4097^2 on the H100 X7 took 0.082 ms in strips of 16 rows, 0.095 in 32
+    and 0.129 in 64 (``sweep_vs_parent.py --strip-scan --legs x7x8``,
+    PERF.md); X9 takes longer the more rows it adds (0.013 ms on 16 rows'
+    1049, 0.020 on 8 rows' 2089), so the shortest strip stops at one wave
+    of blocks.  On the training step's levels that is 2 rows."""
+    for strip in range(2, sw.A12_STRIP_MAX + 1, 2):
+        if bwd_blocks(n, N, strip) <= BWD_WAVE_BLOCKS * sms:
+            return strip
+    return sw.A12_STRIP_MAX
+
+
+_BWD_TILES = {}
+
+
+def bwd_launch_tiles(n: int, N: int, device) -> BwdTiles:
+    """The geometry X7 and X8 launch with on ``device`` for a batch of N at
+    level n: :func:`bwd_strip`'s strip for the card's SMs."""
+    key = (n, N, device.index)
+    tiles = _BWD_TILES.get(key)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        strip = bwd_strip(n, N, sms)
+        tiles = _BWD_TILES[key] = BwdTiles(strip, bwd_blocks(n, N, strip))
+    return tiles
+
+
+def bwd_occupancy(key: str, C: int) -> int:
+    """Blocks of X7 (``key`` "X7") or X8 with C channels' shared memory that
+    one SM of the card holds at once (what ``chip_smoke.py`` reports)."""
+    return hx.occupancy("px_learned_bwd_occupancy", int(key == "X8"), C)
 
 
 def weight_grad_cuda(partial, k, w, which: int, gk=None, gw=None):
@@ -706,9 +757,10 @@ def learned_restrict_bwd_cuda(g, r, pid, k, w, gr=None, partial=None):
         raise ValueError(f"r holds {N} samples and g {Ng}")
     C = _learned_operands(pid, k, w, n + 1, dev)
     gr = sw._output(gr, "gr", (N, n + 1, n + 1), dev, (g, r))
-    partial = sw._output(partial, "partial", (bwd_blocks(n, N), 9 * C), dev, (g, r, gr))
+    tiles = bwd_launch_tiles(n, N, dev)
+    partial = sw._output(partial, "partial", (tiles.blocks, 9 * C), dev, (g, r, gr))
     KERNELS["X7"](g.data_ptr(), r.data_ptr(), sw._ptr(pid), k.data_ptr(), w.data_ptr(),
-                  gr.data_ptr(), partial.data_ptr(), n, C, N, sg, sr, (n + 1) ** 2,
+                  gr.data_ptr(), partial.data_ptr(), n, C, N, *tiles, sg, sr, (n + 1) ** 2,
                   sw._stream(dev))
     return gr, partial
 
@@ -726,10 +778,11 @@ def learned_prolong_bwd_cuda(g, v, pid_c, k, w, gv=None, partial=None):
         raise ValueError(f"g holds {N} samples and v {Nv}")
     C = _learned_operands(pid_c, k, w, n // 2 + 1, dev)
     gv = sw._output(gv, "gv", (N, n // 2 + 1, n // 2 + 1), dev, (g, v))
-    partial = sw._output(partial, "partial", (bwd_blocks(n, N), 9 * C), dev, (g, v, gv))
+    tiles = bwd_launch_tiles(n, N, dev)
+    partial = sw._output(partial, "partial", (tiles.blocks, 9 * C), dev, (g, v, gv))
     KERNELS["X8"](g.data_ptr(), v.data_ptr(), sw._ptr(pid_c), k.data_ptr(), w.data_ptr(),
-                  gv.data_ptr(), partial.data_ptr(), n, C, N, sg, sv, (n // 2 + 1) ** 2,
-                  sw._stream(dev))
+                  gv.data_ptr(), partial.data_ptr(), n, C, N, *tiles, sg, sv,
+                  (n // 2 + 1) ** 2, sw._stream(dev))
     return gv, partial
 
 

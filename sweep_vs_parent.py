@@ -7,9 +7,10 @@ earlier checkout of the port on one GPU, in turns.
 
     python3 sweep_vs_parent.py --parent DIR
         [--legs all|a12|a34|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|x1|pbc|g2d2_cells
-                |e4c2_cells|g1g5_cells|g4a5_cells|learned]
+                |e4c2_cells|g1g5_cells|g4a5_cells|learned|x7x8]
         [--out FILE]
-    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
+    python3 sweep_vs_parent.py --strip-scan [--legs all|e3e5|g2d2|e4c2|g1g5|g4a5|x7x8]
+        [--out FILE]
     python3 sweep_vs_parent.py --crossover
         [--legs all|e1h1|f1a6|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5|x1] [--out FILE]
     python3 sweep_vs_parent.py --levels [--legs all|c1e2|e3e5|g2d2|e4c2|g1g5|g4a5] [--out FILE]
@@ -92,6 +93,12 @@ median of 3).  The turns run parent, this, this, parent.
   and homogeneous, one f (the time-independent march's) and two, f32 and
   bf16 u, and the float64 problem's f64 (two f); each held bit for bit
   against its plain version by ``chip_smoke.hold``.
+- ``x7x8`` (not part of ``all``): X7 and X8 (``learned_restrict_bwd_cuda``,
+  ``learned_prolong_bwd_cuda``, ``csrc/passes.cu``) bi-material with 16
+  channels, and X9 on each one's partial sums, at ``chip_smoke.BWD_SHAPES``
+  and at the training step's levels 64 ... 4 at its batch of 64
+  (X7X8_LEVELS), the fields held bit for bit against their plain versions;
+  each record keeps the partial rows X9 adds (``rows``).
 - ``pbc`` (not part of ``all``): ``chip_smoke.run_pbc_cells`` in each turn
   (the periodic cells, with their checks), and from its torch.profiler
   profiles the device time per sweep or cycle of ``torus_jacobi_4096`` and
@@ -198,6 +205,11 @@ the f64 problem's, bi-material and homogeneous
 and 2048), with the blocks per SM of its row-streaming instances.
 Writes ``chiprun_out/sweep_crossover.json`` by default.
 
+With ``--legs x7x8``: X7, X8 and X9 (on X7's partials) at 4097^2 (batch 1)
+and 65^2 (batch 64), bi-material 16, at each strip of X7X8_SCAN beside the
+strip ``ops/passes.py::bwd_strip`` picks, with the partial rows of each
+strip and the blocks per SM of X7 and X8 at 16 channels.
+
 ``--levels`` times this checkout's kernels that run on more than one level
 size at every size of the path PERF.md's kernel table counts their
 launches on, each beside its byte bound: C1 (sweep and residual) and C2
@@ -225,8 +237,11 @@ G4, G5, D2 and X1 in all and per step
 of their row loop (between two barriers;
 ``loop_step`` the median of the six longest gaps, the unrolled loop's
 steps), with the registers, spills and shared memory ``ptxas`` gave the
-row-streaming kernels.  The parent's kernels named in CHANGED (none) are
-compared apart and reported, those in REMOVED (none) are listed if
+row-streaming kernels, and X7's and X8's row loop (``bwd_loops``: its
+instructions, those of the flush it branches over when no id changes, and
+the rest, a step's).  The parent's kernels named in CHANGED (X7's and X8's,
+redesigned) are compared apart and reported, those in REMOVED (the same) are
+listed if
 this checkout no longer builds them; the kernels new
 in this checkout are listed; fails unless every other kernel matches.  Writes
 ``chiprun_out/sweep_sass.json`` by default.
@@ -253,11 +268,18 @@ A34_LEVELS = (2048, 1024, 512, 256, 128, 64, 32)
 E1_LEVELS = (2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2)
 H1_LEVELS = (4096, 2048, 1024, 512, 256, 128, 64, 32)
 # the parent's kernels whose code this checkout changes (--sass compares
-# them apart): none, every kernel of the parent must compile to the same
-# instructions
-CHANGED = ()
+# them apart): X7 and X8, redesigned; every other kernel of the parent must
+# compile to the same instructions
+CHANGED = ("x7_learned_restrict_bwd", "x8_learned_prolong_bwd")
 # the parent's kernels this checkout may no longer build, by (source, name)
-REMOVED = ()
+REMOVED = (("passes", "x7_learned_restrict_bwd"), ("passes", "x8_learned_prolong_bwd"))
+# X7's and X8's row-streaming kernels (--sass: their registers and row loop)
+BWD_KERNELS = ("x7_learned_restrict_bwd_rows", "x8_learned_prolong_bwd_rows")
+# the training step's levels (n at a batch of 64) --legs x7x8 times beside
+# chip_smoke.BWD_SHAPES
+X7X8_LEVELS = ((64, 64), (32, 64), (16, 64), (8, 64), (4, 64))
+# --strip-scan --legs x7x8: the strips X7, X8 and X9 are timed at, by (n, batch)
+X7X8_SCAN = {(4096, 1): (2, 4, 8, 12, 16, 22, 32, 64), (64, 64): (1, 2, 4, 8), (4, 64): (1, 2, 4)}
 # the row-streaming kernels whose instructions per step and registers --sass
 # reports
 ROW_KERNELS = ("f1_qsweep_rows", "a6_cross_cycle_rows", "c1_stencil_relax_rows",
@@ -403,6 +425,10 @@ def child(checkout: Path, legs: str) -> int:
         recs += zdescent_multi_cells(cs)
     if legs == "learned":
         recs += learned_turn(cs)
+    if legs == "x7x8":
+        hiers = {}
+        for n, N in dict.fromkeys(tuple(cs.BWD_SHAPES) + X7X8_LEVELS):
+            recs += x7x8_records(cs, n, N, hiers)
     if legs == "pbc":
         cells = cs.run_pbc_cells()
         for cell in ("torus_jacobi_4096", "pbc_mg_4096"):
@@ -499,6 +525,46 @@ def learned_turn(cs) -> list:
                      dict(name=f"learned_65_b{b}_torch",
                           ms=cycle_ms(h64, params, f, cs.torch_cycle))]
     return [dict(r, bytes=0, max_rel_err=0.0) for r in recs]
+
+
+def x7x8_records(cs, n: int, N: int, hiers: dict) -> list:
+    """X7 and X8 (bi-material, 16 channels) on a batch of N at level n of
+    the imported checkout, each timed with ``chip_smoke.kernel_ms`` on
+    L2-cold inputs and its field held bit for bit against its plain
+    version (SystemExit otherwise), and X9 on each one's partial sums."""
+    import numpy as np
+    import torch
+    from multigrid_feanet_torch.ops import passes as px
+
+    x = cs.learned_pass_inputs(n, "bim16", N, 41 + n + N, hiers)
+    rng = np.random.default_rng(43 + n + N)
+    g_c = torch.as_tensor(rng.standard_normal((N, n // 2 + 1, n // 2 + 1)), dtype=torch.float32,
+                          device=cs.DEVICE)
+    g = torch.as_tensor(rng.standard_normal((N, n + 1, n + 1)), dtype=torch.float32,
+                        device=cs.DEVICE)
+    legs = (("X7", px.learned_restrict_bwd_cuda, px.learned_restrict_backward_plain,
+             (g_c, x["r"], x["pid"], x["conv"], x["w"]), 0),
+            ("X8", px.learned_prolong_bwd_cuda, px.learned_prolong_add_backward_plain,
+             (g, x["v"], x["pid_c"], x["deconv"], x["w"]), 1))
+    recs = []
+    for key, kfn, pfn, args, which in legs:
+        k, w = args[3], args[4]
+        nbytes = cs.bwd_bytes(key, n, N, True)
+        sets = min(8, -(-2 * cs.L2_BYTES // nbytes))
+        xs = [args] + [tuple(a.clone() if torch.is_tensor(a) and a.is_floating_point() else a
+                             for a in args) for _ in range(sets - 1)]
+        outs = [kfn(*a) for a in xs]
+        if not torch.equal(outs[0][0], pfn(*args)[0]):
+            raise SystemExit(f"{key} at n = {n}, batch {N} departs from its plain version")
+        rows = int(outs[0][1].shape[0])
+        recs += [dict(name=key, n=n, batch=N, bim=True, bytes=nbytes, rows=rows, max_rel_err=0.0,
+                      ms=cs.kernel_ms([lambda a=a, o=o: kfn(*a, *o) for a, o in zip(xs, outs)])),
+                 dict(name=f"X9_{key}", n=n, batch=N, bim=True, bytes=4 * outs[0][1].numel(),
+                      rows=rows, max_rel_err=0.0,
+                      ms=cs.kernel_ms([lambda o=o: px.weight_grad_cuda(o[1], k, w, which)
+                                       for o in outs]))]
+        del xs, outs
+    return recs
 
 
 # the variants of X1 that chip_smoke.pass_legs holds, by their tags
@@ -990,6 +1056,33 @@ def strip_scan_g4a5() -> list:
     return scan_cases(cases)
 
 
+def strip_scan_x7x8() -> list:
+    """X7, X8 and X9 (on X7's partials; ``x7x8_records``) at each strip of
+    X7X8_SCAN and at the strip ``bwd_strip`` picks, with the partial rows of
+    each strip and X7's and X8's blocks per SM at 16 channels."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from multigrid_feanet_torch.ops import passes as px
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out, hiers = [], {}
+    for (n, N), strips in X7X8_SCAN.items():
+        chosen = px.bwd_launch_tiles(n, N, dev)
+        by_strip = {}
+        for strip in (chosen.strip,) + strips:
+            px._BWD_TILES[(n, N, dev.index)] = px.BwdTiles(strip, px.bwd_blocks(n, N, strip))
+            by_strip[strip] = dict(rows=px.bwd_blocks(n, N, strip), **{
+                r["name"]: r["ms"] for r in x7x8_records(cs, n, N, hiers)
+                if r["name"] != "X9_X8"})
+        px._BWD_TILES[(n, N, dev.index)] = chosen
+        out.append(dict(n=n, batch=N, chosen=chosen.strip, ms=by_strip,
+                        blocks_per_sm={key: px.bwd_occupancy(key, 16) for key in ("X7", "X8")}))
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def strip_scan() -> list:
     """A3/A4 (bi-material plain form) at each level size and strip of
     SCAN_STRIPS, and at the strip the wrappers pick; one record per level."""
@@ -1036,7 +1129,7 @@ STORED = re.compile(r"\d+(sweep_kernel|swrr_kernel|zpsweep_kernel|a5_resid_restr
 
 # the counts and cell results a turn's line keeps beside each record's ms
 CELL_KEYS = ("launches", "cycles", "tail_q", "q_last6", "tail_q12", "q_asym60", "contraction",
-             "digest")
+             "digest", "rows")
 
 
 # kernels this checkout keeps under a new name (new name: parent's name)
@@ -1114,12 +1207,13 @@ def sass_report(parent: Path) -> dict:
             a34[f"{name} {storage}"] = dict(instructions=len(ins),
                                             per_step=statistics.median(steps),
                                             loop_step=statistics.median(sorted(steps)[-6:]))
+    bwd = bwd_loops(mine)
     log = _library(ROOT).with_suffix(".log").read_text()
     ptxas = {}
     for m in re.finditer(r"Compiling entry function '(\w+)'[^\n]*\n[^\n]*\n\s*(\d+) bytes stack "
                          r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n"
                          r"[^\n]*Used (\d+) registers[^\n]*?(?:(\d+) bytes smem)?\n", log):
-        if any(k in m.group(1) for k in ROW_KERNELS):
+        if any(k in m.group(1) for k in ROW_KERNELS + BWD_KERNELS):
             ptxas[_plain_name(m.group(1))[1]] = dict(
                 registers=int(m.group(5)), spill_stores=int(m.group(3)),
                 spill_loads=int(m.group(4)), smem=int(m.group(6) or 0))
@@ -1130,7 +1224,36 @@ def sass_report(parent: Path) -> dict:
                 changed_differ=[k for k, v in kept.items() if not v], new=new,
                 removed=removed,
                 bf16_instances=sum(1 for k in mine if k[2] == "bf16"), per_step=a34,
-                x1_issue=x1_issue(a34))
+                x1_issue=x1_issue(a34), bwd_loops=bwd)
+
+
+_BRANCH = re.compile(r"\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)")
+
+
+def bwd_loops(fns: dict) -> dict:
+    """X7's and X8's row loop in machine code (``_functions``): the
+    instructions from the target of its backward branch (the longest) to
+    the branch, those of the flush that the first forward branch after the
+    loop's first VOTE.ANY (``__any_sync``) skips when no lane's id changed,
+    and the rest (a step's, without a flush); None where the code is not so
+    laid out."""
+    out = {}
+    for (_, name, _), ins in fns.items():
+        if not any(k in name for k in BWD_KERNELS):
+            continue
+        back = [(int(m.group(1), 16) // 16, i) for i, x in enumerate(ins)
+                for m in [_BRANCH.search(x)] if m and int(m.group(1), 16) // 16 < i]
+        if not back:
+            out[name] = None
+            continue
+        a, b = max(back, key=lambda s: s[1] - s[0])
+        vote = next((i for i in range(a, b) if ins[i].startswith("VOTE.ANY")), None)
+        skip = next(((int(m.group(1), 16) // 16 - i - 1) for i in range(vote or b, b)
+                     for m in [_BRANCH.search(ins[i])] if m and int(m.group(1), 16) // 16 > i),
+                    None)
+        loop = b - a + 1
+        out[name] = dict(loop=loop, flush=skip, step=None if skip is None else loop - skip)
+    return out
 
 
 # the H100 SXM's boost clock: an SM issues at most 4 warp instructions a clock
@@ -1186,6 +1309,8 @@ def _key(rec) -> str:
         key += f"_{rec['dtype']}"
     if rec.get("coef_dtype"):
         key += f"_{rec['coef_dtype']}"
+    if rec.get("batch"):
+        key += f"_b{rec['batch']}"
     return key
 
 
@@ -1210,7 +1335,8 @@ def main() -> int:
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--legs", choices=("all", "a12", "a34", "e1h1", "f1a6", "c1e2", "e3e5",
                                        "g2d2", "e4c2", "g1g5", "g4a5", "x1", "pbc", "g2d2_cells",
-                                       "e4c2_cells", "g1g5_cells", "g4a5_cells", "learned"),
+                                       "e4c2_cells", "g1g5_cells", "g4a5_cells", "learned",
+                                       "x7x8"),
                     default="all")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "sweep_vs_parent.json")
     ap.add_argument("--strip-scan", action="store_true")
@@ -1234,7 +1360,8 @@ def main() -> int:
                 "sweep_levels.json" if args.levels else "sweep_crossover.json")
         out = args.out if args.out.name != "sweep_vs_parent.json" else args.out.with_name(name)
         scan = {"e3e5": strip_scan_e3e5, "g2d2": strip_scan_g2d2, "e4c2": strip_scan_e4c2,
-                "g1g5": strip_scan_g1g5, "g4a5": strip_scan_g4a5}.get(args.legs, strip_scan)
+                "g1g5": strip_scan_g1g5, "g4a5": strip_scan_g4a5,
+                "x7x8": strip_scan_x7x8}.get(args.legs, strip_scan)
         lines = [dict(card=smi)] + (scan() if args.strip_scan else
                                     levels(args.legs) if args.levels else crossover(args.legs))
         if args.crossover:

@@ -396,22 +396,40 @@ def test_c1_batch_plain_and_layout():
     assert re.search(r"constexpr int C1_RESIDUAL = 1, C1_BATCH = 2;", src)
 
 
-def test_backward_geometry_matches_the_kernels():
+def test_backward_geometry_matches_the_kernels(monkeypatch):
     """X7's and X8's blocks (the rows of partial sums X9 adds) as
-    csrc/passes.cu's bwd_grid counts them; the wrappers refuse CPU tensors
-    and partial sums of the wrong width."""
+    csrc/passes.cu's bwd_blocks counts them, its index map as bwd_start
+    reads it, the strip the wrappers take for the card's SMs; the wrappers
+    refuse CPU tensors and partial sums of the wrong width."""
     import re
 
     from multigrid_feanet_torch import _build
 
     src = (_build.CSRC / "passes.cu").read_text()
+    px_, py_ = map(int, re.search(r"constexpr int PX = (\d+), PY = (\d+), PNT = PX \* PY;",
+                                  src).groups())
+    assert "constexpr int WARPS = PNT / 32;" in src and px_ * py_ // 32 == px.BWD_WARPS
+    assert px.BWD_LANES == 32
+    assert ("const long long nb = (Hc + 31) / 32, ns = ((long long)batch * Hc + strip - 1) "
+            "/ strip;\n  return (nb * ns + WARPS - 1) / WARPS;") in src
+    assert "const long long R0 = unit / nb * strip, smp = R0 / Hc;" in src
+    assert "col = (int)(unit % nb) * 32 + threadIdx.x % 32;" in src
+    assert "return row + 1 < Hc ? BwdRow{row + 1, a, b, o} : BwdRow{0, a + sa, b + sb, o + so};" \
+        in src
+    assert px.bwd_blocks(4096, 1, 16) == 65 * 129 // 8 + 1 == 1049
+    assert px.bwd_blocks(64, 64, 2) == 2 * 64 * 33 // 2 // 8 == 264
 
-    def const(name):
-        return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
+    class Props:
+        multi_processor_count = 132
 
-    assert (const("PX"), const("PY"), const("WB_TRIPS")) == (px.BWD_PX, px.BWD_PY, px.BWD_TRIPS)
-    assert "(Hc + PY * WB_TRIPS - 1) / (PY * WB_TRIPS)" in src
-    assert px.bwd_blocks(4096, 1) == 65 * 17 and px.bwd_blocks(64, 64) == 2 * 64
+    monkeypatch.setattr(px, "_BWD_TILES", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    dev = torch.device("cuda", 0)
+    for n, N, strip in ((4096, 1, 16), (64, 64, 2), (4, 64, 2), (1024, 1, 2), (4096, 2, 32)):
+        tiles = px.bwd_launch_tiles(n, N, dev)
+        assert tiles == (strip, px.bwd_blocks(n, N, strip)) == (px.bwd_strip(n, N, 132),
+                                                               tiles.blocks)
+        assert px.bwd_launch_tiles(n, N, dev) is tiles
     for key in ("X7", "X8", "X9"):
         assert px.KERNELS[key].replaces == "multigrid_feanet_tpu/learn/train_intergrid.py:100"
     th = _hier(32, CIRCLE, 2)
@@ -433,6 +451,68 @@ def test_backward_geometry_matches_the_kernels():
     P = part.double().sum(0).float().reshape(16, 3, 3)
     assert torch.equal(gk, w[1] * P) and float(gw[0]) == 0.0
     assert abs(float(gw[1]) - float((k.double() * P.double()).sum())) < 1e-6
+
+
+def _bwd_walk(n, N, strip, stride):
+    """X7's and X8's index map as csrc/passes.cu walks it (bwd_start, then
+    BwdRow::next a step), for every block of bwd_blocks, warp, lane and step
+    of its strip: (block, sample, coarse row, column, offset of the node in
+    a field whose samples lie ``stride`` values apart, counted from the
+    pointers the kernel advances) of the lanes on the grid."""
+    Hc = n // 2 + 1
+    nb, blocks = -(-Hc // 32), px.bwd_blocks(n, N, strip)
+    unit = np.arange(blocks * px.BWD_WARPS, dtype=np.int64)
+    R0 = unit // nb * strip
+    steps = np.clip(np.minimum(strip, N * Hc - R0), 0, None)
+    smp = R0 // Hc
+    row, base = R0 - smp * Hc, smp * stride
+    col = (unit % nb)[:, None] * 32 + np.arange(32)[None, :]
+    out = []
+    for step in range(strip):
+        go = (step < steps)[:, None] & (col < Hc)
+        b, s, i, j = (np.broadcast_to(a, col.shape)[go] for a in (
+            (unit // px.BWD_WARPS)[:, None], smp[:, None], row[:, None], col))
+        out.append((b, s, i, j, np.broadcast_to((base + row * Hc)[:, None], col.shape)[go] + j))
+        wrap = row + 1 == Hc
+        row, base, smp = np.where(wrap, 0, row + 1), base + wrap * stride, smp + wrap
+    return [np.concatenate(x) for x in zip(*out)]
+
+
+# (n, batch): the training step's levels at its batch of 64, the multi-size
+# steps' finest levels at their batches, the holds' 257^2 and 4097^2
+BWD_WALKS = [(n, 64) for n in (4, 8, 16, 32, 64)] + [(16, 16), (32, 8), (64, 2), (256, 2),
+                                                     (4096, 1)]
+
+
+@pytest.mark.parametrize("spaced", [False, True], ids=["compact", "spaced"])
+@pytest.mark.parametrize("n,N", BWD_WALKS)
+def test_backward_walk_takes_each_node_once(n, N, spaced):
+    """The index map of X7 and X8 (``_bwd_walk``) at the strip the wrappers
+    take on a 132-SM card, and at 2, 6 and 16 rows below 4097^2: every
+    coarse cell (X7) and node (X8) of every sample taken exactly once, at
+    the offset its sample's stride gives (samples more than a plane apart
+    when ``spaced``), X7's fine nodes written once each; every block holds
+    a warp with rows, so the partial rows X9 adds are bwd_blocks; at most
+    the parent's 1105 rows at 4097^2."""
+    Hc, H = n // 2 + 1, n + 1
+    strips = [px.bwd_strip(n, N, 132)] + ([] if n == 4096 else [2, 6, 16])
+    stride = Hc * Hc + (37 if spaced else 0)
+    for strip in strips:
+        blk, smp, I, J, off = _bwd_walk(n, N, strip, stride)
+        cells = np.bincount((smp * Hc + I) * Hc + J, minlength=N * Hc * Hc)
+        assert cells.size == N * Hc * Hc and (cells == 1).all()
+        assert (off == smp * stride + I * Hc + J).all()
+        assert np.unique(blk).size == px.bwd_blocks(n, N, strip) == blk.max() + 1
+        # X7's cell (I, J): fine nodes (2I - 1 + i, 2J - 1 + j) on the grid
+        fine = np.zeros(N * H * H, np.int64)
+        for i in (0, 1):
+            for j in (0, 1):
+                y, x = 2 * I - 1 + i, 2 * J - 1 + j
+                on = (y >= 0) & (x >= 0)
+                np.add.at(fine, (smp[on] * H + y[on]) * H + x[on], 1)
+        assert (fine == 1).all()
+    if n == 4096:
+        assert px.bwd_blocks(n, N, strips[0]) <= 1105
 
 
 @pytest.mark.parametrize("batch", [1, 4, 64])
